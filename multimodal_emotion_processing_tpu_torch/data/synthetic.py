@@ -1,0 +1,71 @@
+"""Shape- and dtype-faithful synthetic requests for the `mosei_trans` family.
+
+Samples carry the real loader's quirks: variable raw lengths (both the pad
+and the two-crop paths of summary masking), inf/nan in audio, and `no_name`
+pairs whose previous utterance is all zeros with an all-zero mask
+(cmu-mosei/run.py:154-198).  The same seed gives the same samples as the JAX
+package's generator.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from ..configs import family
+from . import masking
+
+
+def raw_modality(rng, max_len: int, dim: int, *, pollute: bool = False) -> np.ndarray:
+    """A raw variable-length feature sequence (1..max_len frames)."""
+    n = int(rng.integers(1, max_len + 1))
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    if pollute and rng.random() < 0.3:
+        i = rng.integers(0, n)
+        j = rng.integers(0, dim)
+        x[i, j] = np.inf if rng.random() < 0.5 else np.nan
+    return x
+
+
+def mosei_pair_sample(rng, m, *, no_name_prob: float = 0.15) -> Dict[str, np.ndarray]:
+    """One (previous, current) sentence-pair sample with summary masking."""
+
+    def one(kind: str):
+        if kind == "l":
+            raw = raw_modality(rng, m.l_len * 2, m.l_dim)
+            feats, masks_ = masking.summary_masking(raw, m.l_len)
+        elif kind == "v":
+            raw = raw_modality(rng, m.v_len * 2, m.v_dim)
+            feats, masks_ = masking.summary_masking(raw, m.v_len)
+        else:
+            raw = raw_modality(rng, m.a_len * 2, m.a_dim, pollute=True)
+            feats, masks_ = masking.summary_masking(raw, m.a_len, is_audio=True)
+        return feats[0], masks_[0]
+
+    no_name = rng.random() < no_name_prob
+    sample = {}
+    for kind, length, dim in (("l", m.l_len, m.l_dim), ("v", m.v_len, m.v_dim),
+                              ("a", m.a_len, m.a_dim)):
+        if no_name:
+            prev_f = np.zeros((length, dim), np.float32)
+            prev_m = np.zeros(length, np.float32)
+        else:
+            prev_f, prev_m = one(kind)
+        cur_f, cur_m = one(kind)
+        sample[kind] = np.stack([prev_f, cur_f])
+        sample[kind + "_mask"] = np.stack([prev_m, cur_m])
+    sample["label"] = (rng.random(7) > 0.75).astype(np.int32)
+    return sample
+
+
+SAMPLERS = {"mosei_trans": mosei_pair_sample}
+
+
+def synthetic_dataset(config_name: str, m, n: int, seed: int = 0) -> List[Dict]:
+    rng = np.random.default_rng(seed)
+    sampler = SAMPLERS.get(family(config_name))
+    if sampler is None:
+        raise NotImplementedError(
+            f"no synthetic sampler for {config_name!r} in the port yet")
+    return [sampler(rng, m) for _ in range(n)]

@@ -1,0 +1,72 @@
+"""The 9-stream cross-modal attention grid (Multi_ATTN, cmu-mosei/run.py:
+265-319).
+
+For modalities L, V, A nine directed streams (ll, lv, la, vv, vl, va, aa, al,
+av) each run a chain of `n_layers` minus blocks; every layer's output is
+collected, the outputs concatenate on the feature axis per target modality,
+the three targets concatenate on the sequence axis in the order [l, a, v],
+and mean+max pooling feeds a bias-free classifier.  The streams have
+distinct weights and (Lq, Lkv) shapes, so they are unrolled.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.pooling import mean_max_pool
+from ..utils import initializers as init
+from .layers import MinusBlock, UnifyLinear
+
+# (stream key, query modality, key/value modality) — reference order.
+STREAMS = (
+    ("ll", "l", "l"), ("lv", "l", "v"), ("la", "l", "a"),
+    ("vv", "v", "v"), ("vl", "v", "l"), ("va", "v", "a"),
+    ("aa", "a", "a"), ("al", "a", "l"), ("av", "a", "v"),
+)
+# which list each stream's outputs land in (l_list / v_list / a_list)
+TARGET = {"ll": "l", "lv": "l", "la": "l",
+          "vv": "v", "vl": "v", "va": "v",
+          "aa": "a", "al": "a", "av": "a"}
+
+
+class Grid(nn.Module):
+    """Unify projection, 9 * n_layers minus blocks and the per-layer
+    classifier head; block `n_layers * s + i` is layer i of stream s."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.n_layers = cfg.n_layers
+        self.unify_dimension = UnifyLinear(cfg.l_dim, cfg.v_dim, cfg.a_dim,
+                                           cfg.dim)
+        self.multimodal_blocks = nn.ModuleList(
+            MinusBlock(cfg.dim, cfg.n_heads) for _ in range(9 * cfg.n_layers))
+        self.classifier = nn.Linear(cfg.dim * 6 * cfg.n_layers, cfg.n_emotions,
+                                    bias=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.unify_dimension.reset_parameters(generator)
+        for blk in self.multimodal_blocks:
+            blk.reset_parameters(generator)
+        init.linear_(self.classifier, generator)
+
+    def forward(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla"):
+        """l/v/a (B, len, dm) and masks (B, len) -> logits (B, n_emotions)."""
+        l, v, a = self.unify_dimension(l, v, a)
+        src = {"l": l, "v": v, "a": a}
+        masks = {"l": l_mask, "v": v_mask, "a": a_mask}
+        collected = {"l": [], "v": [], "a": []}
+        for s, (name, qm, kvm) in enumerate(STREAMS):
+            q, scores = src[qm], None
+            for i in range(self.n_layers):
+                # the stream's last block has no consumer for its scores
+                q, scores = self.multimodal_blocks[self.n_layers * s + i](
+                    q, src[kvm], src[kvm], masks[kvm], scores, impl=impl,
+                    emit_scores=i < self.n_layers - 1)
+                collected[TARGET[name]].append(q)
+        lc = torch.cat(collected["l"], dim=2)
+        vc = torch.cat(collected["v"], dim=2)
+        ac = torch.cat(collected["a"], dim=2)
+        # reference sequence-concat order is [l, a, v] (cmu-mosei/run.py:317)
+        pooled = mean_max_pool(torch.cat([lc, ac, vc], dim=1))
+        return self.classifier(pooled)

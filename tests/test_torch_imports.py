@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: every port module and chip_smoke.py import
+with JAX and the JAX package made unimportable, no port source names the JAX
+package, and chip_smoke.py fails without a GPU or without the repo."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "multimodal_emotion_processing_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_every_port_module_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['multimodal_emotion_processing_tpu'] = None\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "leaked = sorted(m for m, mod in sys.modules.items() if mod is not None"
+        " and m.split('.')[0] in ('jax', 'multimodal_emotion_processing_tpu'))\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_port_source_names_jax_or_the_jax_package(path):
+    text = path.read_text()
+    assert "multimodal_emotion_processing_tpu." not in text
+    assert not re.search(r"^\s*(import jax|from jax)\b", text, re.M)
+    assert not re.search(r"^\s*(import|from) multimodal_emotion_processing_tpu\b"
+                         r"(?!_torch)", text, re.M)
+
+
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    for cwd in (ROOT, tmp_path):
+        script = cwd / "chip_smoke.py"
+        if cwd == tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", script)
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
