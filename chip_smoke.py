@@ -8,14 +8,19 @@ Phases, each reported on its own lines:
      kernel from the sources in this checkout (one nvcc per source, started
      together);
   2. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it and at edge cases, with its time, the
+     the shapes the main paths give it and at edge cases, with its time, the
      plain version's, one library call's (timing yardstick only) and the
-     bound the card sets for the same work;
-  3. main path: `mosei_trans_s1024`, four seeded random members in bf16,
-     served through the port's BatchingServer (16 concurrent synthetic
-     requests) and StreamingPredictor (4 batch-1 requests), with the kernel
-     launch counts of that run and the outputs held against the plain
-     attention path (impl="xla") on the same members.
+     bound the card sets for the same work: flash_fwd (with and without its
+     row stats), flash_bwd_dq and flash_bwd_dkv;
+  3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
+     trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
+     an eval pass after each, with the kernel launch counts of that run, the
+     losses and the step-1 gradients held against the plain attention path
+     (impl="xla") from the same weights and batches, and one profiled step;
+  4. serve: the same preset, four seeded random members in bf16, served
+     through the port's BatchingServer (16 concurrent synthetic requests)
+     and StreamingPredictor (4 batch-1 requests), with the launch counts of
+     that run and the outputs held against impl="xla" on the same members.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -45,7 +50,22 @@ BF16_TOL = 5e-2    # bf16 operands and output (tests/test_flash.py:90)
 # the nine (Lq, Lkv) stream shapes of mosei_trans_s1024 (l/v/a = 128/256/512)
 S1024_LENS = (128, 256, 512)
 S1024_HEADS, S1024_DH, SERVE_BUCKET = 8, 128, 8
+S1024_PARAMS = 57_584_096
 N_MEMBERS, N_CONCURRENT, N_STREAMING = 4, 16, 4
+# training: configs.SCALE_POINTS["s1024"] batch 64; 256 / 64 synthetic
+# samples and 2 epochs give 8 optimizer steps and 2 eval passes
+TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
+# backward edge cases: (B, Lq, Lkv, H, dh, mask, q scale); ragged Lkv, head
+# widths, Lq 1, no mask, and a fully masked row whose raw scores straddle
+# +-4 (q x 4), where -1e8 + raw rounds to a neighbouring multiple of 8
+BWD_EDGE_CASES = (
+    (2, 37, 1, 2, 16, "zero_row", 1.0), (2, 37, 20, 2, 16, "zero_row", 1.0),
+    (2, 37, 77, 2, 16, "zero_row", 1.0), (2, 37, 100, 2, 16, "ragged", 1.0),
+    (2, 37, 200, 2, 16, "zero_row", 1.0), (2, 37, 300, 2, 16, "zero_row", 1.0),
+    (2, 128, 1024, 8, 128, "zero_row", 1.0), (2, 20, 50, 2, 1, "zero_row", 1.0),
+    (2, 20, 50, 2, 48, "zero_row", 1.0), (2, 70, 300, 2, 256, "zero_row", 1.0),
+    (3, 1, 100, 2, 64, "ragged", 1.0), (2, 64, 64, 8, 128, "none", 1.0),
+    (2, 64, 77, 2, 16, "zero_row", 4.0))
 
 
 def log(msg: str) -> None:
@@ -79,11 +99,75 @@ def attention_bound(b, h, lq, lkv, dh, dtype_name, mask_itemsize):
     itemsize = 2 if dtype_name == "bfloat16" else 4
     d = h * dh
     nbytes = (2 * b * lq * d + 2 * b * lkv * d) * itemsize + b * lkv * mask_itemsize
-    flops = 4.0 * b * h * lq * lkv * dh
+    return _bound(nbytes, 4.0 * b * h * lq * lkv * dh, dtype_name)
+
+
+def _bound(nbytes, flops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def backward_bounds(b, h, lq, lkv, dh, dtype_name, mask_itemsize):
+    """Least times for the backward on this card.  Each kernel: its inputs
+    (q, o, do, k, v, the mask and the f32 stats m, l) read once and its
+    outputs written once, against the products it must do: s, dp and dq
+    (6 B·H·Lq·Lkv·dh flops) for flash_bwd_dq; s, dp, dv and dk (8) for
+    flash_bwd_dkv.  The pair: q, k, v, o, do and the mask read once, dq, dk
+    and dv written once, against 10 B·H·Lq·Lkv·dh flops."""
+    it = 2 if dtype_name == "bfloat16" else 4
+    q_like = b * lq * h * dh * it
+    kv_like = b * lkv * h * dh * it
+    ins = 3 * q_like + 2 * kv_like + b * lkv * mask_itemsize
+    stats = 2 * b * h * lq * 4
+    unit = float(b * h * lq * lkv * dh)
+    return {"flash_bwd_dq": _bound(ins + stats + q_like, 6 * unit, dtype_name),
+            "flash_bwd_dkv": _bound(ins + stats + 2 * kv_like, 8 * unit,
+                                    dtype_name),
+            "pair": _bound(ins + q_like + 2 * kv_like, 10 * unit, dtype_name)}
+
+
+def errors(got, ref):
+    """(max abs error, max abs error / max(1, max |ref|))."""
+    abs_err = (got.float() - ref.float()).abs().max().item()
+    return abs_err, abs_err / max(1.0, ref.float().abs().max().item())
+
+
+def dmask_term_scale(torch, q, k, v, mask, o, do, m, l, h):
+    """1e8 · max_j Σ_{h,i} p (|dp| + |delta|): the size of the terms that the
+    dmask sum 1e8 Σ_i p (dp − delta) adds up.  Those terms cancel (with one
+    key, p = 1 and dp = delta: every ds is 0 up to rounding), so the
+    result is no scale for its own rounding error; the terms are."""
+    from multimodal_emotion_processing_tpu_torch.ops.attention import (
+        MASK_PENALTY, split_heads)
+
+    qh, kh, vh, oh, doh = (split_heads(t, h).float() for t in (q, k, v, o, do))
+    s = (qh @ kh.transpose(-2, -1)) / (qh.shape[-1] ** 0.5)
+    s = s - MASK_PENALTY * (1.0 - mask.float()[:, None, None, :])
+    p = torch.exp(s - m[..., None]) / l[..., None]
+    dp = doh @ vh.transpose(-2, -1)
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    return (MASK_PENALTY * (p * (dp.abs() + delta.abs())).sum(dim=(1, 2))
+            ).max().item()
+
+
+def sdpa_backward_ms(torch, q, k, v, mask, do, h):
+    """The library yardstick for the backward: SDPA forward + backward
+    minus SDPA forward, with the same float bias, on head-split copies."""
+    from multimodal_emotion_processing_tpu_torch.ops.attention import (
+        MASK_PENALTY, split_heads)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (split_heads(t, h).detach().contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    doh = split_heads(do, h).contiguous()
+    bias = (None if mask is None else
+            (-MASK_PENALTY * (1.0 - mask.float())).to(q.dtype)[:, None, None, :])
+    fwd = time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=bias))
+    both = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qh, kh, vh, attn_mask=bias), (qh, kh, vh), doh))
+    return both - fwd
 
 
 def attention_inputs(torch, g, b, lq, lkv, h, dh, dtype, mask_kind):
@@ -133,8 +217,7 @@ def phase_kernels(torch, report):
         out = fa.flash_forward_kernel(q, k, v, mask, n_heads=c["h"])
         torch.cuda.synchronize()
         ref = fa.flash_forward_plain(q, k, v, mask, n_heads=c["h"])
-        abs_err = (out.float() - ref.float()).abs().max().item()
-        err = abs_err / max(1.0, ref.float().abs().max().item())
+        abs_err, err = errors(out, ref)
         tol = BF16_TOL if c["dtype"] == torch.bfloat16 else F32_TOL
         good = bool(torch.isfinite(out).all().item()) and err <= tol
         ok &= good
@@ -168,11 +251,130 @@ def phase_kernels(torch, report):
     main_bf16 = [r for r in rows if r["main_path"] and r["dtype"] == "bfloat16"]
     summary = {k: sum(r[k] for r in main_bf16)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    summary["bound_by"] = ("operations" if sum(
-        r["bound_by"] == "operations" for r in main_bf16) * 2 > len(main_bf16)
-        else "bytes")
+    summary["bound_by"] = majority_bound(main_bf16)
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-    return summary
+    summaries = {"flash_fwd": summary}
+    summaries.update(backward_cases(torch, g, report))
+    return summaries
+
+
+def majority_bound(rows, key="bound_by"):
+    return ("operations" if sum(r[key] == "operations" for r in rows) * 2
+            > len(rows) else "bytes")
+
+
+def backward_cases(torch, g, report):
+    """flash_fwd with its stats, flash_bwd_dq and flash_bwd_dkv against
+    flash_forward_plain / flash_backward_plain, each side from its own
+    forward: the nine s1024 stream shapes at the training batch (timed) and
+    the edge cases, in bf16 and f32."""
+    from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for lq in S1024_LENS:
+            for lkv in S1024_LENS:
+                cases.append((True, dtype, (TRAIN_BATCH, lq, lkv, S1024_HEADS,
+                                            S1024_DH, "zero_row", 1.0)))
+        cases += [(False, dtype, c) for c in BWD_EDGE_CASES]
+    rows, ok = [], True
+    for main, dtype, (b, lq, lkv, h, dh, mask_kind, q_scale) in cases:
+        dname = str(dtype).removeprefix("torch.")
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        q, k, v, mask = attention_inputs(torch, g, b, lq, lkv, h, dh, dtype,
+                                         mask_kind)
+        if q_scale != 1.0:
+            q = (q.float() * q_scale).to(dtype)
+        do = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
+        o, m, l = fa.flash_forward_kernel(q, k, v, mask, n_heads=h, stats=True)
+        args = (q, k, v, mask, o, do, m, l)
+        dq = fa.flash_bwd_dq_kernel(*args, n_heads=h)
+        dk, dv, dmask = fa.flash_bwd_dkv_kernel(*args, n_heads=h)
+        torch.cuda.synchronize()
+        ro, rm, rl = fa.flash_forward_plain(q, k, v, mask, n_heads=h, stats=True)
+        ref = fa.flash_backward_plain(q, k, v, mask, ro, do, rm, rl, n_heads=h)
+        errs = {name: errors(got, want) for name, got, want in (
+            ("o", o, ro), ("l", l, rl), ("dq", dq, ref[0]), ("dk", dk, ref[1]),
+            ("dv", dv, ref[2]))}
+        if mask is not None:
+            abs_err = (dmask - ref[3]).abs().max().item()
+            errs["dmask"] = (abs_err, abs_err / max(
+                1.0, ref[3].abs().max().item(),
+                dmask_term_scale(torch, q, k, v, mask, ro, do, rm, rl, h)))
+        # m is about -1e8 in a fully masked row: each row at its own scale
+        m_err = ((m - rm).abs() / rm.abs().clamp(min=1.0)).max().item()
+        finite = all(bool(torch.isfinite(t).all().item())
+                     for t in (o, m, l, dq, dk, dv))
+        good = (finite and m_err <= F32_TOL and errs["l"][1] <= F32_TOL
+                and all(e[1] <= tol for n, e in errs.items() if n != "l"))
+        ok &= good
+        row = dict(dtype=dname, b=b, lq=lq, lkv=lkv, h=h, dh=dh, mask=mask_kind,
+                   q_scale=q_scale, main_path=main, tol=tol, ok=good,
+                   m_row_rel_err=m_err,
+                   **{f"{n}_abs_err": e[0] for n, e in errs.items()},
+                   **{f"{n}_norm_err": e[1] for n, e in errs.items()})
+        timing = ""
+        if main:
+            row["fwd_stats_ms"] = time_ms(torch, lambda: fa.flash_forward_kernel(
+                q, k, v, mask, n_heads=h, stats=True))
+            row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_kernel(
+                *args, n_heads=h))
+            # as the main path calls it: the batch masks need no gradient
+            row["dkv_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_kernel(
+                *args, n_heads=h, want_dmask=False))
+            row["plain_ms"] = time_ms(torch, lambda: fa.flash_backward_plain(
+                q, k, v, mask, ro, do, rm, rl, n_heads=h))
+            try:
+                row["library_ms"] = sdpa_backward_ms(torch, q, k, v, mask, do, h)
+            except RuntimeError as e:       # a yardstick only
+                row["library_ms"] = None
+                log(f"[kernels] SDPA backward not measured: {e}")
+            for kname, bnd in backward_bounds(b, h, lq, lkv, dh, dname,
+                                              mask.element_size()).items():
+                row.update({f"{kname}_{key}": val for key, val in bnd.items()})
+            lib = row["library_ms"]
+            timing = (f" dq_ms={row['dq_ms']:.4f} dkv_ms={row['dkv_ms']:.4f} "
+                      f"plain_ms={row['plain_ms']:.4f} library_ms="
+                      + ("n/a" if lib is None else f"{lib:.4f}")
+                      + f" pair_bound_ms={row['pair_bound_ms']:.4f} "
+                      f"({row['pair_bound_by']})")
+        rows.append(row)
+        log(f"[kernels] flash_bwd {dname} B={b} Lq={lq} Lkv={lkv} H={h} dh={dh} "
+            f"mask={mask_kind} q_scale={q_scale:g} norm_err "
+            + " ".join(f"{n}={e[1]:.2e}" for n, e in errs.items())
+            + f" m_rel={m_err:.1e} tol={tol:g} {'ok' if good else 'FAIL'}"
+            + timing)
+    report["backward_cases"] = rows
+    if not ok:
+        raise AssertionError("the backward kernels disagree with their plain "
+                             "versions")
+    main_bf16 = [r for r in rows if r["main_path"] and r["dtype"] == "bfloat16"]
+    lib = [r["library_ms"] for r in main_bf16]
+    out = {}
+    for kname, ms_key, err_keys in (("flash_bwd_dq", "dq_ms", ("dq",)),
+                                    ("flash_bwd_dkv", "dkv_ms", ("dk", "dv"))):
+        out[kname] = dict(
+            ms=sum(r[ms_key] for r in main_bf16),
+            plain_ms=sum(r["plain_ms"] for r in main_bf16),
+            library_ms=None if None in lib else sum(lib),
+            bound_ms=sum(r[f"{kname}_bound_ms"] for r in main_bf16),
+            bound_by=majority_bound(main_bf16, f"{kname}_bound_by"),
+            max_abs_err=max(r[f"{e}_abs_err"] for r in rows for e in err_keys))
+    out["pair"] = dict(
+        ms=out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"],
+        bound_ms=sum(r["pair_bound_ms"] for r in main_bf16),
+        bound_by=majority_bound(main_bf16, "pair_bound_by"),
+        fwd_stats_ms=sum(r["fwd_stats_ms"] for r in main_bf16))
+    report["backward_summary"] = out
+    log(f"[kernels] backward, sum over the nine s1024 shapes at B={TRAIN_BATCH} "
+        f"bf16: dq {out['flash_bwd_dq']['ms']:.3f} ms, dkv "
+        f"{out['flash_bwd_dkv']['ms']:.3f} ms (bounds "
+        f"{out['flash_bwd_dq']['bound_ms']:.3f} / "
+        f"{out['flash_bwd_dkv']['bound_ms']:.3f}; pair bound "
+        f"{out['pair']['bound_ms']:.3f}), plain {out['flash_bwd_dq']['plain_ms']:.3f}"
+        f" ms, SDPA backward {out['flash_bwd_dq']['library_ms']} ms; "
+        f"forward with stats {out['pair']['fwd_stats_ms']:.3f} ms")
+    return out
 
 
 def ensure_no_name(samples):
@@ -185,7 +387,212 @@ def ensure_no_name(samples):
     return samples
 
 
-def phase_main_path(torch, report):
+def phase_train(torch, report):
+    """The training slice: Trainer.fit on mosei_trans_s1024 with the flash
+    kernels, counted and timed, then held against impl="xla"."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    exp = configs.get("mosei_trans_s1024")
+    tcfg = exp.train
+    if (tcfg.batch_size, tcfg.compute_dtype, exp.model.attn_impl) != (
+            TRAIN_BATCH, "bfloat16", "flash"):
+        raise AssertionError(f"unexpected preset {exp}")
+    train = ensure_no_name(synthetic_dataset(exp.name, exp.model, N_TRAIN, seed=0))
+    valid = ensure_no_name(synthetic_dataset(exp.name, exp.model, N_VALID, seed=1))
+
+    def loaders():
+        # the same seed, so every run sees the same batches in the same order
+        return (Batcher(train, TRAIN_BATCH, seed=1),
+                Batcher(valid, TRAIN_BATCH, shuffle=False))
+
+    class TimedTrainer(engine.Trainer):
+        """Records CUDA events around every train step."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.events = []
+
+        def train_step(self, state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = super().train_step(state, batch)
+            end.record()
+            self.events.append((start, end))
+            return loss
+
+        def step_ms(self):
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.events]
+
+    state = engine.init_state(exp.model, tcfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[train] {exp.name}: dim={exp.model.dim} heads={exp.model.n_heads} "
+        f"lens l/v/a={exp.model.l_len}/{exp.model.v_len}/{exp.model.a_len} "
+        f"params={n_params} batch={TRAIN_BATCH} dtype={tcfg.compute_dtype} "
+        f"over f32 masters, optimizer={tcfg.optimizer}; {N_TRAIN} train / "
+        f"{N_VALID} valid synthetic samples, {TRAIN_EPOCHS} epochs")
+    if n_params != S1024_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {S1024_PARAMS}")
+    init_weights = {k: v.detach().clone()
+                    for k, v in state.model.state_dict().items()}
+
+    # step-1 gradients, flash against xla, on the same weights and batch:
+    # in the run's bf16 and, as a tighter look at the kernels, in f32; and
+    # each bf16 path against the f32 xla gradients, to show how far bf16
+    # alone moves them
+    first = to_device(next(iter(loaders()[0]())), "cuda")
+    grads = {dname: step_gradients(engine, state.model, cfg, first)
+             for dname, cfg in (("bfloat16", tcfg), ("float32", dataclasses.replace(
+                 tcfg, compute_dtype="float32")))}
+    grad_err = {}
+    for key, (got, ref) in (
+            ("bfloat16", (grads["bfloat16"]["flash"], grads["bfloat16"]["xla"])),
+            ("float32", (grads["float32"]["flash"], grads["float32"]["xla"])),
+            ("bfloat16_flash_vs_float32_xla",
+             (grads["bfloat16"]["flash"], grads["float32"]["xla"])),
+            ("bfloat16_xla_vs_float32_xla",
+             (grads["bfloat16"]["xla"], grads["float32"]["xla"]))):
+        grad_err[key] = gradient_errors(got, ref)
+        for form in ("rel_l2", "max_abs"):
+            worst = sorted(grad_err[key].items(), key=lambda kv: -kv[1][form])[:4]
+            log(f"[train] step-1 gradients, {key.replace('_', ' ')}"
+                f"{' flash vs xla' if '_vs_' not in key else ''}, "
+                f"{len(grad_err[key])} tensors, {form} per tensor, worst: "
+                + ", ".join(f"{n}={e[form]:.2e}" for n, e in worst))
+    del grads
+    max_grad_err = max(e["rel_l2"] for e in grad_err["bfloat16"].values())
+
+    # the main path, counted: Trainer.fit with the flash kernels
+    for kern in fa.KERNELS:
+        kern.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = TimedTrainer(exp.model, tcfg, impl="flash", device="cuda")
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(*loaders(), state=state, epochs=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in fa.KERNELS}
+    stats_launches = fa.flash_forward_kernel.stats_launches
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = trainer.step_ms()
+
+    n_steps = sum(h.steps for h in hist)
+    n_eval = TRAIN_EPOCHS * -(-N_VALID // TRAIN_BATCH)
+    expected = {"flash_fwd": 18 * (n_steps + n_eval),
+                "flash_bwd_dq": 18 * n_steps, "flash_bwd_dkv": 18 * n_steps}
+    losses = [x for h in hist for x in h.step_losses]
+    for e, h in enumerate(hist):
+        log(f"[train] epoch {e}: train_loss={h.train_loss:.6f} valid_loss="
+            f"{h.valid_loss:.6f} steps={h.steps} samples={h.samples} "
+            f"seconds={h.seconds:.3f} samples/s={h.samples_per_sec:.1f}")
+    log(f"[train] step losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log(f"[train] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
+        + f"; median after the first {statistics.median(step_ms[1:]):.2f} ms "
+        f"= {TRAIN_BATCH / statistics.median(step_ms[1:]) * 1e3:.1f} samples/s; "
+        f"fit wall {wall_s:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+    log(f"[train] launches {launches}, flash_fwd with stats {stats_launches}; "
+        f"expected {expected}, with stats {18 * n_steps} "
+        f"(18 attention calls x {n_steps} steps, + 18 x {n_eval} eval forwards)")
+
+    # the same run through the plain attention path
+    twin = engine.init_state(exp.model, tcfg, seed=0, device="cuda")
+    twin.model.load_state_dict(init_weights)
+    del init_weights
+    torch.cuda.reset_peak_memory_stats()
+    twin_trainer = TimedTrainer(exp.model, tcfg, impl="xla", device="cuda")
+    twin, hist_x = twin_trainer.fit(*loaders(), state=twin, epochs=TRAIN_EPOCHS)
+    peak_x = torch.cuda.max_memory_allocated()
+    step_ms_x = twin_trainer.step_ms()
+    losses_x = [x for h in hist_x for x in h.step_losses]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(losses, losses_x))
+    log(f"[train] impl=xla from the same weights and batches (batch "
+        f"{TRAIN_BATCH}): step losses " + ", ".join(f"{x:.6f}" for x in losses_x)
+        + f"; max relative loss difference {loss_rel:.2e} (bound {BF16_TOL:g}); "
+        f"step ms median after the first {statistics.median(step_ms_x[1:]):.2f}; "
+        f"peak memory {peak_x / 2**30:.2f} GiB")
+
+    report["train"] = dict(
+        config=exp.name, params=n_params, batch=TRAIN_BATCH, steps=n_steps,
+        eval_forwards=n_eval, step_losses=losses, step_losses_xla=losses_x,
+        epochs=[dataclasses.asdict(h) for h in hist],
+        epochs_xla=[dataclasses.asdict(h) for h in hist_x],
+        step_ms=step_ms, step_ms_xla=step_ms_x,
+        step_ms_median=statistics.median(step_ms[1:]),
+        step_ms_median_xla=statistics.median(step_ms_x[1:]),
+        fit_wall_s=wall_s, peak_bytes=peak, peak_bytes_xla=peak_x,
+        launches=launches, flash_fwd_stats_launches=stats_launches,
+        expected_launches=expected, grad_err=grad_err,
+        max_grad_err_bf16_rel_l2=max_grad_err, max_loss_rel_err=loss_rel)
+    if not (len(losses) == len(losses_x) == n_steps == 8
+            and np.isfinite(losses + losses_x).all()):
+        raise AssertionError(f"step losses {losses} / {losses_x}")
+    if launches != expected or stats_launches != 18 * n_steps:
+        raise AssertionError(f"launches {launches} (stats {stats_launches}), "
+                             f"expected {expected}")
+    if max_grad_err > BF16_TOL:
+        raise AssertionError(f"step-1 bf16 gradients disagree with impl='xla': "
+                             f"relative L2 {max_grad_err:.3e}")
+    if loss_rel > BF16_TOL:
+        raise AssertionError(f"losses disagree with impl='xla': {loss_rel:.3e}")
+
+    # where the time goes: one more step of each run under torch.profiler
+    try:
+        report["train_profile"] = {
+            "flash_step": profile_breakdown(
+                torch, lambda: trainer.train_step(state, first)),
+            "xla_step": profile_breakdown(
+                torch, lambda: twin_trainer.train_step(twin, first))}
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        report["train_profile"] = "not measured: the profiler failed"
+        log("[profile] not measured: the profiler failed")
+    return launches
+
+
+def step_gradients(engine, model, tcfg, batch):
+    """{impl: {parameter name: gradient}} of one loss on the same weights
+    and batch, for impl flash and xla."""
+    grads = {}
+    model.train()
+    for impl in ("flash", "xla"):
+        engine.batch_loss(model, tcfg, batch, impl=impl).backward()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters()
+                       if p.grad is not None}
+        for p in model.parameters():
+            p.grad = None
+    if set(grads["flash"]) != set(grads["xla"]):
+        raise AssertionError("flash and xla give gradients to different "
+                             "parameters")
+    return grads
+
+
+def gradient_errors(got, ref):
+    """Per parameter tensor: rel_l2 = ‖got − ref‖₂ / ‖ref‖₂ and max_abs =
+    max |got − ref| / max |ref|.  The max-pool routes each column's gradient
+    to one row, so where bf16 rounding changes a near-tied argmax two runs
+    route that column to different rows: max_abs sees one row's whole
+    contribution, rel_l2 weighs it against the tensor."""
+    out = {}
+    for n, g in ref.items():
+        diff = got[n].float() - g.float()
+        out[n] = {"rel_l2": (diff.norm() / g.float().norm().clamp(min=1e-30)).item(),
+                  "max_abs": (diff.abs().max()
+                              / g.float().abs().max().clamp(min=1e-30)).item()}
+    return out
+
+
+def phase_serve(torch, report):
     import numpy as np
 
     from multimodal_emotion_processing_tpu_torch import configs
@@ -308,14 +715,19 @@ def phase_main_path(torch, report):
 
 def _kernel_category(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd"
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if kernel in low:
+            return kernel
     if "memcpy" in low or "memset" in low:
         return "copies"
     # cuBLAS's GEMMs on Hopper are named nvjet_* (seen in this script's
     # profile), older ones *gemm* / cutlass / xmma
     if any(t in low for t in ("nvjet", "gemm", "cutlass", "xmma")):
         return "gemm"
+    # the optimizer's _foreach ops (multi_tensor_apply) and _foreach_norm's
+    # cleanup pass
+    if "multi_tensor_apply" in low or "lpnorm" in low:
+        return "optimizer"
     return "other"
 
 
@@ -385,8 +797,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[device] {name}: {line.strip()}")
 
-    kernel_summary, launches = None, None
-    for phase, fn in (("kernels", phase_kernels), ("main", phase_main_path)):
+    summaries, launches = None, {}
+    for phase, fn in (("kernels", phase_kernels), ("train", phase_train),
+                      ("serve", phase_serve)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -394,9 +807,9 @@ def main() -> int:
             failed.append(phase)
             continue
         if phase == "kernels":
-            kernel_summary = result
+            summaries = result
         else:
-            launches = result
+            launches[phase] = result
 
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     report["failed_phases"] = failed
@@ -404,19 +817,32 @@ def main() -> int:
     if failed:
         print(f"FAIL: phases {failed}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "multimodal_emotion_processing_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "multimodal_emotion_processing_tpu/ops/flash_attention.py:208",
-        "also_replaces": ["multimodal_emotion_processing_tpu/ops/flash_attention.py:431"],
-        "launches": launches,
-        "max_abs_err": kernel_summary["max_abs_err"],
-        "ms": kernel_summary["ms"], "plain_ms": kernel_summary["plain_ms"],
-        "bound_ms": kernel_summary["bound_ms"],
-        "bound_by": kernel_summary["bound_by"],
-        "library_ms": kernel_summary["library_ms"],
-        "timed_at": f"sum over the nine s1024 stream shapes, B={SERVE_BUCKET}, bf16",
-    }]}))
+    fa_py = "multimodal_emotion_processing_tpu/ops/flash_attention.py"
+    kernels = []
+    for name, source, replaces, also in (
+            ("flash_fwd", "flash_fwd.cu", f"{fa_py}:208", [f"{fa_py}:431"]),
+            ("flash_bwd_dq", "flash_bwd.cu", f"{fa_py}:568", [f"{fa_py}:321"]),
+            ("flash_bwd_dkv", "flash_bwd.cu", f"{fa_py}:596", [f"{fa_py}:321"])):
+        summ = summaries[name]
+        by_path = {"train": launches["train"][name]}
+        if name == "flash_fwd":
+            by_path["serve"] = launches["serve"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"multimodal_emotion_processing_tpu_torch/csrc/{source}",
+            "replaces": replaces, "also_replaces": also,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": summ["max_abs_err"],
+            "ms": summ["ms"], "plain_ms": summ["plain_ms"],
+            "bound_ms": summ["bound_ms"], "bound_by": summ["bound_by"],
+            "library_ms": summ["library_ms"],
+            "timed_at": (f"sum over the nine s1024 stream shapes, B={SERVE_BUCKET}, bf16"
+                         if name == "flash_fwd" else
+                         f"sum over the nine s1024 stream shapes, B={TRAIN_BATCH}, "
+                         "bf16; plain_ms (flash_backward_plain) and library_ms "
+                         "(SDPA forward+backward minus forward) cover the whole "
+                         "backward, dq, dk and dv")})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,9 @@
 """Command line of the PyTorch port.
 
+  train <config> [--epochs E] [--n-train N] [--n-test M] [--impl xla|flash]
+        [--device cpu] [--set K=V]
+        Train one member with the port's Trainer on synthetic data and
+        print one JSON line per epoch.
   serve <config> [--concurrent N] [--device cpu] [--impl xla|flash]
         Serve a 4-member ensemble of seeded random members on synthetic
         requests: N concurrent requests through the micro-batching server,
@@ -35,6 +39,23 @@ def parse_overrides(pairs):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="multimodal_emotion_processing_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    tr = sub.add_parser(
+        "train", help="train one member on synthetic data",
+        description="Train one member of <config> with the port's Trainer "
+                    "on synthetic data (train split seed 0, valid split "
+                    "seed 1) and print one JSON line per epoch.  K-fold "
+                    "bagging, checkpoints and ensemble evaluation are not "
+                    "ported yet.")
+    tr.add_argument("config")
+    tr.add_argument("--epochs", type=int, default=None,
+                    help="epochs (default: the config's, with its early stop)")
+    tr.add_argument("--n-train", type=int, default=256)
+    tr.add_argument("--n-test", type=int, default=64)
+    tr.add_argument("--impl", choices=["xla", "flash"], default=None,
+                    help="attention implementation (default: the config's)")
+    tr.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
+    tr.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="config override, model.K=V or train.K=V")
     sv = sub.add_parser("serve", help="ensemble serving on synthetic requests")
     sv.add_argument("config")
     sv.add_argument("--impl", choices=["xla", "flash"], default=None,
@@ -56,6 +77,34 @@ def load_members(exp, device):
     from .models import build_model
 
     return [build_model(exp, device=device, seed=i) for i in range(N_MEMBERS)]
+
+
+def cmd_train(args):
+    from . import configs
+    from .data.loader import Batcher
+    from .data.synthetic import synthetic_dataset
+    from .train.engine import Trainer
+
+    exp = configs.with_overrides(configs.get(args.config),
+                                 parse_overrides(args.set))
+    impl = args.impl or exp.model.attn_impl
+    train = synthetic_dataset(args.config, exp.model, args.n_train, seed=0)
+    valid = synthetic_dataset(args.config, exp.model, args.n_test, seed=1)
+    bs = exp.train.batch_size
+
+    def log(epoch, stats):
+        print(json.dumps({"epoch": epoch, "train_loss": stats.train_loss,
+                          "valid_loss": stats.valid_loss, "steps": stats.steps,
+                          "samples": stats.samples, "seconds": stats.seconds,
+                          "samples_per_sec": stats.samples_per_sec}),
+              flush=True)
+
+    trainer = Trainer(exp, exp.train, impl=impl, device=args.device, log_cb=log)
+    print(f"(training {exp.name} on {trainer.device}, impl={impl}, "
+          f"dtype={exp.train.compute_dtype}, {len(train)} train / "
+          f"{len(valid)} valid synthetic samples)", file=sys.stderr)
+    return trainer.fit(Batcher(train, bs, seed=1),
+                       Batcher(valid, bs, shuffle=False), epochs=args.epochs)
 
 
 def cmd_serve(args):
@@ -114,6 +163,8 @@ def cmd_serve(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.cmd == "train":
+        return cmd_train(args)
     if args.cmd == "serve":
         return cmd_serve(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

@@ -12,7 +12,12 @@
 //   s[j] = (q_i . k_j) / sqrt(dh) - 1e8 * (1 - mask[b, j])     j < Lkv
 //   o_i  = softmax(s) . v
 // with the running max m and running sum l of the online softmax in f32 and
-// an f32 accumulator; o is stored at the input dtype (f32 or bf16).
+// an f32 accumulator; o is stored at the input dtype (f32 or bf16).  For the
+// backward (csrc/flash_bwd.cu) the kernel also writes the final m and l of
+// every row, (B, H, Lq) f32 each, when it is given the two pointers.  They
+// stay separate, never folded into lse = m + log l: in a fully masked row
+// m is about -1e8, where the f32 spacing is 8, and log l would round away.
+// Scores come from flash_common.cuh, the same code the backward uses.
 // The mask penalty is the reference's finite 1e8, never -inf, so a row whose
 // mask is all zero gets a uniform softmax over its Lkv real keys.  Columns at
 // or past Lkv are skipped inside the kernel: kv is never padded, so padded
@@ -39,37 +44,15 @@
 // either bound.  Moving S = Q.K^T and O = P.V onto the tensor cores (wgmma)
 // is the work that makes it fast.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <float.h>
-#include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTX = 16;
-constexpr int kTY = 16;
+using namespace flash;
+
 constexpr int kBQ = 64;
-constexpr float kMaskPenalty = 1.0e8f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = kTX / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = kTX / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // kv tile width per head-width bucket: 64 keys up to dh 64, 32 above, so
 // that shared memory stays at or under ~74 KB (three blocks per SM) up to
@@ -87,7 +70,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
-                 T* __restrict__ o, int Lq, int Lkv, int H, int dh,
+                 T* __restrict__ o, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int Lq, int Lkv, int H, int dh,
                  float scale) {
   constexpr int BKV = Tiles<DH>::BKV;
   constexpr int LDS = Tiles<DH>::LDS;
@@ -115,11 +99,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)b * Lkv * D + (size_t)h * dh;
   const float* mb = mask ? mask + (size_t)b * Lkv : nullptr;
 
-  for (int i = tid; i < kBQ * DH; i += kThreads) {
-    const int r = i / DH, c = i % DH;
-    sQ[r * LDS + c] =
-        (q0 + r < Lq && c < dh) ? to_f32(qb[(size_t)(q0 + r) * D + c]) : 0.f;
-  }
+  stage_rows<T, DH, LDS>(sQ, qb, D, q0, kBQ, Lq - q0, dh);
 
   float m_run[RM], l_run[RM], acc[RM][DN];
 #pragma unroll
@@ -133,34 +113,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kv0 = 0; kv0 < Lkv; kv0 += BKV) {
     const int nkv = min(BKV, Lkv - kv0);
     __syncthreads();  // sQ is written; the last tile's sK/sV/sP readers are done
-    for (int i = tid; i < BKV * DH; i += kThreads) {
-      const int r = i / DH, c = i % DH;
-      const bool real = r < nkv && c < dh;
-      const size_t off = (size_t)(kv0 + r) * D + c;
-      sK[r * LDS + c] = real ? to_f32(kb[off]) : 0.f;
-      sV[r * LDS + c] = real ? to_f32(vb[off]) : 0.f;
-    }
+    stage_rows<T, DH, LDS>(sK, kb, D, kv0, BKV, nkv, dh);
+    stage_rows<T, DH, LDS>(sV, vb, D, kv0, BKV, nkv, dh);
     for (int c = tid; c < BKV; c += kThreads)
-      sNeg[c] = (c < nkv && mb) ? kMaskPenalty * (1.f - mb[kv0 + c]) : 0.f;
+      sNeg[c] = c < nkv ? mask_penalty(mb, kv0 + c) : 0.f;
     __syncthreads();
 
     float s[RM][CN];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) qv[r] = sQ[(ty + kTY * r) * LDS + d];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) kv[c] = sK[(tx + kTX * c) * LDS + d];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
+    tile_dots<DH, RM, CN, LDS>(sQ, sK, tx, ty, s);
 
     float alpha[RM];
 #pragma unroll
@@ -170,7 +130,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < CN; ++c) {
         const int col = tx + kTX * c;
         if (col < nkv) {
-          s[r][c] = s[r][c] * scale - sNeg[col];
+          s[r][c] = masked_score(s[r][c], scale, sNeg[col]);
           mx = fmaxf(mx, s[r][c]);
         }
       }
@@ -211,6 +171,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < RM; ++r) {
     const int row = q0 + ty + kTY * r;
     if (row >= Lq) continue;
+    if (m_out && tx == 0) {
+      const size_t stat = ((size_t)b * H + h) * Lq + row;
+      m_out[stat] = m_run[r];
+      l_out[stat] = l_run[r];
+    }
     const float inv = 1.f / l_run[r];  // l >= 1: the row max contributes exp(0)
     T* orow = o + ((size_t)b * Lq + row) * D + (size_t)h * dh;
 #pragma unroll
@@ -223,8 +188,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* mask, void* o, int B, int H, int Lq, int Lkv,
-                   int dh, cudaStream_t stream) {
+                   const void* mask, void* o, float* m_out, float* l_out,
+                   int B, int H, int Lq, int Lkv, int dh, cudaStream_t stream) {
   const size_t smem = Tiles<DH>::smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,33 +199,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(mask),
-      static_cast<T*>(o), Lq, Lkv, H, dh, 1.0f / sqrtf((float)dh));
+      static_cast<T*>(o), m_out, l_out, Lq, Lkv, H, dh, score_scale(dh));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* mask, void* o, int B, int H, int Lq, int Lkv,
-                     int dh, cudaStream_t s) {
-  if (dh <= 16) return launch<T, 16>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s);
-  if (dh <= 32) return launch<T, 32>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s);
-  if (dh <= 64) return launch<T, 64>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s);
-  if (dh <= 128) return launch<T, 128>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s);
-  return launch<T, 256>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s);
+                     const void* mask, void* o, float* m, float* l, int B,
+                     int H, int Lq, int Lkv, int dh, cudaStream_t s) {
+  if (dh <= 16) return launch<T, 16>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 32) return launch<T, 32>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 64) return launch<T, 64>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 128) return launch<T, 128>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  return launch<T, 256>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when the kernel was launched.
+// Returns a cudaError_t as int: 0 when the kernel was launched.  m_out and
+// l_out are both null (serving) or both (B, H, Lq) f32 (training).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const void* mask, void* o, int B, int H, int Lq,
-                         int Lkv, int dh, int is_bf16, void* stream) {
+                         const void* mask, void* o, void* m_out, void* l_out,
+                         int B, int H, int Lq, int Lkv, int dh, int is_bf16,
+                         void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lkv < 1 || dh < 1 || dh > 256 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  float* m = static_cast<float*>(m_out);
+  float* l = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s)
-              : dispatch<float>(q, k, v, mask, o, B, H, Lq, Lkv, dh, s);
+      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s)
+              : dispatch<float>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
   return (int)err;
 }

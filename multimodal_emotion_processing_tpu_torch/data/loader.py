@@ -1,0 +1,135 @@
+"""Host-side batching and the feed to the GPU (data/loader.py of the JAX
+package).
+
+  * `Batcher` assembles batches from a struct-of-arrays copy of the samples
+    with one vectorised gather per key; the final partial batch is
+    zero-padded to full size and carries a `sample_weight` vector, so every
+    step sees one shape and the weighted loss equals the reference's mean
+    over the unpadded batch;
+  * `prefetch_to_device` assembles batches in a background thread, stages
+    them in pinned host memory and copies them to the GPU with non-blocking
+    copies on a side stream, one or two batches ahead of the consumer.
+
+Not ported yet: the wire-compression dtypes (`cast_for_transfer`), R-Drop
+duplicates and per-epoch resampling.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, Sequence
+
+import numpy as np
+import torch
+
+
+class Batcher:
+    """A zero-arg callable: each call is one epoch's iterator of numpy batch
+    dicts, shuffled by a generator seeded once at construction (so epochs
+    differ and runs repeat)."""
+
+    def __init__(self, samples: Sequence[Dict[str, np.ndarray]],
+                 batch_size: int, *, shuffle: bool = True, seed: int = 0):
+        self.samples = list(samples)
+        if not self.samples:
+            raise ValueError("empty sample list")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self._stacked = {k: np.stack([s[k] for s in self.samples])
+                         for k in self.samples[0]}
+
+    def __call__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.samples))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        bs = self.batch_size
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            actual = len(idx)
+            batch = {}
+            for k, stacked in self._stacked.items():
+                g = stacked[idx]
+                if actual < bs:
+                    buf = np.zeros((bs,) + g.shape[1:], dtype=g.dtype)
+                    buf[:actual] = g
+                    g = buf
+                batch[k] = g
+            w = np.zeros(bs, np.float32)
+            w[:actual] = 1.0
+            batch["sample_weight"] = w
+            yield batch
+
+    def steps_per_epoch(self) -> int:
+        return -(-len(self.samples) // self.batch_size)
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as tensors on `device`, synchronously."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
+                       device, size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """Batches of `iterator` as tensors on the CUDA `device`, assembled and
+    copied up to `size` batches ahead in a background thread.  Each batch is
+    staged in pinned host memory and copied with non-blocking copies on a
+    side stream; the consumer's stream waits on the copy's event, and every
+    tensor is recorded on that stream, so its memory is not reused while
+    the consumer may still read it.  An exception in the thread is raised
+    to the consumer; closing the generator early releases the thread."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"prefetch_to_device feeds a CUDA device, got {device}")
+    copy_stream = torch.cuda.Stream(device)
+    q: queue.Queue = queue.Queue(maxsize=size)
+    end = object()
+    stop = threading.Event()
+
+    def offer(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+                for batch in iterator:
+                    if stop.is_set():
+                        return
+                    pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                              for k, v in batch.items()}
+                    out = {k: t.to(device, non_blocking=True)
+                           for k, t in pinned.items()}
+                    ready = torch.cuda.Event()
+                    ready.record(copy_stream)
+                    if not offer((out, ready)):
+                        return
+            offer(end)
+        except BaseException as e:  # raised again in the consumer
+            offer(e)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            out, ready = item
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(ready)
+            for t in out.values():
+                t.record_stream(consumer)
+            yield out
+    finally:
+        stop.set()
+        thread.join(timeout=5.0)

@@ -36,8 +36,9 @@ class UnifyLinear(nn.Module):
 
 class MinusBlock(nn.Module):
     """`apply_block_minus`: no Q/K/V projections; after attention,
-    q' = LN(Linear_{2d→d}([q ; proj(ctx)])).  No dropout: this slice runs
-    inference only."""
+    q' = LN(Linear_{2d→d}([q ; proj(ctx)])).  Gradients flow through every
+    part, the flash attention kernels included.  Dropout is not ported:
+    `Grid` refuses to train a config with dropout > 0."""
 
     def __init__(self, dim: int, n_heads: int):
         super().__init__()

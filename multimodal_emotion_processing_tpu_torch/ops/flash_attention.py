@@ -1,33 +1,44 @@
-"""Flash (online-softmax) attention for terminal blocks, forward only.
+"""Flash (online-softmax) attention for terminal blocks, forward and backward.
 
-The kernel is csrc/flash_fwd.cu, written by hand in CUDA C++ for Hopper.  It
-replaces the JAX package's two forward Pallas kernels
-(ops/flash_attention.py `_flash_forward_whole` and `_flash_forward`): one
-kernel walks kv tiles of at most 64 keys with the running max and sum in f32,
-so every kv length, from one key to thousands, takes the same loop.  The
-source's header says what bounds it on the card.
+The kernels are written by hand in CUDA C++ for Hopper; each source's header
+says what bounds it on the card.
+
+- csrc/flash_fwd.cu `flash_fwd` replaces the JAX package's two forward Pallas
+  kernels (ops/flash_attention.py `_flash_forward_whole` and
+  `_flash_forward`): one kernel walks kv tiles with the running max and sum
+  in f32, so every kv length takes the same loop.  For training it also
+  writes the final row stats m and l, (B, H, Lq) f32 each.
+- csrc/flash_bwd.cu `flash_bwd_dq` and `flash_bwd_dkv` replace the backward
+  Pallas kernels (`_flash_backward`'s dQ and dK/dV sweeps, and the fused
+  `_flash_backward_whole`): p = exp(s − m)·(1/l) is recomputed per tile
+  from q, k, the mask and the saved stats.  m and l stay separate, never a
+  folded lse = m + log l: in a fully masked row m ≈ −1e8, where the f32
+  spacing is 8, and log l would round away.  Both .cu files compute a score
+  through csrc/flash_common.cuh, so s is bit-identical forward and backward.
 
 Terminal blocks only: scores_prev is None and the scores are not emitted, so
 S is never materialized.  The mask is the reference's finite 1e8 penalty, and
-columns past Lkv are skipped inside the kernel instead of zero-padded: a
+columns past Lkv are skipped inside the kernels instead of zero-padded: a
 fully masked row is then uniform over its real keys, as the plain path has
 it.  The JAX wrapper pads kv to a multiple of 128 and averages such a row
 over the padded length; the port does not copy that.
 
-`flash_scored_attention` launches the kernel for CUDA tensors and takes the
-plain PyTorch version only for CPU tensors.  The backward kernels belong to
-training and are not ported yet, so a call that needs a gradient raises.
+`flash_scored_attention` takes the kernels for CUDA tensors and the plain
+PyTorch versions (`flash_forward_plain`, `flash_backward_plain`) only for CPU
+tensors.  When a gradient is needed it goes through `FlashAttention`, the
+`torch.autograd.Function` in place of JAX `_make_flash`'s custom VJP.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Optional
 
 import torch
 
-from .attention import _scored_attention_xla
+from .attention import MASK_PENALTY, _scored_attention_xla, merge_heads, split_heads
 
 MAX_HEAD_DIM = 256
 
@@ -44,19 +55,94 @@ def flash_supported(lq: int, lkv: int, mask, scores_prev,
     return True
 
 
-def flash_forward_plain(q, k, v, mask, *, n_heads: int) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: softmax(q·kᵀ/√dh − 1e8(1−mask))·v
-    accumulated in f32, returned at the input dtype."""
-    return _scored_attention_xla(q, k, v, mask, None, None, n_heads=n_heads)[0]
+def flash_forward_plain(q, k, v, mask, *, n_heads: int, stats: bool = False):
+    """The forward kernel's function in plain PyTorch: softmax(q·kᵀ/√dh −
+    1e8(1−mask))·v accumulated in f32, returned at the input dtype.  With
+    `stats`, returns (o, m, l): the row max m of the masked scores and
+    l = Σ exp(s − m), (B, H, Lq) each at the accumulation dtype."""
+    ctx, s = _scored_attention_xla(q, k, v, mask, None, None, n_heads=n_heads)
+    if not stats:
+        return ctx
+    m = s.amax(dim=-1)
+    return ctx, m, torch.exp(s - m[..., None]).sum(dim=-1)
 
 
-class FlashForwardKernel:
-    """ctypes binding of `flash_fwd` in csrc/flash_fwd.cu.
+def flash_backward_plain(q, k, v, mask, o, do, m, l, *, n_heads: int):
+    """The backward kernels' function in plain PyTorch, accumulated in f32:
+    from the forward's output o and row stats m, l and the cotangent do,
+    returns (dq, dk, dv) at the input dtype and dmask (B, Lkv) f32 (None
+    without a mask), the per-head rows 1e8·Σ_q ds summed over heads."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qh, kh, vh, oh, doh = (split_heads(t, n_heads).to(acc)
+                           for t in (q, k, v, o, do))
+    inv_sqrt = 1.0 / math.sqrt(qh.shape[-1])
+    s = (qh @ kh.transpose(-2, -1)) / math.sqrt(qh.shape[-1])
+    if mask is not None:
+        s = s - MASK_PENALTY * (1.0 - mask.to(acc)[:, None, None, :])
+    p = torch.exp(s - m.to(acc)[..., None]) * (1.0 / l.to(acc)[..., None])
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    dv = p.transpose(-2, -1) @ doh
+    ds = p * (doh @ vh.transpose(-2, -1) - delta)
+    dq = (ds @ kh) * inv_sqrt
+    dk = (ds.transpose(-2, -1) @ qh) * inv_sqrt
+    dmask = None if mask is None else (MASK_PENALTY * ds.sum(dim=2)).sum(dim=1)
+    return (merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype),
+            merge_heads(dv).to(v.dtype), dmask)
 
-    `launches` counts the kernel launches this wrapper made; nothing else
-    changes it except `reset()`."""
 
-    name = "flash_fwd"
+def _check_qkv(name, q, k, v, mask, n_heads):
+    """Validate a kernel call's q, k, v and mask; returns (b, lq, lkv, dh,
+    mask as contiguous f32 or None)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, mask)):
+        raise RuntimeError(f"{name} records no autograd graph: a call that "
+                           "needs a gradient goes through FlashAttention")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected (B, L, D)")
+    b, lq, d = q.shape
+    lkv = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != d or d % n_heads:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
+                         f"not share (B, D) with D divisible by {n_heads}")
+    dh = d // n_heads
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {dh} outside 1..{MAX_HEAD_DIM}")
+    for tname, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{tname} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {q.device}")
+    if mask is not None:
+        if tuple(mask.shape) != (b, lkv) or mask.device != q.device:
+            raise ValueError(f"mask {tuple(mask.shape)} on {mask.device}: "
+                             f"expected ({b}, {lkv}) on {q.device}")
+        mask = mask.to(torch.float32).contiguous()
+    return b, lq, lkv, dh, mask
+
+
+def _check_like(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}:"
+                         f" expected {tuple(shape)} {dtype} on {device}")
+    return t.contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+class _Kernel:
+    """ctypes binding of one kernel of csrc/<library>.cu.  `launches`
+    counts the launches this wrapper made; nothing else changes it except
+    `reset()`."""
+
+    name = ""
+    library = ""
+    n_pointers = 0
 
     def __init__(self):
         self.launches = 0
@@ -71,69 +157,162 @@ class FlashForwardKernel:
         if self._fn is None:
             from ..utils import native
 
-            fn = native.load(self.name).flash_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
+            fn = getattr(native.load(self.library), self.name)
+            # pointers, then B, H, Lq, Lkv, dh, is_bf16, then the stream
+            fn.argtypes = ([ctypes.c_void_p] * self.n_pointers
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 mask: Optional[torch.Tensor], *, n_heads: int) -> torch.Tensor:
-        """q (B, Lq, D), k/v (B, Lkv, D) on one CUDA device, f32 or bf16;
-        mask None or (B, Lkv).  Returns o (B, Lq, D) at q's dtype."""
-        if q.device.type != "cuda":
-            raise ValueError(f"flash_fwd runs on CUDA tensors, got {q.device}")
-        if q.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
-        if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
-            raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                             f"v {tuple(v.shape)}: expected (B, L, D)")
-        b, lq, d = q.shape
-        lkv = k.shape[1]
-        if k.shape[0] != b or k.shape[2] != d or d % n_heads:
-            raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
-                             f"not share (B, D) with D divisible by {n_heads}")
-        dh = d // n_heads
-        if not 1 <= dh <= MAX_HEAD_DIM:
-            raise ValueError(f"head width {dh} outside 1..{MAX_HEAD_DIM}")
-        for name, t in (("k", k), ("v", v)):
-            if t.dtype != q.dtype or t.device != q.device:
-                raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
-                                 f"{q.dtype} on {q.device}")
-        if mask is not None:
-            if tuple(mask.shape) != (b, lkv) or mask.device != q.device:
-                raise ValueError(f"mask {tuple(mask.shape)} on {mask.device}: "
-                                 f"expected ({b}, {lkv}) on {q.device}")
-            mask = mask.to(torch.float32).contiguous()
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o = torch.empty_like(q)
+    def _launch(self, device, pointers, dims, is_bf16: bool) -> None:
         fn = self._bind()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    mask.data_ptr() if mask is not None else None,
-                    o.data_ptr(), b, n_heads, lq, lkv, dh,
-                    int(q.dtype == torch.bfloat16), stream)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*pointers, *dims, int(is_bf16), stream)
         if rc != 0:
-            raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
+            raise RuntimeError(f"{self.name} launch failed with CUDA error {rc}")
         with self._lock:
             self.launches += 1
-        return o
+
+
+class FlashForwardKernel(_Kernel):
+    """`flash_fwd` in csrc/flash_fwd.cu.  `stats_launches` counts the
+    launches that also wrote the row stats (the training forward)."""
+
+    name = library = "flash_fwd"
+    n_pointers = 7
+
+    def __init__(self):
+        super().__init__()
+        self.stats_launches = 0
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = self.stats_launches = 0
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], *, n_heads: int,
+                 stats: bool = False):
+        """q (B, Lq, D), k/v (B, Lkv, D) on one CUDA device, f32 or bf16;
+        mask None or (B, Lkv).  Returns o (B, Lq, D) at q's dtype, and with
+        `stats` (o, m, l) with m, l (B, H, Lq) f32."""
+        b, lq, lkv, dh, mask = _check_qkv(self.name, q, k, v, mask, n_heads)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o = torch.empty_like(q)
+        m = l = None
+        if stats:
+            m = torch.empty(b, n_heads, lq, dtype=torch.float32, device=q.device)
+            l = torch.empty_like(m)
+        self._launch(q.device, [_ptr(t) for t in (q, k, v, mask, o, m, l)],
+                     (b, n_heads, lq, lkv, dh), q.dtype == torch.bfloat16)
+        if not stats:
+            return o
+        with self._lock:
+            self.stats_launches += 1
+        return o, m, l
+
+
+class _FlashBackwardKernel(_Kernel):
+    library = "flash_bwd"
+
+    def _inputs(self, q, k, v, mask, o, do, m, l, n_heads):
+        b, lq, lkv, dh, mask = _check_qkv(self.name, q, k, v, mask, n_heads)
+        o = _check_like("o", o, q.shape, q.dtype, q.device)
+        do = _check_like("do", do, q.shape, q.dtype, q.device)
+        m = _check_like("m", m, (b, n_heads, lq), torch.float32, q.device)
+        l = _check_like("l", l, (b, n_heads, lq), torch.float32, q.device)
+        ins = [t.contiguous() for t in (q, k, v)] + [mask, o, do, m, l]
+        return ins, (b, n_heads, lq, lkv, dh)
+
+
+class FlashBwdDqKernel(_FlashBackwardKernel):
+    """`flash_bwd_dq` in csrc/flash_bwd.cu."""
+
+    name = "flash_bwd_dq"
+    n_pointers = 9
+
+    def __call__(self, q, k, v, mask, o, do, m, l, *, n_heads: int):
+        """The forward's q, k, v, mask, output o and stats m, l, and the
+        cotangent do (like q).  Returns dq at q's dtype."""
+        ins, dims = self._inputs(q, k, v, mask, o, do, m, l, n_heads)
+        dq = torch.empty_like(ins[0])
+        self._launch(q.device, [_ptr(t) for t in ins + [dq]], dims,
+                     q.dtype == torch.bfloat16)
+        return dq
+
+
+class FlashBwdDkvKernel(_FlashBackwardKernel):
+    """`flash_bwd_dkv` in csrc/flash_bwd.cu."""
+
+    name = "flash_bwd_dkv"
+    n_pointers = 11
+
+    def __call__(self, q, k, v, mask, o, do, m, l, *, n_heads: int,
+                 want_dmask: bool = True):
+        """As FlashBwdDqKernel.  Returns (dk, dv) at k's dtype and dmask
+        (B, Lkv) f32: the kernel's per-head rows 1e8·Σ_q ds summed over
+        heads; None without a mask or when `want_dmask` is false."""
+        ins, dims = self._inputs(q, k, v, mask, o, do, m, l, n_heads)
+        dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
+        dmh = None
+        if want_dmask and mask is not None:
+            b, h, _, lkv, _ = dims
+            dmh = torch.empty(b, h, lkv, dtype=torch.float32, device=q.device)
+        self._launch(q.device, [_ptr(t) for t in ins + [dk, dv, dmh]], dims,
+                     q.dtype == torch.bfloat16)
+        return dk, dv, None if dmh is None else dmh.sum(dim=1)
 
 
 flash_forward_kernel = FlashForwardKernel()
+flash_bwd_dq_kernel = FlashBwdDqKernel()
+flash_bwd_dkv_kernel = FlashBwdDkvKernel()
+KERNELS = (flash_forward_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward kernels: the forward saves q, k,
+    v, the mask, o and the row stats m, l; the backward returns dq, dk, dv
+    and, when the mask needs one, dmask at the mask's dtype.  c gets no
+    gradient (JAX returns zeros for it: the gate has no use in a terminal
+    block).  CPU tensors take the plain versions, CUDA tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, c, n_heads):
+        if q.device.type == "cpu":
+            o, m, l = flash_forward_plain(q, k, v, mask, n_heads=n_heads,
+                                          stats=True)
+        else:
+            o, m, l = flash_forward_kernel(q, k, v, mask, n_heads=n_heads,
+                                           stats=True)
+        ctx.save_for_backward(q, k, v, mask, o, m, l)
+        ctx.n_heads = n_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, o, m, l = ctx.saved_tensors
+        want_dmask = mask is not None and ctx.needs_input_grad[3]
+        if q.device.type == "cpu":
+            dq, dk, dv, dmask = flash_backward_plain(
+                q, k, v, mask, o, do, m, l, n_heads=ctx.n_heads)
+        else:
+            args = (q, k, v, mask, o, do.contiguous(), m, l)
+            dq = flash_bwd_dq_kernel(*args, n_heads=ctx.n_heads)
+            dk, dv, dmask = flash_bwd_dkv_kernel(*args, n_heads=ctx.n_heads,
+                                                 want_dmask=want_dmask)
+        dmask = dmask.to(mask.dtype) if want_dmask else None
+        return dq, dk, dv, dmask, None, None
 
 
 def flash_scored_attention(q, k, v, mask, c, *, n_heads: int):
     """Terminal-block scored attention without materializing S; returns
-    (ctx, None).  Callers check `flash_supported` first.  CUDA tensors
-    launch the kernel; CPU tensors take `flash_forward_plain`."""
+    (ctx, None).  Callers check `flash_supported` first.  A call that needs
+    a gradient goes through `FlashAttention`; otherwise CUDA tensors launch
+    the forward kernel and CPU tensors take `flash_forward_plain`."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, mask)):
-        raise NotImplementedError(
-            "the flash backward kernels are not ported yet: run the forward "
-            "under torch.no_grad() or use impl='xla' for training")
+        return FlashAttention.apply(q, k, v, mask, c, n_heads), None
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, mask, n_heads=n_heads), None
     return flash_forward_kernel(q, k, v, mask, n_heads=n_heads), None

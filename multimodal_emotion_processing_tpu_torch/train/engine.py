@@ -1,15 +1,49 @@
-"""The inference half of the engine: the compute-dtype casts around a
-forward (train/engine.py:328-344 of the JAX package).  The train step is a
-later slice."""
+"""Training engine (train/engine.py of the JAX package): the loss contract,
+the optimizer, the train and eval steps, the epoch driver, and the
+compute-dtype casts of the inference path.
+
+PyTorch runs eagerly, so a step is a plain function: forward, ZLPR loss,
+backward, global-norm clip, Adam(W) update, with no host round trip; the
+per-step losses stay on the device until the epoch ends.  The learning rate
+is an attribute of the optimizer that the host-side plateau controller
+(schedule.py) changes between epochs.
+
+Not ported yet: the device mesh, scan-chained steps, gradient accumulation,
+the profile option, the wire-compression dtypes, R-Drop, the clip-mask loss
+and dropout (a config with dropout > 0 raises in training).
+"""
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import time
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
-# loss-side weight vectors stay f32 (batch_loss's keep-set)
+from ..ops.loss import zlpr_loss
+from . import schedule
+
+# loss-side weight vectors stay f32 under bf16 compute: a bf16 sum of the
+# sample weights rounds above 256 and would mis-scale the weighted mean
 _KEEP_F32 = {"sample_weight", "clip_mask"}
+
+
+def _check_dtype(dtype: str) -> None:
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute dtype {dtype!r}: expected float32 or bfloat16")
+
+
+def cast_batch(batch, dtype: str):
+    """Every floating batch entry outside the keep-set at `dtype`."""
+    _check_dtype(dtype)
+    if dtype == "float32":
+        return batch
+    return {k: (v if k in _KEEP_F32 or not v.is_floating_point()
+                else v.to(torch.bfloat16))
+            for k, v in batch.items()}
 
 
 def infer_cast(model, batch, dtype: str):
@@ -19,18 +53,244 @@ def infer_cast(model, batch, dtype: str):
     the two may be None.  "float32" returns both unchanged.  The logit
     upcast is the caller's job (`infer_upcast`), so score and threshold math
     never runs in bf16."""
+    _check_dtype(dtype)
     if dtype == "float32":
         return model, batch
-    if dtype != "bfloat16":
-        raise ValueError(f"compute dtype {dtype!r}: expected float32 or bfloat16")
     if model is not None:
         model = copy.deepcopy(model).to(torch.bfloat16)
     if batch is not None:
-        batch = {k: (v if k in _KEEP_F32 or not v.is_floating_point()
-                     else v.to(torch.bfloat16))
-                 for k, v in batch.items()}
+        batch = cast_batch(batch, dtype)
     return model, batch
 
 
 def infer_upcast(logits: torch.Tensor) -> torch.Tensor:
     return logits.float() if logits.dtype == torch.bfloat16 else logits
+
+
+class Optimizer:
+    """optax.chain(clip_by_global_norm(grad_clip), adamw | adam) of the JAX
+    package's `make_optimizer`, over a model's parameters, with optax's
+    arithmetic: g·min(1, clip/‖g‖) with the global L2 norm over every
+    parameter (not `clip_grad_norm_`, which divides by ‖g‖ + 1e-6); then
+    Adam with β 0.9 / 0.999, eps 1e-8 outside the square root and bias
+    correction; AdamW adds the decoupled decay wd·p to the update, for every
+    parameter, before the −lr scale.  A parameter without a gradient
+    (the terminal blocks' gate c) counts as a zero gradient, as JAX gives
+    it.  The update runs as PyTorch multi-tensor (`_foreach`) ops over the
+    per-parameter list, whatever `TrainConfig.fused_optimizer` says: JAX's
+    flat vector saves kernel launches there, the foreach ops save them
+    here without copying the parameters in and out of one vector, and the
+    math is the same either way."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params, tcfg):
+        if tcfg.optimizer not in ("adamw", "adam"):
+            raise ValueError(f"optimizer {tcfg.optimizer!r}: expected adamw or adam")
+        self.params = list(params)
+        self.lr = float(tcfg.lr)
+        self.weight_decay = (float(getattr(tcfg, "weight_decay", 0.01))
+                             if tcfg.optimizer == "adamw" else 0.0)
+        self.grad_clip = float(tcfg.grad_clip)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Update the parameters from their `.grad` and clear it."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                            self.grad_clip / norm)
+        grads = torch._foreach_mul(grads, scale)
+        self.count += 1
+        torch._foreach_mul_(self.mu, self.B1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.B1)
+        torch._foreach_mul_(self.nu, self.B2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.B2)
+        mu_hat = torch._foreach_div(self.mu, 1.0 - self.B1 ** self.count)
+        denom = torch._foreach_sqrt(torch._foreach_div(
+            self.nu, 1.0 - self.B2 ** self.count))
+        torch._foreach_add_(denom, self.EPS)
+        update = torch._foreach_div(mu_hat, denom)
+        if self.weight_decay:
+            torch._foreach_add_(update, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, update, alpha=-self.lr)
+        for p in self.params:
+            p.grad = None
+
+
+def make_optimizer(tcfg, params) -> Optimizer:
+    """Global-norm clip then AdamW (or Adam) over `params`."""
+    return Optimizer(params, tcfg)
+
+
+def batch_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+    """The reference loss contract: the ZLPR loss, averaged with the
+    optional `sample_weight` (1 for real rows, 0 for padding) as
+    Σ w·loss / max(Σ w, 1), so a zero-padded batch gives the reference's
+    mean over its real rows.
+
+    Under `compute_dtype="bfloat16"` the f32 parameters are cast to bf16
+    inside the graph (`functional_call` with `p.to(bfloat16)`), so their
+    gradients land in the f32 masters; batch floats go to bf16 except the
+    keep-set, and the logits are upcast before the loss."""
+    if tcfg.rdrop_kl or tcfg.clip_mask_loss:
+        raise NotImplementedError("R-Drop and the clip-mask loss are not "
+                                  "ported yet")
+    dtype = getattr(tcfg, "compute_dtype", "float32")
+    batch = cast_batch(batch, dtype)
+    if dtype == "bfloat16":
+        params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        logits = torch.func.functional_call(model, params, (batch,),
+                                            {"impl": impl})
+    else:
+        logits = model(batch, impl=impl)
+    per_sample = zlpr_loss(infer_upcast(logits), batch["label"])
+    w = batch.get("sample_weight")
+    if w is None:
+        return per_sample.mean()
+    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+
+def init_state(cfg, tcfg, seed: int, *, device=None) -> TrainState:
+    """A model built from `seed` (`build_model`) on `device` ("cuda" unless
+    "cpu" is asked for) and a fresh optimizer over its parameters."""
+    from ..models import build_model
+
+    model = build_model(cfg, device=device, seed=seed)
+    return TrainState(model, make_optimizer(tcfg, model.parameters()))
+
+
+def set_learning_rate(state: TrainState, lr: float) -> TrainState:
+    state.optimizer.lr = float(lr)
+    return state
+
+
+def train_step(state: TrainState, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+    """One optimizer step on `batch` (a dict of tensors on the model's
+    device); returns the loss, detached, on the device."""
+    state.model.train()
+    loss = batch_loss(state.model, tcfg, batch, impl=impl)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return loss.detach()
+
+
+@torch.no_grad()
+def eval_step(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+    model.eval()
+    return batch_loss(model, tcfg, batch, impl=impl)
+
+
+@dataclasses.dataclass
+class EpochStats:
+    train_loss: float
+    valid_loss: float
+    steps: int
+    samples: int  # real samples: zero-weight padding rows excluded
+    seconds: float
+    step_losses: Tuple[float, ...] = ()
+
+    @property
+    def samples_per_sec(self) -> float:
+        return self.samples / max(self.seconds, 1e-9)
+
+
+class Trainer:
+    """Epoch driver: fresh loaders per epoch, plateau LR, early stop,
+    best-checkpoint callback (JAX `Trainer`).
+
+    `cfg` is the ModelConfig (or an ExperimentConfig) the states are built
+    from; `train_loader` / `valid_loader` of `fit` are zero-arg callables
+    returning an iterable of numpy batch dicts (a `data.loader.Batcher`).
+    On a CUDA device the batches are fed by `prefetch_to_device`, PREFETCH
+    batches ahead; on the CPU they are converted in the loop."""
+
+    PREFETCH = 2
+
+    def __init__(self, cfg, tcfg, *, impl: str = "xla", device=None,
+                 checkpoint_cb: Optional[Callable] = None,
+                 log_cb: Optional[Callable] = None):
+        from ..utils.device import resolve_device
+
+        self.cfg = getattr(cfg, "model", cfg)
+        self.tcfg = tcfg
+        self.impl = impl
+        self.device = resolve_device(device)
+        self.checkpoint_cb = checkpoint_cb
+        self.log_cb = log_cb
+
+    def train_step(self, state: TrainState, batch) -> torch.Tensor:
+        return train_step(state, self.tcfg, batch, impl=self.impl)
+
+    def eval_step(self, state: TrainState, batch) -> torch.Tensor:
+        return eval_step(state.model, self.tcfg, batch, impl=self.impl)
+
+    def _iter(self, loader, counter: Optional[dict] = None):
+        """Batches of one epoch on the device; `counter["n"]` counts the
+        real samples from the numpy sample_weight, before the copy."""
+        from ..data.loader import prefetch_to_device, to_device
+
+        def counting(it):
+            for b in it:
+                if counter is not None:
+                    w = b.get("sample_weight")
+                    counter["n"] += (int(np.asarray(w).sum()) if w is not None
+                                     else int(b["label"].shape[0]))
+                yield b
+
+        it = counting(iter(loader()))
+        if self.device.type == "cuda":
+            return prefetch_to_device(it, device=self.device, size=self.PREFETCH)
+        return (to_device(b, self.device) for b in it)
+
+    def fit(self, train_loader, valid_loader, *,
+            state: Optional[TrainState] = None, epochs: Optional[int] = None,
+            seed: Optional[int] = None):
+        """Returns (state, history of EpochStats)."""
+        tcfg = self.tcfg
+        if state is None:
+            state = init_state(self.cfg, tcfg, tcfg.seed if seed is None else seed,
+                               device=self.device)
+        plateau = schedule.PlateauState(lr=tcfg.lr, factor=tcfg.plateau_factor,
+                                        patience=tcfg.plateau_patience)
+        stopper = schedule.EarlyStop(patience=tcfg.early_stop,
+                                     save_guard=tcfg.save_guard)
+        history = []
+        for epoch in range(tcfg.epochs if epochs is None else epochs):
+            t0 = time.perf_counter()
+            counter = {"n": 0}
+            # losses stay on the device until the epoch ends: fetching per
+            # step would make the host wait for the card every step
+            losses = [self.train_step(state, b)
+                      for b in self._iter(train_loader, counter)]
+            va = [self.eval_step(state, b) for b in self._iter(valid_loader)]
+            step_losses = (tuple(torch.stack(losses).cpu().tolist())
+                           if losses else ())
+            va_losses = torch.stack(va).cpu().tolist() if va else []
+            stats = EpochStats(
+                train_loss=sum(step_losses) / max(len(step_losses), 1),
+                valid_loss=sum(va_losses) / max(len(va_losses), 1),
+                steps=len(step_losses), samples=counter["n"],
+                seconds=time.perf_counter() - t0, step_losses=step_losses)
+            history.append(stats)
+            if self.log_cb:
+                self.log_cb(epoch, stats)
+            set_learning_rate(state, plateau.step(stats.valid_loss))
+            save, stop = stopper.step(stats.valid_loss)
+            if save and self.checkpoint_cb:
+                self.checkpoint_cb(state, epoch, stats.valid_loss)
+            if stop:
+                break
+        return state, history

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 with `nvcc` into a shared library under the package's `_build/` directory,
-named by the hash of its source, so an edited source is rebuilt and an
-unchanged one is loaded as is.  The library is opened with `ctypes`; no
+named by the hash of its source and of the shared headers `csrc/*.cuh`, so
+an edited source or header is rebuilt and an unchanged one is loaded as is.  The library is opened with `ctypes`; no
 PyTorch headers are compiled, which keeps a build to seconds.
 """
 
@@ -41,9 +41,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Dict]:

@@ -161,3 +161,24 @@ def test_mean_max_pool_matches_jax():
 
     x = np.random.default_rng(7).standard_normal((3, 11, 5)).astype(np.float32)
     _close(mean_max_pool(torch.from_numpy(x)), jpool(jnp.asarray(x)), F32_TOL)
+
+
+def test_mean_max_pool_gradient_on_ties_matches_jax():
+    """Tied maxima: the whole gradient goes to the first maximal row, as JAX
+    `seq_max` routes it (torch.amax would split it).  x (1, 4, 2): column 0
+    all zero, column 1 = [1, 3, 3, 0]; weights w = [1, 2, 3, 4] on the
+    pooled (mean, mean, max, max) features."""
+    import jax
+
+    from multimodal_emotion_processing_tpu.ops.pooling import (
+        mean_max_pool as jpool)
+
+    x = np.zeros((1, 4, 2), np.float32)
+    x[0, :, 1] = [1.0, 3.0, 3.0, 0.0]
+    w = np.asarray([1.0, 2.0, 3.0, 4.0], np.float32)
+    ref = np.asarray(jax.grad(lambda a: jnp.sum(jpool(a) * w))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (mean_max_pool(xt) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(ref[0, :, 0], [3.25, 0.25, 0.25, 0.25])
+    np.testing.assert_allclose(ref[0, :, 1], [0.5, 4.5, 0.5, 0.5])
+    np.testing.assert_array_equal(xt.grad.numpy(), ref)

@@ -1,12 +1,14 @@
-"""PyTorch port, the flash forward kernel's wrapper.  No JAX here, so the
-card-only tests run on a machine without it:
+"""PyTorch port, the flash kernels' wrappers: the forward (with and without
+its row stats) and the two backward kernels.  No JAX here, so the card-only
+tests run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_flash_kernel.py -q
 
-On the CPU the CUDA tests skip, and the wrapper's own contract is checked:
-the kernel takes CUDA tensors only (the plain version is the caller's
-choice for CPU tensors, never a fallback), gradients are refused, and the
-launch counter moves only on a launch."""
+On the CPU the CUDA tests skip, and the wrappers' own contract is checked:
+the kernels take CUDA tensors only (the plain versions are the caller's
+choice for CPU tensors, never a fallback), gradients flow through the
+autograd Function while the bare wrappers refuse inputs that need one, and
+the launch counters move only on a launch."""
 
 import numpy as np
 import pytest
@@ -54,14 +56,52 @@ def test_cpu_call_takes_the_plain_version():
 
 
 def test_gradients_are_refused():
+    """The bare kernel wrappers record no autograd graph, so they refuse
+    inputs that need a gradient instead of dropping it; a differentiable
+    call goes through the autograd Function (next test)."""
     q, k, v, m = _inputs(lq=4, lkv=8)
+    o, ms, ls = tfa.flash_forward_plain(q, k, v, m, n_heads=2, stats=True)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_scored_attention(q, k, v, m, torch.zeros(1), n_heads=2)
+    for kern, args in ((tfa.flash_forward_kernel, (q, k, v, m)),
+                       (tfa.flash_bwd_dq_kernel, (q, k, v, m, o, o, ms, ls)),
+                       (tfa.flash_bwd_dkv_kernel, (q, k, v, m, o, o, ms, ls))):
+        before = kern.launches
+        with pytest.raises(RuntimeError, match="FlashAttention"):
+            kern(*args, n_heads=2)
+        assert kern.launches == before
+
+
+def test_gradients_flow():
+    """A call that needs a gradient goes through the autograd Function (its
+    plain versions on the CPU) and gives autograd's gradients of the plain
+    forward; without one it is a plain forward."""
+    q, k, v, m = _inputs(lq=4, lkv=8)
+    w = torch.randn(2, 4, 32, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for fn in (lambda *a: tfa.flash_scored_attention(*a, torch.zeros(1),
+                                                     n_heads=2)[0],
+               lambda *a: tfa.flash_forward_plain(*a, n_heads=2)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, m)]
+        (fn(*leaves) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    before = [kern.launches for kern in tfa.KERNELS]
+    for got, ref in zip(*grads):
+        _close(got, ref, F32_TOL)
+    assert [kern.launches for kern in tfa.KERNELS] == before
     with torch.no_grad():
-        ctx, _ = tfa.flash_scored_attention(q, k, v, m, torch.zeros(1),
-                                            n_heads=2)
-    assert ctx.shape == (2, 4, 32)
+        ctx, _ = tfa.flash_scored_attention(q.requires_grad_(True), k, v, m,
+                                            torch.zeros(1), n_heads=2)
+    assert ctx.shape == (2, 4, 32) and ctx.grad_fn is None
+
+
+def test_backward_kernels_take_cuda_tensors_only():
+    q, k, v, m = _inputs(lq=4, lkv=8)
+    o, ms, ls = tfa.flash_forward_plain(q, k, v, m, n_heads=2, stats=True)
+    for kern in (tfa.flash_bwd_dq_kernel, tfa.flash_bwd_dkv_kernel):
+        before = kern.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            kern(q, k, v, m, o, o, ms, ls, n_heads=2)
+        assert kern.launches == before
 
 
 def test_fully_masked_row_is_uniform_over_real_keys():
@@ -95,6 +135,98 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol, lq, lkv, h, d):
     assert tfa.flash_forward_kernel.launches == before + 1
     assert got.dtype == dtype
     _close(got, tfa.flash_forward_plain(q, k, v, m, n_heads=h), tol)
+
+
+def _grad_inputs(b, lq, lkv, h, dh, dtype, device, seed=0, q_scale=1.0,
+                 mask="zero_row"):
+    """q, k, v, a mask (a ragged valid prefix per row, row 0 fully masked)
+    and a cotangent do."""
+    g = torch.Generator().manual_seed(seed)
+    d = h * dh
+    q, k, v, do = (torch.randn(b, n, d, generator=g)
+                   for n in (lq, lkv, lkv, lq))
+    q = q * q_scale
+    m = None
+    if mask != "none":
+        lens = torch.randint(1, lkv + 1, (b,), generator=g)
+        m = (torch.arange(lkv)[None, :] < lens[:, None]).float()
+        m[0] = 0.0
+    return [None if t is None else t.to(dtype).to(device)
+            for t in (q, k, v, m, do)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,lq,lkv,h,dh", [(2, 20, 200, 2, 16),
+                                           (2, 128, 512, 8, 128),
+                                           (1, 1, 1, 1, 1), (2, 70, 300, 2, 256),
+                                           (2, 33, 77, 3, 48)])
+def test_stats_match_plain_on_card(cuda, dtype, tol, b, lq, lkv, h, dh):
+    q, k, v, m, _ = _grad_inputs(b, lq, lkv, h, dh, dtype, cuda)
+    before = tfa.flash_forward_kernel.stats_launches
+    o, ms, ls = tfa.flash_forward_kernel(q, k, v, m, n_heads=h, stats=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_forward_kernel.stats_launches == before + 1
+    ro, rm, rl = tfa.flash_forward_plain(q, k, v, m, n_heads=h, stats=True)
+    _close(o, ro, tol)
+    # m is about -1e8 in the masked row: compare each row at its own scale
+    assert ((ms - rm).abs() / rm.abs().clamp(min=1.0)).max().item() <= F32_TOL
+    _close(ls, rl, F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,lq,lkv,h,dh,q_scale,mask", [
+    (2, 20, 200, 2, 16, 1.0, "zero_row"), (2, 128, 512, 8, 128, 1.0, "zero_row"),
+    (1, 1, 1, 1, 1, 1.0, "zero_row"), (2, 70, 300, 2, 256, 1.0, "zero_row"),
+    (2, 33, 77, 3, 48, 1.0, "none"), (2, 64, 77, 2, 16, 4.0, "zero_row")])
+def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, b, lq, lkv, h,
+                                              dh, q_scale, mask):
+    """Each side from its own forward (kernel stats for the kernels, plain
+    stats for the plain version).  q_scale 4 puts the fully masked row's raw
+    scores across +-4, where -1e8 + raw rounds to a neighbouring multiple
+    of 8: the backward must recompute the forward's scores bit for bit."""
+    q, k, v, m, do = _grad_inputs(b, lq, lkv, h, dh, dtype, cuda,
+                                  q_scale=q_scale, mask=mask)
+    o, ms, ls = tfa.flash_forward_kernel(q, k, v, m, n_heads=h, stats=True)
+    counts = (tfa.flash_bwd_dq_kernel.launches, tfa.flash_bwd_dkv_kernel.launches)
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, m, o, do, ms, ls, n_heads=h)
+    dk, dv, dmask = tfa.flash_bwd_dkv_kernel(q, k, v, m, o, do, ms, ls,
+                                             n_heads=h)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq_kernel.launches,
+            tfa.flash_bwd_dkv_kernel.launches) == (counts[0] + 1, counts[1] + 1)
+    ro, rm, rl = tfa.flash_forward_plain(q, k, v, m, n_heads=h, stats=True)
+    ref = tfa.flash_backward_plain(q, k, v, m, ro, do, rm, rl, n_heads=h)
+    for got, want in zip((dq, dk, dv), ref[:3]):
+        assert got.dtype == dtype
+        _close(got, want, tol)
+    if mask == "none":
+        assert dmask is None and ref[3] is None
+    else:
+        _close(dmask, ref[3], tol)
+
+
+@pytest.mark.cuda
+def test_function_gradients_on_card(cuda):
+    """Autograd through the Function launches one forward with stats and
+    one of each backward kernel, and gives the plain path's gradients."""
+    q, k, v, m, do = _grad_inputs(2, 40, 130, 2, 64, torch.float32, cuda)
+    grads = []
+    for fn in (lambda *a: tfa.flash_scored_attention(*a, torch.zeros(1),
+                                                     n_heads=2)[0],
+               lambda *a: tfa.flash_forward_plain(*a, n_heads=2)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, m)]
+        before = [kern.launches for kern in tfa.KERNELS]
+        (fn(*leaves) * do).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(([t.grad for t in leaves],
+                      [kern.launches - n for kern, n in zip(tfa.KERNELS, before)]))
+    assert grads[0][1] == [1, 1, 1] and grads[1][1] == [0, 0, 0]
+    for got, ref in zip(grads[0][0], grads[1][0]):
+        _close(got, ref, F32_TOL)
 
 
 @pytest.mark.cuda

@@ -29,8 +29,19 @@ def _port_modules():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
-        ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+            + sorted(PORT.rglob("*.cuh")) + [ROOT / "chip_smoke.py"])
+
+
+def test_the_training_slice_is_covered():
+    """The modules and kernel sources of the training slice are among those
+    the tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("ops.loss", "ops.flash_attention", "data.loader",
+              "train.engine", "train.schedule"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+    names = {p.name for p in _sources()}
+    assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"} <= names
 
 
 def test_every_port_module_imports_without_jax():
