@@ -11,7 +11,8 @@ Phases, each reported on its own lines:
      the shapes the main paths give it and at edge cases, with its time, the
      plain version's, one library call's (timing yardstick only) and the
      bound the card sets for the same work: flash_fwd (with and without its
-     row stats), flash_bwd_dq and flash_bwd_dkv;
+     row stats), flash_bwd_dq and flash_bwd_dkv, and scored_fwd in its four
+     variants (S_prev given or not, S emitted or not);
   3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
      trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
      an eval pass after each, with the kernel launch counts of that run, the
@@ -20,7 +21,13 @@ Phases, each reported on its own lines:
   4. serve: the same preset, four seeded random members in bf16, served
      through the port's BatchingServer (16 concurrent synthetic requests)
      and StreamingPredictor (4 batch-1 requests), with the launch counts of
-     that run and the outputs held against impl="xla" on the same members.
+     that run and the outputs held against impl="xla" on the same members;
+  5. serve_robot: `robot_demo` at full width (dim 192, 6 heads, two chained
+     RealFormer blocks per stream), four seeded random members in f32 with
+     their gates a, b, c set non-zero from a seeded generator (at their
+     initial 0 the attention would not reach the logits), served the same
+     way at impl="pallas", with scored_fwd's launch counts per variant and
+     the outputs held against impl="xla" on the same members.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -46,12 +53,39 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 F32_TOL = 1e-5     # f32 with TF32 off: only summation order differs
 BF16_TOL = 5e-2    # bf16 operands and output (tests/test_flash.py:90)
+# emitted scores, elementwise: |S − S_plain| ≤ 1e-5 · max(1, |S_plain|) (the
+# rtol of tests/test_pallas.py:37-38; masked entries sit near −1e8 or
+# −(1 + c)·1e8, where the f32 spacing is 8 to 16)
+SCORE_RTOL = 1e-5
+# served robot_demo logits, f32 end to end, against impl="xla"
+# (tests/test_interop.py:20)
+ROBOT_TOL = 2e-4
 
 # the nine (Lq, Lkv) stream shapes of mosei_trans_s1024 (l/v/a = 128/256/512)
 S1024_LENS = (128, 256, 512)
 S1024_HEADS, S1024_DH, SERVE_BUCKET = 8, 128, 8
 S1024_PARAMS = 57_584_096
 N_MEMBERS, N_CONCURRENT, N_STREAMING = 4, 16, 4
+# robot_demo: lengths l/v/a 25/100/100, 6 heads of 32; the nine (Lq, Lkv)
+# stream shapes in the grid's stream order (ll, lv, la, vv, vl, va, aa, al,
+# av); 5,662,397 parameters per member (the JAX model's eval_shape)
+ROBOT_LEN = {"l": 25, "v": 100, "a": 100}
+ROBOT_SHAPES = tuple((ROBOT_LEN[q], ROBOT_LEN[kv]) for q, kv in (
+    ("l", "l"), ("l", "v"), ("l", "a"), ("v", "v"), ("v", "l"), ("v", "a"),
+    ("a", "a"), ("a", "l"), ("a", "v")))
+ROBOT_HEADS, ROBOT_DH, ROBOT_PARAMS = 6, 32, 5_662_397
+# scored_fwd variants (has S_prev, emits S); a stream's block 0 runs the
+# first, its block 1 the second
+MAIN_VARIANTS = ((False, True), (True, False))
+# scored_fwd edge cases: (B, Lq, Lkv, H, dh, mask); dh 1/16/48/256, ragged
+# Lkv up to 1024, Lq 1, no mask; every "zero_row" case has a fully masked
+# row, whose S_prev (block 0's output) holds -1e8 + raw under c = 0.7
+SCORED_EDGE_CASES = (
+    (2, 20, 50, 2, 1, "zero_row"), (2, 37, 77, 2, 16, "zero_row"),
+    (3, 33, 77, 3, 48, "ragged"), (2, 70, 300, 2, 256, "zero_row"),
+    (2, 64, 1024, 4, 64, "zero_row"), (2, 128, 1000, 2, 128, "ragged"),
+    (3, 1, 100, 6, 32, "zero_row"), (2, 64, 64, 6, 32, "none"),
+    (1, 1, 1, 1, 1, "ragged"))
 # training: configs.SCALE_POINTS["s1024"] batch 64; 256 / 64 synthetic
 # samples and 2 epochs give 8 optimizer steps and 2 eval passes
 TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
@@ -255,6 +289,7 @@ def phase_kernels(torch, report):
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     summaries = {"flash_fwd": summary}
     summaries.update(backward_cases(torch, g, report))
+    summaries["scored_fwd"] = scored_cases(torch, g, report)
     return summaries
 
 
@@ -375,6 +410,142 @@ def backward_cases(torch, g, report):
         f" ms, SDPA backward {out['flash_bwd_dq']['library_ms']} ms; "
         f"forward with stats {out['pair']['fwd_stats_ms']:.3f} ms")
     return out
+
+
+def scored_bound(b, h, lq, lkv, dh, dtype_name, has_sprev, emit):
+    """Least time for one scored_fwd call on this card: q, k, v, the f32
+    mask, S_prev (f32, when given) read once, ctx and S (f32, when emitted)
+    written once, against the two products' 4·B·H·Lq·Lkv·dh flops at the
+    peak of the operand type."""
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    d = h * dh
+    scores = b * h * lq * lkv * 4
+    nbytes = ((2 * b * lq * d + 2 * b * lkv * d) * itemsize + b * lkv * 4
+              + scores * (int(has_sprev) + int(emit)))
+    return _bound(nbytes, 4.0 * b * h * lq * lkv * dh, dtype_name)
+
+
+def score_errors(got, ref):
+    """max |S − S_plain| / max(1, |S_plain|), elementwise."""
+    return ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+
+def kernel_device_ms(torch, calls, name: str, reps: int = 20):
+    """Device time of the kernels whose name holds `name`, per pass over
+    `calls`, from torch.profiler's CUDA events: what the card spends in the
+    kernel, without the host's launch cost that CUDA events around a loop
+    of short calls also count.  None where the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def scored_cases(torch, g, report):
+    """scored_fwd against scored_forward_plain, ctx and S, in its four
+    variants, in f32 and bf16: the nine robot_demo stream shapes at B 8
+    (the two variants of the main path timed in f32, the serving dtype)
+    and the edge cases.  S_prev is what block 0 emits (the plain version's
+    S of another q on the same keys and mask), so it holds −1e8 + raw where
+    the mask is 0; c is 0.7."""
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+    from multimodal_emotion_processing_tpu_torch.ops.attention import (
+        MASK_PENALTY, split_heads)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lkv in ROBOT_SHAPES:
+            cases.append((True, dtype, (SERVE_BUCKET, lq, lkv, ROBOT_HEADS,
+                                        ROBOT_DH, "zero_row")))
+        cases += [(False, dtype, c) for c in SCORED_EDGE_CASES]
+    rows, ok, timed_calls = [], True, []
+    for main, dtype, (b, lq, lkv, h, dh, mask_kind) in cases:
+        dname = str(dtype).removeprefix("torch.")
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        q, k, v, mask = attention_inputs(torch, g, b, lq, lkv, h, dh, dtype,
+                                         mask_kind)
+        q0 = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
+        sprev = pa.scored_forward_plain(q0, k, v, mask, None, None,
+                                        n_heads=h)[1].contiguous()
+        c = torch.tensor([0.7], device="cuda").to(dtype)
+        for has_sprev, emit in pa.VARIANTS:
+            sp = sprev if has_sprev else None
+            ctx, s = pa.scored_forward_kernel(q, k, v, mask, sp, c, n_heads=h,
+                                              emit_scores=emit)
+            torch.cuda.synchronize()
+            rctx, rs = pa.scored_forward_plain(q, k, v, mask, sp, c, n_heads=h,
+                                               emit_scores=emit)
+            abs_err, err = errors(ctx, rctx)
+            s_err = score_errors(s, rs) if emit else 0.0
+            good = (bool(torch.isfinite(ctx).all().item()) and err <= tol
+                    and s_err <= SCORE_RTOL and (s is None) == (not emit))
+            ok &= good
+            row = dict(dtype=dname, b=b, lq=lq, lkv=lkv, h=h, dh=dh,
+                       mask=mask_kind, has_sprev=has_sprev, emit=emit,
+                       main_path=main, max_abs_err=abs_err, max_norm_err=err,
+                       score_rel_err=s_err, tol=tol, ok=good)
+            timing = ""
+            if main and dtype == torch.float32 and (has_sprev, emit) in MAIN_VARIANTS:
+                qh, kh, vh = (split_heads(t, h).contiguous() for t in (q, k, v))
+                bias = -MASK_PENALTY * (1.0 - mask.float())[:, None, None, :]
+                if has_sprev:
+                    bias = (bias + c.float() * sprev).contiguous()
+                call = (lambda q=q, k=k, v=v, mask=mask, sp=sp, c=c, h=h, emit=emit:
+                        pa.scored_forward_kernel(q, k, v, mask, sp, c, n_heads=h,
+                                                 emit_scores=emit))
+                timed_calls.append(call)
+                row["ms"] = time_ms(torch, call)
+                row["plain_ms"] = time_ms(torch, lambda: pa.scored_forward_plain(
+                    q, k, v, mask, sp, c, n_heads=h, emit_scores=emit))
+                row["library_ms"] = time_ms(
+                    torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=bias))
+                row.update(scored_bound(b, h, lq, lkv, dh, dname, has_sprev, emit))
+                timing = (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                          f"library_ms={row['library_ms']:.4f} "
+                          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+            rows.append(row)
+            log(f"[kernels] scored_fwd {dname} B={b} Lq={lq} Lkv={lkv} H={h} "
+                f"dh={dh} mask={mask_kind} sprev={int(has_sprev)} "
+                f"emit={int(emit)} max_abs_err={abs_err:.3e} norm_err={err:.3e} "
+                f"S_rel_err={s_err:.2e} tol={tol:g} {'ok' if good else 'FAIL'}"
+                + timing)
+    report["scored_cases"] = rows
+    if not ok:
+        raise AssertionError("scored_fwd disagrees with its plain version")
+    timed = [r for r in rows if "ms" in r]
+    summary = {k: sum(r[k] for r in timed)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    summary["bound_by"] = majority_bound(timed)
+    summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    summary["max_score_rel_err"] = max(r["score_rel_err"] for r in rows)
+    summary["calls_timed"] = len(timed)
+    try:
+        summary["device_ms"] = kernel_device_ms(torch, timed_calls, "scored_fwd")
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        summary["device_ms"] = None
+    report["scored_summary"] = summary
+    dev = summary["device_ms"]
+    log(f"[kernels] scored_fwd, sum over the {len(timed)} calls of one "
+        f"robot_demo member forward at B={SERVE_BUCKET} f32: "
+        f"{summary['ms']:.4f} ms as the wrapper is called (CUDA events), "
+        + ("device time not measured" if dev is None else
+           f"{dev:.4f} ms device time (profiler)")
+        + f"; bound {summary['bound_ms']:.4f} ({summary['bound_by']}), plain "
+        f"{summary['plain_ms']:.4f} ms, SDPA with the float bias (ctx only, "
+        f"no S) {summary['library_ms']:.4f} ms")
+    return summary
 
 
 def ensure_no_name(samples):
@@ -592,40 +763,29 @@ def gradient_errors(got, ref):
     return out
 
 
-def phase_serve(torch, report):
+def run_serving(torch, exp, members, samples, *, impl, dtype, kernel, tag):
+    """The serving main path, counted: BatchingServer and StreamingPredictor
+    over `members`, warmed up; `kernel`'s counts are set to 0 just before
+    all `samples` go to the server at once and the first N_STREAMING to
+    StreamingPredictor.predict one by one, and the caller reads them right
+    after.  Returns (timings and server stats, served and streamed
+    (logits, probs), the predictor)."""
     import numpy as np
 
-    from multimodal_emotion_processing_tpu_torch import configs
-    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
-    from multimodal_emotion_processing_tpu_torch.models import build_model
-    from multimodal_emotion_processing_tpu_torch.ops.flash_attention import flash_forward_kernel
     from multimodal_emotion_processing_tpu_torch.serve import (
-        BatchingServer, StreamingPredictor, ensemble_serve_fn)
+        BatchingServer, StreamingPredictor)
 
-    exp = configs.get("mosei_trans_s1024")
-    dtype = exp.train.compute_dtype
-    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
-    n_params = sum(p.numel() for p in members[0].parameters())
-    samples = ensure_no_name(synthetic_dataset(exp.name, exp.model,
-                                               N_CONCURRENT, seed=7))
-    log(f"[main] {exp.name}: dim={exp.model.dim} heads={exp.model.n_heads} "
-        f"lens l/v/a={exp.model.l_len}/{exp.model.v_len}/{exp.model.a_len} "
-        f"params/member={n_params} members={N_MEMBERS} dtype={dtype} "
-        f"impl={exp.model.attn_impl}")
-
-    srv = BatchingServer(members, exp.thresholds, impl=exp.model.attn_impl,
-                         max_delay_ms=3.0, dtype=dtype)
-    sp = StreamingPredictor(members, exp.thresholds, impl=exp.model.attn_impl,
-                            dtype=dtype)
+    srv = BatchingServer(members, exp.thresholds, impl=impl, max_delay_ms=3.0,
+                         dtype=dtype)
+    sp = StreamingPredictor(members, exp.thresholds, impl=impl, dtype=dtype)
     try:
         srv.warmup(samples[0])
         sp.warmup(samples[0])
         torch.cuda.synchronize()
 
-        flash_forward_kernel.reset()
+        kernel.reset()
         t0 = time.perf_counter()
-        done = {}
-        futs = []
+        done, futs = {}, []
         for i, s in enumerate(samples):
             t_submit = time.perf_counter()
             fut = srv.submit(s)
@@ -641,81 +801,213 @@ def phase_serve(torch, report):
             t1 = time.perf_counter()
             streamed.append(sp.predict(s))
             stream_ms.append((time.perf_counter() - t1) * 1e3)
-        launches = flash_forward_kernel.launches
     finally:
         srv.close()
 
-    forwards = stats["batches"] + N_STREAMING
-    expected = 18 * N_MEMBERS * forwards
     lat_ms = sorted(v * 1e3 for v in done.values())
-    main = dict(config=exp.name, params_per_member=n_params,
-                requests=len(served), batches=stats["batches"],
-                by_bucket=stats["by_bucket"], forwards=forwards,
-                flash_launches=launches, expected_launches=expected,
-                server_elapsed_s=elapsed, server_req_per_s=len(served) / elapsed,
-                server_p50_ms=statistics.median(lat_ms), server_max_ms=max(lat_ms),
-                stream_ms=stream_ms, stream_p50_ms=statistics.median(stream_ms))
-    report["main_path"] = main
-    log(f"[main] server: {len(served)} requests in {elapsed * 1e3:.2f} ms = "
-        f"{main['server_req_per_s']:.2f} req/s; p50 latency "
-        f"{main['server_p50_ms']:.2f} ms, max {main['server_max_ms']:.2f} ms; "
+    out = dict(config=exp.name, impl=impl, dtype=dtype, requests=len(served),
+               batches=stats["batches"], by_bucket=stats["by_bucket"],
+               forwards=stats["batches"] + N_STREAMING,
+               server_elapsed_s=elapsed, server_req_per_s=len(served) / elapsed,
+               server_p50_ms=statistics.median(lat_ms), server_max_ms=max(lat_ms),
+               stream_ms=stream_ms, stream_p50_ms=statistics.median(stream_ms))
+    log(f"[{tag}] server: {len(served)} requests in {elapsed * 1e3:.2f} ms = "
+        f"{out['server_req_per_s']:.2f} req/s; p50 latency "
+        f"{out['server_p50_ms']:.2f} ms, max {out['server_max_ms']:.2f} ms; "
         f"batches={stats['batches']} by_bucket={stats['by_bucket']}")
-    log(f"[main] streaming: {N_STREAMING} batch-1 predicts, p50 "
-        f"{main['stream_p50_ms']:.2f} ms ({', '.join(f'{t:.2f}' for t in stream_ms)})")
-    log(f"[main] flash_fwd launches={launches} expected 18 x {N_MEMBERS} "
-        f"members x {forwards} forwards = {expected}")
-
+    log(f"[{tag}] streaming: {N_STREAMING} batch-1 predicts, p50 "
+        f"{out['stream_p50_ms']:.2f} ms ({', '.join(f'{t:.2f}' for t in stream_ms)})")
     pred = np.stack([p for p, _ in served])
     probs = np.stack([q for _, q in served])
-    n_off = len(exp.thresholds)
-    if pred.shape != (N_CONCURRENT, exp.model.n_emotions) or probs.shape != (
-            N_CONCURRENT, n_off):
+    if pred.shape != (len(samples), exp.model.n_emotions) or probs.shape != (
+            len(samples), len(exp.thresholds)):
         raise AssertionError(f"served shapes {pred.shape} {probs.shape}")
     if not (np.isfinite(pred).all() and np.isfinite(probs).all()):
         raise AssertionError("served outputs are not finite")
+    return out, served, streamed, sp
 
-    # the same members through the plain attention path, all requests at once
+
+def check_against_xla(torch, exp, members, samples, served, streamed, *,
+                      dtype, tol, tag):
+    """The same members through the plain attention path, all requests at
+    once: the served and streamed logits (normalised by max(1, |ref|)) and
+    probabilities against it, within `tol`.  Returns (errors, the batch on
+    the card)."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch.serve import ensemble_serve_fn
+
     ref_fn = ensemble_serve_fn(members, exp.thresholds, impl="xla", dtype=dtype)
     batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])).cuda()
              for k in samples[0] if k != "label"}
     ref_pred, ref_probs = (t.cpu().numpy() for t in ref_fn(batch))
     scale = max(1.0, float(np.abs(ref_pred).max()))
-    err_pred = float(np.abs(pred - ref_pred).max()) / scale
-    err_probs = float(np.abs(probs - ref_probs).max())
-    err_stream = max(float(np.abs(p - ref_pred[i]).max()) / scale
-                     for i, (p, _) in enumerate(streamed))
-    main.update(err_vs_xla_pred=err_pred, err_vs_xla_probs=err_probs,
-                err_stream_vs_xla=err_stream)
-    log(f"[main] vs impl=xla on the same members: logits norm_err={err_pred:.3e} "
-        f"probs abs_err={err_probs:.3e} streaming norm_err={err_stream:.3e} "
-        f"(bound {BF16_TOL:g})")
-    if max(err_pred, err_probs, err_stream) > BF16_TOL:
+    pred = np.stack([p for p, _ in served])
+    probs = np.stack([q for _, q in served])
+    errs = dict(
+        err_vs_xla_pred=float(np.abs(pred - ref_pred).max()) / scale,
+        err_vs_xla_probs=float(np.abs(probs - ref_probs).max()),
+        err_stream_vs_xla=max(max(float(np.abs(p - ref_pred[i]).max()) / scale,
+                                  float(np.abs(q - ref_probs[i]).max()))
+                              for i, (p, q) in enumerate(streamed)))
+    log(f"[{tag}] vs impl=xla on the same members: logits norm_err="
+        f"{errs['err_vs_xla_pred']:.3e} probs abs_err="
+        f"{errs['err_vs_xla_probs']:.3e} streaming err="
+        f"{errs['err_stream_vs_xla']:.3e} (bound {tol:g})")
+    if max(errs.values()) > tol:
         raise AssertionError("served outputs disagree with impl='xla'")
+    return errs, batch
+
+
+def profile_serving(torch, exp, members, batch, sp, sample, *, impl, dtype):
+    """Where the time goes, after the counted run: one bucket-8 ensemble
+    forward and one batch-1 predict under torch.profiler."""
+    from multimodal_emotion_processing_tpu_torch.serve import ensemble_serve_fn
+
+    fwd8 = ensemble_serve_fn(members, exp.thresholds, impl=impl, dtype=dtype)
+    batch8 = {k: v[:SERVE_BUCKET] for k, v in batch.items()}
+    try:
+        return {f"bucket{SERVE_BUCKET}_forward": profile_breakdown(
+                    torch, lambda: fwd8(batch8)),
+                "batch1_predict": profile_breakdown(
+                    torch, lambda: sp.predict(sample))}
+    except Exception:   # a measurement only: the checks stand
+        traceback.print_exc()
+        log("[profile] not measured: the profiler failed")
+        return "not measured: the profiler failed"
+
+
+def phase_serve(torch, report):
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops.flash_attention import flash_forward_kernel
+
+    exp = configs.get("mosei_trans_s1024")
+    dtype, impl = exp.train.compute_dtype, exp.model.attn_impl
+    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
+    n_params = sum(p.numel() for p in members[0].parameters())
+    samples = ensure_no_name(synthetic_dataset(exp.name, exp.model,
+                                               N_CONCURRENT, seed=7))
+    log(f"[main] {exp.name}: dim={exp.model.dim} heads={exp.model.n_heads} "
+        f"lens l/v/a={exp.model.l_len}/{exp.model.v_len}/{exp.model.a_len} "
+        f"params/member={n_params} members={N_MEMBERS} dtype={dtype} "
+        f"impl={impl}")
+
+    main, served, streamed, sp = run_serving(
+        torch, exp, members, samples, impl=impl, dtype=dtype,
+        kernel=flash_forward_kernel, tag="main")
+    launches = flash_forward_kernel.launches
+    expected = 18 * N_MEMBERS * main["forwards"]
+    main.update(params_per_member=n_params, flash_launches=launches,
+                expected_launches=expected)
+    report["main_path"] = main
+    log(f"[main] flash_fwd launches={launches} expected 18 x {N_MEMBERS} "
+        f"members x {main['forwards']} forwards = {expected}")
+
+    errs, batch = check_against_xla(torch, exp, members, samples, served,
+                                    streamed, dtype=dtype, tol=BF16_TOL,
+                                    tag="main")
+    main.update(errs)
     if launches != expected:
         raise AssertionError(f"flash_fwd launched {launches} times, expected "
                              f"{expected}")
+    report["profile"] = profile_serving(torch, exp, members, batch, sp,
+                                        samples[0], impl=impl, dtype=dtype)
+    return launches
 
-    # where the time goes, after the counted run: one bucket-8 ensemble
-    # forward and one batch-1 predict under torch.profiler
-    fwd8 = ensemble_serve_fn(members, exp.thresholds, impl=exp.model.attn_impl,
-                             dtype=dtype)
-    batch8 = {k: v[:SERVE_BUCKET] for k, v in batch.items()}
-    try:
-        report["profile"] = {
-            f"bucket{SERVE_BUCKET}_forward": profile_breakdown(
-                torch, lambda: fwd8(batch8)),
-            "batch1_predict": profile_breakdown(
-                torch, lambda: sp.predict(samples[0]))}
-    except Exception:   # a measurement only: the checks above stand
-        traceback.print_exc()
-        report["profile"] = "not measured: the profiler failed"
-        log("[profile] not measured: the profiler failed")
+
+def set_gates(torch, members, seed: int = 1234):
+    """a, b ~ U(0.5, 1.5) and c ~ U(0.25, 1.0) in every RealFormer block,
+    from one seeded generator (c > 0: a gate at or below −1 would cancel
+    the next block's mask penalty)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in members:
+            for blk in m.multimodal_blocks:
+                blk.a.uniform_(0.5, 1.5, generator=g)
+                blk.b.uniform_(0.5, 1.5, generator=g)
+                blk.c.uniform_(0.25, 1.0, generator=g)
+
+
+def phase_serve_robot(torch, report):
+    """The robot_demo slice: gate-perturbed seeded members served at
+    impl="pallas" through BatchingServer and StreamingPredictor, with
+    scored_fwd counted per variant, then held against impl="xla"."""
+    import copy
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("robot_demo")
+    m = exp.model
+    dtype, impl = exp.train.compute_dtype, "pallas"
+    if (dtype, m.dim, m.n_heads, m.n_layers, m.block, m.head) != (
+            "float32", 192, ROBOT_HEADS, 2, "realformer", "grid_only"):
+        raise AssertionError(f"unexpected config {exp}")
+    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
+    zero_gates = copy.deepcopy(members[0])
+    set_gates(torch, members)
+    n_params = sum(p.numel() for p in members[0].parameters())
+    samples = synthetic_dataset(exp.name, m, N_CONCURRENT, seed=7)
+    log(f"[robot] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
+        f"{m.l_len}/{m.v_len}/{m.a_len} n_layers={m.n_layers} "
+        f"params/member={n_params} members={N_MEMBERS} dtype={dtype} "
+        f"impl={impl}; gates a, b ~ U(0.5, 1.5), c ~ U(0.25, 1.0)")
+    if n_params != ROBOT_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {ROBOT_PARAMS}")
+
+    main, served, streamed, sp = run_serving(
+        torch, exp, members, samples, impl=impl, dtype=dtype,
+        kernel=pa.scored_forward_kernel, tag="robot")
+    launches = pa.scored_forward_kernel.launches
+    by_variant = dict(pa.scored_forward_kernel.variant_launches)
+    forwards = main["forwards"]
+    expected = 18 * N_MEMBERS * forwards
+    expected_by_variant = {v: (9 * N_MEMBERS * forwards if v in MAIN_VARIANTS
+                               else 0) for v in pa.VARIANTS}
+    main.update(params_per_member=n_params, scored_launches=launches,
+                scored_launches_by_variant={f"sprev={int(a)},emit={int(b)}": n
+                                            for (a, b), n in by_variant.items()},
+                expected_launches=expected)
+    report["robot_path"] = main
+    log(f"[robot] scored_fwd launches={launches} by variant "
+        f"{main['scored_launches_by_variant']}; expected 18 x {N_MEMBERS} "
+        f"members x {forwards} forwards = {expected}, split 9/9 between "
+        "(no S_prev, emit S) and (S_prev, no S)")
+
+    errs, batch = check_against_xla(torch, exp, members, samples, served,
+                                    streamed, dtype=dtype, tol=ROBOT_TOL,
+                                    tag="robot")
+    # the check sees the attention: member 0 with its gates at 0 (as built)
+    # gives other logits than with the gates set
+    with torch.no_grad():
+        gated = members[0](batch, impl="xla").float()
+        ungated = zero_gates(batch, impl="xla").float()
+    gate_effect = float((gated - ungated).abs().max()) / max(
+        1.0, float(gated.abs().max()))
+    main.update(errs, gate_effect=gate_effect)
+    log(f"[robot] member 0 with its gates at 0 moves its logits by "
+        f"{gate_effect:.3e} (normalised)")
+    if gate_effect <= 100 * ROBOT_TOL:
+        raise AssertionError("the gates do not reach the logits: the check "
+                             "cannot see the attention")
+    if launches != expected or by_variant != expected_by_variant:
+        raise AssertionError(f"scored_fwd launched {launches} times "
+                             f"({by_variant}), expected {expected} "
+                             f"({expected_by_variant})")
+    report["robot_profile"] = profile_serving(torch, exp, members, batch, sp,
+                                              samples[0], impl=impl, dtype=dtype)
     return launches
 
 
 def _kernel_category(name: str) -> str:
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd"):
         if kernel in low:
             return kernel
     if "memcpy" in low or "memset" in low:
@@ -799,7 +1091,7 @@ def main() -> int:
 
     summaries, launches = None, {}
     for phase, fn in (("kernels", phase_kernels), ("train", phase_train),
-                      ("serve", phase_serve)):
+                      ("serve", phase_serve), ("serve_robot", phase_serve_robot)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -818,6 +1110,7 @@ def main() -> int:
         print(f"FAIL: phases {failed}", file=sys.stderr)
         return 1
     fa_py = "multimodal_emotion_processing_tpu/ops/flash_attention.py"
+    pa_py = "multimodal_emotion_processing_tpu/ops/pallas_attention.py"
     kernels = []
     for name, source, replaces, also in (
             ("flash_fwd", "flash_fwd.cu", f"{fa_py}:208", [f"{fa_py}:431"]),
@@ -842,6 +1135,26 @@ def main() -> int:
                          "bf16; plain_ms (flash_backward_plain) and library_ms "
                          "(SDPA forward+backward minus forward) cover the whole "
                          "backward, dq, dk and dv")})
+    summ = summaries["scored_fwd"]
+    kernels.append({
+        "name": "scored_fwd", "route": "cuda",
+        "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_fwd.cu",
+        "replaces": f"{pa_py}:190",
+        "launches": launches["serve_robot"],
+        "launches_by_path": {"serve_robot": launches["serve_robot"]},
+        "max_abs_err": summ["max_abs_err"],
+        "max_score_rel_err": summ["max_score_rel_err"],
+        "ms": summ["ms"], "device_ms": summ["device_ms"],
+        "plain_ms": summ["plain_ms"],
+        "bound_ms": summ["bound_ms"], "bound_by": summ["bound_by"],
+        "library_ms": summ["library_ms"],
+        "timed_at": (f"sum over the {summ['calls_timed']} calls of one "
+                     f"robot_demo member forward (nine stream shapes x two "
+                     f"chained blocks), B={SERVE_BUCKET}, f32; ms by CUDA "
+                     "events around the wrapper's calls (host launch cost "
+                     "included), device_ms the kernel's own time from "
+                     "torch.profiler; library_ms is SDPA with the float bias c*S_prev - 1e8(1-mask), which "
+                     "computes ctx and writes no S")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@
         [--device cpu] [--set K=V]
         Train one member with the port's Trainer on synthetic data and
         print one JSON line per epoch.
-  serve <config> [--concurrent N] [--device cpu] [--impl xla|flash]
+  serve [<config>] [--concurrent N] [--device cpu] [--impl xla|flash|pallas]
         Serve a 4-member ensemble of seeded random members on synthetic
         requests: N concurrent requests through the micro-batching server,
-        or one batch-1 request without --concurrent.
+        or one batch-1 request without --concurrent.  The config defaults
+        to robot_demo, the reference's streaming demo.
 
 Runs on the GPU unless `--device cpu` is given.
 """
@@ -57,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="config override, model.K=V or train.K=V")
     sv = sub.add_parser("serve", help="ensemble serving on synthetic requests")
-    sv.add_argument("config")
-    sv.add_argument("--impl", choices=["xla", "flash"], default=None,
+    sv.add_argument("config", nargs="?", default="robot_demo")
+    sv.add_argument("--impl", choices=["xla", "flash", "pallas"], default=None,
                     help="attention implementation (default: the config's)")
     sv.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")

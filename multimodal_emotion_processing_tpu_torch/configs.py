@@ -1,10 +1,10 @@
 """Typed configurations for the PyTorch port.
 
 The port keeps its own copy of the configuration dataclasses and of the
-`mosei_trans` family, field for field the same as the JAX package's, so a
-config name means the same model on either side.  Only the `mosei_trans`
-family is registered here: the other families arrive with the slices that
-port their blocks and heads.
+registered families, field for field the same as the JAX package's, so a
+config name means the same model on either side.  Registered so far: the
+`mosei_trans` family and `robot_demo`; the other families arrive with the
+slices that port their blocks and heads.
 """
 
 from __future__ import annotations
@@ -42,8 +42,9 @@ class ModelConfig:
     head: str = "concat_trans"
     p_len: int = 6
     # attention implementation the CLI uses when none is passed:
-    # 'xla' (the plain einsum path) or 'flash' (the online-softmax kernel,
-    # terminal blocks only; other blocks take the plain path)
+    # 'xla' (the plain einsum path), 'flash' (the online-softmax kernel,
+    # terminal blocks only; other blocks take the plain path) or 'pallas'
+    # (the score-materializing kernel, every block, forward only)
     attn_impl: str = "xla"
     v_dims_multires: Tuple[int, int, int] = (256, 512, 1024)
     remat: bool = False
@@ -107,6 +108,30 @@ def mosei_trans() -> ExperimentConfig:
     )
 
 
+def robot_demo() -> ExperimentConfig:
+    """Streaming single-sample inference demo (robot_demo.py)."""
+    return ExperimentConfig(
+        name="robot_demo",
+        model=ModelConfig(
+            l_dim=768, v_dim=0, a_dim=40,
+            l_len=25, v_len=100, a_len=100,
+            dim=192, n_heads=6, n_layers=2, ffn=2, dropout=0.1,
+            block="realformer", use_position_embedding=True, unify="conv_multires",
+            n_emotions=7, head="grid_only",
+            v_dims_multires=(256, 512, 1024),
+        ),
+        train=TrainConfig(
+            batch_size=64, lr=1e-3, epochs=99, grad_clip=1.0,
+            optimizer="adamw", plateau_patience=3, early_stop=7,
+            save_guard=None, n_folds=4,
+        ),
+        # robot_demo.py:609 — calibrated-sigmoid offsets (serving path)
+        thresholds=(0.1, 0.1, -0.1, 0.0, 0.1, 0.0),
+        emotion_names=("happ", "sadn", "ange", "disg", "surp", "fear"),
+        emotion_index=(0, 1, 2, 3, 4, 5),
+    )
+
+
 # Scaled presets: the flagship architecture at larger encoder widths over the
 # same raw modality features.  Every point keeps the head width
 # dh = dim / n_heads = 128 and computes in bfloat16.
@@ -143,6 +168,7 @@ def _mosei_trans_scaled(point: str) -> ExperimentConfig:
 
 REGISTRY = {
     "mosei_trans": mosei_trans,
+    "robot_demo": robot_demo,
     **{f"mosei_trans_{p}": (lambda p=p: _mosei_trans_scaled(p))
        for p in SCALE_POINTS},
 }

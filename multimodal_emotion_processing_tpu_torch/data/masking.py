@@ -1,10 +1,13 @@
-"""Sample assembly: the reference's summary-token masking
-(cmu-mosei/run.py:104-151), in numpy.
+"""Sample assembly, in numpy.
 
-Audio inf/nan become -71; three summary frames (per-feature max, min, mean
-over the raw sequence) are prepended; a long sequence (len >= m_len - 3)
-gives TWO crops, head- and tail-anchored, both carrying the summary frames;
-a short one is right-padded with zeros and masked over its len + 3 frames.
+The reference's summary-token masking (cmu-mosei/run.py:104-151): audio
+inf/nan become -71; three summary frames (per-feature max, min, mean over
+the raw sequence) are prepended; a long sequence (len >= m_len - 3) gives
+TWO crops, head- and tail-anchored, both carrying the summary frames; a
+short one is right-padded with zeros and masked over its len + 3 frames.
+
+The robot demo's fixed length (robot_demo.py:63-112): a short sequence is
+zero-padded, a long one stride-subsampled (`pad_or_subsample`).
 """
 
 from __future__ import annotations
@@ -51,3 +54,30 @@ def summary_masking(
         feats.append(x)
         masks.append(mask)
     return feats, masks
+
+
+def pad_or_truncate(m: np.ndarray, m_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Fixed-length pad (zero-fill) / head-truncate."""
+    m = np.asarray(m, dtype=np.float32)
+    if len(m) < m_len:
+        pad = m_len - len(m)
+        feat = np.concatenate([m, np.zeros((pad,) + m.shape[1:], np.float32)], axis=0)
+        mask = np.concatenate([np.ones(len(m), np.float32), np.zeros(pad, np.float32)])
+    else:
+        feat = m[:m_len]
+        mask = np.ones(m_len, dtype=np.float32)
+    return feat, mask
+
+
+def pad_or_subsample(m: np.ndarray, m_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Robot-demo fixed length: pad short; stride-subsample long with
+    gap = len // m_len over range(0, len, gap), then truncate to m_len.
+    An empty sequence gives zeros under an all-zero mask."""
+    m = np.asarray(m, dtype=np.float32)
+    if len(m) == 0:
+        return np.zeros((m_len,) + m.shape[1:], np.float32), np.zeros(m_len, np.float32)
+    if len(m) < m_len:
+        return pad_or_truncate(m, m_len)
+    gap = len(m) // m_len
+    idx = np.arange(0, len(m), gap)[:m_len]
+    return m[idx], np.ones(m_len, dtype=np.float32)

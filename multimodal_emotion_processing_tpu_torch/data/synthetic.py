@@ -1,10 +1,12 @@
-"""Shape- and dtype-faithful synthetic requests for the `mosei_trans` family.
+"""Shape- and dtype-faithful synthetic requests for the `mosei_trans` family
+and `robot_demo`.
 
-Samples carry the real loader's quirks: variable raw lengths (both the pad
-and the two-crop paths of summary masking), inf/nan in audio, and `no_name`
-pairs whose previous utterance is all zeros with an all-zero mask
-(cmu-mosei/run.py:154-198).  The same seed gives the same samples as the JAX
-package's generator.
+`mosei_trans` samples carry the real loader's quirks: variable raw lengths
+(both the pad and the two-crop paths of summary masking), inf/nan in audio,
+and `no_name` pairs whose previous utterance is all zeros with an all-zero
+mask (cmu-mosei/run.py:154-198).  `robot_demo` samples fill one of the three
+visual resolution slots and leave the other two zero.  The same seed gives
+the same samples as the JAX package's generator.
 """
 
 from __future__ import annotations
@@ -59,7 +61,26 @@ def mosei_pair_sample(rng, m, *, no_name_prob: float = 0.15) -> Dict[str, np.nda
     return sample
 
 
-SAMPLERS = {"mosei_trans": mosei_pair_sample}
+def robot_sample(rng, m) -> Dict[str, np.ndarray]:
+    """Robot-demo sample: one active visual resolution slot, others zero
+    (robot_demo.py:63-112)."""
+    d256, d512, d1024 = m.v_dims_multires
+    slot = int(rng.integers(0, 3))
+    dims = [d256, d512, d1024]
+    raw = raw_modality(rng, m.v_len * 3, dims[slot])
+    feat, v_mask = masking.pad_or_subsample(raw, m.v_len)
+    vs = [np.zeros((m.v_len, d), np.float32) for d in dims]
+    vs[slot] = feat
+    l, l_mask = masking.pad_or_subsample(raw_modality(rng, m.l_len * 3, m.l_dim), m.l_len)
+    a, a_mask = masking.pad_or_subsample(raw_modality(rng, m.a_len * 3, m.a_dim), m.a_len)
+    return {
+        "l": l, "v256": vs[0], "v512": vs[1], "v1024": vs[2], "a": a,
+        "l_mask": l_mask, "v_mask": v_mask, "a_mask": a_mask,
+        "label": (rng.random(7) > 0.75).astype(np.int32),
+    }
+
+
+SAMPLERS = {"mosei_trans": mosei_pair_sample, "robot_demo": robot_sample}
 
 
 def synthetic_dataset(config_name: str, m, n: int, seed: int = 0) -> List[Dict]:

@@ -2,10 +2,13 @@
 
 The JAX package keeps parameters as nested dicts with Linear kernels stored
 (in, out); the port's modules carry the reference's state-dict key names
-with torch's (out, in) layout.  `from_jax_params` maps one onto the other
-(the same mapping as the JAX package's `to_reference_state_dict`, kept here
-as the port's own copy), so `model.load_state_dict(from_jax_params(p, cfg))`
-loads JAX weights as they are.
+with torch's (out, in) layout, and (out, in, 1) for the kernel-1 convs.
+`from_jax_params` maps one onto the other (the same mapping, key order
+included, as the JAX package's `to_reference_state_dict`, kept here as the
+port's own copy), so `model.load_state_dict(from_jax_params(p, cfg))` loads
+JAX weights as they are.  Ported families: `concat_trans` (minus blocks,
+linear unify) and `grid_only` (RealFormer blocks, multi-resolution conv
+unify, position embeddings).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.grid import STREAMS
+from ..models.registry import PORTED
 
 
 def _t(w) -> np.ndarray:
@@ -27,6 +31,10 @@ def _arr(x) -> np.ndarray:
     return np.array(x, dtype=np.float32, copy=True)
 
 
+def _conv(w) -> np.ndarray:
+    return _t(w)[:, :, None]
+
+
 def _minus_block(blk, base: str, out: Dict) -> None:
     out[f"{base}.proj.weight"] = _t(blk["proj"]["w"])
     out[f"{base}.minus.weight"] = _t(blk["minus"]["w"])
@@ -35,28 +43,64 @@ def _minus_block(blk, base: str, out: Dict) -> None:
     out[f"{base}.c"] = _arr(blk["c"])
 
 
+def _realformer_block(blk, base: str, out: Dict) -> None:
+    for i, k in enumerate(("wq", "wk", "wv")):
+        out[f"{base}.w_qkv.{i}.weight"] = _t(blk[k]["w"])
+    out[f"{base}.proj.weight"] = _t(blk["proj"]["w"])
+    for nk in ("norm1", "norm2"):
+        out[f"{base}.{nk}.weight"] = _arr(blk[nk]["scale"])
+        out[f"{base}.{nk}.bias"] = _arr(blk[nk]["bias"])
+    out[f"{base}.ffn.0.weight"] = _t(blk["ffn1"]["w"])
+    out[f"{base}.ffn.0.bias"] = _arr(blk["ffn1"]["b"])
+    out[f"{base}.ffn.2.weight"] = _t(blk["ffn2"]["w"])
+    out[f"{base}.ffn.2.bias"] = _arr(blk["ffn2"]["b"])
+    for g in ("a", "b", "c"):
+        out[f"{base}.{g}"] = _arr(blk[g])
+
+
 def _grid(g, prefix: str, cfg, out: Dict) -> None:
     u = f"{prefix}unify_dimension"
-    out[f"{u}.linguistic.weight"] = _t(g["unify"]["l"]["w"])
-    out[f"{u}.visual.weight"] = _t(g["unify"]["v"]["w"])
-    out[f"{u}.acoustic.weight"] = _t(g["unify"]["a"]["w"])
+    if cfg.unify == "linear":
+        out[f"{u}.linguistic.weight"] = _t(g["unify"]["l"]["w"])
+        out[f"{u}.visual.weight"] = _t(g["unify"]["v"]["w"])
+        out[f"{u}.acoustic.weight"] = _t(g["unify"]["a"]["w"])
+    else:   # conv_multires
+        for ours, theirs in (("l", "linguistic"), ("v256", "visual_256"),
+                             ("v512", "visual_512"), ("v1024", "visual_1024"),
+                             ("a", "acoustic")):
+            out[f"{u}.{theirs}.weight"] = _conv(g["unify"][ours]["w"])
+            out[f"{u}.{theirs}.bias"] = _arr(g["unify"][ours]["b"])
+    if cfg.use_position_embedding:
+        for ours, theirs in (("pos_l", "linguistic"), ("pos_v", "visual"),
+                             ("pos_a", "acoustic")):
+            out[f"{prefix}{theirs}_position.position_embeddings.weight"] = _arr(
+                g[ours]["table"])
+    block = _minus_block if cfg.block == "minus" else _realformer_block
     for s, (name, _, _) in enumerate(STREAMS):
         for i in range(cfg.n_layers):
-            _minus_block(g["blocks"][name][i],
-                         f"{prefix}multimodal_blocks.{cfg.n_layers * s + i}", out)
+            block(g["blocks"][name][i],
+                  f"{prefix}multimodal_blocks.{cfg.n_layers * s + i}", out)
     out[f"{prefix}classifier.weight"] = _t(g["classifier"]["w"])
+    if "b" in g["classifier"]:
+        out[f"{prefix}classifier.bias"] = _arr(g["classifier"]["b"])
 
 
 def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
     """JAX-package params (a nested dict of arrays, numpy or jax) of a
-    `concat_trans` model with minus blocks and the linear unify -> a
-    reference-keyed state dict of CPU float32 tensors."""
+    ported family (`concat_trans` with minus blocks and the linear unify,
+    or `grid_only` with RealFormer blocks, the conv_multires unify and
+    position embeddings) -> a reference-keyed state dict of CPU float32
+    tensors."""
     cfg = getattr(cfg, "model", cfg)
-    if (cfg.head, cfg.block, cfg.unify) != ("concat_trans", "minus", "linear"):
+    if PORTED.get(cfg.head) != (cfg.block, cfg.unify,
+                                cfg.use_position_embedding):
         raise NotImplementedError(
             f"head {cfg.head!r} / block {cfg.block!r} / unify {cfg.unify!r} "
             "is not ported yet")
     out: Dict[str, np.ndarray] = {}
+    if cfg.head == "grid_only":
+        _grid(params, "", cfg, out)
+        return {k: torch.from_numpy(v) for k, v in out.items()}
     for gname in ("intensity", "stimulation"):
         _grid(params[gname], f"{gname}.", cfg, out)
     out["trans"] = _arr(params["trans"])

@@ -2,11 +2,19 @@
 265-319).
 
 For modalities L, V, A nine directed streams (ll, lv, la, vv, vl, va, aa, al,
-av) each run a chain of `n_layers` minus blocks; every layer's output is
-collected, the outputs concatenate on the feature axis per target modality,
-the three targets concatenate on the sequence axis in the order [l, a, v],
-and mean+max pooling feeds a bias-free classifier.  The streams have
-distinct weights and (Lq, Lkv) shapes, so they are unrolled.
+av) each run a chain of `n_layers` blocks that thread one score lineage:
+block i emits its scores for block i + 1 only when i < n_layers - 1.  Every
+layer's output is collected, the outputs concatenate on the feature axis per
+target modality, the three targets concatenate on the sequence axis in the
+order [l, a, v], and mean+max pooling feeds the classifier (`apply_grid`'s
+unrolled path; its merged and stacked fast paths are off by default in the
+JAX package and are not ported).  The streams have distinct weights and
+(Lq, Lkv) shapes, so they are unrolled.
+
+Two ported variants: the `minus` grid (linear unify, minus blocks, a
+bias-free classifier, cmu-mosei/run.py:265-319) and the robot grid
+(multi-resolution conv unify, position embeddings, RealFormer blocks, a
+classifier with bias, robot_demo.py:377-441).
 """
 
 from __future__ import annotations
@@ -16,7 +24,8 @@ from torch import nn
 
 from ..ops.pooling import mean_max_pool
 from ..utils import initializers as init
-from .layers import MinusBlock, UnifyLinear
+from .layers import (MinusBlock, PositionEmbedding, RealformerBlock,
+                     UnifyConvMultires, UnifyLinear)
 
 # (stream key, query modality, key/value modality) — reference order.
 STREAMS = (
@@ -30,29 +39,57 @@ TARGET = {"ll": "l", "lv": "l", "la": "l",
           "aa": "a", "al": "a", "av": "a"}
 
 
-class Grid(nn.Module):
-    """Unify projection, 9 * n_layers minus blocks and the per-layer
-    classifier head; block `n_layers * s + i` is layer i of stream s."""
+POSITIONS = (("l", "linguistic_position"), ("v", "visual_position"),
+             ("a", "acoustic_position"))
 
-    def __init__(self, cfg):
+
+class Grid(nn.Module):
+    """Unify projection (+ position embeddings), 9 * n_layers blocks and the
+    per-layer classifier head; block `n_layers * s + i` is layer i of stream
+    s.  The config picks the unify (`linear` or `conv_multires`) and the
+    block (`minus` or `realformer`); `classifier_bias` the head's bias."""
+
+    def __init__(self, cfg, *, classifier_bias: bool = False):
         super().__init__()
         self.n_layers = cfg.n_layers
         self.dropout = cfg.dropout
-        self.unify_dimension = UnifyLinear(cfg.l_dim, cfg.v_dim, cfg.a_dim,
-                                           cfg.dim)
-        self.multimodal_blocks = nn.ModuleList(
-            MinusBlock(cfg.dim, cfg.n_heads) for _ in range(9 * cfg.n_layers))
+        if cfg.unify == "linear":
+            self.unify_dimension = UnifyLinear(cfg.l_dim, cfg.v_dim, cfg.a_dim,
+                                               cfg.dim)
+        elif cfg.unify == "conv_multires":
+            self.unify_dimension = UnifyConvMultires(
+                cfg.l_dim, cfg.v_dims_multires, cfg.a_dim, cfg.dim)
+        else:
+            raise NotImplementedError(f"unify {cfg.unify!r} is not ported yet")
+        self.positions = cfg.use_position_embedding
+        if self.positions:
+            for m, attr in POSITIONS:
+                setattr(self, attr, PositionEmbedding(
+                    getattr(cfg, f"{m}_len"), cfg.dim))
+        if cfg.block == "minus":
+            blocks = (MinusBlock(cfg.dim, cfg.n_heads)
+                      for _ in range(9 * cfg.n_layers))
+        elif cfg.block == "realformer":
+            blocks = (RealformerBlock(cfg.dim, cfg.n_heads, cfg.ffn)
+                      for _ in range(9 * cfg.n_layers))
+        else:
+            raise NotImplementedError(f"block {cfg.block!r} is not ported yet")
+        self.multimodal_blocks = nn.ModuleList(blocks)
         self.classifier = nn.Linear(cfg.dim * 6 * cfg.n_layers, cfg.n_emotions,
-                                    bias=False)
+                                    bias=classifier_bias)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.unify_dimension.reset_parameters(generator)
+        if self.positions:
+            for _, attr in POSITIONS:
+                getattr(self, attr).reset_parameters(generator)
         for blk in self.multimodal_blocks:
             blk.reset_parameters(generator)
         init.linear_(self.classifier, generator)
 
     def forward(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla"):
-        """l/v/a (B, len, dm) and masks (B, len) -> logits (B, n_emotions).
+        """l/v/a (B, len, dm) and masks (B, len) -> logits (B, n_emotions);
+        with the `conv_multires` unify, v is the tuple (v256, v512, v1024).
         In training mode a config with dropout > 0 raises: dropout is not
         ported, and training without it would be another model."""
         if self.training and self.dropout > 0:
@@ -61,6 +98,8 @@ class Grid(nn.Module):
                 "cannot be trained by the port")
         l, v, a = self.unify_dimension(l, v, a)
         src = {"l": l, "v": v, "a": a}
+        if self.positions:
+            src = {m: getattr(self, attr)(src[m]) for m, attr in POSITIONS}
         masks = {"l": l_mask, "v": v_mask, "a": a_mask}
         collected = {"l": [], "v": [], "a": []}
         for s, (name, qm, kvm) in enumerate(STREAMS):

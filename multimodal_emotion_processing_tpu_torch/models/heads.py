@@ -1,9 +1,13 @@
-"""Model heads.  This slice ports the rank-3 emotion-transition head
-(Concat_Trans, cmu-mosei/run.py:321-339):
+"""Model heads.  Ported so far:
 
-    last = intensity_grid(slot 0);  this = stimulation_grid(slot 1)
-    fused[b, h] = Σ_{g,e} this[b,g]·last[b,e]·trans[g,e,h]
-    out = Linear([this ; LN(fused)])
+- the rank-3 emotion-transition head (Concat_Trans, cmu-mosei/run.py:321-339):
+
+      last = intensity_grid(slot 0);  this = stimulation_grid(slot 1)
+      fused[b, h] = Σ_{g,e} this[b,g]·last[b,e]·trans[g,e,h]
+      out = Linear([this ; LN(fused)])
+
+- the grid-only classifier of the robot demo (Multi_class,
+  robot_demo.py:377-441): one grid whose classifier has a bias.
 """
 
 from __future__ import annotations
@@ -61,3 +65,20 @@ class ConcatTrans(nn.Module):
         fused = bilinear_transition(self.trans, last_feat, this_feat)
         normed = init.layer_norm(fused, self.norm1.weight, self.norm1.bias)
         return self.out(torch.cat([this_feat, normed], dim=1))
+
+
+class GridOnly(Grid):
+    """`grid_only` (`apply_grid_only`): the grid itself is the model, so its
+    state-dict keys carry no prefix (`unify_dimension.…`,
+    `multimodal_blocks.…`, `classifier.{weight,bias}`)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, classifier_bias=True)
+
+    def forward(self, batch, *, impl: str = "xla"):
+        """batch: l (B, Ll, l_dim), v256/v512/v1024 (B, Lv, d), a (B, La,
+        a_dim) and *_mask.  Returns logits (B, n_emotions)."""
+        return super().forward(
+            batch["l"], (batch["v256"], batch["v512"], batch["v1024"]),
+            batch["a"], batch["l_mask"], batch["v_mask"], batch["a_mask"],
+            impl=impl)

@@ -1,10 +1,20 @@
-"""Encoder building blocks of the `minus` family: the bias-free modality
-projection and the `minus` attention block (cmu-mosei/run.py:207-262).
+"""Encoder building blocks: the modality projections, learned position
+embeddings, and the two attention block variants.
+
+- `minus` family (cmu-mosei/run.py:207-262): the bias-free Linear unify and
+  the `minus` block (no Q/K/V projections, a Linear combine, LayerNorm).
+- `realformer` family (robot_demo.py:293-374): the multi-resolution 1x1-conv
+  unify with biases, position embeddings, and the RealFormer block
+  (per-input Q/K/V projections, q = LN(q + a·attn), q = LN(q + b·FFN(q)),
+  gates a, b, c starting at 0).
 
 Module attribute names follow the reference's state-dict keys
-(`unify_dimension.{linguistic,visual,acoustic}`, `proj`, `minus`, `norm1`,
-`c`), so a reference or exported JAX state dict loads with
-`load_state_dict` as it is.  Weights keep torch's (out, in) layout.
+(`unify_dimension.{linguistic,visual,acoustic}` or
+`unify_dimension.{linguistic,visual_256,visual_512,visual_1024,acoustic}`,
+`*_position.position_embeddings`, `proj`, `minus`, `w_qkv.{0,1,2}`,
+`norm1`, `norm2`, `ffn.{0,2}`, `a`, `b`, `c`), so a reference or exported
+JAX state dict loads with `load_state_dict` as it is.  Weights keep torch's
+(out, in) layout, and the convs' (out, in, 1).
 """
 
 from __future__ import annotations
@@ -32,6 +42,53 @@ class UnifyLinear(nn.Module):
 
     def forward(self, l, v, a):
         return self.linguistic(l), self.visual(v), self.acoustic(a)
+
+
+class UnifyConvMultires(nn.Module):
+    """The robot demo's unify (`apply_unify_conv_multires`): kernel-1 Conv1d
+    with bias per input; the three visual resolution slots each map to
+    dim // 3 and concatenate in the order 256, 512, 1024.  Dropout is not
+    ported (inference only)."""
+
+    def __init__(self, l_dim: int, v_dims, a_dim: int, dim: int):
+        super().__init__()
+        d3 = dim // 3
+        self.linguistic = nn.Conv1d(l_dim, dim, 1)
+        self.visual_256 = nn.Conv1d(v_dims[0], d3, 1)
+        self.visual_512 = nn.Conv1d(v_dims[1], d3, 1)
+        self.visual_1024 = nn.Conv1d(v_dims[2], d3, 1)
+        self.acoustic = nn.Conv1d(a_dim, dim, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for conv in (self.linguistic, self.visual_256, self.visual_512,
+                     self.visual_1024, self.acoustic):
+            init.linear_(conv, generator)
+
+    @staticmethod
+    def _pointwise(conv: nn.Conv1d, x):
+        # a kernel-1 conv over (B, L, C) is a position-wise Linear
+        return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+    def forward(self, l, v, a):
+        """l (B, Ll, l_dim), v a tuple (v256, v512, v1024), a (B, La, a_dim)."""
+        v = torch.cat([self._pointwise(conv, x) for conv, x in zip(
+            (self.visual_256, self.visual_512, self.visual_1024), v)], dim=-1)
+        return (self._pointwise(self.linguistic, l), v,
+                self._pointwise(self.acoustic, a))
+
+
+class PositionEmbedding(nn.Module):
+    """Learned position table (`apply_position_embedding`): x + table[:L]."""
+
+    def __init__(self, max_len: int, dim: int):
+        super().__init__()
+        self.position_embeddings = nn.Embedding(max_len, dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.embedding_(self.position_embeddings, generator)
+
+    def forward(self, x):
+        return x + self.position_embeddings.weight[: x.shape[1]]
 
 
 class MinusBlock(nn.Module):
@@ -69,3 +126,47 @@ class MinusBlock(nn.Module):
         w = self.minus.weight
         pre = F.linear(q, w[:, :d]) + F.linear(x, w[:, d:])
         return init.layer_norm(pre, self.norm1.weight, self.norm1.bias), scores
+
+
+class RealformerBlock(nn.Module):
+    """`apply_block_realformer`: bias-free Q/K/V projections of (q, k, v);
+    residual-score attention with gate c; q = LN1(q + a·proj(ctx));
+    q = LN2(q + b·FFN(q)) with a ReLU FFN of width ffn·dim.  Dropout is not
+    ported: `Grid` refuses to train a config with dropout > 0."""
+
+    def __init__(self, dim: int, n_heads: int, ffn_mult: int):
+        super().__init__()
+        self.n_heads = n_heads
+        self.w_qkv = nn.ModuleList(nn.Linear(dim, dim, bias=False)
+                                   for _ in range(3))
+        self.proj = nn.Linear(dim, dim, bias=False)
+        self.norm1 = nn.LayerNorm(dim, eps=init.LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=init.LN_EPS)
+        self.ffn = nn.Sequential(nn.Linear(dim, ffn_mult * dim), nn.ReLU(),
+                                 nn.Linear(ffn_mult * dim, dim))
+        self.a = nn.Parameter(torch.zeros(1))
+        self.b = nn.Parameter(torch.zeros(1))
+        self.c = nn.Parameter(torch.zeros(1))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (*self.w_qkv, self.proj, self.ffn[0], self.ffn[2]):
+            init.linear_(lin, generator)
+        for norm in (self.norm1, self.norm2):
+            norm.weight.fill_(1.0)
+            norm.bias.zero_()
+        for gate in (self.a, self.b, self.c):
+            gate.zero_()
+
+    def forward(self, q, k, v, mask, scores, *, impl: str = "xla",
+                emit_scores: bool = True):
+        """q (B, Lq, dim), k and v (B, Lkv, dim); returns (q', scores')."""
+        wq, wk, wv = self.w_qkv
+        ctx, scores = scored_attention(
+            wq(q), wk(k), wv(v), mask, scores, self.c, n_heads=self.n_heads,
+            impl=impl, emit_scores=emit_scores)
+        q = init.layer_norm(q + self.a * self.proj(ctx), self.norm1.weight,
+                            self.norm1.bias)
+        q = init.layer_norm(q + self.b * self.ffn(q), self.norm2.weight,
+                            self.norm2.bias)
+        return q, scores

@@ -5,9 +5,12 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from .heads import ConcatTrans
+from .heads import ConcatTrans, GridOnly
 
-_HEADS = {"concat_trans": ConcatTrans}
+_HEADS = {"concat_trans": ConcatTrans, "grid_only": GridOnly}
+# the (block, unify, position embeddings) each head is ported with
+PORTED = {"concat_trans": ("minus", "linear", False),
+          "grid_only": ("realformer", "conv_multires", True)}
 
 
 def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:
@@ -17,11 +20,13 @@ def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:
     mcfg = getattr(cfg, "model", cfg)
     if mcfg.head not in _HEADS:
         raise NotImplementedError(f"head {mcfg.head!r} is not ported yet")
-    if (mcfg.block, mcfg.unify, mcfg.use_position_embedding) != (
-            "minus", "linear", False):
+    ported = PORTED[mcfg.head]
+    if (mcfg.block, mcfg.unify, mcfg.use_position_embedding) != ported:
         raise NotImplementedError(
-            f"block {mcfg.block!r} with unify {mcfg.unify!r} is not ported "
-            "yet; this slice has the minus block with the linear unify")
+            f"head {mcfg.head!r} with block {mcfg.block!r}, unify "
+            f"{mcfg.unify!r} and position embeddings "
+            f"{mcfg.use_position_embedding} is not ported yet; it is ported "
+            f"with (block, unify, position embeddings) = {ported}")
     dev = resolve_device(device)
     with torch.device("meta"):
         model = _HEADS[mcfg.head](mcfg)

@@ -12,7 +12,8 @@ The mask penalty is finite: a fully masked row gets a uniform softmax over
 its keys, where −inf would give NaN.  `_scored_attention_xla` is the plain
 PyTorch path and the oracle every kernel is held against; `impl="flash"`
 routes terminal blocks to the hand-written CUDA kernel of
-ops/flash_attention.py.
+ops/flash_attention.py, and `impl="pallas"` every block to the
+score-materializing CUDA kernel of ops/pallas_attention.py.
 """
 
 from __future__ import annotations
@@ -63,8 +64,15 @@ def scored_attention(
     q: (B, Lq, D); k, v: (B, Lkv, D); mask: None | (B, Lkv) | (B, Lq, Lkv);
     scores_prev: None | (B, H, Lq, Lkv); c: (1,) residual gate.
     impl: 'xla' (plain PyTorch path) | 'flash' (the CUDA online-softmax
-    kernel for terminal blocks; calls it cannot serve take the plain path).
+    kernel for terminal blocks; calls it cannot serve take the plain path) |
+    'pallas' (the CUDA kernel that emits S, forward only; `emit_scores=False`
+    skips the S write).
     Returns (context (B, Lq, D), scores (B, H, Lq, Lkv) or None)."""
+    if impl == "pallas":
+        from .pallas_attention import scored_attention_pallas
+
+        return scored_attention_pallas(q, k, v, mask, scores_prev, c,
+                                       n_heads=n_heads, emit_scores=emit_scores)
     if impl == "flash":
         from .flash_attention import flash_scored_attention, flash_supported
 
@@ -75,7 +83,8 @@ def scored_attention(
                                      n_heads=n_heads)
     if impl != "xla":
         raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet; use 'xla' or 'flash'")
+            f"attention impl {impl!r} is not ported yet; use 'xla', 'flash' "
+            "or 'pallas'")
     return _scored_attention_xla(q, k, v, mask, scores_prev, c, n_heads=n_heads)
 
 

@@ -1,0 +1,106 @@
+"""What every hand-written attention kernel's wrapper shares: the ctypes
+binding of a `csrc/<library>.cu` function with its launch counter, and the
+checks a wrapper makes before it hands pointers to a kernel.
+
+Every kernel takes its pointers, then B, H, Lq, Lkv, dh and is_bf16 as
+ints, then the CUDA stream, and returns a cudaError_t as int (0 when it was
+launched).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+MAX_HEAD_DIM = 256
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a graph through any of `tensors`."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_qkv(name, q, k, v, mask, n_heads):
+    """Validate a kernel call's q, k, v and mask; returns (b, lq, lkv, dh,
+    mask as contiguous f32 or None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected (B, L, D)")
+    b, lq, d = q.shape
+    lkv = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != d or d % n_heads:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
+                         f"not share (B, D) with D divisible by {n_heads}")
+    dh = d // n_heads
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {dh} outside 1..{MAX_HEAD_DIM}")
+    for tname, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{tname} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {q.device}")
+    if mask is not None:
+        if tuple(mask.shape) != (b, lkv) or mask.device != q.device:
+            raise ValueError(f"mask {tuple(mask.shape)} on {mask.device}: "
+                             f"expected ({b}, {lkv}) on {q.device}")
+        mask = mask.to(torch.float32).contiguous()
+    return b, lq, lkv, dh, mask
+
+
+def check_like(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}:"
+                         f" expected {tuple(shape)} {dtype} on {device}")
+    return t.contiguous()
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+class Kernel:
+    """ctypes binding of one kernel of csrc/<library>.cu.  `launches`
+    counts the launches this wrapper made; nothing else changes it except
+    `reset()`."""
+
+    name = ""
+    library = ""
+    n_pointers = 0
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._fn = None
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+
+    def _bind(self):
+        if self._fn is None:
+            from ..utils import native
+
+            fn = getattr(native.load(self.library), self.name)
+            # pointers, then B, H, Lq, Lkv, dh, is_bf16, then the stream
+            fn.argtypes = ([ctypes.c_void_p] * self.n_pointers
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _launch(self, device, pointers, dims, is_bf16: bool) -> None:
+        fn = self._bind()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*pointers, *dims, int(is_bf16), stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed with CUDA error {rc}")
+        with self._lock:
+            self.launches += 1

@@ -31,16 +31,14 @@ tensors.  When a gradient is needed it goes through `FlashAttention`, the
 
 from __future__ import annotations
 
-import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
 
 from .attention import MASK_PENALTY, _scored_attention_xla, merge_heads, split_heads
-
-MAX_HEAD_DIM = 256
+from .cuda_binding import (MAX_HEAD_DIM, Kernel, check_like, check_qkv,
+                           needs_grad, ptr)
 
 
 def flash_supported(lq: int, lkv: int, mask, scores_prev,
@@ -91,92 +89,15 @@ def flash_backward_plain(q, k, v, mask, o, do, m, l, *, n_heads: int):
 
 
 def _check_qkv(name, q, k, v, mask, n_heads):
-    """Validate a kernel call's q, k, v and mask; returns (b, lq, lkv, dh,
-    mask as contiguous f32 or None)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, mask)):
+    """`check_qkv`, after refusing inputs that need a gradient: the bare
+    kernels record no autograd graph."""
+    if needs_grad(q, k, v, mask):
         raise RuntimeError(f"{name} records no autograd graph: a call that "
                            "needs a gradient goes through FlashAttention")
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA tensors, got {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
-    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: expected (B, L, D)")
-    b, lq, d = q.shape
-    lkv = k.shape[1]
-    if k.shape[0] != b or k.shape[2] != d or d % n_heads:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
-                         f"not share (B, D) with D divisible by {n_heads}")
-    dh = d // n_heads
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head width {dh} outside 1..{MAX_HEAD_DIM}")
-    for tname, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{tname} is {t.dtype} on {t.device}; q is "
-                             f"{q.dtype} on {q.device}")
-    if mask is not None:
-        if tuple(mask.shape) != (b, lkv) or mask.device != q.device:
-            raise ValueError(f"mask {tuple(mask.shape)} on {mask.device}: "
-                             f"expected ({b}, {lkv}) on {q.device}")
-        mask = mask.to(torch.float32).contiguous()
-    return b, lq, lkv, dh, mask
+    return check_qkv(name, q, k, v, mask, n_heads)
 
 
-def _check_like(name, t, shape, dtype, device):
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
-        raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}:"
-                         f" expected {tuple(shape)} {dtype} on {device}")
-    return t.contiguous()
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-class _Kernel:
-    """ctypes binding of one kernel of csrc/<library>.cu.  `launches`
-    counts the launches this wrapper made; nothing else changes it except
-    `reset()`."""
-
-    name = ""
-    library = ""
-    n_pointers = 0
-
-    def __init__(self):
-        self.launches = 0
-        self._lock = threading.Lock()
-        self._fn = None
-
-    def reset(self) -> None:
-        with self._lock:
-            self.launches = 0
-
-    def _bind(self):
-        if self._fn is None:
-            from ..utils import native
-
-            fn = getattr(native.load(self.library), self.name)
-            # pointers, then B, H, Lq, Lkv, dh, is_bf16, then the stream
-            fn.argtypes = ([ctypes.c_void_p] * self.n_pointers
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-    def _launch(self, device, pointers, dims, is_bf16: bool) -> None:
-        fn = self._bind()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*pointers, *dims, int(is_bf16), stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed with CUDA error {rc}")
-        with self._lock:
-            self.launches += 1
-
-
-class FlashForwardKernel(_Kernel):
+class FlashForwardKernel(Kernel):
     """`flash_fwd` in csrc/flash_fwd.cu.  `stats_launches` counts the
     launches that also wrote the row stats (the training forward)."""
 
@@ -204,7 +125,7 @@ class FlashForwardKernel(_Kernel):
         if stats:
             m = torch.empty(b, n_heads, lq, dtype=torch.float32, device=q.device)
             l = torch.empty_like(m)
-        self._launch(q.device, [_ptr(t) for t in (q, k, v, mask, o, m, l)],
+        self._launch(q.device, [ptr(t) for t in (q, k, v, mask, o, m, l)],
                      (b, n_heads, lq, lkv, dh), q.dtype == torch.bfloat16)
         if not stats:
             return o
@@ -213,15 +134,15 @@ class FlashForwardKernel(_Kernel):
         return o, m, l
 
 
-class _FlashBackwardKernel(_Kernel):
+class _FlashBackwardKernel(Kernel):
     library = "flash_bwd"
 
     def _inputs(self, q, k, v, mask, o, do, m, l, n_heads):
         b, lq, lkv, dh, mask = _check_qkv(self.name, q, k, v, mask, n_heads)
-        o = _check_like("o", o, q.shape, q.dtype, q.device)
-        do = _check_like("do", do, q.shape, q.dtype, q.device)
-        m = _check_like("m", m, (b, n_heads, lq), torch.float32, q.device)
-        l = _check_like("l", l, (b, n_heads, lq), torch.float32, q.device)
+        o = check_like("o", o, q.shape, q.dtype, q.device)
+        do = check_like("do", do, q.shape, q.dtype, q.device)
+        m = check_like("m", m, (b, n_heads, lq), torch.float32, q.device)
+        l = check_like("l", l, (b, n_heads, lq), torch.float32, q.device)
         ins = [t.contiguous() for t in (q, k, v)] + [mask, o, do, m, l]
         return ins, (b, n_heads, lq, lkv, dh)
 
@@ -237,7 +158,7 @@ class FlashBwdDqKernel(_FlashBackwardKernel):
         cotangent do (like q).  Returns dq at q's dtype."""
         ins, dims = self._inputs(q, k, v, mask, o, do, m, l, n_heads)
         dq = torch.empty_like(ins[0])
-        self._launch(q.device, [_ptr(t) for t in ins + [dq]], dims,
+        self._launch(q.device, [ptr(t) for t in ins + [dq]], dims,
                      q.dtype == torch.bfloat16)
         return dq
 
@@ -259,7 +180,7 @@ class FlashBwdDkvKernel(_FlashBackwardKernel):
         if want_dmask and mask is not None:
             b, h, _, lkv, _ = dims
             dmh = torch.empty(b, h, lkv, dtype=torch.float32, device=q.device)
-        self._launch(q.device, [_ptr(t) for t in ins + [dk, dv, dmh]], dims,
+        self._launch(q.device, [ptr(t) for t in ins + [dk, dv, dmh]], dims,
                      q.dtype == torch.bfloat16)
         return dk, dv, None if dmh is None else dmh.sum(dim=1)
 
@@ -310,8 +231,7 @@ def flash_scored_attention(q, k, v, mask, c, *, n_heads: int):
     (ctx, None).  Callers check `flash_supported` first.  A call that needs
     a gradient goes through `FlashAttention`; otherwise CUDA tensors launch
     the forward kernel and CPU tensors take `flash_forward_plain`."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, mask)):
+    if needs_grad(q, k, v, mask):
         return FlashAttention.apply(q, k, v, mask, c, n_heads), None
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, mask, n_heads=n_heads), None

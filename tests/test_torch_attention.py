@@ -149,10 +149,11 @@ def test_flash_supported_gating_is_verbatim(lq, lkv, mask_kind, sprev, emit, dh)
 
 
 def test_unported_impl_raises():
+    """`pallas_fused` (the whole-block kernel) is not ported yet."""
     q, k, v, m = _inputs(lq=4, lkv=8)
     with pytest.raises(NotImplementedError):
         tattn.scored_attention(_t(q), _t(k), _t(v), _t(m), None, torch.zeros(1),
-                               n_heads=2, impl="pallas")
+                               n_heads=2, impl="pallas_fused")
 
 
 def test_mean_max_pool_matches_jax():

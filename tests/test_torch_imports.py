@@ -44,6 +44,16 @@ def test_the_training_slice_is_covered():
     assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"} <= names
 
 
+def test_the_robot_slice_is_covered():
+    """The modules and kernel source of the robot_demo serving slice are
+    among those the tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("ops.pallas_attention", "ops.cuda_binding", "models.layers",
+              "models.heads", "data.masking"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+    assert "scored_fwd.cu" in {p.name for p in _sources()}
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
