@@ -11,8 +11,10 @@ Phases, each reported on its own lines:
      the shapes the main paths give it and at edge cases, with its time, the
      plain version's, one library call's (timing yardstick only) and the
      bound the card sets for the same work: flash_fwd (with and without its
-     row stats), flash_bwd_dq and flash_bwd_dkv, and scored_fwd in its four
-     variants (S_prev given or not, S emitted or not);
+     row stats), flash_bwd_dq and flash_bwd_dkv, scored_fwd in its four
+     variants (S_prev given or not, S emitted or not), and scored_bwd_dq and
+     scored_bwd_dkv in the same four, with dc and dmask held at the scale of
+     the terms they sum;
   3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
      trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
      an eval pass after each, with the kernel launch counts of that run, the
@@ -27,7 +29,20 @@ Phases, each reported on its own lines:
      their gates a, b, c set non-zero from a seeded generator (at their
      initial 0 the attention would not reach the logits), served the same
      way at impl="pallas", with scored_fwd's launch counts per variant and
-     the outputs held against impl="xla" on the same members.
+     the outputs held against impl="xla" on the same members;
+  6. train_realformer: `mosei_realformer` at full width (dim 96, 6 heads,
+     lengths 50/50/50, two chained RealFormer blocks per stream, the
+     state_transfer head over 6-clip paragraphs, 1,449,702 parameters), its
+     gates set non-zero, trained by the port's Trainer at impl="pallas" for
+     2 epochs of 4 steps at batch 64 (384 clips per attention call, f32,
+     Adam, the clip-mask loss) with an eval pass after each: scored_fwd and
+     both scored_bwd kernels counted per variant, the step-1 gradients and
+     the 8 losses held against impl="xla" from the same weights and
+     batches, and one profiled step;
+  7. serve_paragraph: five gate-perturbed seeded members of the same
+     config in a ParagraphStreamingPredictor at impl="pallas", one
+     synthetic paragraph pushed clip by clip, each clip's blended logits
+     held against the members' whole-window forward at impl="xla".
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -35,6 +50,7 @@ Details go to chip_smoke_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -77,6 +93,28 @@ ROBOT_HEADS, ROBOT_DH, ROBOT_PARAMS = 6, 32, 5_662_397
 # scored_fwd variants (has S_prev, emits S); a stream's block 0 runs the
 # first, its block 1 the second
 MAIN_VARIANTS = ((False, True), (True, False))
+# mosei_realformer: lengths l/v/a 50/50/50, so its nine stream shapes are all
+# 50 x 50; 6 heads of 16; a batch of 64 paragraphs of 6 clips folds into
+# B·P = 384 clips per attention call; 1,449,702 parameters (the JAX model's
+# init)
+RF_LEN, RF_HEADS, RF_DH, RF_P, RF_BATCH = 50, 6, 16, 6, 64
+RF_CLIPS = RF_BATCH * RF_P
+RF_PARAMS = 1_449_702
+# its training run: 256 / 64 synthetic paragraphs and 2 epochs give 8
+# optimizer steps and 2 eval passes; step-1 gradients per tensor against
+# impl="xla" at relative L2 2e-4 (tests/test_interop.py:20), the 8 losses at
+# 1e-3 relative, both f32 with TF32 off
+RF_N_TRAIN, RF_N_VALID, RF_EPOCHS = 256, 64, 2
+RF_GRAD_TOL, RF_LOSS_TOL = 2e-4, 1e-3
+# the step-1 gradient check pins the ReLUs' routing to the pallas forward's;
+# rounding may move at most this share of the ReLU inputs across 0, and no
+# max-pool argmax
+RF_RELU_FLIP_SHARE = 1e-6
+# paragraph serving: the config's n_folds members, offsets of
+# tests/test_train_eval.py:903, clip-t logits against the whole-window xla
+# forward at 2e-4 (normalised)
+RF_MEMBERS = 5
+RF_OFFSETS = (0.1, -0.3, -0.5, -0.6, -0.3, -0.5)
 # scored_fwd edge cases: (B, Lq, Lkv, H, dh, mask); dh 1/16/48/256, ragged
 # Lkv up to 1024, Lq 1, no mask; every "zero_row" case has a fully masked
 # row, whose S_prev (block 0's output) holds -1e8 + raw under c = 0.7
@@ -186,18 +224,16 @@ def dmask_term_scale(torch, q, k, v, mask, o, do, m, l, h):
             ).max().item()
 
 
-def sdpa_backward_ms(torch, q, k, v, mask, do, h):
-    """The library yardstick for the backward: SDPA forward + backward
-    minus SDPA forward, with the same float bias, on head-split copies."""
-    from multimodal_emotion_processing_tpu_torch.ops.attention import (
-        MASK_PENALTY, split_heads)
+def sdpa_backward_ms(torch, q, k, v, bias, do, h):
+    """The library yardstick for a backward: SDPA forward + backward minus
+    SDPA forward, with the float bias the kernel's scores carry, on
+    head-split copies."""
+    from multimodal_emotion_processing_tpu_torch.ops.attention import split_heads
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh = (split_heads(t, h).detach().contiguous().requires_grad_(True)
                   for t in (q, k, v))
     doh = split_heads(do, h).contiguous()
-    bias = (None if mask is None else
-            (-MASK_PENALTY * (1.0 - mask.float())).to(q.dtype)[:, None, None, :])
     fwd = time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=bias))
     both = time_ms(torch, lambda: torch.autograd.grad(
         sdpa(qh, kh, vh, attn_mask=bias), (qh, kh, vh), doh))
@@ -290,6 +326,7 @@ def phase_kernels(torch, report):
     summaries = {"flash_fwd": summary}
     summaries.update(backward_cases(torch, g, report))
     summaries["scored_fwd"] = scored_cases(torch, g, report)
+    summaries.update(scored_bwd_cases(torch, g, report))
     return summaries
 
 
@@ -304,6 +341,7 @@ def backward_cases(torch, g, report):
     forward: the nine s1024 stream shapes at the training batch (timed) and
     the edge cases, in bf16 and f32."""
     from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_processing_tpu_torch.ops.attention import MASK_PENALTY
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -359,8 +397,9 @@ def backward_cases(torch, g, report):
                 *args, n_heads=h, want_dmask=False))
             row["plain_ms"] = time_ms(torch, lambda: fa.flash_backward_plain(
                 q, k, v, mask, ro, do, rm, rl, n_heads=h))
+            bias = (-MASK_PENALTY * (1.0 - mask.float())).to(dtype)[:, None, None, :]
             try:
-                row["library_ms"] = sdpa_backward_ms(torch, q, k, v, mask, do, h)
+                row["library_ms"] = sdpa_backward_ms(torch, q, k, v, bias, do, h)
             except RuntimeError as e:       # a yardstick only
                 row["library_ms"] = None
                 log(f"[kernels] SDPA backward not measured: {e}")
@@ -548,6 +587,236 @@ def scored_cases(torch, g, report):
     return summary
 
 
+def scored_bwd_bounds(b, h, lq, lkv, dh, dtype_name, has_sprev, emit):
+    """Least times for the score-chained backward on this card, per kernel
+    and for the pair.  The pair reads q, k, v, dctx and the f32 mask once,
+    S_prev when given, S and dscores when S was emitted, and writes dq, dk,
+    dv and (with S_prev) dS_prev, against 8 B·H·Lq·Lkv·dh flops (dp, dq, dk,
+    dv), 10 where s is rebuilt.  scored_bwd_dq: q, k, v, dctx, the mask,
+    S_prev, S and dscores in; dq, the row stats and dS_prev out; dp and dq
+    (+ s).  scored_bwd_dkv: the same inputs (S_prev only where s is rebuilt)
+    and the stats; dk and dv out; dp, dk and dv (+ s)."""
+    it = 2 if dtype_name == "bfloat16" else 4
+    q_like, kv_like = b * lq * h * dh * it, b * lkv * h * dh * it
+    score = b * h * lq * lkv * 4
+    stats = 3 * b * h * lq * 4
+    common = 2 * q_like + 2 * kv_like + b * lkv * 4 + 2 * score * int(emit)
+    unit = float(b * h * lq * lkv * dh)
+    s_flops = 0 if emit else 2
+    sprev_in = score * int(has_sprev)
+    return {
+        "scored_bwd_dq": _bound(common + sprev_in + q_like + stats + sprev_in,
+                                (4 + s_flops) * unit, dtype_name),
+        "scored_bwd_dkv": _bound(common + sprev_in * int(not emit) + stats
+                                 + 2 * kv_like, (6 + s_flops) * unit,
+                                 dtype_name),
+        "pair": _bound(common + 2 * sprev_in + q_like + 2 * kv_like,
+                       (8 + s_flops) * unit, dtype_name)}
+
+
+def scored_bwd_term_scales(torch, pa, q, k, v, mask, sprev, c, dctx, dscores, h):
+    """The sizes of the terms that dc = Σ ds·S_prev and dmask =
+    1e8·Σ_{h,q} ds add up, from the plain version: with |ds| ≤ p·(|dp| +
+    |Σ dp·p|) + |dS|, Σ |ds|·|S_prev| and 1e8·max_j Σ_{h,q} |ds|.  Those
+    terms cancel (a row's p·(dp − Σ dp·p) sums to 0, and S_prev ≈ −1e8 in
+    a fully masked row), so the results are no scale for their own
+    rounding error; the terms are."""
+    _, s = pa.scored_forward_plain(q.float(), k.float(), v.float(), mask,
+                                   sprev, c.float(), n_heads=h)
+    vh, gh = (pa.split_heads(t.float(), h) for t in (v, dctx))
+    p = torch.softmax(s, dim=-1)
+    dp = gh @ vh.transpose(-2, -1)
+    terms = p * (dp.abs() + (dp * p).sum(-1, keepdim=True).abs())
+    if dscores is not None:
+        terms = terms + dscores.abs()
+    dc = 0.0 if sprev is None else float((terms * sprev.abs()).sum())
+    return dc, pa.MASK_PENALTY * float(terms.sum(dim=(1, 2)).max())
+
+
+def elementwise_errors(got, ref):
+    """(max abs error, max |got − ref| / max(1, |ref|) elementwise)."""
+    got, ref = got.float(), ref.float()
+    return (got - ref).abs().max().item(), score_errors(got, ref)
+
+
+def scored_bwd_cases(torch, g, report):
+    """scored_bwd_dq and scored_bwd_dkv against scored_backward_plain in the
+    four variants, each side from its own forward (the kernels from
+    scored_fwd's S, the plain version from scored_forward_plain's), in f32
+    and bf16: the nine mosei_realformer stream shapes at B·P = 384 (the two
+    variants of the training path timed in f32) and that shape once more
+    with a ragged mask, the nine robot_demo shapes at B 8 and the edge
+    cases, each with a fully masked row (but the no-mask and ragged
+    cases), dscores from the seeded generator where S is
+    emitted, and c = 0.7 over an S_prev that holds −1e8 + raw where the
+    mask is 0.  dq, dk, dv and dS_prev elementwise against max(1, |ref|);
+    dc and dmask at the scale of their summed terms."""
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+    from multimodal_emotion_processing_tpu_torch.ops.attention import MASK_PENALTY
+
+    shapes = [(True, (RF_CLIPS, RF_LEN, RF_LEN, RF_HEADS, RF_DH, "zero_row", 1.0))
+              for _ in range(9)]
+    # the main shape without a fully masked row: there dc's terms are
+    # O(1), not ±1e8, so the term-scale check holds dc tightly
+    shapes.append((False, (RF_CLIPS, RF_LEN, RF_LEN, RF_HEADS, RF_DH, "ragged",
+                           1.0)))
+    shapes += [(False, (SERVE_BUCKET, lq, lkv, ROBOT_HEADS, ROBOT_DH,
+                        "zero_row", 1.0)) for lq, lkv in ROBOT_SHAPES]
+    shapes += [(False, c + (1.0,)) for c in SCORED_EDGE_CASES]
+    shapes.append((False, (2, 64, 77, 2, 16, "zero_row", 4.0)))
+    bwd = pa.scored_backward_kernel
+    rows, ok, timed = [], True, {"scored_bwd_dq": [], "scored_bwd_dkv": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        for main, (b, lq, lkv, h, dh, mask_kind, q_scale) in shapes:
+            q, k, v, mask = attention_inputs(torch, g, b, lq, lkv, h, dh, dtype,
+                                             mask_kind)
+            if q_scale != 1.0:
+                q = (q.float() * q_scale).to(dtype)
+            q0 = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
+            sprev = pa.scored_forward_plain(q0, k, v, mask, None, None,
+                                            n_heads=h)[1].contiguous()
+            c = torch.tensor([0.7], device="cuda").to(dtype)
+            dctx = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
+            dsc_all = torch.randn(b, h, lq, lkv, generator=g, device="cuda")
+            for has_sprev, emit in pa.VARIANTS:
+                sp = sprev if has_sprev else None
+                dsc = dsc_all if emit else None
+                _, s = pa.scored_forward_kernel(q, k, v, mask, sp, c, n_heads=h,
+                                                emit_scores=emit)
+                args = (q, k, v, mask, sp, c, s, dsc, dctx)
+                dq, dk, dv, dmask, dsprev, dc = bwd(*args, n_heads=h)
+                torch.cuda.synchronize()
+                _, rs = pa.scored_forward_plain(q, k, v, mask, sp, c, n_heads=h,
+                                                emit_scores=emit)
+                ref = pa.scored_backward_plain(q, k, v, mask, sp, c, rs, dsc,
+                                               dctx, n_heads=h)
+                errs = {n: elementwise_errors(got, want) for n, got, want in (
+                    ("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
+                dc_scale, dm_scale = scored_bwd_term_scales(
+                    torch, pa, q, k, v, mask, sp, c, dctx, dsc, h)
+                if has_sprev:
+                    errs["dS_prev"] = elementwise_errors(dsprev, ref[4])
+                    e = abs(float(dc) - float(ref[5]))
+                    errs["dc"] = (e, e / max(1.0, abs(float(ref[5])), dc_scale))
+                if mask is not None:
+                    e = (dmask - ref[3].float()).abs().max().item()
+                    errs["dmask"] = (e, e / max(1.0, ref[3].float().abs().max()
+                                                .item(), dm_scale))
+                finite = all(bool(torch.isfinite(t).all().item()) for t in
+                             (dq, dk, dv) + ((dsprev,) if has_sprev else ()))
+                good = (finite and dq.dtype == dk.dtype == dv.dtype == dtype
+                        and all(e[1] <= tol for e in errs.values()))
+                ok &= good
+                row = dict(dtype=dname, b=b, lq=lq, lkv=lkv, h=h, dh=dh,
+                           mask=mask_kind, q_scale=q_scale, has_sprev=has_sprev,
+                           emit=emit, main_path=main, tol=tol, ok=good,
+                           **{f"{n}_abs_err": e[0] for n, e in errs.items()},
+                           **{f"{n}_norm_err": e[1] for n, e in errs.items()})
+                timing = ""
+                if (main and dtype == torch.float32
+                        and (has_sprev, emit) in MAIN_VARIANTS):
+                    # as the main path calls them: the batch mask needs no
+                    # gradient.  Each kernel on inputs checked once; the pair
+                    # through the wrapper, checks included
+                    ins, dims, variant = bwd.check(*args, n_heads=h)
+                    stats = bwd.dq.launch(ins, dims, variant)[1]
+                    calls = {
+                        "scored_bwd_dq": functools.partial(
+                            bwd.dq.launch, ins, dims, variant),
+                        "scored_bwd_dkv": functools.partial(
+                            bwd.dkv.launch, ins, stats, dims, variant, False)}
+                    for kname, call in calls.items():
+                        timed[kname].append(call)
+                        row[f"{kname}_ms"] = time_ms(torch, call)
+                    row["pair_ms"] = time_ms(torch, lambda: bwd(
+                        *args, n_heads=h, want_dmask=False))
+                    row["plain_ms"] = time_ms(torch, lambda: pa.scored_backward_plain(
+                        q, k, v, mask, sp, c, rs, dsc, dctx, n_heads=h))
+                    bias = -MASK_PENALTY * (1.0 - mask.float())[:, None, None, :]
+                    if has_sprev:
+                        bias = (bias + c.float() * sprev).contiguous()
+                    try:
+                        row["library_ms"] = sdpa_backward_ms(
+                            torch, q, k, v, bias.expand(b, h, lq, lkv), dctx, h)
+                    except RuntimeError as e:   # a yardstick only
+                        row["library_ms"] = None
+                        log(f"[kernels] SDPA backward not measured: {e}")
+                    for kname, bnd in scored_bwd_bounds(
+                            b, h, lq, lkv, dh, dname, has_sprev, emit).items():
+                        row.update({f"{kname}_{key}": val
+                                    for key, val in bnd.items()})
+                    lib = row["library_ms"]
+                    timing = (f" dq_ms={row['scored_bwd_dq_ms']:.4f} dkv_ms="
+                              f"{row['scored_bwd_dkv_ms']:.4f} plain_ms="
+                              f"{row['plain_ms']:.4f} library_ms="
+                              + ("n/a" if lib is None else f"{lib:.4f}")
+                              + f" pair_bound_ms={row['pair_bound_ms']:.5f} "
+                              f"({row['pair_bound_by']})")
+                rows.append(row)
+                log(f"[kernels] scored_bwd {dname} B={b} Lq={lq} Lkv={lkv} H={h} "
+                    f"dh={dh} mask={mask_kind} q_scale={q_scale:g} "
+                    f"sprev={int(has_sprev)} emit={int(emit)} norm_err "
+                    + " ".join(f"{n}={e[1]:.2e}" for n, e in errs.items())
+                    + f" tol={tol:g} {'ok' if good else 'FAIL'}" + timing)
+    report["scored_bwd_cases"] = rows
+    if not ok:
+        raise AssertionError("the scored backward kernels disagree with "
+                             "their plain version")
+    main = [r for r in rows if "plain_ms" in r]
+    lib = [r["library_ms"] for r in main]
+    out = {}
+    # max_abs_err over the elementwise outputs; dc and dmask, sums of
+    # terms up to ~1e8 · 1e3 that cancel, only at their term scale
+    for kname, err_keys, term_key in (
+            ("scored_bwd_dq", ("dq", "dS_prev"), "dc"),
+            ("scored_bwd_dkv", ("dk", "dv"), "dmask")):
+        try:
+            dev = kernel_device_ms(torch, timed[kname], kname)
+        except Exception:   # a measurement only: the checks above stand
+            traceback.print_exc()
+            dev = None
+        out[kname] = dict(
+            ms=sum(r[f"{kname}_ms"] for r in main), device_ms=dev,
+            plain_ms=sum(r["plain_ms"] for r in main),
+            library_ms=None if None in lib else sum(lib),
+            bound_ms=sum(r[f"{kname}_bound_ms"] for r in main),
+            bound_by=majority_bound(main, f"{kname}_bound_by"),
+            max_abs_err=max(r.get(f"{e}_abs_err", 0.0) for r in rows
+                            for e in err_keys),
+            max_norm_err=max(r.get(f"{e}_norm_err", 0.0) for r in rows
+                             for e in err_keys),
+            **{f"max_{term_key}_term_scale_err": max(
+                r.get(f"{term_key}_norm_err", 0.0) for r in rows)},
+            calls_timed=len(main))
+    out["scored_bwd_pair"] = dict(
+        ms=sum(r["pair_ms"] for r in main),
+        bound_ms=sum(r["pair_bound_ms"] for r in main),
+        bound_by=majority_bound(main, "pair_bound_by"),
+        by_variant={f"sprev={int(a)},emit={int(e)}": dict(
+            dq_ms=sum(r["scored_bwd_dq_ms"] for r in main
+                      if (r["has_sprev"], r["emit"]) == (a, e)),
+            dkv_ms=sum(r["scored_bwd_dkv_ms"] for r in main
+                       if (r["has_sprev"], r["emit"]) == (a, e)),
+            pair_bound_ms=sum(r["pair_bound_ms"] for r in main
+                              if (r["has_sprev"], r["emit"]) == (a, e)))
+            for a, e in MAIN_VARIANTS})
+    report["scored_bwd_summary"] = out
+    dq, dkv = out["scored_bwd_dq"], out["scored_bwd_dkv"]
+    log(f"[kernels] scored_bwd, sum over the {len(main)} calls of one "
+        f"mosei_realformer train step (nine 50x50 streams x two chained "
+        f"blocks) at B={RF_CLIPS} f32: dq {dq['ms']:.3f} ms, dkv "
+        f"{dkv['ms']:.3f} ms as launched on checked inputs, pair "
+        f"{out['scored_bwd_pair']['ms']:.3f} ms through the wrapper (CUDA "
+        f"events); device {dq['device_ms']} / {dkv['device_ms']} ms "
+        f"(profiler); bounds {dq['bound_ms']:.4f} / {dkv['bound_ms']:.4f}, "
+        f"pair {out['scored_bwd_pair']['bound_ms']:.4f} ms; plain "
+        f"{dq['plain_ms']:.3f} ms; SDPA backward with the float bias "
+        f"{dq['library_ms']} ms")
+    return out
+
+
 def ensure_no_name(samples):
     """The main path must carry a no_name request (previous slot all zero,
     all-zero masks): make sample 0 one if the seed gave none."""
@@ -584,26 +853,7 @@ def phase_train(torch, report):
         return (Batcher(train, TRAIN_BATCH, seed=1),
                 Batcher(valid, TRAIN_BATCH, shuffle=False))
 
-    class TimedTrainer(engine.Trainer):
-        """Records CUDA events around every train step."""
-
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            self.events = []
-
-        def train_step(self, state, batch):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = super().train_step(state, batch)
-            end.record()
-            self.events.append((start, end))
-            return loss
-
-        def step_ms(self):
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in self.events]
-
+    TimedTrainer = timed_trainer(torch, engine)
     state = engine.init_state(exp.model, tcfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in state.model.parameters())
     log(f"[train] {exp.name}: dim={exp.model.dim} heads={exp.model.n_heads} "
@@ -731,21 +981,109 @@ def phase_train(torch, report):
     return launches
 
 
-def step_gradients(engine, model, tcfg, batch):
+def timed_trainer(torch, engine):
+    """The port's Trainer, recording CUDA events around every train step."""
+
+    class TimedTrainer(engine.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.events = []
+
+        def train_step(self, state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = super().train_step(state, batch)
+            end.record()
+            self.events.append((start, end))
+            return loss
+
+        def step_ms(self):
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.events]
+
+    return TimedTrainer
+
+
+def step_gradients(engine, model, tcfg, batch, impls=("flash", "xla")):
     """{impl: {parameter name: gradient}} of one loss on the same weights
-    and batch, for impl flash and xla."""
+    and batch, for each impl; the impls must give gradients to the same
+    parameters."""
     grads = {}
     model.train()
-    for impl in ("flash", "xla"):
+    for impl in impls:
         engine.batch_loss(model, tcfg, batch, impl=impl).backward()
         grads[impl] = {n: p.grad for n, p in model.named_parameters()
                        if p.grad is not None}
         for p in model.parameters():
             p.grad = None
-    if set(grads["flash"]) != set(grads["xla"]):
-        raise AssertionError("flash and xla give gradients to different "
-                             "parameters")
+    if len({frozenset(g) for g in grads.values()}) != 1:
+        raise AssertionError(f"{' and '.join(impls)} give gradients to "
+                             "different parameters")
     return grads
+
+
+def pinned_step_gradients(torch, engine, model, tcfg, batch, impls):
+    """step_gradients with every ReLU module's routing pinned, in every
+    impl after the first, to what the first impl's forward chose: its
+    backward passes a gradient where its input was > 0, so where an input
+    lies within the last bits of 0 the impls route that gradient
+    differently and a whole row's term moves in or out of a weight's
+    gradient.  Pinned, the comparison sees the attention's gradients.  The
+    grid's max pool (its backward sends each column's gradient to its
+    argmax row) is watched, not pinned.  Returns (grads, {"pool": n,
+    "relu": n}: how many pooled columns and ReLU inputs the later impls'
+    own forward routed otherwise, {"pool": n, "relu": n}: how many there
+    are)."""
+    from multimodal_emotion_processing_tpu_torch.models import grid as grid_mod
+
+    recorded = {"pool": [], "relu": []}
+    flips = dict.fromkeys(recorded, 0)
+    sizes = dict.fromkeys(recorded, 0)
+    calls = dict.fromkeys(recorded, 0)
+
+    def routed(kind, chosen):
+        """The first impl records `chosen`; later ones count where theirs
+        differs.  Returns the recorded routing."""
+        i = calls[kind]
+        calls[kind] += 1
+        if i >= len(recorded[kind]):
+            recorded[kind].append(chosen)
+            sizes[kind] += chosen.numel()
+            return chosen
+        flips[kind] += int((chosen != recorded[kind][i]).sum())
+        return recorded[kind][i]
+
+    def pool(x):
+        routed("pool", torch.max(x, dim=1).indices)
+        return original(x)
+
+    def relu_hook(module, args, out):
+        x = args[0]
+        return x * routed("relu", x > 0)
+
+    original = grid_mod.mean_max_pool
+    grid_mod.mean_max_pool = pool
+    hooks = [mod.register_forward_hook(relu_hook) for mod in model.modules()
+             if isinstance(mod, torch.nn.ReLU)]
+    grads = {}
+    try:
+        model.train()
+        for impl in impls:
+            calls.update(pool=0, relu=0)
+            engine.batch_loss(model, tcfg, batch, impl=impl).backward()
+            grads[impl] = {n: p.grad for n, p in model.named_parameters()
+                           if p.grad is not None}
+            for p in model.parameters():
+                p.grad = None
+    finally:
+        grid_mod.mean_max_pool = original
+        for h in hooks:
+            h.remove()
+    if len({frozenset(g) for g in grads.values()}) != 1:
+        raise AssertionError(f"{' and '.join(impls)} give gradients to "
+                             "different parameters")
+    return grads, flips, sizes
 
 
 def gradient_errors(got, ref):
@@ -921,13 +1259,16 @@ def set_gates(torch, members, seed: int = 1234):
     """a, b ~ U(0.5, 1.5) and c ~ U(0.25, 1.0) in every RealFormer block,
     from one seeded generator (c > 0: a gate at or below −1 would cancel
     the next block's mask penalty)."""
+    from multimodal_emotion_processing_tpu_torch.models.layers import RealformerBlock
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     with torch.no_grad():
         for m in members:
-            for blk in m.multimodal_blocks:
-                blk.a.uniform_(0.5, 1.5, generator=g)
-                blk.b.uniform_(0.5, 1.5, generator=g)
-                blk.c.uniform_(0.25, 1.0, generator=g)
+            for blk in m.modules():
+                if isinstance(blk, RealformerBlock):
+                    blk.a.uniform_(0.5, 1.5, generator=g)
+                    blk.b.uniform_(0.5, 1.5, generator=g)
+                    blk.c.uniform_(0.25, 1.0, generator=g)
 
 
 def phase_serve_robot(torch, report):
@@ -1005,9 +1346,279 @@ def phase_serve_robot(torch, report):
     return launches
 
 
+def phase_train_realformer(torch, report):
+    """The mosei_realformer training slice: Trainer.fit at impl="pallas"
+    from gate-perturbed weights, scored_fwd and both scored_bwd kernels
+    counted per variant and timed, then held against impl="xla"."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("mosei_realformer")
+    m, tcfg = exp.model, exp.train
+    if (tcfg.batch_size, tcfg.compute_dtype, tcfg.optimizer, tcfg.clip_mask_loss,
+            m.dim, m.n_heads, m.n_layers, m.p_len, m.dropout, m.head) != (
+            RF_BATCH, "float32", "adam", True, 96, RF_HEADS, 2, RF_P, 0.0,
+            "state_transfer"):
+        raise AssertionError(f"unexpected config {exp}")
+    train = synthetic_dataset(exp.name, m, RF_N_TRAIN, seed=0)
+    valid = synthetic_dataset(exp.name, m, RF_N_VALID, seed=1)
+
+    def loaders():
+        return (Batcher(train, RF_BATCH, seed=1),
+                Batcher(valid, RF_BATCH, shuffle=False))
+
+    state = engine.init_state(m, tcfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    zero_gates = copy.deepcopy(state.model)
+    set_gates(torch, [state.model])
+    log(f"[realformer] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
+        f"{m.l_len}/{m.v_len}/{m.a_len} n_layers={m.n_layers} p_len={m.p_len} "
+        f"params={n_params} batch={RF_BATCH} paragraphs ({RF_CLIPS} clips a "
+        f"call) f32, optimizer={tcfg.optimizer}, clip-mask loss; "
+        f"{RF_N_TRAIN} train / {RF_N_VALID} valid synthetic paragraphs, "
+        f"{RF_EPOCHS} epochs; gates a, b ~ U(0.5, 1.5), c ~ U(0.25, 1.0)")
+    if n_params != RF_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {RF_PARAMS}")
+    init_weights = {k: v.detach().clone()
+                    for k, v in state.model.state_dict().items()}
+
+    # step-1 gradients, pallas against xla, on the same weights and batch;
+    # and the gates reach them: with the gates at 0 (as built) ctx never
+    # reaches the loss and every w_qkv gradient is 0
+    first = to_device(next(iter(loaders()[0]())), "cuda")
+    grads = step_gradients(engine, state.model, tcfg, first,
+                           impls=("pallas", "xla"))
+    unpinned = max(e["rel_l2"] for e in gradient_errors(
+        grads["pallas"], grads["xla"]).values())
+    grads, flips, routes = pinned_step_gradients(
+        torch, engine, state.model, tcfg, first, ("pallas", "xla"))
+    grad_err = gradient_errors(grads["pallas"], grads["xla"])
+    max_grad_err = max(e["rel_l2"] for e in grad_err.values())
+    log(f"[realformer] step-1 gradients pallas vs xla: worst relative L2 "
+        f"{unpinned:.2e} as each forward routes its own max pool and ReLUs; "
+        f"the xla forward routes {flips['pool']} of {routes['pool']} pooled "
+        f"columns and {flips['relu']} of {routes['relu']} ReLU inputs "
+        "otherwise than the pallas one (bounds: no pooled column, a share "
+        f"of {RF_RELU_FLIP_SHARE:g} of the ReLU inputs), and with the ReLU "
+        "routing pinned to the pallas forward's:")
+    ungated = step_gradients(engine, zero_gates, tcfg, first, impls=("xla",))["xla"]
+    qkv = [n for n in grads["xla"] if ".w_qkv." in n]
+    gate_effect = max(float((grads["xla"][n] - ungated.get(
+        n, torch.zeros_like(grads["xla"][n]))).abs().max()) for n in qkv)
+    del zero_gates, ungated
+    for form in ("rel_l2", "max_abs"):
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1][form])[:4]
+        log(f"[realformer] step-1 gradients pallas vs xla, {len(grad_err)} "
+            f"tensors, {form} per tensor, worst: "
+            + ", ".join(f"{n}={e[form]:.2e}" for n, e in worst))
+    log(f"[realformer] zeroing the gates moves the step-1 w_qkv gradients by "
+        f"up to {gate_effect:.3e}")
+    del grads
+
+    # the main path, counted: Trainer.fit at impl="pallas"
+    for kern in pa.KERNELS:
+        kern.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = timed_trainer(torch, engine)(m, tcfg, impl="pallas", device="cuda")
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(*loaders(), state=state, epochs=RF_EPOCHS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in pa.KERNELS}
+    by_variant = {k.name: {f"sprev={int(a)},emit={int(e)}": n for (a, e), n
+                           in k.variant_launches.items()} for k in pa.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = trainer.step_ms()
+    n_steps = sum(h.steps for h in hist)
+    n_eval = RF_EPOCHS * -(-RF_N_VALID // RF_BATCH)
+    expected = {"scored_fwd": 18 * (n_steps + n_eval),
+                "scored_bwd_dq": 18 * n_steps, "scored_bwd_dkv": 18 * n_steps}
+    expected_by_variant = {
+        name: {f"sprev={int(a)},emit={int(e)}": (n // 2 if (a, e) in MAIN_VARIANTS
+                                                  else 0)
+               for a, e in pa.VARIANTS} for name, n in expected.items()}
+    losses = [x for h in hist for x in h.step_losses]
+    median = statistics.median(step_ms[1:])
+    for e, h in enumerate(hist):
+        log(f"[realformer] epoch {e}: train_loss={h.train_loss:.6f} "
+            f"valid_loss={h.valid_loss:.6f} steps={h.steps} samples={h.samples}"
+            f" seconds={h.seconds:.3f} samples/s={h.samples_per_sec:.1f}")
+    log(f"[realformer] step losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log(f"[realformer] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
+        + f"; median after the first {median:.2f} ms = "
+        f"{RF_BATCH / median * 1e3:.1f} paragraphs/s "
+        f"({RF_CLIPS / median * 1e3:.1f} clips/s); fit wall {wall_s:.2f} s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"[realformer] launches {launches}, by variant {by_variant}; expected "
+        f"{expected} (18 attention calls x {n_steps} steps, + 18 x {n_eval} "
+        "eval forwards), split evenly between (no S_prev, emit S) and "
+        "(S_prev, no S)")
+
+    # the same run through the plain attention path
+    twin = engine.init_state(m, tcfg, seed=0, device="cuda")
+    twin.model.load_state_dict(init_weights)
+    del init_weights
+    torch.cuda.reset_peak_memory_stats()
+    twin_trainer = timed_trainer(torch, engine)(m, tcfg, impl="xla", device="cuda")
+    twin, hist_x = twin_trainer.fit(*loaders(), state=twin, epochs=RF_EPOCHS)
+    peak_x = torch.cuda.max_memory_allocated()
+    step_ms_x = twin_trainer.step_ms()
+    losses_x = [x for h in hist_x for x in h.step_losses]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(losses, losses_x))
+    log(f"[realformer] impl=xla from the same weights and batches: step "
+        "losses " + ", ".join(f"{x:.6f}" for x in losses_x)
+        + f"; max relative loss difference {loss_rel:.2e} (bound "
+        f"{RF_LOSS_TOL:g}); step ms median after the first "
+        f"{statistics.median(step_ms_x[1:]):.2f}; peak memory "
+        f"{peak_x / 2**30:.2f} GiB")
+
+    report["train_realformer"] = dict(
+        config=exp.name, params=n_params, batch=RF_BATCH, clips=RF_CLIPS,
+        steps=n_steps, eval_forwards=n_eval, step_losses=losses,
+        step_losses_xla=losses_x,
+        epochs=[dataclasses.asdict(h) for h in hist],
+        epochs_xla=[dataclasses.asdict(h) for h in hist_x],
+        step_ms=step_ms, step_ms_xla=step_ms_x, step_ms_median=median,
+        step_ms_median_xla=statistics.median(step_ms_x[1:]),
+        paragraphs_per_s=RF_BATCH / median * 1e3, fit_wall_s=wall_s,
+        peak_bytes=peak, peak_bytes_xla=peak_x, launches=launches,
+        launches_by_variant=by_variant, expected_launches=expected,
+        grad_err=grad_err, max_grad_rel_l2=max_grad_err,
+        max_grad_rel_l2_unpinned=unpinned, routing_flips=flips,
+        routings=routes,
+        max_loss_rel_err=loss_rel, gate_effect_w_qkv_grad=gate_effect)
+    if not (len(losses) == len(losses_x) == n_steps == 8
+            and np.isfinite(losses + losses_x).all()):
+        raise AssertionError(f"step losses {losses} / {losses_x}")
+    if launches != expected or by_variant != expected_by_variant:
+        raise AssertionError(f"launches {launches} {by_variant}, expected "
+                             f"{expected} {expected_by_variant}")
+    if flips["pool"] or flips["relu"] > RF_RELU_FLIP_SHARE * routes["relu"]:
+        raise AssertionError(f"the pallas and xla forwards route {flips} of "
+                             f"{routes} max-pool columns and ReLU inputs "
+                             "differently: more than rounding can move")
+    if max_grad_err > RF_GRAD_TOL:
+        raise AssertionError(f"step-1 gradients disagree with impl='xla': "
+                             f"relative L2 {max_grad_err:.3e}")
+    if loss_rel > RF_LOSS_TOL:
+        raise AssertionError(f"losses disagree with impl='xla': {loss_rel:.3e}")
+    if gate_effect <= 0.0:
+        raise AssertionError("the gates do not reach the w_qkv gradients: "
+                             "the check cannot see the attention")
+    try:
+        report["train_realformer_profile"] = {
+            "pallas_step": profile_breakdown(
+                torch, lambda: trainer.train_step(state, first)),
+            "xla_step": profile_breakdown(
+                torch, lambda: twin_trainer.train_step(twin, first))}
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        report["train_realformer_profile"] = "not measured: the profiler failed"
+        log("[profile] not measured: the profiler failed")
+    return launches
+
+
+def phase_serve_paragraph(torch, report):
+    """Paragraph serving: RF_MEMBERS gate-perturbed seeded members of
+    mosei_realformer in a ParagraphStreamingPredictor at impl="pallas",
+    one synthetic paragraph pushed clip by clip, held against the members'
+    whole-window forward at impl="xla"."""
+    import copy
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+    from multimodal_emotion_processing_tpu_torch.serve import ParagraphStreamingPredictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("mosei_realformer")
+    members = [build_model(exp, device="cuda", seed=i) for i in range(RF_MEMBERS)]
+    zero_gates = copy.deepcopy(members[0])
+    set_gates(torch, members, seed=4321)
+    sample = synthetic_dataset(exp.name, exp.model, 1, seed=7)[0]
+    keys = ParagraphStreamingPredictor._CLIP_KEYS
+    clips = [{k: sample[k][t] for k in keys} for t in range(RF_P)]
+    sp = ParagraphStreamingPredictor(members, RF_OFFSETS, impl="pallas")
+    log(f"[paragraph] {exp.name}: {RF_MEMBERS} seeded members (gates set), "
+        f"f32, impl=pallas, one synthetic paragraph of {RF_P} clips "
+        f"({int(sample['clip_mask'].sum())} valid), offsets {RF_OFFSETS}")
+    sp.warmup(clips[0])
+    torch.cuda.synchronize()
+
+    pa.scored_forward_kernel.reset()
+    clip_ms, pushed = [], []
+    for clip in clips:
+        t0 = time.perf_counter()
+        pushed.append(sp.push(clip))
+        clip_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = pa.scored_forward_kernel.launches
+    by_variant = dict(pa.scored_forward_kernel.variant_launches)
+    expected = 18 * RF_MEMBERS * RF_P
+    expected_by_variant = {v: expected // 2 if v in MAIN_VARIANTS else 0
+                           for v in pa.VARIANTS}
+
+    batch = {k: torch.from_numpy(sample[k][None]).cuda() for k in keys}
+    with torch.no_grad():
+        whole = torch.stack([mb(batch, impl="xla")[0] for mb in members])
+        ref = whole.mean(dim=0).cpu().numpy()                   # (P, E)
+        gate_effect = float((members[0](batch, impl="xla")
+                             - zero_gates(batch, impl="xla")).abs().max())
+    scale = max(1.0, float(np.abs(ref).max()))
+    err = max(float(np.abs(pred - ref[t]).max()) / scale
+              for t, (pred, _) in enumerate(pushed))
+    ref_probs = 1 / (1 + np.exp(-(ref - np.asarray(RF_OFFSETS))))
+    prob_err = max(float(np.abs(probs - ref_probs[t]).max())
+                   for t, (_, probs) in enumerate(pushed))
+    sp.reset()
+    reset_err = float(np.abs(sp.push(clips[0])[0] - ref[0]).max()) / scale
+    report["paragraph_path"] = dict(
+        config=exp.name, members=RF_MEMBERS, clips=RF_P,
+        valid_clips=int(sample["clip_mask"].sum()), clip_ms=clip_ms,
+        clip_p50_ms=statistics.median(clip_ms), scored_launches=launches,
+        scored_launches_by_variant={f"sprev={int(a)},emit={int(e)}": n
+                                    for (a, e), n in by_variant.items()},
+        expected_launches=expected, err_vs_whole_window_xla=err,
+        probs_err=prob_err, reset_err=reset_err, gate_effect=gate_effect)
+    log(f"[paragraph] per-clip push ms: " + ", ".join(f"{t:.2f}" for t in clip_ms)
+        + f"; p50 {statistics.median(clip_ms):.2f} ms")
+    log(f"[paragraph] scored_fwd launches={launches} by variant "
+        f"{report['paragraph_path']['scored_launches_by_variant']}; expected "
+        f"18 x {RF_MEMBERS} members x {RF_P} clips = {expected}")
+    log(f"[paragraph] clip-t logits vs the whole-window xla forward: norm_err "
+        f"{err:.3e}, probs {prob_err:.3e}, after reset() {reset_err:.3e} "
+        f"(bound {ROBOT_TOL:g}); zeroing member 0's gates moves its logits "
+        f"by {gate_effect:.3e}")
+    if max(err, prob_err, reset_err) > ROBOT_TOL:
+        raise AssertionError("streamed paragraph logits disagree with the "
+                             "whole-window forward")
+    if gate_effect <= 100 * ROBOT_TOL:
+        raise AssertionError("the gates do not reach the logits")
+    if launches != expected or by_variant != expected_by_variant:
+        raise AssertionError(f"scored_fwd launched {launches} times "
+                             f"({by_variant}), expected {expected}")
+    return launches
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd"):
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
+                   "scored_bwd_dq", "scored_bwd_dkv"):
         if kernel in low:
             return kernel
     if "memcpy" in low or "memset" in low:
@@ -1091,7 +1702,9 @@ def main() -> int:
 
     summaries, launches = None, {}
     for phase, fn in (("kernels", phase_kernels), ("train", phase_train),
-                      ("serve", phase_serve), ("serve_robot", phase_serve_robot)):
+                      ("serve", phase_serve), ("serve_robot", phase_serve_robot),
+                      ("train_realformer", phase_train_realformer),
+                      ("serve_paragraph", phase_serve_paragraph)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -1136,12 +1749,14 @@ def main() -> int:
                          "(SDPA forward+backward minus forward) cover the whole "
                          "backward, dq, dk and dv")})
     summ = summaries["scored_fwd"]
+    by_path = {"serve_robot": launches["serve_robot"],
+               "train_realformer": launches["train_realformer"]["scored_fwd"],
+               "serve_paragraph": launches["serve_paragraph"]}
     kernels.append({
         "name": "scored_fwd", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_fwd.cu",
         "replaces": f"{pa_py}:190",
-        "launches": launches["serve_robot"],
-        "launches_by_path": {"serve_robot": launches["serve_robot"]},
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],
         "max_score_rel_err": summ["max_score_rel_err"],
         "ms": summ["ms"], "device_ms": summ["device_ms"],
@@ -1155,6 +1770,33 @@ def main() -> int:
                      "included), device_ms the kernel's own time from "
                      "torch.profiler; library_ms is SDPA with the float bias c*S_prev - 1e8(1-mask), which "
                      "computes ctx and writes no S")})
+    for name in ("scored_bwd_dq", "scored_bwd_dkv"):
+        summ = summaries[name]
+        n = launches["train_realformer"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_bwd.cu",
+            "replaces": f"{pa_py}:350",
+            "launches": n, "launches_by_path": {"train_realformer": n},
+            "max_abs_err": summ["max_abs_err"],
+            "max_norm_err": summ["max_norm_err"],
+            **{k: v for k, v in summ.items() if k.endswith("_term_scale_err")},
+            "ms": summ["ms"], "device_ms": summ["device_ms"],
+            "plain_ms": summ["plain_ms"],
+            "bound_ms": summ["bound_ms"], "bound_by": summ["bound_by"],
+            "library_ms": summ["library_ms"],
+            "pair_ms": summaries["scored_bwd_pair"]["ms"],
+            "timed_at": (f"sum over the {summ['calls_timed']} calls of one "
+                         f"mosei_realformer train step (nine 50x50 stream "
+                         f"shapes x two chained blocks), B={RF_CLIPS} clips, "
+                         "f32; ms by CUDA events around the kernel's launch "
+                         "on inputs checked once, pair_ms around the "
+                         "scored_backward_kernel wrapper (checks and both "
+                         "launches), device_ms from torch.profiler; plain_ms "
+                         "(scored_backward_plain) and library_ms (SDPA "
+                         "forward+backward minus forward with the float bias "
+                         "c*S_prev - 1e8(1-mask); no dS_prev, no dc) cover "
+                         "the whole backward")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

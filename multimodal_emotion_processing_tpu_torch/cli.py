@@ -1,14 +1,18 @@
 """Command line of the PyTorch port.
 
-  train <config> [--epochs E] [--n-train N] [--n-test M] [--impl xla|flash]
-        [--device cpu] [--set K=V]
+  train <config> [--epochs E] [--n-train N] [--n-test M]
+        [--impl xla|flash|pallas] [--device cpu] [--set K=V]
         Train one member with the port's Trainer on synthetic data and
         print one JSON line per epoch.
   serve [<config>] [--concurrent N] [--device cpu] [--impl xla|flash|pallas]
+        [--thresholds T1,T2,...]
         Serve a 4-member ensemble of seeded random members on synthetic
         requests: N concurrent requests through the micro-batching server,
         or one batch-1 request without --concurrent.  The config defaults
-        to robot_demo, the reference's streaming demo.
+        to robot_demo, the reference's streaming demo.  The paragraph model
+        (`mosei_realformer`, head state_transfer) streams one synthetic
+        paragraph clip by clip with its recurrence state on the device; it
+        has no thresholds of its own, so it needs --thresholds.
 
 Runs on the GPU unless `--device cpu` is given.
 """
@@ -52,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="epochs (default: the config's, with its early stop)")
     tr.add_argument("--n-train", type=int, default=256)
     tr.add_argument("--n-test", type=int, default=64)
-    tr.add_argument("--impl", choices=["xla", "flash"], default=None,
+    tr.add_argument("--impl", choices=["xla", "flash", "pallas"], default=None,
                     help="attention implementation (default: the config's)")
     tr.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
     tr.add_argument("--set", action="append", default=[], metavar="K=V",
@@ -70,6 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "micro-batching server instead of one batch-1 "
                          "request")
     sv.add_argument("--max-delay-ms", type=float, default=3.0)
+    sv.add_argument("--thresholds", default=None, metavar="T1,T2,...",
+                    help="per-emotion calibration offsets, in place of the "
+                         "config's (needed by configs without any, such as "
+                         "mosei_realformer); use --thresholds=-0.3,... for "
+                         "negative values")
     return p
 
 
@@ -121,9 +130,12 @@ def cmd_serve(args):
     members = load_members(exp, device)
     print(f"({len(members)}-member seeded random ensemble on {device}, "
           f"impl={impl}, dtype={exp.train.compute_dtype})", file=sys.stderr)
-    offsets = exp.thresholds
+    offsets = (tuple(float(t) for t in args.thresholds.split(","))
+               if args.thresholds else exp.thresholds)
     names = exp.emotion_names[: len(offsets)]
 
+    if exp.model.head == "state_transfer":
+        return _serve_paragraph(args, exp, members, offsets, impl)
     if args.concurrent > 0:
         samples = synthetic_dataset(args.config, exp.model, args.concurrent,
                                     seed=7)
@@ -160,6 +172,33 @@ def cmd_serve(args):
     print(f"(latency: {latency_ms:.2f} ms batch-1, {len(members)}-model "
           "ensemble)", file=sys.stderr)
     return emotions
+
+
+def _serve_paragraph(args, exp, members, offsets, impl):
+    """Stream one synthetic paragraph clip by clip (JAX cli.py:544-577)."""
+    from .data.synthetic import synthetic_dataset
+    from .serve import ParagraphStreamingPredictor
+
+    if args.concurrent > 0:
+        raise SystemExit(
+            "state_transfer configs stream clip-by-clip with carried "
+            "recurrence state; --concurrent serves stateless per-sample heads")
+    sp = ParagraphStreamingPredictor(members, offsets, impl=impl,
+                                     dtype=exp.train.compute_dtype)
+    sample = synthetic_dataset(args.config, exp.model, 1, seed=7)[0]
+    plen = sample["l"].shape[0]
+    clips = [{k: sample[k][t] for k in sp._CLIP_KEYS} for t in range(plen)]
+    sp.warmup(clips[0])
+    sp.reset()
+    t0 = time.perf_counter()
+    per_clip = [sp.emotions(c, exp.emotion_names) for c in clips]
+    latency_ms = (time.perf_counter() - t0) * 1e3 / plen
+    print(f"Streaming paragraph ({plen} clips, state carried on the device)")
+    for t, emos in enumerate(per_clip):
+        print(f"clip {t}: " + "  ".join(f"{n} {p}" for n, p in emos.items()))
+    print(f"(latency: {latency_ms:.2f} ms per clip, {len(members)}-model "
+          "ensemble)", file=sys.stderr)
+    return per_clip
 
 
 def main(argv=None):

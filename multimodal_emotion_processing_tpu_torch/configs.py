@@ -3,8 +3,8 @@
 The port keeps its own copy of the configuration dataclasses and of the
 registered families, field for field the same as the JAX package's, so a
 config name means the same model on either side.  Registered so far: the
-`mosei_trans` family and `robot_demo`; the other families arrive with the
-slices that port their blocks and heads.
+`mosei_trans` family, `mosei_realformer` and `robot_demo`; the other
+families arrive with the slices that port their blocks and heads.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class ModelConfig:
     # attention implementation the CLI uses when none is passed:
     # 'xla' (the plain einsum path), 'flash' (the online-softmax kernel,
     # terminal blocks only; other blocks take the plain path) or 'pallas'
-    # (the score-materializing kernel, every block, forward only)
+    # (the score-materializing kernels, every block, forward and backward)
     attn_impl: str = "xla"
     v_dims_multires: Tuple[int, int, int] = (256, 512, 1024)
     remat: bool = False
@@ -104,6 +104,27 @@ def mosei_trans() -> ExperimentConfig:
         # cmu-mosei/run.py:481-486 — fixed per-emotion thresholds
         thresholds=(0.1, -0.3, -0.5, -0.3, -0.6, -0.5),
         emotion_names=("happ", "sadn", "ange", "disg", "surp", "fear"),
+        emotion_index=(0, 1, 2, 3, 4, 5),
+    )
+
+
+def mosei_realformer() -> ExperimentConfig:
+    """CMU-MOSEI RealFormer paragraph model (others/realformer.py)."""
+    return ExperimentConfig(
+        name="mosei_realformer",
+        model=ModelConfig(
+            l_dim=300, v_dim=35, a_dim=74,
+            l_len=50, v_len=50, a_len=50,
+            dim=96, n_heads=6, n_layers=2, ffn=2, dropout=0.0,
+            block="realformer", use_position_embedding=True, unify="conv",
+            n_emotions=6, head="state_transfer", p_len=6,
+        ),
+        train=TrainConfig(
+            batch_size=64, lr=1e-3, epochs=99, grad_clip=1.0,
+            optimizer="adam", plateau_patience=2, early_stop=4,
+            save_guard=None, n_folds=5, clip_mask_loss=True,
+        ),
+        emotion_names=("happ", "sadn", "ange", "surp", "disg", "fear"),
         emotion_index=(0, 1, 2, 3, 4, 5),
     )
 
@@ -168,6 +189,7 @@ def _mosei_trans_scaled(point: str) -> ExperimentConfig:
 
 REGISTRY = {
     "mosei_trans": mosei_trans,
+    "mosei_realformer": mosei_realformer,
     "robot_demo": robot_demo,
     **{f"mosei_trans_{p}": (lambda p=p: _mosei_trans_scaled(p))
        for p in SCALE_POINTS},

@@ -1,5 +1,6 @@
-// Shared by csrc/flash_fwd.cu and csrc/flash_bwd.cu: the score of one
-// (query, key) pair and the small helpers around it.
+// Shared by csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/scored_fwd.cu and
+// csrc/scored_bwd.cu: the score of one (query, key) pair and the small
+// helpers around it.
 //
 // The backward recomputes p = exp(s - m) / l from the forward's saved row
 // stats m and l, so s must be bit-identical in the two kernels.  In a row
@@ -54,6 +55,22 @@ __device__ __forceinline__ float mask_penalty(const float* mask_row, int col) {
 // (q . k) * scale - penalty, rounded once
 __device__ __forceinline__ float masked_score(float dot, float scale, float neg) {
   return fmaf(dot, scale, -neg);
+}
+
+// The score of the score-chained kernels (csrc/scored_fwd.cu and
+// csrc/scored_bwd.cu): dot * scale, + c * S_prev when `sprev` is not null,
+// - penalty, each step rounded on its own in the plain path's order.  A key
+// masked in the previous block carries S_prev ~ -1e8, so s there is
+// ~ -(1 + c) * 1e8, where the f32 spacing is 8 to 16: one fused rounding
+// would move such an entry by a whole spacing, and in a fully masked row
+// change which keys share the row's maximum.  The backward rebuilds s
+// through this function, so it is bit-identical to the forward's.
+__device__ __forceinline__ float chained_score(float dot, float scale,
+                                               const float* sprev, float c,
+                                               float neg) {
+  float x = __fmul_rn(dot, scale);
+  if (sprev) x = __fadd_rn(x, __fmul_rn(c, *sprev));
+  return __fsub_rn(x, neg);
 }
 
 // Raw dot products of a tile: thread (tx, ty) gets rows ty + 16 r of `sA`

@@ -19,9 +19,10 @@
 // S_prev ~ -1e8, so s there is ~ -(1 + c) * 1e8, where the f32 spacing is
 // 8 to 16; a fused c*S_prev + dot would round once where the plain path
 // rounds twice and move such an entry by a whole spacing, which in a fully
-// masked row changes which keys share the row's maximum.  The scale and the
-// penalty are flash_common.cuh's (`score_scale`, `mask_penalty`), and the raw
-// dot is `tile_dots`' sequential fmaf over d.
+// masked row changes which keys share the row's maximum.  The steps are
+// flash_common.cuh's `chained_score`, which csrc/scored_bwd.cu rebuilds s
+// with; the scale and the penalty are `score_scale` and `mask_penalty`,
+// and the raw dot is `tile_dots`' sequential fmaf over d.
 //
 // The gate c is a device pointer of the input dtype, read inside the kernel
 // (never copied to the host, which would synchronise every call).  A null
@@ -148,9 +149,9 @@ scored_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int cc = 0; cc < CN; ++cc) {
         const int col = tx + kTX * cc;
         if (col < nkv) {
-          float x = __fmul_rn(s[r][cc], scale);
-          if (s_prev && live) x = __fadd_rn(x, __fmul_rn(cv, s_prev[srow + col]));
-          x = __fsub_rn(x, sNeg[col]);
+          const float x = chained_score(
+              s[r][cc], scale, s_prev && live ? s_prev + srow + col : nullptr,
+              cv, sNeg[col]);
           if (s_out && live) s_out[srow + col] = x;
           s[r][cc] = x;
           mx = fmaxf(mx, x);

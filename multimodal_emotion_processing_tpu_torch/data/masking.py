@@ -6,6 +6,10 @@ the raw sequence) are prepended; a long sequence (len >= m_len - 3) gives
 TWO crops, head- and tail-anchored, both carrying the summary frames; a
 short one is right-padded with zeros and masked over its len + 3 frames.
 
+The RealFormer paragraph model's masking (others/realformer.py:72-82,
+`simple_masking`): right-pad or truncate to a fixed length, a 1/0 mask, and
+inf/nan -> -71 on every modality, after the padding.
+
 The robot demo's fixed length (robot_demo.py:63-112): a short sequence is
 zero-padded, a long one stride-subsampled (`pad_or_subsample`).
 """
@@ -54,6 +58,18 @@ def summary_masking(
         feats.append(x)
         masks.append(mask)
     return feats, masks
+
+
+def simple_masking(m: np.ndarray, m_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference realformer `masking`: pad/truncate, then sanitize."""
+    m = np.asarray(m, dtype=np.float32)
+    if len(m) >= m_len:
+        mask = np.ones(m_len, dtype=np.float32)
+    else:
+        mask = np.concatenate(
+            [np.ones(len(m), np.float32), np.zeros(m_len - len(m), np.float32)])
+    m = np.concatenate([m, np.zeros((m_len,) + m.shape[1:], np.float32)], axis=0)[:m_len]
+    return sanitize(m), mask
 
 
 def pad_or_truncate(m: np.ndarray, m_len: int) -> Tuple[np.ndarray, np.ndarray]:

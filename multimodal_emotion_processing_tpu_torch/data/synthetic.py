@@ -1,10 +1,12 @@
-"""Shape- and dtype-faithful synthetic requests for the `mosei_trans` family
-and `robot_demo`.
+"""Shape- and dtype-faithful synthetic requests for the `mosei_trans` family,
+`mosei_realformer` and `robot_demo`.
 
 `mosei_trans` samples carry the real loader's quirks: variable raw lengths
 (both the pad and the two-crop paths of summary masking), inf/nan in audio,
 and `no_name` pairs whose previous utterance is all zeros with an all-zero
-mask (cmu-mosei/run.py:154-198).  `robot_demo` samples fill one of the three
+mask (cmu-mosei/run.py:154-198).  `mosei_realformer` samples are P-clip
+paragraph windows whose clips past a random count are all zero, with a
+per-clip validity mask `clip_mask`.  `robot_demo` samples fill one of the three
 visual resolution slots and leave the other two zero.  The same seed gives
 the same samples as the JAX package's generator.
 """
@@ -61,6 +63,34 @@ def mosei_pair_sample(rng, m, *, no_name_prob: float = 0.15) -> Dict[str, np.nda
     return sample
 
 
+def realformer_paragraph_sample(rng, m) -> Dict[str, np.ndarray]:
+    """One p_len-clip paragraph window with its per-clip validity mask
+    (others/realformer.py:94-125)."""
+    p = m.p_len
+    n_valid = int(rng.integers(1, p + 1))
+    keys = ("l", "v", "a", "l_mask", "v_mask", "a_mask", "label")
+    cols = {k: [] for k in keys}
+    clip_mask = []
+    for t in range(p):
+        if t < n_valid:
+            l, lm = masking.simple_masking(raw_modality(rng, m.l_len * 2, m.l_dim), m.l_len)
+            v, vm = masking.simple_masking(raw_modality(rng, m.v_len * 2, m.v_dim), m.v_len)
+            a, am = masking.simple_masking(
+                raw_modality(rng, m.a_len * 2, m.a_dim, pollute=True), m.a_len)
+            label = (rng.random(6) > 0.75).astype(np.int32)
+        else:
+            l, v, a = (np.zeros((n, d), np.float32) for n, d in (
+                (m.l_len, m.l_dim), (m.v_len, m.v_dim), (m.a_len, m.a_dim)))
+            lm, vm, am = (np.zeros(n, np.float32) for n in (m.l_len, m.v_len, m.a_len))
+            label = np.zeros(6, np.int32)
+        for k, x in zip(keys, (l, v, a, lm, vm, am, label)):
+            cols[k].append(x)
+        clip_mask.append(float(t < n_valid))
+    sample = {k: np.stack(x) for k, x in cols.items()}
+    sample["clip_mask"] = np.asarray(clip_mask, np.float32)
+    return sample
+
+
 def robot_sample(rng, m) -> Dict[str, np.ndarray]:
     """Robot-demo sample: one active visual resolution slot, others zero
     (robot_demo.py:63-112)."""
@@ -80,7 +110,9 @@ def robot_sample(rng, m) -> Dict[str, np.ndarray]:
     }
 
 
-SAMPLERS = {"mosei_trans": mosei_pair_sample, "robot_demo": robot_sample}
+SAMPLERS = {"mosei_trans": mosei_pair_sample,
+            "mosei_realformer": realformer_paragraph_sample,
+            "robot_demo": robot_sample}
 
 
 def synthetic_dataset(config_name: str, m, n: int, seed: int = 0) -> List[Dict]:

@@ -7,8 +7,9 @@ with torch's (out, in) layout, and (out, in, 1) for the kernel-1 convs.
 included, as the JAX package's `to_reference_state_dict`, kept here as the
 port's own copy), so `model.load_state_dict(from_jax_params(p, cfg))` loads
 JAX weights as they are.  Ported families: `concat_trans` (minus blocks,
-linear unify) and `grid_only` (RealFormer blocks, multi-resolution conv
-unify, position embeddings).
+linear unify), `grid_only` (RealFormer blocks, multi-resolution conv
+unify, position embeddings) and `state_transfer` (RealFormer blocks, the
+bias-free conv unify, position embeddings, the feature head).
 """
 
 from __future__ import annotations
@@ -59,11 +60,16 @@ def _realformer_block(blk, base: str, out: Dict) -> None:
 
 
 def _grid(g, prefix: str, cfg, out: Dict) -> None:
+    """The grid's unify, positions and blocks; its head is the caller's."""
     u = f"{prefix}unify_dimension"
     if cfg.unify == "linear":
         out[f"{u}.linguistic.weight"] = _t(g["unify"]["l"]["w"])
         out[f"{u}.visual.weight"] = _t(g["unify"]["v"]["w"])
         out[f"{u}.acoustic.weight"] = _t(g["unify"]["a"]["w"])
+    elif cfg.unify == "conv":
+        for ours, theirs in (("l", "linguistic"), ("v", "visual"),
+                             ("a", "acoustic")):
+            out[f"{u}.{theirs}.weight"] = _conv(g["unify"][ours]["w"])
     else:   # conv_multires
         for ours, theirs in (("l", "linguistic"), ("v256", "visual_256"),
                              ("v512", "visual_512"), ("v1024", "visual_1024"),
@@ -80,17 +86,21 @@ def _grid(g, prefix: str, cfg, out: Dict) -> None:
         for i in range(cfg.n_layers):
             block(g["blocks"][name][i],
                   f"{prefix}multimodal_blocks.{cfg.n_layers * s + i}", out)
-    out[f"{prefix}classifier.weight"] = _t(g["classifier"]["w"])
-    if "b" in g["classifier"]:
-        out[f"{prefix}classifier.bias"] = _arr(g["classifier"]["b"])
+
+
+def _linear(p, key: str, out: Dict) -> None:
+    out[f"{key}.weight"] = _t(p["w"])
+    if "b" in p:
+        out[f"{key}.bias"] = _arr(p["b"])
 
 
 def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
     """JAX-package params (a nested dict of arrays, numpy or jax) of a
     ported family (`concat_trans` with minus blocks and the linear unify,
-    or `grid_only` with RealFormer blocks, the conv_multires unify and
-    position embeddings) -> a reference-keyed state dict of CPU float32
-    tensors."""
+    `grid_only` with RealFormer blocks, the conv_multires unify and
+    position embeddings, or `state_transfer` with RealFormer blocks, the
+    conv unify and position embeddings) -> a reference-keyed state dict of
+    CPU float32 tensors."""
     cfg = getattr(cfg, "model", cfg)
     if PORTED.get(cfg.head) != (cfg.block, cfg.unify,
                                 cfg.use_position_embedding):
@@ -100,12 +110,21 @@ def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     if cfg.head == "grid_only":
         _grid(params, "", cfg, out)
-        return {k: torch.from_numpy(v) for k, v in out.items()}
-    for gname in ("intensity", "stimulation"):
-        _grid(params[gname], f"{gname}.", cfg, out)
-    out["trans"] = _arr(params["trans"])
-    out["norm1.weight"] = _arr(params["norm"]["scale"])
-    out["norm1.bias"] = _arr(params["norm"]["bias"])
-    out["out.weight"] = _t(params["out"]["w"])
-    out["out.bias"] = _arr(params["out"]["b"])
+        _linear(params["classifier"], "classifier", out)
+    elif cfg.head == "state_transfer":
+        feature = params["feature"]
+        _grid(feature, "feature.", cfg, out)
+        _linear(feature["fc"], "feature.fully_connected", out)
+        out["feature.normalization.weight"] = _arr(feature["ln"]["scale"])
+        out["feature.normalization.bias"] = _arr(feature["ln"]["bias"])
+        _linear(params["classifier"], "classifier", out)
+        out["trans"] = _arr(params["trans"])
+    else:
+        for gname in ("intensity", "stimulation"):
+            _grid(params[gname], f"{gname}.", cfg, out)
+            _linear(params[gname]["classifier"], f"{gname}.classifier", out)
+        out["trans"] = _arr(params["trans"])
+        out["norm1.weight"] = _arr(params["norm"]["scale"])
+        out["norm1.bias"] = _arr(params["norm"]["bias"])
+        _linear(params["out"], "out", out)
     return {k: torch.from_numpy(v) for k, v in out.items()}

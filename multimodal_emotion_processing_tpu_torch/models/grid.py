@@ -6,15 +6,22 @@ av) each run a chain of `n_layers` blocks that thread one score lineage:
 block i emits its scores for block i + 1 only when i < n_layers - 1.  Every
 layer's output is collected, the outputs concatenate on the feature axis per
 target modality, the three targets concatenate on the sequence axis in the
-order [l, a, v], and mean+max pooling feeds the classifier (`apply_grid`'s
+order [l, a, v], and mean+max pooling feeds the head (`apply_grid`'s
 unrolled path; its merged and stacked fast paths are off by default in the
 JAX package and are not ported).  The streams have distinct weights and
 (Lq, Lkv) shapes, so they are unrolled.
 
-Two ported variants: the `minus` grid (linear unify, minus blocks, a
-bias-free classifier, cmu-mosei/run.py:265-319) and the robot grid
-(multi-resolution conv unify, position embeddings, RealFormer blocks, a
-classifier with bias, robot_demo.py:377-441).
+Three ported variants, by the head on the pooled feature (`out`, as
+`apply_grid_head` names it):
+- "classifier": the `minus` grid (linear unify, minus blocks, every
+  layer's output collected, a bias-free classifier, cmu-mosei/run.py:
+  265-319);
+- "classifier_bias": the robot grid (multi-resolution conv unify, position
+  embeddings, RealFormer blocks, every layer collected, a classifier with
+  bias, robot_demo.py:377-441);
+- "feature": the paragraph model's grid (conv unify, position embeddings,
+  RealFormer blocks, only each stream's last block collected, then
+  ReLU(LayerNorm(Linear_{6·dim→dim})), others/realformer.py:211-264).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from torch import nn
 from ..ops.pooling import mean_max_pool
 from ..utils import initializers as init
 from .layers import (MinusBlock, PositionEmbedding, RealformerBlock,
-                     UnifyConvMultires, UnifyLinear)
+                     UnifyConv, UnifyConvMultires, UnifyLinear)
 
 # (stream key, query modality, key/value modality) — reference order.
 STREAMS = (
@@ -45,17 +52,21 @@ POSITIONS = (("l", "linguistic_position"), ("v", "visual_position"),
 
 class Grid(nn.Module):
     """Unify projection (+ position embeddings), 9 * n_layers blocks and the
-    per-layer classifier head; block `n_layers * s + i` is layer i of stream
-    s.  The config picks the unify (`linear` or `conv_multires`) and the
-    block (`minus` or `realformer`); `classifier_bias` the head's bias."""
+    head `out`; block `n_layers * s + i` is layer i of stream s.  The config
+    picks the unify (`linear`, `conv` or `conv_multires`) and the block
+    (`minus` or `realformer`)."""
 
-    def __init__(self, cfg, *, classifier_bias: bool = False):
+    def __init__(self, cfg, *, out: str = "classifier"):
         super().__init__()
+        self.out = out
         self.n_layers = cfg.n_layers
         self.dropout = cfg.dropout
         if cfg.unify == "linear":
             self.unify_dimension = UnifyLinear(cfg.l_dim, cfg.v_dim, cfg.a_dim,
                                                cfg.dim)
+        elif cfg.unify == "conv":
+            self.unify_dimension = UnifyConv(cfg.l_dim, cfg.v_dim, cfg.a_dim,
+                                             cfg.dim)
         elif cfg.unify == "conv_multires":
             self.unify_dimension = UnifyConvMultires(
                 cfg.l_dim, cfg.v_dims_multires, cfg.a_dim, cfg.dim)
@@ -75,9 +86,15 @@ class Grid(nn.Module):
         else:
             raise NotImplementedError(f"block {cfg.block!r} is not ported yet")
         self.multimodal_blocks = nn.ModuleList(blocks)
-        self.classifier = nn.Linear(cfg.dim * 6 * cfg.n_layers, cfg.n_emotions,
-                                    bias=classifier_bias)
+        if out == "feature":
+            self.fully_connected = nn.Linear(cfg.dim * 6, cfg.dim)
+            self.normalization = nn.LayerNorm(cfg.dim, eps=init.LN_EPS)
+        else:
+            self.classifier = nn.Linear(cfg.dim * 6 * cfg.n_layers,
+                                        cfg.n_emotions,
+                                        bias=out == "classifier_bias")
 
+    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.unify_dimension.reset_parameters(generator)
         if self.positions:
@@ -85,11 +102,17 @@ class Grid(nn.Module):
                 getattr(self, attr).reset_parameters(generator)
         for blk in self.multimodal_blocks:
             blk.reset_parameters(generator)
-        init.linear_(self.classifier, generator)
+        if self.out == "feature":
+            init.linear_(self.fully_connected, generator)
+            self.normalization.weight.fill_(1.0)
+            self.normalization.bias.zero_()
+        else:
+            init.linear_(self.classifier, generator)
 
     def forward(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla"):
-        """l/v/a (B, len, dm) and masks (B, len) -> logits (B, n_emotions);
-        with the `conv_multires` unify, v is the tuple (v256, v512, v1024).
+        """l/v/a (B, len, dm) and masks (B, len) -> logits (B, n_emotions),
+        or the feature (B, dim) for `out="feature"`; with the
+        `conv_multires` unify, v is the tuple (v256, v512, v1024).
         In training mode a config with dropout > 0 raises: dropout is not
         ported, and training without it would be another model."""
         if self.training and self.dropout > 0:
@@ -101,6 +124,9 @@ class Grid(nn.Module):
         if self.positions:
             src = {m: getattr(self, attr)(src[m]) for m, attr in POSITIONS}
         masks = {"l": l_mask, "v": v_mask, "a": a_mask}
+        # every layer's output feeds the classifiers; only each stream's
+        # last one feeds the feature head (apply_grid's collect="final")
+        per_layer = self.out != "feature"
         collected = {"l": [], "v": [], "a": []}
         for s, (name, qm, kvm) in enumerate(STREAMS):
             q, scores = src[qm], None
@@ -109,10 +135,16 @@ class Grid(nn.Module):
                 q, scores = self.multimodal_blocks[self.n_layers * s + i](
                     q, src[kvm], src[kvm], masks[kvm], scores, impl=impl,
                     emit_scores=i < self.n_layers - 1)
-                collected[TARGET[name]].append(q)
+                if per_layer or i == self.n_layers - 1:
+                    collected[TARGET[name]].append(q)
         lc = torch.cat(collected["l"], dim=2)
         vc = torch.cat(collected["v"], dim=2)
         ac = torch.cat(collected["a"], dim=2)
         # reference sequence-concat order is [l, a, v] (cmu-mosei/run.py:317)
         pooled = mean_max_pool(torch.cat([lc, ac, vc], dim=1))
-        return self.classifier(pooled)
+        if per_layer:
+            return self.classifier(pooled)
+        # Drop(ReLU(LN(FC(x)))) (others/realformer.py:263); dropout not ported
+        return torch.relu(init.layer_norm(self.fully_connected(pooled),
+                                          self.normalization.weight,
+                                          self.normalization.bias))

@@ -7,7 +7,14 @@
       out = Linear([this ; LN(fused)])
 
 - the grid-only classifier of the robot demo (Multi_class,
-  robot_demo.py:377-441): one grid whose classifier has a bias.
+  robot_demo.py:377-441): one grid whose classifier has a bias;
+
+- the recurrent paragraph head (State_Transfer, others/realformer.py:
+  266-286): the paragraph axis folds into the batch for ONE grid forward
+  over every clip, `classifier` splits each clip's output into (out_t1,
+  feats), and a gated recurrence runs over the clips:
+
+      α = σ(feats_t + feats_{t−1});  out_t = (1−α)·out_t1 + α·tanh(out_{t−1}·T)
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ class ConcatTrans(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         e = cfg.n_emotions
-        self.intensity = Grid(cfg)
-        self.stimulation = Grid(cfg)
+        self.intensity = Grid(cfg, out="classifier")
+        self.stimulation = Grid(cfg, out="classifier")
         self.trans = nn.Parameter(torch.empty(e, e, e))
         self.norm1 = nn.LayerNorm(e, eps=init.LN_EPS)
         self.out = nn.Linear(2 * e, e)
@@ -73,7 +80,7 @@ class GridOnly(Grid):
     `multimodal_blocks.…`, `classifier.{weight,bias}`)."""
 
     def __init__(self, cfg):
-        super().__init__(cfg, classifier_bias=True)
+        super().__init__(cfg, out="classifier_bias")
 
     def forward(self, batch, *, impl: str = "xla"):
         """batch: l (B, Ll, l_dim), v256/v512/v1024 (B, Lv, d), a (B, La,
@@ -82,3 +89,57 @@ class GridOnly(Grid):
             batch["l"], (batch["v256"], batch["v512"], batch["v1024"]),
             batch["a"], batch["l_mask"], batch["v_mask"], batch["a_mask"],
             impl=impl)
+
+
+def state_transfer_recurrence(trans, prev_out, prev_feats, out_t1, feats):
+    """One step of the gated recurrence (others/realformer.py:280-282):
+    α = σ(feats_t + feats_{t−1}); out = (1−α)·out_t1 + α·tanh(out_{t−1}·T)."""
+    alpha = torch.sigmoid(feats + prev_feats)
+    return (1.0 - alpha) * out_t1 + alpha * torch.tanh(prev_out @ trans)
+
+
+class StateTransfer(nn.Module):
+    """`state_transfer`: the `feature` grid, `classifier` (dim → 2E, with
+    bias) and the transition matrix `trans` (E, E) of the recurrence."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        e = cfg.n_emotions
+        self.n_emotions = e
+        self.feature = Grid(cfg, out="feature")
+        self.classifier = nn.Linear(cfg.dim, 2 * e)
+        self.trans = nn.Parameter(torch.empty(e, e))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.feature.reset_parameters(generator)
+        init.linear_(self.classifier, generator)
+        init.uniform01_(self.trans, generator)
+
+    def clip(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla"):
+        """The per-clip half (`state_transfer_clip`): grid → feature →
+        classifier, split into (out_t1, feats), each (N, E), for
+        clip-flattened inputs (N, len, dm) and masks (N, len)."""
+        cls = self.classifier(self.feature(l, v, a, l_mask, v_mask, a_mask,
+                                           impl=impl))
+        return cls[..., :self.n_emotions], cls[..., self.n_emotions:]
+
+    def forward(self, batch, *, impl: str = "xla"):
+        """batch: l/v/a (B, P, len, dm), *_mask (B, P, len).  Returns the
+        per-clip logits (B, P, E)."""
+        b, plen = batch["l"].shape[:2]
+
+        def flat(x):
+            return x.reshape((b * plen,) + tuple(x.shape[2:]))
+
+        out_t1, feats = self.clip(
+            *(flat(batch[k]) for k in ("l", "v", "a", "l_mask", "v_mask",
+                                       "a_mask")), impl=impl)
+        out_t1 = out_t1.reshape(b, plen, -1)
+        feats = feats.reshape(b, plen, -1)
+        outs = [out_t1[:, 0]]
+        for t in range(1, plen):
+            outs.append(state_transfer_recurrence(
+                self.trans, outs[-1], feats[:, t - 1], out_t1[:, t],
+                feats[:, t]))
+        return torch.stack(outs, dim=1)

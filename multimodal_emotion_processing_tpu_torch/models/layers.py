@@ -3,10 +3,11 @@ embeddings, and the two attention block variants.
 
 - `minus` family (cmu-mosei/run.py:207-262): the bias-free Linear unify and
   the `minus` block (no Q/K/V projections, a Linear combine, LayerNorm).
-- `realformer` family (robot_demo.py:293-374): the multi-resolution 1x1-conv
-  unify with biases, position embeddings, and the RealFormer block
-  (per-input Q/K/V projections, q = LN(q + a·attn), q = LN(q + b·FFN(q)),
-  gates a, b, c starting at 0).
+- `realformer` family (others/realformer.py:133-209, robot_demo.py:293-374):
+  the bias-free 1x1-conv unify of the paragraph model or the robot demo's
+  multi-resolution one with biases, position embeddings, and the RealFormer
+  block (per-input Q/K/V projections, q = LN(q + a·attn),
+  q = LN(q + b·FFN(q)), gates a, b, c starting at 0).
 
 Module attribute names follow the reference's state-dict keys
 (`unify_dimension.{linguistic,visual,acoustic}` or
@@ -44,6 +45,31 @@ class UnifyLinear(nn.Module):
         return self.linguistic(l), self.visual(v), self.acoustic(a)
 
 
+def _pointwise(conv: nn.Conv1d, x):
+    """A kernel-1 Conv1d over (B, L, C): a position-wise Linear."""
+    return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+
+class UnifyConv(nn.Module):
+    """The paragraph model's unify (`apply_unify_conv`): a bias-free
+    kernel-1 Conv1d per modality, applied position-wise.  Dropout is not
+    ported."""
+
+    def __init__(self, l_dim: int, v_dim: int, a_dim: int, dim: int):
+        super().__init__()
+        self.linguistic = nn.Conv1d(l_dim, dim, 1, bias=False)
+        self.visual = nn.Conv1d(v_dim, dim, 1, bias=False)
+        self.acoustic = nn.Conv1d(a_dim, dim, 1, bias=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for conv in (self.linguistic, self.visual, self.acoustic):
+            init.linear_(conv, generator)
+
+    def forward(self, l, v, a):
+        return (_pointwise(self.linguistic, l), _pointwise(self.visual, v),
+                _pointwise(self.acoustic, a))
+
+
 class UnifyConvMultires(nn.Module):
     """The robot demo's unify (`apply_unify_conv_multires`): kernel-1 Conv1d
     with bias per input; the three visual resolution slots each map to
@@ -64,17 +90,11 @@ class UnifyConvMultires(nn.Module):
                      self.visual_1024, self.acoustic):
             init.linear_(conv, generator)
 
-    @staticmethod
-    def _pointwise(conv: nn.Conv1d, x):
-        # a kernel-1 conv over (B, L, C) is a position-wise Linear
-        return F.linear(x, conv.weight[:, :, 0], conv.bias)
-
     def forward(self, l, v, a):
         """l (B, Ll, l_dim), v a tuple (v256, v512, v1024), a (B, La, a_dim)."""
-        v = torch.cat([self._pointwise(conv, x) for conv, x in zip(
+        v = torch.cat([_pointwise(conv, x) for conv, x in zip(
             (self.visual_256, self.visual_512, self.visual_1024), v)], dim=-1)
-        return (self._pointwise(self.linguistic, l), v,
-                self._pointwise(self.acoustic, a))
+        return _pointwise(self.linguistic, l), v, _pointwise(self.acoustic, a)
 
 
 class PositionEmbedding(nn.Module):

@@ -5,12 +5,14 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from .heads import ConcatTrans, GridOnly
+from .heads import ConcatTrans, GridOnly, StateTransfer
 
-_HEADS = {"concat_trans": ConcatTrans, "grid_only": GridOnly}
+_HEADS = {"concat_trans": ConcatTrans, "grid_only": GridOnly,
+          "state_transfer": StateTransfer}
 # the (block, unify, position embeddings) each head is ported with
 PORTED = {"concat_trans": ("minus", "linear", False),
-          "grid_only": ("realformer", "conv_multires", True)}
+          "grid_only": ("realformer", "conv_multires", True),
+          "state_transfer": ("realformer", "conv", True)}
 
 
 def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:

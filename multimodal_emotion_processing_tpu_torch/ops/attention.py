@@ -65,8 +65,9 @@ def scored_attention(
     scores_prev: None | (B, H, Lq, Lkv); c: (1,) residual gate.
     impl: 'xla' (plain PyTorch path) | 'flash' (the CUDA online-softmax
     kernel for terminal blocks; calls it cannot serve take the plain path) |
-    'pallas' (the CUDA kernel that emits S, forward only; `emit_scores=False`
-    skips the S write).
+    'pallas' (the CUDA kernels of every block, which emit S, with their
+    backward kernels when a gradient is needed; `emit_scores=False` skips
+    the S write).
     Returns (context (B, Lq, D), scores (B, H, Lq, Lkv) or None)."""
     if impl == "pallas":
         from .pallas_attention import scored_attention_pallas
@@ -88,18 +89,25 @@ def scored_attention(
     return _scored_attention_xla(q, k, v, mask, scores_prev, c, n_heads=n_heads)
 
 
+def chained_scores(qh, kh, mask, scores_prev, c, *, n_heads: int):
+    """Post-mask scores q·kᵀ/√dh (+ c·S_prev) − 1e8·(1 − mask) of head-split
+    qh (B, H, Lq, dh) and kh (B, H, Lkv, dh), at their dtype."""
+    acc = qh.dtype
+    scores = (qh @ kh.transpose(-2, -1)) / math.sqrt(kh.shape[-1])
+    if scores_prev is not None:
+        scores = scores + c.to(acc) * scores_prev
+    if mask is not None:
+        scores = scores - MASK_PENALTY * (1.0 - _broadcast_mask(mask, n_heads).to(acc))
+    return scores
+
+
 def _scored_attention_xla(q, k, v, mask, scores_prev, c, *, n_heads: int):
     """The plain path: f32 (or wider) accumulation, post-mask scores."""
     acc = torch.promote_types(q.dtype, torch.float32)
     qh = split_heads(q, n_heads).to(acc)
     kh = split_heads(k, n_heads).to(acc)
     vh = split_heads(v, n_heads).to(acc)
-    d_head = kh.shape[-1]
-    scores = (qh @ kh.transpose(-2, -1)) / math.sqrt(d_head)
-    if scores_prev is not None:
-        scores = scores + c.to(acc) * scores_prev
-    if mask is not None:
-        scores = scores - MASK_PENALTY * (1.0 - _broadcast_mask(mask, n_heads).to(acc))
+    scores = chained_scores(qh, kh, mask, scores_prev, c, n_heads=n_heads)
     att = torch.softmax(scores, dim=-1)
     ctx = att @ vh
     return merge_heads(ctx.to(q.dtype)), scores

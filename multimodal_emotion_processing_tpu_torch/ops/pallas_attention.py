@@ -1,33 +1,51 @@
 """Score-chained (RealFormer) attention that materializes its scores:
-`impl="pallas"` (named after the JAX package's ops/pallas_attention.py).
+`impl="pallas"` (named after the JAX package's ops/pallas_attention.py),
+forward and backward.
 
-csrc/scored_fwd.cu `scored_fwd`, written by hand for Hopper, replaces the
-JAX package's forward Pallas kernel (ops/pallas_attention.py `_forward`) in
-its four variants: S_prev given or not, times S emitted or not.
+The kernels are written by hand in CUDA C++ for Hopper; each source's header
+says what bounds it on the card.
 
-    S   = q·kᵀ/√dh (+ c·S_prev) − 1e8·(1 − mask)     f32, post-mask
-    ctx = softmax(S)·v                                at the input dtype
+- csrc/scored_fwd.cu `scored_fwd` replaces the JAX package's forward Pallas
+  kernel (ops/pallas_attention.py `_forward`) in its four variants: S_prev
+  given or not, times S emitted or not.
+
+      S   = q·kᵀ/√dh (+ c·S_prev) − 1e8·(1 − mask)     f32, post-mask
+      ctx = softmax(S)·v                                at the input dtype
+
+- csrc/scored_bwd.cu `scored_bwd_dq` and `scored_bwd_dkv` replace its
+  backward Pallas kernel (`_backward_pallas`) in the same four variants:
+
+      ds = p·(dp − Σ dp·p) (+ dS)      dS_prev = c·ds      dc = Σ ds·S_prev
+      dmask = 1e8·Σ_{h,q} ds           dq, dk, dv
+
+  s is read from the emitted S or rebuilt exactly as the forward kernel
+  computed it (csrc/flash_common.cuh `chained_score`).
 
 A stream's first block has no S_prev and emits S for the next one; its last
-block reads S_prev and emits nothing.  The kernel reads the gate c from the
-device, so a call never waits for the device.  It takes any sequence length
-and head widths 1-256, so the JAX wrapper's VMEM-overflow fallbacks have no
-counterpart here.
+block reads S_prev and emits nothing.  The kernels read the gate c from the
+device, so a call never waits for the device.  They take any sequence
+length and head widths 1-256, so the JAX wrapper's VMEM-overflow fallbacks
+have no counterpart here.  The JAX package keeps two backwards (its Pallas
+kernel and an einsum VJP, `bwd_impl`); the port has one: the kernels on
+CUDA tensors, and their plain version `scored_backward_plain` (JAX's einsum
+VJP) on CPU tensors.
 
 `scored_attention_pallas` routes as the JAX wrapper does: a 3-D mask takes
-the plain path; otherwise CUDA tensors launch the kernel and CPU tensors
-take its plain version, `scored_forward_plain`.  Forward only: the backward
-kernel (`_backward_pallas`) is not ported yet, so a call that needs a
-gradient raises on either device.
+the plain path; every other call goes through `ScoredAttention`, the
+`torch.autograd.Function` in place of JAX `_make`'s custom VJPs, whose CUDA
+tensors launch the kernels and whose CPU tensors take their plain versions,
+`scored_forward_plain` and `scored_backward_plain`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from .attention import _scored_attention_xla
+from .attention import (MASK_PENALTY, _scored_attention_xla, chained_scores,
+                        merge_heads, split_heads)
 from .cuda_binding import Kernel, check_like, check_qkv, needs_grad, ptr
 
 # (has S_prev, emits S): the four kernel variants
@@ -36,26 +54,66 @@ VARIANTS = ((False, True), (True, False), (False, False), (True, True))
 
 def scored_forward_plain(q, k, v, mask, scores_prev, c, *, n_heads: int,
                          emit_scores: bool = True):
-    """The kernel's function in plain PyTorch (the `xla` path), accumulated
-    in f32: returns (ctx at q's dtype, S (B, H, Lq, Lkv) or None)."""
+    """The forward kernel's function in plain PyTorch (the `xla` path),
+    accumulated in f32: returns (ctx at q's dtype, S (B, H, Lq, Lkv) or
+    None)."""
     ctx, scores = _scored_attention_xla(q, k, v, mask, scores_prev, c,
                                         n_heads=n_heads)
     return ctx, scores if emit_scores else None
 
 
-def _refuse_gradients(name, *tensors) -> None:
+def scored_backward_plain(q, k, v, mask, scores_prev, c, scores, dscores,
+                          dctx, *, n_heads: int):
+    """The backward kernels' function in plain PyTorch, accumulated in f32:
+    JAX's einsum VJP (`_attn_bwd`, with `_recompute_scores` when `scores`,
+    the emitted S, is None) and the dc, dmask and dS_prev lines of `_make`.
+    `dscores` is the cotangent of the emitted S, or None.  Returns (dq, dk,
+    dv at the input dtype, dmask (B, Lkv) at q's dtype or None without a
+    mask, dS_prev f32 and dc (at c's dtype, c's shape) or None without
+    scores_prev)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qh, kh, vh, gh = (split_heads(t, n_heads).to(acc) for t in (q, k, v, dctx))
+    inv_sqrt = 1.0 / math.sqrt(qh.shape[-1])
+    if scores is None:
+        scores = chained_scores(qh, kh, mask, scores_prev, c, n_heads=n_heads)
+    p = torch.softmax(scores.to(acc), dim=-1)
+    dv = p.transpose(-2, -1) @ gh
+    dp = gh @ vh.transpose(-2, -1)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if dscores is not None:
+        ds = ds + dscores.to(acc)
+    dq = (ds @ kh) * inv_sqrt
+    dk = (ds.transpose(-2, -1) @ qh) * inv_sqrt
+    dmask = (None if mask is None
+             else (MASK_PENALTY * ds.sum(dim=(1, 2))).to(q.dtype))
+    dsprev = dc = None
+    if scores_prev is not None:
+        dsprev = (c.to(acc) * ds).to(torch.float32)
+        dc = (ds * scores_prev).sum().to(c.dtype).reshape(c.shape)
+    return (merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype),
+            merge_heads(dv).to(v.dtype), dmask, dsprev, dc)
+
+
+def _check_grad_free(name, *tensors) -> None:
+    """The bare kernels record no autograd graph."""
     if needs_grad(*tensors):
-        raise RuntimeError(
-            f"{name}: impl='pallas' is forward only (its backward kernel is "
-            "not ported yet); train with impl='xla' or 'flash'")
+        raise RuntimeError(f"{name} records no autograd graph: a call that "
+                           "needs a gradient goes through ScoredAttention")
 
 
-class ScoredForwardKernel(Kernel):
-    """`scored_fwd` in csrc/scored_fwd.cu.  `variant_launches` counts the
-    launches per (has S_prev, emits S)."""
+def _check_gate(scores_prev, c, q):
+    """c as the kernels read it: one value of q's dtype on q's device, or
+    None without scores_prev."""
+    if scores_prev is None:
+        return None
+    if c is None or c.numel() != 1 or c.device != q.device:
+        raise ValueError(f"scores_prev needs the gate c: one value on {q.device}")
+    return c.reshape(1).to(q.dtype).contiguous()
 
-    name = library = "scored_fwd"
-    n_pointers = 8
+
+class _VariantKernel(Kernel):
+    """A kernel with four variants; `variant_launches` counts the launches
+    per (has S_prev, emits S)."""
 
     def __init__(self):
         super().__init__()
@@ -66,6 +124,20 @@ class ScoredForwardKernel(Kernel):
             self.launches = 0
             self.variant_launches = dict.fromkeys(VARIANTS, 0)
 
+    def _run(self, tensors, dims, variant) -> None:
+        """Launch on the tensors' pointers (the first is q) and count."""
+        self._launch(tensors[0].device, [ptr(t) for t in tensors], dims,
+                     tensors[0].dtype == torch.bfloat16)
+        with self._lock:
+            self.variant_launches[variant] += 1
+
+
+class ScoredForwardKernel(_VariantKernel):
+    """`scored_fwd` in csrc/scored_fwd.cu."""
+
+    name = library = "scored_fwd"
+    n_pointers = 8
+
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: Optional[torch.Tensor],
                  scores_prev: Optional[torch.Tensor],
@@ -75,47 +147,194 @@ class ScoredForwardKernel(Kernel):
         mask None or (B, Lkv); scores_prev None or (B, H, Lq, Lkv) f32 with
         the gate c, one value on the device (cast to q's dtype).  Returns
         (ctx (B, Lq, D) at q's dtype, S (B, H, Lq, Lkv) f32 or None)."""
-        _refuse_gradients(self.name, q, k, v, mask, scores_prev, c)
+        _check_grad_free(self.name, q, k, v, mask, scores_prev, c)
         b, lq, lkv, dh, mask = check_qkv(self.name, q, k, v, mask, n_heads)
         if scores_prev is not None:
             scores_prev = check_like("scores_prev", scores_prev,
                                      (b, n_heads, lq, lkv), torch.float32,
                                      q.device)
-            if c is None or c.numel() != 1 or c.device != q.device:
-                raise ValueError("scores_prev needs the gate c: one value on "
-                                 f"{q.device}")
-            c = c.reshape(1).to(q.dtype).contiguous()
-        else:
-            c = None
+        c = _check_gate(scores_prev, c, q)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         ctx = torch.empty_like(q)
         scores = (torch.empty(b, n_heads, lq, lkv, dtype=torch.float32,
                               device=q.device) if emit_scores else None)
-        self._launch(q.device,
-                     [ptr(t) for t in (q, k, v, mask, scores_prev, c, ctx, scores)],
-                     (b, n_heads, lq, lkv, dh), q.dtype == torch.bfloat16)
-        with self._lock:
-            self.variant_launches[(scores_prev is not None, emit_scores)] += 1
+        self._run([q, k, v, mask, scores_prev, c, ctx, scores],
+                  (b, n_heads, lq, lkv, dh), (scores_prev is not None, emit_scores))
         return ctx, scores
 
 
+class ScoredBwdDqKernel(_VariantKernel):
+    """`scored_bwd_dq` in csrc/scored_bwd.cu."""
+
+    name = "scored_bwd_dq"
+    library = "scored_bwd"
+    n_pointers = 13
+
+    def launch(self, ins, dims, variant):
+        """`ins`, `dims` and `variant` as ScoredBackwardKernel.check gives
+        them.  Returns (dq at q's dtype, the row stats (3, B, H, Lq) f32 for
+        scored_bwd_dkv, dS_prev (B, H, Lq, Lkv) f32 and dc (one f32 value)
+        or None, None without scores_prev)."""
+        q = ins[0]
+        b, h, lq, lkv, dh = dims
+        dq = torch.empty_like(q)
+        stats = torch.empty(3, b, h, lq, dtype=torch.float32, device=q.device)
+        dsprev = dcpart = None
+        if variant[0]:
+            dsprev = torch.empty(b, h, lq, lkv, dtype=torch.float32,
+                                 device=q.device)
+            dcpart = torch.empty(b, h, self.q_tiles(lq, dh),
+                                 dtype=torch.float32, device=q.device)
+        self._run(ins + [stats, dq, dsprev, dcpart], dims, variant)
+        return dq, stats, dsprev, None if dcpart is None else dcpart.sum()
+
+    @staticmethod
+    def q_tiles(lq: int, dh: int) -> int:
+        """scored_bwd_dq's grid width: q tiles of 64 rows up to dh 128,
+        32 above (csrc/scored_bwd.cu `DqTiles`)."""
+        rows = 64 if dh <= 128 else 32
+        return -(-lq // rows)
+
+
+class ScoredBwdDkvKernel(_VariantKernel):
+    """`scored_bwd_dkv` in csrc/scored_bwd.cu."""
+
+    name = "scored_bwd_dkv"
+    library = "scored_bwd"
+    n_pointers = 13
+
+    def launch(self, ins, stats, dims, variant, want_dmask: bool):
+        """`stats` from scored_bwd_dq on the same inputs.  Returns (dk, dv
+        at k's dtype, dmask (B, Lkv) f32: 1e8 times the kernel's per-head
+        rows Σ_q ds summed over heads; None without a mask or when
+        `want_dmask` is false)."""
+        b, h, _, lkv, _ = dims
+        dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
+        dmh = None
+        if want_dmask and ins[3] is not None:
+            dmh = torch.empty(b, h, lkv, dtype=torch.float32,
+                              device=dk.device)
+        self._run(ins + [stats, dk, dv, dmh], dims, variant)
+        return dk, dv, None if dmh is None else MASK_PENALTY * dmh.sum(dim=1)
+
+
+class ScoredBackwardKernel:
+    """The backward of csrc/scored_bwd.cu: checks its inputs once, then
+    launches `scored_bwd_dq` (dq, dS_prev, dc and the row stats) and
+    `scored_bwd_dkv` (dk, dv, dmask), each counting its own launches."""
+
+    name = "scored_bwd"
+
+    def __init__(self):
+        self.dq = ScoredBwdDqKernel()
+        self.dkv = ScoredBwdDkvKernel()
+
+    def check(self, q, k, v, mask, scores_prev, c, scores, dscores, dctx, *,
+              n_heads: int):
+        """The forward's q, k, v, mask, S_prev and c, the emitted S (None
+        where the forward emitted none: the kernels rebuild s) with its
+        cotangent dscores (None counts as zero), and the cotangent dctx
+        (like q).  Returns (the inputs in the kernels' order, (B, H, Lq,
+        Lkv, dh), the variant (has S_prev, emits S))."""
+        _check_grad_free(self.name, q, k, v, mask, scores_prev, c, scores,
+                         dscores, dctx)
+        b, lq, lkv, dh, mask = check_qkv(self.name, q, k, v, mask, n_heads)
+        score_shape = (b, n_heads, lq, lkv)
+        if scores_prev is not None:
+            scores_prev = check_like("scores_prev", scores_prev, score_shape,
+                                     torch.float32, q.device)
+        if scores is not None:
+            scores = check_like("scores", scores, score_shape, torch.float32,
+                                q.device)
+        if dscores is not None:
+            if scores is None:
+                raise ValueError("dscores is the cotangent of an emitted S: "
+                                 "pass S with it")
+            dscores = check_like("dscores", dscores, score_shape,
+                                 torch.float32, q.device)
+        c = _check_gate(scores_prev, c, q)
+        dctx = check_like("dctx", dctx, q.shape, q.dtype, q.device)
+        ins = [t.contiguous() for t in (q, k, v)] + [
+            mask, scores, dscores, scores_prev, c, dctx]
+        variant = (scores_prev is not None, scores is not None)
+        return ins, (b, n_heads, lq, lkv, dh), variant
+
+    def __call__(self, q, k, v, mask, scores_prev, c, scores, dscores, dctx,
+                 *, n_heads: int, want_dmask: bool = True):
+        """Returns (dq, dk, dv at the input dtype, dmask (B, Lkv) f32 or
+        None without a mask or when `want_dmask` is false, dS_prev (B, H,
+        Lq, Lkv) f32 and dc (one f32 value) or None, None without
+        scores_prev)."""
+        ins, dims, variant = self.check(q, k, v, mask, scores_prev, c, scores,
+                                        dscores, dctx, n_heads=n_heads)
+        dq, stats, dsprev, dc = self.dq.launch(ins, dims, variant)
+        dk, dv, dmask = self.dkv.launch(ins, stats, dims, variant, want_dmask)
+        return dq, dk, dv, dmask, dsprev, dc
+
+
 scored_forward_kernel = ScoredForwardKernel()
+scored_backward_kernel = ScoredBackwardKernel()
+KERNELS = (scored_forward_kernel, scored_backward_kernel.dq,
+           scored_backward_kernel.dkv)
+
+
+class ScoredAttention(torch.autograd.Function):
+    """Score-chained attention with its backward kernels, in place of JAX
+    `_make`'s four custom VJPs.  The forward saves q, k, v, the mask, S_prev,
+    c and the emitted S; the backward takes the cotangents of ctx and of S
+    (None where nothing downstream reads them) and returns dq, dk, dv,
+    dmask (at the mask's dtype, when the mask needs a gradient), dS_prev
+    and dc (at c's dtype; c gets none in the variants without S_prev, as on
+    the plain path).  CPU tensors take the plain versions, CUDA tensors the
+    kernels.  Returns (ctx, S) when S is emitted, else ctx."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scores_prev, c, n_heads, emit_scores):
+        ctx.set_materialize_grads(False)
+        if q.device.type == "cpu":
+            out, scores = scored_forward_plain(q, k, v, mask, scores_prev, c,
+                                               n_heads=n_heads,
+                                               emit_scores=emit_scores)
+        else:
+            out, scores = scored_forward_kernel(q, k, v, mask, scores_prev, c,
+                                                n_heads=n_heads,
+                                                emit_scores=emit_scores)
+        ctx.save_for_backward(q, k, v, mask, scores_prev, c, scores)
+        ctx.n_heads = n_heads
+        return (out, scores) if emit_scores else out
+
+    @staticmethod
+    def backward(ctx, dctx, dscores=None):
+        q, k, v, mask, scores_prev, c, scores = ctx.saved_tensors
+        h = ctx.n_heads
+        if dctx is None:
+            dctx = torch.zeros_like(q)
+        want_dmask = mask is not None and ctx.needs_input_grad[3]
+        if q.device.type == "cpu":
+            dq, dk, dv, dmask, dsprev, dc = scored_backward_plain(
+                q, k, v, mask, scores_prev, c, scores, dscores, dctx,
+                n_heads=h)
+        else:
+            dq, dk, dv, dmask, dsprev, dc = scored_backward_kernel(
+                q, k, v, mask, scores_prev, c, scores, dscores, dctx,
+                n_heads=h, want_dmask=want_dmask)
+            if dc is not None:
+                dc = dc.to(c.dtype).reshape(c.shape)
+        # at q's dtype, as JAX has it (the cotangent of mask.astype(q.dtype))
+        dmask = dmask.to(q.dtype).to(mask.dtype) if want_dmask else None
+        return dq, dk, dv, dmask, dsprev, dc, None, None
 
 
 def scored_attention_pallas(q, k, v, mask, scores_prev, c, *, n_heads: int,
                             emit_scores: bool = True):
     """Drop-in for `scored_attention(impl="pallas")`.  `mask=None` counts as
     all ones.  A 3-D mask takes the plain `xla` path and returns its scores
-    whatever `emit_scores` says, as the JAX wrapper does.  Otherwise CUDA
-    tensors launch `scored_fwd` and CPU tensors take `scored_forward_plain`;
-    returns (ctx, None) when `emit_scores` is false."""
+    whatever `emit_scores` says, as the JAX wrapper does.  Every other call
+    goes through `ScoredAttention`, which records a graph only where one is
+    needed.  Returns (ctx, None) when `emit_scores` is false."""
     if mask is not None and mask.ndim != 2:
         return _scored_attention_xla(q, k, v, mask, scores_prev, c,
                                      n_heads=n_heads)
-    if q.device.type == "cpu":
-        _refuse_gradients("scored_attention_pallas", q, k, v, mask,
-                          scores_prev, c)
-        return scored_forward_plain(q, k, v, mask, scores_prev, c,
-                                    n_heads=n_heads, emit_scores=emit_scores)
-    return scored_forward_kernel(q, k, v, mask, scores_prev, c,
-                                 n_heads=n_heads, emit_scores=emit_scores)
+    out = ScoredAttention.apply(q, k, v, mask, scores_prev, c, n_heads,
+                                emit_scores)
+    return out if emit_scores else (out, None)

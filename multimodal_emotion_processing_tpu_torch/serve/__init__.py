@@ -1,2 +1,3 @@
-from .stream import StreamingPredictor, ensemble_serve_fn  # noqa: F401
+from .stream import (ParagraphStreamingPredictor, StreamingPredictor,  # noqa: F401
+                     ensemble_serve_fn)
 from .server import BatchingServer  # noqa: F401

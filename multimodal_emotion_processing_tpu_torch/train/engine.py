@@ -9,8 +9,8 @@ is an attribute of the optimizer that the host-side plateau controller
 (schedule.py) changes between epochs.
 
 Not ported yet: the device mesh, scan-chained steps, gradient accumulation,
-the profile option, the wire-compression dtypes, R-Drop, the clip-mask loss
-and dropout (a config with dropout > 0 raises in training).
+the profile option, the wire-compression dtypes, R-Drop and dropout (a
+config with dropout > 0 raises in training).
 """
 
 from __future__ import annotations
@@ -131,15 +131,18 @@ def batch_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
     """The reference loss contract: the ZLPR loss, averaged with the
     optional `sample_weight` (1 for real rows, 0 for padding) as
     Σ w·loss / max(Σ w, 1), so a zero-padded batch gives the reference's
-    mean over its real rows.
+    mean over its real rows.  The paragraph model's per-clip loss (B, P) is
+    multiplied by `clip_mask` under `clip_mask_loss`
+    (others/realformer.py:312) and averaged as Σ w·loss / max(Σ w·P, 1): the
+    denominator counts every clip of a real row, masked or not, as JAX's
+    `batch_loss` does.
 
     Under `compute_dtype="bfloat16"` the f32 parameters are cast to bf16
     inside the graph (`functional_call` with `p.to(bfloat16)`), so their
     gradients land in the f32 masters; batch floats go to bf16 except the
     keep-set, and the logits are upcast before the loss."""
-    if tcfg.rdrop_kl or tcfg.clip_mask_loss:
-        raise NotImplementedError("R-Drop and the clip-mask loss are not "
-                                  "ported yet")
+    if tcfg.rdrop_kl:
+        raise NotImplementedError("R-Drop is not ported yet")
     dtype = getattr(tcfg, "compute_dtype", "float32")
     batch = cast_batch(batch, dtype)
     if dtype == "bfloat16":
@@ -149,9 +152,14 @@ def batch_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
     else:
         logits = model(batch, impl=impl)
     per_sample = zlpr_loss(infer_upcast(logits), batch["label"])
+    if tcfg.clip_mask_loss:
+        per_sample = per_sample * batch["clip_mask"]            # (B, P)
     w = batch.get("sample_weight")
     if w is None:
         return per_sample.mean()
+    if per_sample.ndim == 2:
+        return ((per_sample * w[:, None]).sum()
+                / torch.clamp(w.sum() * per_sample.shape[1], min=1.0))
     return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 

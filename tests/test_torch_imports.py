@@ -54,6 +54,19 @@ def test_the_robot_slice_is_covered():
     assert "scored_fwd.cu" in {p.name for p in _sources()}
 
 
+def test_the_realformer_slice_is_covered():
+    """The modules and kernel sources of the mosei_realformer training and
+    paragraph serving slice are among those the tests below import and
+    scan."""
+    mods = set(_port_modules())
+    for m in ("ops.pallas_attention", "ops.attention", "models.grid",
+              "models.heads", "models.registry", "data.synthetic",
+              "interop.torch_compat", "serve.stream", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+    names = {p.name for p in _sources()}
+    assert {"scored_fwd.cu", "scored_bwd.cu", "flash_common.cuh"} <= names
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"

@@ -165,7 +165,8 @@ def test_infer_cast_copies_and_keeps_loss_vectors_f32():
 
 
 @pytest.mark.parametrize("name", ["mosei_trans", "mosei_trans_s256",
-                                  "mosei_trans_s512", "mosei_trans_s1024"])
+                                  "mosei_trans_s512", "mosei_trans_s1024",
+                                  "mosei_realformer"])
 def test_configs_equal_jax(name):
     assert dataclasses.asdict(configs.get(name)) == dataclasses.asdict(
         jconfigs.get(name))

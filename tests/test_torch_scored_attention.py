@@ -123,16 +123,25 @@ def test_3d_mask_takes_the_plain_path():
 
 
 def test_gradients_are_refused():
-    """Forward only: a call that needs a gradient raises, on the CPU too,
-    instead of returning a result whose gradient would be missing."""
+    """The bare kernel wrappers record no autograd graph: the forward
+    kernel and the backward wrapper of its two kernels refuse inputs that
+    need a gradient, pointing to ScoredAttention, on the CPU too.  The
+    routing wrapper `scored_attention_pallas` takes every call through
+    ScoredAttention instead, and returns a graph where one is needed."""
     q, k, v, m, sprev, c, h = _inputs()
+    dctx = _t(np.ones_like(q))
     for i in range(6):
         args = [_t(x) for x in (q, k, v, m, sprev, c)]
         args[i].requires_grad_(True)
-        with pytest.raises(RuntimeError, match="forward only"):
-            tpa.scored_attention_pallas(*args, n_heads=h)
-        with pytest.raises(RuntimeError, match="forward only"):
+        with pytest.raises(RuntimeError, match="ScoredAttention"):
             tpa.scored_forward_kernel(*args, n_heads=h)
+        with pytest.raises(RuntimeError, match="ScoredAttention"):
+            tpa.scored_backward_kernel(*args, None, None, dctx, n_heads=h)
+        ctx, s = tpa.scored_attention_pallas(*args, n_heads=h)
+        assert "ScoredAttention" in type(ctx.grad_fn).__name__
+        assert s.requires_grad
+        (ctx.sum() + s[s > -1e7].sum()).backward()
+        assert args[i].grad is not None
     with torch.no_grad():
         ctx, _ = tpa.scored_attention_pallas(*args, n_heads=h)
     assert ctx.grad_fn is None
