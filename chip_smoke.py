@@ -12,9 +12,9 @@ Phases, each reported on its own lines:
      plain version's, one library call's (timing yardstick only) and the
      bound the card sets for the same work: flash_fwd (with and without its
      row stats), flash_bwd_dq and flash_bwd_dkv, scored_fwd in its four
-     variants (S_prev given or not, S emitted or not), and scored_bwd_dq and
+     variants (S_prev given or not, S emitted or not), scored_bwd_dq and
      scored_bwd_dkv in the same four, with dc and dmask held at the scale of
-     the terms they sum;
+     the terms they sum, and fused_block in the same four;
   3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
      trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
      an eval pass after each, with the kernel launch counts of that run, the
@@ -42,7 +42,24 @@ Phases, each reported on its own lines:
   7. serve_paragraph: five gate-perturbed seeded members of the same
      config in a ParagraphStreamingPredictor at impl="pallas", one
      synthetic paragraph pushed clip by clip, each clip's blended logits
-     held against the members' whole-window forward at impl="xla".
+     held against the members' whole-window forward at impl="xla";
+  8. train_fused: `mosei_trans` at its reference width (dim 96, 6 heads,
+     lengths 20/100/200, one minus block per stream, 588,192 parameters,
+     f32, AdamW), trained by the port's Trainer at impl="pallas_fused" for
+     2 epochs of 4 steps at batch 64 with an eval pass after each: the
+     whole-block kernel fused_block in every forward and both scored_bwd
+     kernels in every backward, counted per variant; the 8 losses and the
+     step-1 gradients held against impl="xla" from the same weights and
+     batches, one profiled step; then one forward and backward of an
+     n_layers=2 member with its gates c set non-zero (the S_prev variants'
+     model path) against impl="xla";
+  9. serve_ren_mme: `ren_mme` at its reference width (dim 128, 8 heads,
+     lengths 40/76/275, the shared-LayerNorm unify, 1,317,544 parameters),
+     four seeded members in f32 served at impl="pallas_fused" (eval mode,
+     so its dropout is inactive) the same way as phase 4, with fused_block
+     counted and the outputs held against impl="xla".  The kernels phase
+     also holds fused_block against its plain version in its four
+     variants (and its S bit for bit against scored_fwd's).
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -85,10 +102,10 @@ N_MEMBERS, N_CONCURRENT, N_STREAMING = 4, 16, 4
 # robot_demo: lengths l/v/a 25/100/100, 6 heads of 32; the nine (Lq, Lkv)
 # stream shapes in the grid's stream order (ll, lv, la, vv, vl, va, aa, al,
 # av); 5,662,397 parameters per member (the JAX model's eval_shape)
+STREAM_PAIRS = (("l", "l"), ("l", "v"), ("l", "a"), ("v", "v"), ("v", "l"),
+                ("v", "a"), ("a", "a"), ("a", "l"), ("a", "v"))
 ROBOT_LEN = {"l": 25, "v": 100, "a": 100}
-ROBOT_SHAPES = tuple((ROBOT_LEN[q], ROBOT_LEN[kv]) for q, kv in (
-    ("l", "l"), ("l", "v"), ("l", "a"), ("v", "v"), ("v", "l"), ("v", "a"),
-    ("a", "a"), ("a", "l"), ("a", "v")))
+ROBOT_SHAPES = tuple((ROBOT_LEN[q], ROBOT_LEN[kv]) for q, kv in STREAM_PAIRS)
 ROBOT_HEADS, ROBOT_DH, ROBOT_PARAMS = 6, 32, 5_662_397
 # scored_fwd variants (has S_prev, emits S); a stream's block 0 runs the
 # first, its block 1 the second
@@ -115,6 +132,37 @@ RF_RELU_FLIP_SHARE = 1e-6
 # forward at 2e-4 (normalised)
 RF_MEMBERS = 5
 RF_OFFSETS = (0.1, -0.3, -0.5, -0.6, -0.3, -0.5)
+# mosei_trans at its reference width: lengths l/v/a 20/100/200, dim 96, 6
+# heads of 16, one minus block per stream; 588,192 parameters (the JAX
+# model's init).  Trained at impl="pallas_fused": one member, batch 64, f32,
+# AdamW, 256 / 64 synthetic pairs for 2 epochs (8 steps, 2 eval passes);
+# losses at 1e-3 relative and step-1 gradients at 2e-4 relative L2 against
+# impl="xla" (tests/test_interop.py:20), the max pool's routing pinned to
+# the fused forward's, which may route at most this share of the pooled
+# columns otherwise
+MT_LEN = {"l": 20, "v": 100, "a": 200}
+MT_SHAPES = tuple((MT_LEN[q], MT_LEN[kv]) for q, kv in STREAM_PAIRS)
+MT_HEADS, MT_DH, MT_BATCH, MT_PARAMS = 6, 16, 64, 588_192
+MT_N_TRAIN, MT_N_VALID, MT_EPOCHS = 256, 64, 2
+MT_GRAD_TOL, MT_LOSS_TOL, MT_POOL_FLIP_SHARE = 2e-4, 1e-3, 1e-4
+# the chained check: an n_layers=2 member (1,097,394 parameters) at batch 8,
+# every gate c ~ U(0.25, 1.0)
+MT_CHAINED_BATCH = 8
+# ren_mme at its reference width: lengths l/v/a 40/76/275, dim 128, 8 heads
+# of 16, the linear_ln unify; 1,317,544 parameters (the JAX model's init);
+# served in eval mode, where its dropout 0.1 is inactive
+REN_LEN = {"l": 40, "v": 76, "a": 275}
+REN_SHAPES = tuple((REN_LEN[q], REN_LEN[kv]) for q, kv in STREAM_PAIRS)
+REN_HEADS, REN_DH, REN_PARAMS = 8, 16, 1_317_544
+# fused_block edge cases: (B, Lq, Lkv, H, dh, mask); dh 1 and 256, Lq 1,
+# ragged Lkv 275 and 1000, no mask, and fully masked rows under S_prev
+# from a previous block (c = 0.7); then one s1024 stream shape, bf16 only
+FUSED_EDGE_CASES = (
+    (2, 20, 50, 2, 1, "zero_row"), (2, 70, 300, 2, 256, "zero_row"),
+    (3, 1, 100, 6, 16, "zero_row"), (2, 37, 275, 8, 16, "ragged"),
+    (2, 33, 1000, 4, 64, "ragged"), (2, 64, 64, 6, 32, "none"),
+    (4, 100, 200, 6, 16, "zero_row"))
+FUSED_S1024_CASE = (2, 128, 512, 8, 128, "zero_row")
 # scored_fwd edge cases: (B, Lq, Lkv, H, dh, mask); dh 1/16/48/256, ragged
 # Lkv up to 1024, Lq 1, no mask; every "zero_row" case has a fully masked
 # row, whose S_prev (block 0's output) holds -1e8 + raw under c = 0.7
@@ -327,6 +375,7 @@ def phase_kernels(torch, report):
     summaries.update(backward_cases(torch, g, report))
     summaries["scored_fwd"] = scored_cases(torch, g, report)
     summaries.update(scored_bwd_cases(torch, g, report))
+    summaries["fused_block"] = fused_cases(torch, g, report)
     return summaries
 
 
@@ -817,6 +866,223 @@ def scored_bwd_cases(torch, g, report):
     return out
 
 
+def fused_bound(b, h, lq, lkv, dh, dtype_name, has_sprev, emit, save_ctx):
+    """Least time for one fused_block call on this card: q, k, v, the f32
+    mask, the three D x D weights and the LayerNorm's two vectors read
+    once, S_prev (f32) when given, out written once, S (f32) and the ctx
+    residual when asked for, against 4·B·H·Lq·Lkv·dh flops for the
+    attention plus 6·B·Lq·D² for the three products, at the peak of the
+    operand type."""
+    it = 2 if dtype_name == "bfloat16" else 4
+    d = h * dh
+    scores = b * h * lq * lkv * 4
+    nbytes = ((2 * b * lq * d + 2 * b * lkv * d + 3 * d * d + 2 * d) * it
+              + b * lkv * 4 + scores * (int(has_sprev) + int(emit))
+              + b * lq * d * it * int(save_ctx))
+    return _bound(nbytes, 4.0 * b * h * lq * lkv * dh + 6.0 * b * lq * d * d,
+                  dtype_name)
+
+
+def fused_weights(torch, g, d, dtype):
+    """A minus block's weights in torch's layout, Linear-initialised, and
+    its LayerNorm's scale and bias away from 1 and 0."""
+    bound = 1.0 / d ** 0.5
+
+    def uniform(*shape):
+        return ((torch.rand(*shape, generator=g, device="cuda") * 2 - 1)
+                * bound).to(dtype)
+
+    return [uniform(d, d), uniform(d, 2 * d),
+            (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype),
+            (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)]
+
+
+def fused_library_call(torch, q, k, v, mask, ws, h):
+    """The block (no S_prev) as PyTorch library calls, for timing as one
+    sequence: SDPA with the float bias −1e8(1 − mask), then F.linear for the
+    projection and the split combine, and F.layer_norm.  No single PyTorch
+    call computes the block; this composite writes no S."""
+    from multimodal_emotion_processing_tpu_torch.ops.attention import (
+        MASK_PENALTY, merge_heads, split_heads)
+
+    F = torch.nn.functional
+    qh, kh, vh = (split_heads(t, h).contiguous() for t in (q, k, v))
+    bias = (-MASK_PENALTY * (1.0 - mask.float()))[:, None, None, :].to(q.dtype)
+    wp, wm, lw, lb = ws
+    d = q.shape[-1]
+
+    def call():
+        ctx = merge_heads(F.scaled_dot_product_attention(qh, kh, vh,
+                                                         attn_mask=bias))
+        y = F.linear(q, wm[:, :d]) + F.linear(F.linear(ctx, wp), wm[:, d:])
+        return F.layer_norm(y, (d,), lw, lb, 1e-5)
+
+    return call
+
+
+def fused_cases(torch, g, report):
+    """fused_block against fused_block_plain (out and S) and
+    scored_forward_plain (the ctx residual) in its four variants, in f32
+    and bf16: the nine mosei_trans stream shapes at the training batch 64,
+    the nine ren_mme shapes at the serving bucket 8, the edge cases, and one
+    s1024 shape in bf16.  S_prev is what a previous block emits (the plain
+    version's S of another q on the same keys and mask), so it holds
+    −1e8 + raw where the mask is 0; c is 0.7.  S must also equal
+    scored_fwd's S on the same inputs bit for bit.  Timed in f32 as the
+    main paths call it (no S_prev, no S; the training forward with the ctx
+    residual, serving without), with the backward through FusedMinusBlock
+    against autograd through the plain version at the training shapes."""
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [("train", dtype, (MT_BATCH, lq, lkv, MT_HEADS, MT_DH,
+                                    "zero_row")) for lq, lkv in MT_SHAPES]
+        cases += [("serve", dtype, (SERVE_BUCKET, lq, lkv, REN_HEADS, REN_DH,
+                                    "zero_row")) for lq, lkv in REN_SHAPES]
+        cases += [("edge", dtype, c) for c in FUSED_EDGE_CASES]
+    cases.append(("edge", torch.bfloat16, FUSED_S1024_CASE))
+    rows, ok, timed_calls = [], True, {"train": [], "serve": []}
+    for path, dtype, (b, lq, lkv, h, dh, mask_kind) in cases:
+        dname = str(dtype).removeprefix("torch.")
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        q, k, v, mask = attention_inputs(torch, g, b, lq, lkv, h, dh, dtype,
+                                         mask_kind)
+        q0 = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
+        sprev = pa.scored_forward_plain(q0, k, v, mask, None, None,
+                                        n_heads=h)[1].contiguous()
+        c = torch.tensor([0.7], device="cuda").to(dtype)
+        ws = fused_weights(torch, g, h * dh, dtype)
+        for has_sprev, emit in pa.VARIANTS:
+            sp = sprev if has_sprev else None
+            out, s, ctx = fb.fused_block_kernel(q, k, v, mask, sp, c, *ws,
+                                                n_heads=h, emit_scores=emit,
+                                                save_ctx=True)
+            torch.cuda.synchronize()
+            ref, rs = fb.fused_block_plain(q, k, v, mask, sp, c, *ws,
+                                           n_heads=h, emit_scores=emit)
+            rctx, _ = pa.scored_forward_plain(q, k, v, mask, sp, c, n_heads=h,
+                                              emit_scores=False)
+            abs_err, err = errors(out, ref)
+            ctx_err = errors(ctx, rctx)[1]
+            s_err, s_bits = 0.0, True
+            if emit:
+                s_err = score_errors(s, rs)
+                s_bits = torch.equal(s, pa.scored_forward_kernel(
+                    q, k, v, mask, sp, c, n_heads=h)[1])
+            good = (bool(torch.isfinite(out).all().item()) and err <= tol
+                    and ctx_err <= tol and s_err <= SCORE_RTOL and s_bits
+                    and (s is None) == (not emit) and out.dtype == dtype)
+            ok &= good
+            row = dict(path=path, dtype=dname, b=b, lq=lq, lkv=lkv, h=h, dh=dh,
+                       mask=mask_kind, has_sprev=has_sprev, emit=emit,
+                       max_abs_err=abs_err, max_norm_err=err,
+                       ctx_norm_err=ctx_err, score_rel_err=s_err,
+                       scores_equal_scored_fwd=s_bits, tol=tol, ok=good)
+            timing = ""
+            if (path != "edge" and dtype == torch.float32
+                    and (has_sprev, emit) == (False, False)):
+                save = path == "train"
+                call = functools.partial(
+                    fb.fused_block_kernel, q, k, v, mask, None, c, *ws,
+                    n_heads=h, emit_scores=False, save_ctx=save)
+                timed_calls[path].append(call)
+                row["ms"] = time_ms(torch, call)
+                row["plain_ms"] = time_ms(torch, lambda: fb.fused_block_plain(
+                    q, k, v, mask, None, c, *ws, n_heads=h, emit_scores=False))
+                row["library_ms"] = time_ms(
+                    torch, fused_library_call(torch, q, k, v, mask, ws, h))
+                row.update(fused_bound(b, h, lq, lkv, dh, dname, False, False,
+                                       save))
+                timing = (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+                          f" library_ms={row['library_ms']:.4f} bound_ms="
+                          f"{row['bound_ms']:.5f} ({row['bound_by']})")
+                if save:
+                    row.update(fused_backward_timing(torch, fb, q, k, v, mask,
+                                                     c, ws, h, g))
+                    timing += (f" bwd_ms={row['bwd_ms']:.4f} plain_bwd_ms="
+                               f"{row['plain_bwd_ms']:.4f} bwd_norm_err="
+                               f"{row['bwd_norm_err']:.2e}")
+                    good = row["bwd_norm_err"] <= MT_GRAD_TOL
+                    row["ok"] = row["ok"] and good
+                    ok &= good
+            rows.append(row)
+            log(f"[kernels] fused_block {dname} B={b} Lq={lq} Lkv={lkv} H={h} "
+                f"dh={dh} mask={mask_kind} sprev={int(has_sprev)} "
+                f"emit={int(emit)} norm_err={err:.3e} ctx_err={ctx_err:.2e} "
+                f"S_rel_err={s_err:.2e} S==scored_fwd={s_bits} tol={tol:g} "
+                f"{'ok' if row['ok'] else 'FAIL'}" + timing)
+    report["fused_cases"] = rows
+    if not ok:
+        raise AssertionError("fused_block disagrees with its plain version")
+    out = {}
+    for path in ("train", "serve"):
+        timed = [r for r in rows if r["path"] == path and "ms" in r]
+        summ = {k: sum(r[k] for r in timed)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        summ["bound_by"] = majority_bound(timed)
+        summ["calls_timed"] = len(timed)
+        if path == "train":
+            for k in ("bwd_ms", "plain_bwd_ms"):
+                summ[k] = sum(r[k] for r in timed)
+        try:
+            summ["device_ms"] = kernel_device_ms(torch, timed_calls[path],
+                                                 "fused_block")
+        except Exception:   # a measurement only: the checks above stand
+            traceback.print_exc()
+            summ["device_ms"] = None
+        out[path] = summ
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["max_score_rel_err"] = max(r["score_rel_err"] for r in rows)
+    out["scores_equal_scored_fwd"] = all(r["scores_equal_scored_fwd"]
+                                         for r in rows)
+    report["fused_summary"] = out
+    for path, what in (("train", f"the nine mosei_trans stream shapes at "
+                                 f"B={MT_BATCH} f32 with the ctx residual "
+                                 "(one grid of a train step's forward)"),
+                       ("serve", f"the nine ren_mme stream shapes at "
+                                 f"B={SERVE_BUCKET} f32 (one grid of a "
+                                 "bucket-8 member forward)")):
+        summ = out[path]
+        dev = summ["device_ms"]
+        log(f"[kernels] fused_block, sum over {what}: {summ['ms']:.4f} ms as "
+            "called (CUDA events), "
+            + ("device time not measured" if dev is None else
+               f"{dev:.4f} ms device time (profiler)")
+            + f"; bound {summ['bound_ms']:.4f} ({summ['bound_by']}), plain "
+            f"{summ['plain_ms']:.4f} ms, library composite (SDPA + F.linear + "
+            f"F.layer_norm, no S) {summ['library_ms']:.4f} ms"
+            + (f"; backward through FusedMinusBlock {summ['bwd_ms']:.4f} ms, "
+               f"autograd through the plain version {summ['plain_bwd_ms']:.4f}"
+               " ms" if path == "train" else ""))
+    return out
+
+
+def fused_backward_timing(torch, fb, q, k, v, mask, c, ws, h, g):
+    """The backward of one terminal block as the train step runs it (no
+    S_prev, no S; q, k, v and the weights need gradients, the batch mask
+    not): FusedMinusBlock (the scored_bwd kernels and the plain epilogue
+    products) against torch autograd through fused_block_plain, timed on a
+    graph built once, and their gradients against each other (max error
+    over the tensors, normalised by max(1, |ref|))."""
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    res = {}
+    grads = {}
+    for key, fn in (("bwd_ms", fb.fused_minus_block),
+                    ("plain_bwd_ms", fb.fused_block_plain)):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v, *ws)]
+        out, _ = fn(*leaves[:3], mask, None, c, *leaves[3:], n_heads=h,
+                    emit_scores=False)
+        res[key] = time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True))
+        grads[key] = torch.autograd.grad(out, leaves, dout)
+    res["bwd_norm_err"] = max(errors(a, b)[1] for a, b in zip(
+        grads["bwd_ms"], grads["plain_bwd_ms"]))
+    return res
+
+
 def ensure_no_name(samples):
     """The main path must carry a no_name request (previous slot all zero,
     all-zero masks): make sample 0 one if the seed gave none."""
@@ -1023,7 +1289,8 @@ def step_gradients(engine, model, tcfg, batch, impls=("flash", "xla")):
     return grads
 
 
-def pinned_step_gradients(torch, engine, model, tcfg, batch, impls):
+def pinned_step_gradients(torch, engine, model, tcfg, batch, impls, *,
+                          pin_pool: bool = False):
     """step_gradients with every ReLU module's routing pinned, in every
     impl after the first, to what the first impl's forward chose: its
     backward passes a gradient where its input was > 0, so where an input
@@ -1031,10 +1298,11 @@ def pinned_step_gradients(torch, engine, model, tcfg, batch, impls):
     differently and a whole row's term moves in or out of a weight's
     gradient.  Pinned, the comparison sees the attention's gradients.  The
     grid's max pool (its backward sends each column's gradient to its
-    argmax row) is watched, not pinned.  Returns (grads, {"pool": n,
-    "relu": n}: how many pooled columns and ReLU inputs the later impls'
-    own forward routed otherwise, {"pool": n, "relu": n}: how many there
-    are)."""
+    argmax row) is watched, and with `pin_pool` pinned the same way (the
+    later impls take each column's value at the first impl's argmax).
+    Returns (grads, {"pool": n, "relu": n}: how many pooled columns and
+    ReLU inputs the later impls' own forward routed otherwise, {"pool": n,
+    "relu": n}: how many there are)."""
     from multimodal_emotion_processing_tpu_torch.models import grid as grid_mod
 
     recorded = {"pool": [], "relu": []}
@@ -1055,8 +1323,11 @@ def pinned_step_gradients(torch, engine, model, tcfg, batch, impls):
         return recorded[kind][i]
 
     def pool(x):
-        routed("pool", torch.max(x, dim=1).indices)
-        return original(x)
+        idx = routed("pool", torch.max(x, dim=1).indices)
+        if not pin_pool:
+            return original(x)
+        return torch.cat([x.mean(dim=1), x.gather(1, idx[:, None, :])[:, 0]],
+                         dim=1)
 
     def relu_hook(module, args, out):
         x = args[0]
@@ -1346,6 +1617,21 @@ def phase_serve_robot(torch, report):
     return launches
 
 
+def variant_counts(kernels):
+    return {k.name: {f"sprev={int(a)},emit={int(e)}": n
+                     for (a, e), n in k.variant_launches.items()}
+            for k in kernels}
+
+
+def expected_variants(totals, split):
+    """{kernel: {variant: n}} with `totals[kernel]` launches divided among
+    the variants as `split` ({(has S_prev, emits S): share}) says."""
+    from multimodal_emotion_processing_tpu_torch.ops.pallas_attention import VARIANTS
+
+    return {name: {f"sprev={int(a)},emit={int(e)}": int(n * split.get((a, e), 0))
+                   for a, e in VARIANTS} for name, n in totals.items()}
+
+
 def phase_train_realformer(torch, report):
     """The mosei_realformer training slice: Trainer.fit at impl="pallas"
     from gate-perturbed weights, scored_fwd and both scored_bwd kernels
@@ -1436,18 +1722,15 @@ def phase_train_realformer(torch, report):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in pa.KERNELS}
-    by_variant = {k.name: {f"sprev={int(a)},emit={int(e)}": n for (a, e), n
-                           in k.variant_launches.items()} for k in pa.KERNELS}
+    by_variant = variant_counts(pa.KERNELS)
     peak = torch.cuda.max_memory_allocated()
     step_ms = trainer.step_ms()
     n_steps = sum(h.steps for h in hist)
     n_eval = RF_EPOCHS * -(-RF_N_VALID // RF_BATCH)
     expected = {"scored_fwd": 18 * (n_steps + n_eval),
                 "scored_bwd_dq": 18 * n_steps, "scored_bwd_dkv": 18 * n_steps}
-    expected_by_variant = {
-        name: {f"sprev={int(a)},emit={int(e)}": (n // 2 if (a, e) in MAIN_VARIANTS
-                                                  else 0)
-               for a, e in pa.VARIANTS} for name, n in expected.items()}
+    expected_by_variant = expected_variants(
+        expected, {v: 0.5 for v in MAIN_VARIANTS})
     losses = [x for h in hist for x in h.step_losses]
     median = statistics.median(step_ms[1:])
     for e, h in enumerate(hist):
@@ -1615,10 +1898,316 @@ def phase_serve_paragraph(torch, report):
     return launches
 
 
+def spread_ln(torch, models, seed: int = 99):
+    """Every LayerNorm's bias moved by 0.1·N(0, 1) from a seeded generator
+    (tests/test_torch_train.py::_spread_ln_biases): in a no_name slot every
+    block's output is its LN bias, and at their init of 0 the max pool
+    would compare exact ties across blocks."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in models:
+            for name, p in m.named_parameters():
+                if "norm" in name and name.endswith(".bias"):
+                    p.add_(0.1 * torch.randn(p.shape, generator=g,
+                                             device="cuda"))
+
+
+def phase_train_fused(torch, report):
+    """The mosei_trans training slice at impl="pallas_fused": Trainer.fit
+    with fused_block forward and both scored_bwd kernels counted per
+    variant and timed, then held against impl="xla"; then one chained
+    (n_layers=2) forward and backward, the S_prev variants' model path."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("mosei_trans")
+    m, tcfg = exp.model, exp.train
+    if (tcfg.batch_size, tcfg.compute_dtype, tcfg.optimizer, m.dim, m.n_heads,
+            m.n_layers, m.dropout, m.unify, m.head) != (
+            MT_BATCH, "float32", "adamw", 96, MT_HEADS, 1, 0.0, "linear",
+            "concat_trans"):
+        raise AssertionError(f"unexpected config {exp}")
+    train = ensure_no_name(synthetic_dataset(exp.name, m, MT_N_TRAIN, seed=0))
+    valid = ensure_no_name(synthetic_dataset(exp.name, m, MT_N_VALID, seed=1))
+
+    def loaders():
+        return (Batcher(train, MT_BATCH, seed=1),
+                Batcher(valid, MT_BATCH, shuffle=False))
+
+    kernels = fb.KERNELS + (pa.scored_backward_kernel.dq,
+                            pa.scored_backward_kernel.dkv)
+    state = engine.init_state(m, tcfg, seed=0, device="cuda")
+    spread_ln(torch, [state.model])
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[fused] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
+        f"{m.l_len}/{m.v_len}/{m.a_len} n_layers={m.n_layers} params={n_params}"
+        f" batch={MT_BATCH} f32, optimizer={tcfg.optimizer}; {MT_N_TRAIN} train"
+        f" / {MT_N_VALID} valid synthetic pairs, {MT_EPOCHS} epochs; LN biases "
+        "spread by 0.1 N(0, 1)")
+    if n_params != MT_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {MT_PARAMS}")
+    init_weights = {k: v.detach().clone()
+                    for k, v in state.model.state_dict().items()}
+
+    # step-1 gradients, pallas_fused against xla, on the same weights and
+    # batch, with the max pool's routing pinned to the fused forward's
+    first = to_device(next(iter(loaders()[0]())), "cuda")
+    impls = ("pallas_fused", "xla")
+    grads = step_gradients(engine, state.model, tcfg, first, impls=impls)
+    unpinned = max(e["rel_l2"] for e in gradient_errors(
+        grads["pallas_fused"], grads["xla"]).values())
+    grads, flips, routes = pinned_step_gradients(
+        torch, engine, state.model, tcfg, first, impls, pin_pool=True)
+    grad_err = gradient_errors(grads["pallas_fused"], grads["xla"])
+    max_grad_err = max(e["rel_l2"] for e in grad_err.values())
+    del grads
+    for form in ("rel_l2", "max_abs"):
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1][form])[:4]
+        log(f"[fused] step-1 gradients pallas_fused vs xla, {len(grad_err)} "
+            f"tensors, max pool pinned, {form} per tensor, worst: "
+            + ", ".join(f"{n}={e[form]:.2e}" for n, e in worst))
+    log(f"[fused] the xla forward routes {flips['pool']} of {routes['pool']} "
+        f"pooled columns otherwise than the fused one (bound: a share of "
+        f"{MT_POOL_FLIP_SHARE:g}); unpinned, the worst relative L2 is "
+        f"{unpinned:.2e}")
+
+    # the main path, counted: Trainer.fit at impl="pallas_fused"
+    for kern in kernels:
+        kern.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = timed_trainer(torch, engine)(m, tcfg, impl="pallas_fused",
+                                           device="cuda")
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(*loaders(), state=state, epochs=MT_EPOCHS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    by_variant = variant_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = trainer.step_ms()
+    n_steps = sum(h.steps for h in hist)
+    n_eval = MT_EPOCHS * -(-MT_N_VALID // MT_BATCH)
+    expected = {"fused_block": 18 * (n_steps + n_eval),
+                "scored_bwd_dq": 18 * n_steps, "scored_bwd_dkv": 18 * n_steps}
+    expected_by_variant = expected_variants(expected, {(False, False): 1})
+    losses = [x for h in hist for x in h.step_losses]
+    median = statistics.median(step_ms[1:])
+    for e, h in enumerate(hist):
+        log(f"[fused] epoch {e}: train_loss={h.train_loss:.6f} valid_loss="
+            f"{h.valid_loss:.6f} steps={h.steps} samples={h.samples} "
+            f"seconds={h.seconds:.3f} samples/s={h.samples_per_sec:.1f}")
+    log("[fused] step losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log("[fused] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
+        + f"; median after the first {median:.2f} ms = "
+        f"{MT_BATCH / median * 1e3:.1f} samples/s; fit wall {wall_s:.2f} s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"[fused] launches {launches}, by variant {by_variant}; expected "
+        f"{expected} (18 blocks x {n_steps} steps, + 18 x {n_eval} eval "
+        "forwards), all terminal blocks: no S_prev, no S")
+
+    # the same run through the plain attention path
+    twin = engine.init_state(m, tcfg, seed=0, device="cuda")
+    twin.model.load_state_dict(init_weights)
+    del init_weights
+    torch.cuda.reset_peak_memory_stats()
+    twin_trainer = timed_trainer(torch, engine)(m, tcfg, impl="xla",
+                                                device="cuda")
+    twin, hist_x = twin_trainer.fit(*loaders(), state=twin, epochs=MT_EPOCHS)
+    peak_x = torch.cuda.max_memory_allocated()
+    step_ms_x = twin_trainer.step_ms()
+    losses_x = [x for h in hist_x for x in h.step_losses]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(losses, losses_x))
+    log("[fused] impl=xla from the same weights and batches: step losses "
+        + ", ".join(f"{x:.6f}" for x in losses_x)
+        + f"; max relative loss difference {loss_rel:.2e} (bound "
+        f"{MT_LOSS_TOL:g}); step ms median after the first "
+        f"{statistics.median(step_ms_x[1:]):.2f}; peak memory "
+        f"{peak_x / 2**30:.2f} GiB")
+
+    report["train_fused"] = dict(
+        config=exp.name, params=n_params, batch=MT_BATCH, steps=n_steps,
+        eval_forwards=n_eval, step_losses=losses, step_losses_xla=losses_x,
+        epochs=[dataclasses.asdict(h) for h in hist],
+        epochs_xla=[dataclasses.asdict(h) for h in hist_x],
+        step_ms=step_ms, step_ms_xla=step_ms_x, step_ms_median=median,
+        step_ms_median_xla=statistics.median(step_ms_x[1:]),
+        samples_per_s=MT_BATCH / median * 1e3, fit_wall_s=wall_s,
+        peak_bytes=peak, peak_bytes_xla=peak_x, launches=launches,
+        launches_by_variant=by_variant, expected_launches=expected,
+        grad_err=grad_err, max_grad_rel_l2=max_grad_err,
+        max_grad_rel_l2_unpinned=unpinned, routing_flips=flips,
+        routings=routes, max_loss_rel_err=loss_rel)
+    if not (len(losses) == len(losses_x) == n_steps == 8
+            and np.isfinite(losses + losses_x).all()):
+        raise AssertionError(f"step losses {losses} / {losses_x}")
+    if launches != expected or by_variant != expected_by_variant:
+        raise AssertionError(f"launches {launches} {by_variant}, expected "
+                             f"{expected} {expected_by_variant}")
+    if flips["pool"] > MT_POOL_FLIP_SHARE * routes["pool"]:
+        raise AssertionError(f"the fused and xla forwards route {flips} of "
+                             f"{routes} pooled columns differently: more "
+                             "than rounding can move")
+    if max_grad_err > MT_GRAD_TOL:
+        raise AssertionError(f"step-1 gradients disagree with impl='xla': "
+                             f"relative L2 {max_grad_err:.3e}")
+    if loss_rel > MT_LOSS_TOL:
+        raise AssertionError(f"losses disagree with impl='xla': {loss_rel:.3e}")
+    try:
+        report["train_fused_profile"] = {
+            "pallas_fused_step": profile_breakdown(
+                torch, lambda: trainer.train_step(state, first)),
+            "xla_step": profile_breakdown(
+                torch, lambda: twin_trainer.train_step(twin, first))}
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        report["train_fused_profile"] = "not measured: the profiler failed"
+        log("[profile] not measured: the profiler failed")
+    del state, twin, trainer, twin_trainer
+    chained = fused_chained_check(torch, report, exp, first, kernels)
+    return {"main": launches, "chained": chained}
+
+
+def fused_chained_check(torch, report, exp, first, kernels):
+    """One forward and backward of a full-width mosei_trans member with
+    n_layers=2 (each stream's block 0 emits S, block 1 reads it under its
+    gate c ~ U(0.25, 1.0)) at batch MT_CHAINED_BATCH, at pallas_fused
+    against xla: the logits, the gradients (max pool pinned) and the
+    launches per variant."""
+    import dataclasses
+
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.models.layers import MinusBlock
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    m2 = dataclasses.replace(exp.model, n_layers=2)
+    model = build_model(m2, device="cuda", seed=5)
+    spread_ln(torch, [model], seed=98)
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    with torch.no_grad():
+        for blk in model.modules():
+            if isinstance(blk, MinusBlock):
+                blk.c.uniform_(0.25, 1.0, generator=g)
+    batch = {k: v[:MT_CHAINED_BATCH] for k, v in first.items()}
+    for kern in kernels:
+        kern.reset()
+    grads, flips, routes = pinned_step_gradients(
+        torch, engine, model, exp.train, batch, ("pallas_fused", "xla"),
+        pin_pool=True)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    by_variant = variant_counts(kernels)
+    expected = {k.name: 36 for k in kernels}
+    expected_by_variant = expected_variants(
+        expected, {v: 0.5 for v in MAIN_VARIANTS})
+    grad_err = gradient_errors(grads["pallas_fused"], grads["xla"])
+    max_grad_err = max(e["rel_l2"] for e in grad_err.values())
+    gates = [n for n in grad_err if n.endswith(".c")]
+    with torch.no_grad():
+        model.eval()
+        fused = model(batch, impl="pallas_fused")
+        ref = model(batch, impl="xla")
+    logit_err = errors(fused, ref)[1]
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1]["rel_l2"])[:4]
+    log(f"[fused] chained: n_layers=2 member, batch {MT_CHAINED_BATCH}, gates "
+        f"c ~ U(0.25, 1.0): logits norm_err {logit_err:.2e}; step-1 gradients "
+        f"(max pool pinned, {flips['pool']} of {routes['pool']} columns routed "
+        f"otherwise) worst relative L2 "
+        + ", ".join(f"{n}={e['rel_l2']:.2e}" for n, e in worst)
+        + f"; {len(gates)} gates c get gradients; launches {by_variant}")
+    report["train_fused_chained"] = dict(
+        batch=MT_CHAINED_BATCH, logits_norm_err=logit_err,
+        max_grad_rel_l2=max_grad_err, gates_with_gradients=len(gates),
+        routing_flips=flips, routings=routes, launches=launches,
+        launches_by_variant=by_variant)
+    if launches != expected or by_variant != expected_by_variant:
+        raise AssertionError(f"chained launches {launches} {by_variant}, "
+                             f"expected {expected_by_variant}")
+    if len(gates) != 18:
+        raise AssertionError(f"{len(gates)} gates get gradients, expected 18")
+    if flips["pool"] > MT_POOL_FLIP_SHARE * routes["pool"]:
+        raise AssertionError(f"chained: {flips} of {routes} pooled columns "
+                             "routed differently")
+    if max_grad_err > MT_GRAD_TOL or logit_err > MT_GRAD_TOL:
+        raise AssertionError(f"chained block disagrees with impl='xla': "
+                             f"gradients {max_grad_err:.3e}, logits "
+                             f"{logit_err:.3e}")
+    return launches
+
+
+def phase_serve_ren_mme(torch, report):
+    """The ren_mme serving slice: seeded members in f32 served at
+    impl="pallas_fused" (eval mode: dropout inactive) through BatchingServer
+    and StreamingPredictor, with fused_block counted per variant, then
+    held against impl="xla"."""
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("ren_mme")
+    m = exp.model
+    dtype, impl = exp.train.compute_dtype, "pallas_fused"
+    if (dtype, m.dim, m.n_heads, m.n_layers, m.block, m.unify, m.head) != (
+            "float32", 128, REN_HEADS, 1, "minus", "linear_ln", "concat_trans"):
+        raise AssertionError(f"unexpected config {exp}")
+    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
+    spread_ln(torch, members, seed=97)
+    n_params = sum(p.numel() for p in members[0].parameters())
+    samples = synthetic_dataset(exp.name, m, N_CONCURRENT, seed=7)
+    log(f"[ren_mme] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
+        f"{m.l_len}/{m.v_len}/{m.a_len} unify={m.unify} params/member="
+        f"{n_params} members={N_MEMBERS} dtype={dtype} impl={impl}, eval "
+        f"(dropout {m.dropout} inactive); LN biases spread by 0.1 N(0, 1)")
+    if n_params != REN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {REN_PARAMS}")
+
+    main, served, streamed, sp = run_serving(
+        torch, exp, members, samples, impl=impl, dtype=dtype,
+        kernel=fb.fused_block_kernel, tag="ren_mme")
+    launches = fb.fused_block_kernel.launches
+    by_variant = variant_counts(fb.KERNELS)
+    forwards = main["forwards"]
+    expected = {"fused_block": 18 * N_MEMBERS * forwards}
+    expected_by_variant = expected_variants(expected, {(False, False): 1})
+    main.update(params_per_member=n_params, fused_launches=launches,
+                fused_launches_by_variant=by_variant["fused_block"],
+                expected_launches=expected["fused_block"])
+    report["ren_mme_path"] = main
+    log(f"[ren_mme] fused_block launches={launches} by variant "
+        f"{by_variant['fused_block']}; expected 18 x {N_MEMBERS} members x "
+        f"{forwards} forwards = {expected['fused_block']}, all without S_prev "
+        "or S")
+    errs, batch = check_against_xla(torch, exp, members, samples, served,
+                                    streamed, dtype=dtype, tol=ROBOT_TOL,
+                                    tag="ren_mme")
+    main.update(errs)
+    if launches != expected["fused_block"] or by_variant != expected_by_variant:
+        raise AssertionError(f"fused_block launched {launches} times "
+                             f"({by_variant}), expected {expected_by_variant}")
+    report["ren_mme_profile"] = profile_serving(torch, exp, members, batch, sp,
+                                                samples[0], impl=impl,
+                                                dtype=dtype)
+    return launches
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
-                   "scored_bwd_dq", "scored_bwd_dkv"):
+                   "scored_bwd_dq", "scored_bwd_dkv", "fused_block"):
         if kernel in low:
             return kernel
     if "memcpy" in low or "memset" in low:
@@ -1704,7 +2293,9 @@ def main() -> int:
     for phase, fn in (("kernels", phase_kernels), ("train", phase_train),
                       ("serve", phase_serve), ("serve_robot", phase_serve_robot),
                       ("train_realformer", phase_train_realformer),
-                      ("serve_paragraph", phase_serve_paragraph)):
+                      ("serve_paragraph", phase_serve_paragraph),
+                      ("train_fused", phase_train_fused),
+                      ("serve_ren_mme", phase_serve_ren_mme)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -1772,12 +2363,15 @@ def main() -> int:
                      "computes ctx and writes no S")})
     for name in ("scored_bwd_dq", "scored_bwd_dkv"):
         summ = summaries[name]
-        n = launches["train_realformer"][name]
+        by_path = {"train_realformer": launches["train_realformer"][name],
+                   "train_fused": launches["train_fused"]["main"][name],
+                   "train_fused_chained":
+                       launches["train_fused"]["chained"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_bwd.cu",
             "replaces": f"{pa_py}:350",
-            "launches": n, "launches_by_path": {"train_realformer": n},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": summ["max_abs_err"],
             "max_norm_err": summ["max_norm_err"],
             **{k: v for k, v in summ.items() if k.endswith("_term_scale_err")},
@@ -1797,6 +2391,39 @@ def main() -> int:
                          "forward+backward minus forward with the float bias "
                          "c*S_prev - 1e8(1-mask); no dS_prev, no dc) cover "
                          "the whole backward")})
+    summ = summaries["fused_block"]
+    by_path = {"train_fused": launches["train_fused"]["main"]["fused_block"],
+               "train_fused_chained":
+                   launches["train_fused"]["chained"]["fused_block"],
+               "serve_ren_mme": launches["serve_ren_mme"]}
+    train = summ["train"]
+    kernels.append({
+        "name": "fused_block", "route": "cuda",
+        "source": "multimodal_emotion_processing_tpu_torch/csrc/fused_block.cu",
+        "replaces": "multimodal_emotion_processing_tpu/ops/fused_block.py:109",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": summ["max_abs_err"],
+        "max_score_rel_err": summ["max_score_rel_err"],
+        "scores_equal_scored_fwd": summ["scores_equal_scored_fwd"],
+        "ms": train["ms"], "device_ms": train["device_ms"],
+        "plain_ms": train["plain_ms"],
+        "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+        "library_ms": train["library_ms"],
+        "bwd_ms": train["bwd_ms"], "plain_bwd_ms": train["plain_bwd_ms"],
+        "serve": summ["serve"],
+        "timed_at": (f"sum over the {train['calls_timed']} mosei_trans stream "
+                     f"shapes (one grid of a train step's forward), B={MT_BATCH},"
+                     " f32, as the train step calls it (no S_prev, no S, the "
+                     "ctx residual written); ms by CUDA events around the "
+                     "wrapper's calls, device_ms from torch.profiler; "
+                     "library_ms is a composite, SDPA with the float bias "
+                     "-1e8(1-mask) then F.linear and F.layer_norm timed as one "
+                     "sequence (no single PyTorch call computes the block; it "
+                     "writes no S); bwd_ms the backward through FusedMinusBlock "
+                     "(scored_bwd kernels + plain epilogue products), "
+                     "plain_bwd_ms autograd through fused_block_plain; serve: "
+                     f"the same sums over the nine ren_mme shapes at "
+                     f"B={SERVE_BUCKET}, no ctx residual")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

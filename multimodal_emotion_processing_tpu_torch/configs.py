@@ -3,8 +3,8 @@
 The port keeps its own copy of the configuration dataclasses and of the
 registered families, field for field the same as the JAX package's, so a
 config name means the same model on either side.  Registered so far: the
-`mosei_trans` family, `mosei_realformer` and `robot_demo`; the other
-families arrive with the slices that port their blocks and heads.
+`mosei_trans` family, `mosei_realformer`, `ren_mme` and `robot_demo`;
+`rencecps` arrives with the slice that ports its head.
 """
 
 from __future__ import annotations
@@ -43,8 +43,11 @@ class ModelConfig:
     p_len: int = 6
     # attention implementation the CLI uses when none is passed:
     # 'xla' (the plain einsum path), 'flash' (the online-softmax kernel,
-    # terminal blocks only; other blocks take the plain path) or 'pallas'
+    # terminal blocks only; other blocks take the plain path), 'pallas'
     # (the score-materializing kernels, every block, forward and backward)
+    # or 'pallas_fused' (the whole minus block in one kernel while dropout
+    # is inactive, with the pallas backward kernels; other blocks take
+    # 'pallas')
     attn_impl: str = "xla"
     v_dims_multires: Tuple[int, int, int] = (256, 512, 1024)
     remat: bool = False
@@ -129,6 +132,29 @@ def mosei_realformer() -> ExperimentConfig:
     )
 
 
+def ren_mme() -> ExperimentConfig:
+    """Ren-MME TV-drama multimodal 9-emotion trainer (Ren-MME/run.py)."""
+    return ExperimentConfig(
+        name="ren_mme",
+        model=ModelConfig(
+            l_dim=768, v_dim=640, a_dim=205,
+            l_len=40, v_len=76, a_len=275,
+            dim=128, n_heads=8, n_layers=1, ffn=1, dropout=0.1,
+            block="minus", use_position_embedding=False, unify="linear_ln",
+            n_emotions=9, head="concat_trans",
+        ),
+        train=TrainConfig(
+            batch_size=16, lr=1e-3, epochs=999, grad_clip=1.0,
+            optimizer="adamw", plateau_patience=1, early_stop=3,
+            save_guard=0.009, n_folds=4, fold_size=744, rdrop_kl=True,
+        ),
+        # Ren-MME/run.py:735-742
+        thresholds=(-3.6, -1.2, -1.4, -3.4, -2.0, -1.4, -2.6, -3.8),
+        emotion_names=("love", "anxi", "sorr", "joyy", "expe", "hate", "ange", "surp"),
+        emotion_index=(0, 1, 2, 3, 4, 5, 6, 7),
+    )
+
+
 def robot_demo() -> ExperimentConfig:
     """Streaming single-sample inference demo (robot_demo.py)."""
     return ExperimentConfig(
@@ -190,6 +216,7 @@ def _mosei_trans_scaled(point: str) -> ExperimentConfig:
 REGISTRY = {
     "mosei_trans": mosei_trans,
     "mosei_realformer": mosei_realformer,
+    "ren_mme": ren_mme,
     "robot_demo": robot_demo,
     **{f"mosei_trans_{p}": (lambda p=p: _mosei_trans_scaled(p))
        for p in SCALE_POINTS},

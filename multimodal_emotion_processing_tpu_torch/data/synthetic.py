@@ -1,12 +1,14 @@
 """Shape- and dtype-faithful synthetic requests for the `mosei_trans` family,
-`mosei_realformer` and `robot_demo`.
+`mosei_realformer`, `ren_mme` and `robot_demo`.
 
 `mosei_trans` samples carry the real loader's quirks: variable raw lengths
 (both the pad and the two-crop paths of summary masking), inf/nan in audio,
 and `no_name` pairs whose previous utterance is all zeros with an all-zero
 mask (cmu-mosei/run.py:154-198).  `mosei_realformer` samples are P-clip
 paragraph windows whose clips past a random count are all zero, with a
-per-clip validity mask `clip_mask`.  `robot_demo` samples fill one of the three
+per-clip validity mask `clip_mask`.  `ren_mme` samples are (pre, pro)
+utterance pairs padded or truncated to the fixed lengths.  `robot_demo`
+samples fill one of the three
 visual resolution slots and leave the other two zero.  The same seed gives
 the same samples as the JAX package's generator.
 """
@@ -91,6 +93,22 @@ def realformer_paragraph_sample(rng, m) -> Dict[str, np.ndarray]:
     return sample
 
 
+def ren_mme_sample(rng, m) -> Dict[str, np.ndarray]:
+    """One (pre, pro) utterance pair (Ren-MME/run.py:123-148); the
+    loader-level R-Drop duplication is the batcher's job, not the sample's."""
+    sample = {}
+    for kind, length, dim in (("l", m.l_len, m.l_dim), ("v", m.v_len, m.v_dim),
+                              ("a", m.a_len, m.a_dim)):
+        pre, pre_m = masking.pad_or_truncate(raw_modality(rng, length * 2, dim),
+                                             length)
+        pro, pro_m = masking.pad_or_truncate(raw_modality(rng, length * 2, dim),
+                                             length)
+        sample[kind] = np.stack([pre, pro])
+        sample[kind + "_mask"] = np.stack([pre_m, pro_m])
+    sample["label"] = (rng.random(9) > 0.7).astype(np.int32)
+    return sample
+
+
 def robot_sample(rng, m) -> Dict[str, np.ndarray]:
     """Robot-demo sample: one active visual resolution slot, others zero
     (robot_demo.py:63-112)."""
@@ -112,6 +130,7 @@ def robot_sample(rng, m) -> Dict[str, np.ndarray]:
 
 SAMPLERS = {"mosei_trans": mosei_pair_sample,
             "mosei_realformer": realformer_paragraph_sample,
+            "ren_mme": ren_mme_sample,
             "robot_demo": robot_sample}
 
 

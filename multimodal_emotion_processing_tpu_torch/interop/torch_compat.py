@@ -7,9 +7,11 @@ with torch's (out, in) layout, and (out, in, 1) for the kernel-1 convs.
 included, as the JAX package's `to_reference_state_dict`, kept here as the
 port's own copy), so `model.load_state_dict(from_jax_params(p, cfg))` loads
 JAX weights as they are.  Ported families: `concat_trans` (minus blocks,
-linear unify), `grid_only` (RealFormer blocks, multi-resolution conv
-unify, position embeddings) and `state_transfer` (RealFormer blocks, the
-bias-free conv unify, position embeddings, the feature head).
+the linear unify, or Ren-MME's `linear_ln` unify with its names: the
+unify's shared `norm1`, the blocks' `norm2`, the top `norm3`), `grid_only`
+(RealFormer blocks, multi-resolution conv unify, position embeddings) and
+`state_transfer` (RealFormer blocks, the bias-free conv unify, position
+embeddings, the feature head).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from ..models.grid import STREAMS
-from ..models.registry import PORTED
+from ..models.layers import minus_norm_names
+from ..models.registry import is_ported
 
 
 def _t(w) -> np.ndarray:
@@ -36,11 +39,15 @@ def _conv(w) -> np.ndarray:
     return _t(w)[:, :, None]
 
 
-def _minus_block(blk, base: str, out: Dict) -> None:
+def _ln(p, key: str, out: Dict) -> None:
+    out[f"{key}.weight"] = _arr(p["scale"])
+    out[f"{key}.bias"] = _arr(p["bias"])
+
+
+def _minus_block(blk, base: str, out: Dict, norm: str) -> None:
     out[f"{base}.proj.weight"] = _t(blk["proj"]["w"])
     out[f"{base}.minus.weight"] = _t(blk["minus"]["w"])
-    out[f"{base}.norm1.weight"] = _arr(blk["norm"]["scale"])
-    out[f"{base}.norm1.bias"] = _arr(blk["norm"]["bias"])
+    _ln(blk["norm"], f"{base}.{norm}", out)
     out[f"{base}.c"] = _arr(blk["c"])
 
 
@@ -62,10 +69,12 @@ def _realformer_block(blk, base: str, out: Dict) -> None:
 def _grid(g, prefix: str, cfg, out: Dict) -> None:
     """The grid's unify, positions and blocks; its head is the caller's."""
     u = f"{prefix}unify_dimension"
-    if cfg.unify == "linear":
+    if cfg.unify in ("linear", "linear_ln"):
         out[f"{u}.linguistic.weight"] = _t(g["unify"]["l"]["w"])
         out[f"{u}.visual.weight"] = _t(g["unify"]["v"]["w"])
         out[f"{u}.acoustic.weight"] = _t(g["unify"]["a"]["w"])
+        if cfg.unify == "linear_ln":
+            _ln(g["unify"]["ln"], f"{u}.norm1", out)
     elif cfg.unify == "conv":
         for ours, theirs in (("l", "linguistic"), ("v", "visual"),
                              ("a", "acoustic")):
@@ -81,11 +90,14 @@ def _grid(g, prefix: str, cfg, out: Dict) -> None:
                              ("pos_a", "acoustic")):
             out[f"{prefix}{theirs}_position.position_embeddings.weight"] = _arr(
                 g[ours]["table"])
-    block = _minus_block if cfg.block == "minus" else _realformer_block
     for s, (name, _, _) in enumerate(STREAMS):
         for i in range(cfg.n_layers):
-            block(g["blocks"][name][i],
-                  f"{prefix}multimodal_blocks.{cfg.n_layers * s + i}", out)
+            blk = g["blocks"][name][i]
+            base = f"{prefix}multimodal_blocks.{cfg.n_layers * s + i}"
+            if cfg.block == "minus":
+                _minus_block(blk, base, out, minus_norm_names(cfg)[0])
+            else:
+                _realformer_block(blk, base, out)
 
 
 def _linear(p, key: str, out: Dict) -> None:
@@ -96,14 +108,13 @@ def _linear(p, key: str, out: Dict) -> None:
 
 def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
     """JAX-package params (a nested dict of arrays, numpy or jax) of a
-    ported family (`concat_trans` with minus blocks and the linear unify,
-    `grid_only` with RealFormer blocks, the conv_multires unify and
-    position embeddings, or `state_transfer` with RealFormer blocks, the
-    conv unify and position embeddings) -> a reference-keyed state dict of
-    CPU float32 tensors."""
+    ported family (`concat_trans` with minus blocks and the linear or
+    `linear_ln` unify, `grid_only` with RealFormer blocks, the
+    conv_multires unify and position embeddings, or `state_transfer` with
+    RealFormer blocks, the conv unify and position embeddings) -> a
+    reference-keyed state dict of CPU float32 tensors."""
     cfg = getattr(cfg, "model", cfg)
-    if PORTED.get(cfg.head) != (cfg.block, cfg.unify,
-                                cfg.use_position_embedding):
+    if not is_ported(cfg):
         raise NotImplementedError(
             f"head {cfg.head!r} / block {cfg.block!r} / unify {cfg.unify!r} "
             "is not ported yet")
@@ -115,8 +126,7 @@ def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
         feature = params["feature"]
         _grid(feature, "feature.", cfg, out)
         _linear(feature["fc"], "feature.fully_connected", out)
-        out["feature.normalization.weight"] = _arr(feature["ln"]["scale"])
-        out["feature.normalization.bias"] = _arr(feature["ln"]["bias"])
+        _ln(feature["ln"], "feature.normalization", out)
         _linear(params["classifier"], "classifier", out)
         out["trans"] = _arr(params["trans"])
     else:
@@ -124,7 +134,6 @@ def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
             _grid(params[gname], f"{gname}.", cfg, out)
             _linear(params[gname]["classifier"], f"{gname}.classifier", out)
         out["trans"] = _arr(params["trans"])
-        out["norm1.weight"] = _arr(params["norm"]["scale"])
-        out["norm1.bias"] = _arr(params["norm"]["bias"])
+        _ln(params["norm"], minus_norm_names(cfg)[1], out)
         _linear(params["out"], "out", out)
     return {k: torch.from_numpy(v) for k, v in out.items()}

@@ -13,9 +13,9 @@ JAX package and are not ported).  The streams have distinct weights and
 
 Three ported variants, by the head on the pooled feature (`out`, as
 `apply_grid_head` names it):
-- "classifier": the `minus` grid (linear unify, minus blocks, every
-  layer's output collected, a bias-free classifier, cmu-mosei/run.py:
-  265-319);
+- "classifier": the `minus` grid (linear unify, with Ren-MME's shared
+  LayerNorm under `linear_ln`, minus blocks, every layer's output
+  collected, a bias-free classifier, cmu-mosei/run.py:265-319);
 - "classifier_bias": the robot grid (multi-resolution conv unify, position
   embeddings, RealFormer blocks, every layer collected, a classifier with
   bias, robot_demo.py:377-441);
@@ -32,7 +32,8 @@ from torch import nn
 from ..ops.pooling import mean_max_pool
 from ..utils import initializers as init
 from .layers import (MinusBlock, PositionEmbedding, RealformerBlock,
-                     UnifyConv, UnifyConvMultires, UnifyLinear)
+                     UnifyConv, UnifyConvMultires, UnifyLinear,
+                     minus_norm_names)
 
 # (stream key, query modality, key/value modality) — reference order.
 STREAMS = (
@@ -53,17 +54,18 @@ POSITIONS = (("l", "linguistic_position"), ("v", "visual_position"),
 class Grid(nn.Module):
     """Unify projection (+ position embeddings), 9 * n_layers blocks and the
     head `out`; block `n_layers * s + i` is layer i of stream s.  The config
-    picks the unify (`linear`, `conv` or `conv_multires`) and the block
-    (`minus` or `realformer`)."""
+    picks the unify (`linear`, `linear_ln`, `conv` or `conv_multires`) and
+    the block (`minus` or `realformer`)."""
 
     def __init__(self, cfg, *, out: str = "classifier"):
         super().__init__()
         self.out = out
         self.n_layers = cfg.n_layers
         self.dropout = cfg.dropout
-        if cfg.unify == "linear":
-            self.unify_dimension = UnifyLinear(cfg.l_dim, cfg.v_dim, cfg.a_dim,
-                                               cfg.dim)
+        if cfg.unify in ("linear", "linear_ln"):
+            self.unify_dimension = UnifyLinear(
+                cfg.l_dim, cfg.v_dim, cfg.a_dim, cfg.dim,
+                shared_ln=cfg.unify == "linear_ln")
         elif cfg.unify == "conv":
             self.unify_dimension = UnifyConv(cfg.l_dim, cfg.v_dim, cfg.a_dim,
                                              cfg.dim)
@@ -78,7 +80,8 @@ class Grid(nn.Module):
                 setattr(self, attr, PositionEmbedding(
                     getattr(cfg, f"{m}_len"), cfg.dim))
         if cfg.block == "minus":
-            blocks = (MinusBlock(cfg.dim, cfg.n_heads)
+            blocks = (MinusBlock(cfg.dim, cfg.n_heads, dropout=cfg.dropout,
+                                 norm=minus_norm_names(cfg)[0])
                       for _ in range(9 * cfg.n_layers))
         elif cfg.block == "realformer":
             blocks = (RealformerBlock(cfg.dim, cfg.n_heads, cfg.ffn)

@@ -1,6 +1,8 @@
 """Model heads.  Ported so far:
 
-- the rank-3 emotion-transition head (Concat_Trans, cmu-mosei/run.py:321-339):
+- the rank-3 emotion-transition head (Concat_Trans, cmu-mosei/run.py:321-339,
+  and Ren-MME's Base_model, Ren-MME/run.py:273-292, the same head under other
+  LayerNorm names):
 
       last = intensity_grid(slot 0);  this = stimulation_grid(slot 1)
       fused[b, h] = Σ_{g,e} this[b,g]·last[b,e]·trans[g,e,h]
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..utils import initializers as init
 from .grid import Grid
+from .layers import minus_norm_names
 
 
 def bilinear_transition(trans, last_feat, this_feat):
@@ -37,7 +40,10 @@ def bilinear_transition(trans, last_feat, this_feat):
 
 class ConcatTrans(nn.Module):
     """`concat_trans`: two grids (slot 0 = previous utterance, slot 1 =
-    current), the bilinear transition, LayerNorm and `out`."""
+    current), the bilinear transition, LayerNorm and `out`.  The LayerNorm
+    is `norm1` (Concat_Trans, cmu-mosei/run.py:321-339), or `norm3` under
+    the names of Ren-MME's Base_model (Ren-MME/run.py:273-292), which the
+    `linear_ln` unify selects."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -45,16 +51,21 @@ class ConcatTrans(nn.Module):
         self.intensity = Grid(cfg, out="classifier")
         self.stimulation = Grid(cfg, out="classifier")
         self.trans = nn.Parameter(torch.empty(e, e, e))
-        self.norm1 = nn.LayerNorm(e, eps=init.LN_EPS)
+        self.norm_name = minus_norm_names(cfg)[1]
+        setattr(self, self.norm_name, nn.LayerNorm(e, eps=init.LN_EPS))
         self.out = nn.Linear(2 * e, e)
+
+    @property
+    def norm(self) -> nn.LayerNorm:
+        return getattr(self, self.norm_name)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.intensity.reset_parameters(generator)
         self.stimulation.reset_parameters(generator)
         init.uniform01_(self.trans, generator)
-        self.norm1.weight.fill_(1.0)
-        self.norm1.bias.zero_()
+        self.norm.weight.fill_(1.0)
+        self.norm.bias.zero_()
         init.linear_(self.out, generator)
 
     def forward(self, batch, *, impl: str = "xla"):
@@ -70,7 +81,7 @@ class ConcatTrans(nn.Module):
         last_feat = run(self.intensity, 0)
         this_feat = run(self.stimulation, 1)
         fused = bilinear_transition(self.trans, last_feat, this_feat)
-        normed = init.layer_norm(fused, self.norm1.weight, self.norm1.bias)
+        normed = init.layer_norm(fused, self.norm.weight, self.norm.bias)
         return self.out(torch.cat([this_feat, normed], dim=1))
 
 

@@ -1,8 +1,11 @@
 """Encoder building blocks: the modality projections, learned position
 embeddings, and the two attention block variants.
 
-- `minus` family (cmu-mosei/run.py:207-262): the bias-free Linear unify and
-  the `minus` block (no Q/K/V projections, a Linear combine, LayerNorm).
+- `minus` family (cmu-mosei/run.py:207-262, Ren-MME/run.py:158-214): the
+  bias-free Linear unify (Ren-MME's with one LayerNorm shared by the three
+  outputs) and the `minus` block (no Q/K/V projections, a Linear combine,
+  LayerNorm), whose `impl="pallas_fused"` runs the whole block in one
+  kernel (ops/fused_block.py).
 - `realformer` family (others/realformer.py:133-209, robot_demo.py:293-374):
   the bias-free 1x1-conv unify of the paragraph model or the robot demo's
   multi-resolution one with biases, position embeddings, and the RealFormer
@@ -10,12 +13,13 @@ embeddings, and the two attention block variants.
   q = LN(q + b·FFN(q)), gates a, b, c starting at 0).
 
 Module attribute names follow the reference's state-dict keys
-(`unify_dimension.{linguistic,visual,acoustic}` or
+(`unify_dimension.{linguistic,visual,acoustic}` (+ `norm1` for Ren-MME) or
 `unify_dimension.{linguistic,visual_256,visual_512,visual_1024,acoustic}`,
 `*_position.position_embeddings`, `proj`, `minus`, `w_qkv.{0,1,2}`,
-`norm1`, `norm2`, `ffn.{0,2}`, `a`, `b`, `c`), so a reference or exported
-JAX state dict loads with `load_state_dict` as it is.  Weights keep torch's
-(out, in) layout, and the convs' (out, in, 1).
+`norm1`, `norm2` (a Ren-MME minus block's LayerNorm), `ffn.{0,2}`, `a`,
+`b`, `c`), so a reference or exported JAX state dict loads with
+`load_state_dict` as it is.  Weights keep torch's (out, in) layout, and
+the convs' (out, in, 1).
 """
 
 from __future__ import annotations
@@ -25,24 +29,45 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import scored_attention
+from ..ops.fused_block import fused_minus_block
 from ..utils import initializers as init
 
 
-class UnifyLinear(nn.Module):
-    """Bias-free per-modality Linear (`apply_unify_linear`)."""
+def minus_norm_names(cfg):
+    """The state-dict names of a minus grid's block LayerNorm and of the
+    `concat_trans` head's LayerNorm: `norm2` and `norm3` in Ren-MME's
+    Base_model (Ren-MME/run.py:169-214, 273-292), which the `linear_ln`
+    unify selects, else `norm1` and `norm1` (cmu-mosei/run.py:217-339)."""
+    return ("norm2", "norm3") if cfg.unify == "linear_ln" else ("norm1", "norm1")
 
-    def __init__(self, l_dim: int, v_dim: int, a_dim: int, dim: int):
+
+class UnifyLinear(nn.Module):
+    """Bias-free per-modality Linear (`apply_unify_linear`); with
+    `shared_ln` (the `linear_ln` unify of Ren-MME/run.py:158-166), one
+    LayerNorm `norm1` applied to each of the three outputs."""
+
+    def __init__(self, l_dim: int, v_dim: int, a_dim: int, dim: int, *,
+                 shared_ln: bool = False):
         super().__init__()
         self.linguistic = nn.Linear(l_dim, dim, bias=False)
         self.visual = nn.Linear(v_dim, dim, bias=False)
         self.acoustic = nn.Linear(a_dim, dim, bias=False)
+        self.norm1 = nn.LayerNorm(dim, eps=init.LN_EPS) if shared_ln else None
 
+    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         for lin in (self.linguistic, self.visual, self.acoustic):
             init.linear_(lin, generator)
+        if self.norm1 is not None:
+            self.norm1.weight.fill_(1.0)
+            self.norm1.bias.zero_()
 
     def forward(self, l, v, a):
-        return self.linguistic(l), self.visual(v), self.acoustic(a)
+        outs = self.linguistic(l), self.visual(v), self.acoustic(a)
+        if self.norm1 is None:
+            return outs
+        return tuple(init.layer_norm(x, self.norm1.weight, self.norm1.bias)
+                     for x in outs)
 
 
 def _pointwise(conv: nn.Conv1d, x):
@@ -114,28 +139,46 @@ class PositionEmbedding(nn.Module):
 class MinusBlock(nn.Module):
     """`apply_block_minus`: no Q/K/V projections; after attention,
     q' = LN(Linear_{2d→d}([q ; proj(ctx)])).  Gradients flow through every
-    part, the flash attention kernels included.  Dropout is not ported:
-    `Grid` refuses to train a config with dropout > 0."""
+    part, the attention kernels included.  The LayerNorm is `norm1`, or
+    `norm2` under Ren-MME's names (`norm=`).  Dropout is not ported: `Grid`
+    refuses to train a config with dropout > 0; `dropout` only decides, as
+    in JAX, whether `impl="pallas_fused"` may run the whole block in one
+    kernel (not while dropout is active in training)."""
 
-    def __init__(self, dim: int, n_heads: int):
+    def __init__(self, dim: int, n_heads: int, *, dropout: float = 0.0,
+                 norm: str = "norm1"):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout = dropout
+        self.norm_name = norm
         self.proj = nn.Linear(dim, dim, bias=False)
         self.minus = nn.Linear(2 * dim, dim, bias=False)
-        self.norm1 = nn.LayerNorm(dim, eps=init.LN_EPS)
+        setattr(self, norm, nn.LayerNorm(dim, eps=init.LN_EPS))
         self.c = nn.Parameter(torch.zeros(1))
+
+    @property
+    def norm(self) -> nn.LayerNorm:
+        return getattr(self, self.norm_name)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         init.linear_(self.proj, generator)
         init.linear_(self.minus, generator)
-        self.norm1.weight.fill_(1.0)
-        self.norm1.bias.zero_()
+        self.norm.weight.fill_(1.0)
+        self.norm.bias.zero_()
         self.c.zero_()
 
     def forward(self, q, k, v, mask, scores, *, impl: str = "xla",
                 emit_scores: bool = True):
         """q, k, v (B, L, dim), k and v used raw; returns (q', scores')."""
+        if impl == "pallas_fused":
+            if (not (self.training and self.dropout > 0.0)
+                    and (mask is None or mask.ndim == 2)):
+                return fused_minus_block(
+                    q, k, v, mask, scores, self.c, self.proj.weight,
+                    self.minus.weight, self.norm.weight, self.norm.bias,
+                    n_heads=self.n_heads, emit_scores=emit_scores)
+            impl = "pallas"   # the attention kernel with the plain epilogue
         ctx, scores = scored_attention(
             q, k, v, mask, scores, self.c, n_heads=self.n_heads, impl=impl,
             emit_scores=emit_scores)
@@ -145,7 +188,7 @@ class MinusBlock(nn.Module):
         d = q.shape[-1]
         w = self.minus.weight
         pre = F.linear(q, w[:, :d]) + F.linear(x, w[:, d:])
-        return init.layer_norm(pre, self.norm1.weight, self.norm1.bias), scores
+        return init.layer_norm(pre, self.norm.weight, self.norm.bias), scores
 
 
 class RealformerBlock(nn.Module):
@@ -180,7 +223,11 @@ class RealformerBlock(nn.Module):
 
     def forward(self, q, k, v, mask, scores, *, impl: str = "xla",
                 emit_scores: bool = True):
-        """q (B, Lq, dim), k and v (B, Lkv, dim); returns (q', scores')."""
+        """q (B, Lq, dim), k and v (B, Lkv, dim); returns (q', scores').
+        `impl="pallas_fused"` runs `pallas` here, as in JAX: the whole-block
+        kernel is the minus block's."""
+        if impl == "pallas_fused":
+            impl = "pallas"
         wq, wk, wv = self.w_qkv
         ctx, scores = scored_attention(
             wq(q), wk(k), wv(v), mask, scores, self.c, n_heads=self.n_heads,

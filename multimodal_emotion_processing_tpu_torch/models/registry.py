@@ -10,9 +10,17 @@ from .heads import ConcatTrans, GridOnly, StateTransfer
 _HEADS = {"concat_trans": ConcatTrans, "grid_only": GridOnly,
           "state_transfer": StateTransfer}
 # the (block, unify, position embeddings) each head is ported with
-PORTED = {"concat_trans": ("minus", "linear", False),
-          "grid_only": ("realformer", "conv_multires", True),
-          "state_transfer": ("realformer", "conv", True)}
+PORTED = {"concat_trans": (("minus", "linear", False),
+                           ("minus", "linear_ln", False)),
+          "grid_only": (("realformer", "conv_multires", True),),
+          "state_transfer": (("realformer", "conv", True),)}
+
+
+def is_ported(cfg) -> bool:
+    """Whether the port has the head and (block, unify, position
+    embeddings) of ModelConfig `cfg`."""
+    return (cfg.block, cfg.unify, cfg.use_position_embedding) in PORTED.get(
+        cfg.head, ())
 
 
 def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:
@@ -22,13 +30,13 @@ def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:
     mcfg = getattr(cfg, "model", cfg)
     if mcfg.head not in _HEADS:
         raise NotImplementedError(f"head {mcfg.head!r} is not ported yet")
-    ported = PORTED[mcfg.head]
-    if (mcfg.block, mcfg.unify, mcfg.use_position_embedding) != ported:
+    if not is_ported(mcfg):
         raise NotImplementedError(
             f"head {mcfg.head!r} with block {mcfg.block!r}, unify "
             f"{mcfg.unify!r} and position embeddings "
             f"{mcfg.use_position_embedding} is not ported yet; it is ported "
-            f"with (block, unify, position embeddings) = {ported}")
+            f"with (block, unify, position embeddings) in "
+            f"{PORTED[mcfg.head]}")
     dev = resolve_device(device)
     with torch.device("meta"):
         model = _HEADS[mcfg.head](mcfg)

@@ -82,6 +82,11 @@ def scored_attention(
             return flash_scored_attention(q, k, v, mask, c, n_heads=n_heads)
         return _scored_attention_xla(q, k, v, mask, scores_prev, c,
                                      n_heads=n_heads)
+    if impl == "pallas_fused":
+        raise NotImplementedError(
+            "impl 'pallas_fused' runs the whole minus block "
+            "(ops/fused_block.py, through MinusBlock); attention alone takes "
+            "'xla', 'flash' or 'pallas'")
     if impl != "xla":
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported yet; use 'xla', 'flash' "

@@ -94,11 +94,11 @@ def scored_backward_plain(q, k, v, mask, scores_prev, c, scores, dscores,
             merge_heads(dv).to(v.dtype), dmask, dsprev, dc)
 
 
-def _check_grad_free(name, *tensors) -> None:
+def _check_grad_free(name, *tensors, via: str = "ScoredAttention") -> None:
     """The bare kernels record no autograd graph."""
     if needs_grad(*tensors):
         raise RuntimeError(f"{name} records no autograd graph: a call that "
-                           "needs a gradient goes through ScoredAttention")
+                           f"needs a gradient goes through {via}")
 
 
 def _check_gate(scores_prev, c, q):

@@ -149,7 +149,9 @@ def test_flash_supported_gating_is_verbatim(lq, lkv, mask_kind, sprev, emit, dh)
 
 
 def test_unported_impl_raises():
-    """`pallas_fused` (the whole-block kernel) is not ported yet."""
+    """`pallas_fused` is the whole minus block in one kernel: `MinusBlock`
+    routes it to ops/fused_block.py and `RealformerBlock` to `pallas`, so
+    no path reaches the attention alone with it, which raises."""
     q, k, v, m = _inputs(lq=4, lkv=8)
     with pytest.raises(NotImplementedError):
         tattn.scored_attention(_t(q), _t(k), _t(v), _t(m), None, torch.zeros(1),

@@ -67,6 +67,19 @@ def test_the_realformer_slice_is_covered():
     assert {"scored_fwd.cu", "scored_bwd.cu", "flash_common.cuh"} <= names
 
 
+def test_the_fused_block_slice_is_covered():
+    """The modules and kernel sources of the whole-block slice
+    (`mosei_trans` training and `ren_mme` serving at impl="pallas_fused")
+    are among those the tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("ops.fused_block", "ops.pallas_attention", "models.layers",
+              "models.grid", "models.heads", "models.registry", "configs",
+              "data.synthetic", "interop.torch_compat", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+    names = {p.name for p in _sources()}
+    assert {"fused_block.cu", "scored_bwd.cu", "flash_common.cuh"} <= names
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"

@@ -140,10 +140,10 @@ def test_build_model_is_seeded_and_torch_default_distributed():
 
 def test_build_model_refuses_unported_families_and_missing_gpu():
     exp = _exp()
-    ren = dataclasses.replace(exp, model=dataclasses.replace(exp.model,
-                                                             unify="linear_ln"))
+    rencecps = dataclasses.replace(exp, model=dataclasses.replace(
+        exp.model, head="concat_linear"))
     with pytest.raises(NotImplementedError):
-        build_model(ren, device="cpu")
+        build_model(rencecps, device="cpu")
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -166,7 +166,7 @@ def test_infer_cast_copies_and_keeps_loss_vectors_f32():
 
 @pytest.mark.parametrize("name", ["mosei_trans", "mosei_trans_s256",
                                   "mosei_trans_s512", "mosei_trans_s1024",
-                                  "mosei_realformer"])
+                                  "mosei_realformer", "ren_mme"])
 def test_configs_equal_jax(name):
     assert dataclasses.asdict(configs.get(name)) == dataclasses.asdict(
         jconfigs.get(name))
