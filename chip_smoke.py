@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
-  1. device: the card's name and power limit, and the build of every CUDA
+  1. device: the card's name and power limit, the build of every CUDA
      kernel from the sources in this checkout (one nvcc per source, started
-     together);
+     together), and the count of tensor-core instructions (HMMA / HGMMA) in
+     each flash kernel's machine code (cuobjdump -sass): the bf16 flash
+     kernels up to dh 128 must have them;
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the main paths give it and at edge cases, with its time, the
      plain version's, one library call's (timing yardstick only) and the
@@ -177,7 +179,11 @@ SCORED_EDGE_CASES = (
 TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
 # backward edge cases: (B, Lq, Lkv, H, dh, mask, q scale); ragged Lkv, head
 # widths, Lq 1, no mask, and a fully masked row whose raw scores straddle
-# +-4 (q x 4), where -1e8 + raw rounds to a neighbouring multiple of 8
+# +-4 (q x 4), where -1e8 + raw rounds to a neighbouring multiple of 8: with
+# q x 4 at each head-width bucket that takes the tensor cores in bf16 (16,
+# 32, 64, 128), at Lq and Lkv that are not multiples of the 64-wide tiles
+# and at Lq 1, these fail if the forward and the two backward kernels do
+# not compute every score with the same bits
 BWD_EDGE_CASES = (
     (2, 37, 1, 2, 16, "zero_row", 1.0), (2, 37, 20, 2, 16, "zero_row", 1.0),
     (2, 37, 77, 2, 16, "zero_row", 1.0), (2, 37, 100, 2, 16, "ragged", 1.0),
@@ -185,11 +191,73 @@ BWD_EDGE_CASES = (
     (2, 128, 1024, 8, 128, "zero_row", 1.0), (2, 20, 50, 2, 1, "zero_row", 1.0),
     (2, 20, 50, 2, 48, "zero_row", 1.0), (2, 70, 300, 2, 256, "zero_row", 1.0),
     (3, 1, 100, 2, 64, "ragged", 1.0), (2, 64, 64, 8, 128, "none", 1.0),
-    (2, 64, 77, 2, 16, "zero_row", 4.0))
+    (2, 64, 77, 2, 16, "zero_row", 4.0), (2, 64, 77, 2, 32, "zero_row", 4.0),
+    (2, 64, 77, 2, 64, "zero_row", 4.0), (2, 64, 77, 2, 128, "zero_row", 4.0),
+    (2, 96, 130, 4, 128, "zero_row", 4.0), (2, 1, 77, 2, 128, "zero_row", 4.0),
+    (2, 50, 33, 2, 3, "zero_row", 4.0))
+# the instruction the bf16 flash kernels use for every product, up to dh 128
+FLASH_MMA = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_kernels(report: str) -> list:
+    """(kernel, registers, bytes spilled) per kernel function of an
+    `nvcc -Xptxas -v` report, the kernel named from its mangled entry as
+    name<template arguments>, e.g. flash_bwd_dkv_mma_kernel<128>."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)I(\w*?)EE", mangled)
+            if base:
+                args = base.group(2)
+                targs = (["bf16"] if "bfloat16" in args else
+                         ["f32"] if args.startswith("f") else [])
+                targs += re.findall(r"L[ib](\d+)", args)
+                name = f"{base.group(1)}<{','.join(targs)}>"
+            else:
+                name = mangled
+            spill = 0
+            continue
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores and name:
+            spill = int(stores.group(1))
+            continue
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            rows.append((name, int(used.group(1)), spill))
+            name = None
+    return rows
+
+
+def tensor_core_counts(path) -> dict:
+    """Per kernel function of a built library, the count of tensor-core
+    instructions (HMMA, HGMMA) in its machine code, from `cuobjdump -sass`;
+    empty when the toolkit has no cuobjdump."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
+    if not tool or not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -2285,9 +2353,29 @@ def main() -> int:
     report["build"] = built
     log(f"[device] built {sources} in {report['build_s']:.1f} s")
     for name, info in built.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[device] {name}: {line.strip()}")
+        kernels = ptxas_kernels(info["ptxas"])
+        info["kernels"] = kernels
+        log(f"[device] {name}: registers / bytes spilled per kernel: "
+            + ", ".join(f"{k} {r}/{sp}" for k, r, sp in kernels))
+    tensor_cores = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        counts = tensor_core_counts(built[name]["path"])
+        tensor_cores[name] = counts
+        if not counts:
+            log(f"[device] {name}: tensor-core instructions not measured "
+                "(no cuobjdump)")
+            continue
+        mma = {fn: n for fn, n in counts.items() if "mma_kernel" in fn}
+        log(f"[device] {name}: {sum(counts.values())} HMMA/HGMMA instructions "
+            f"in cuobjdump -sass, {sum(mma.values())} of them in the "
+            f"{len(mma)} bf16 tensor-core kernels, "
+            f"{sum(counts.values()) - sum(mma.values())} in the other "
+            f"{len(counts) - len(mma)}")
+        if not mma or min(mma.values()) == 0:
+            failed.append("device")
+            log(f"[device] FAIL: a bf16 flash kernel of {name} has no "
+                "tensor-core instruction")
+    report["tensor_core_instructions"] = tensor_cores
 
     summaries, launches = None, {}
     for phase, fn in (("kernels", phase_kernels), ("train", phase_train),
@@ -2328,6 +2416,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"multimodal_emotion_processing_tpu_torch/csrc/{source}",
             "replaces": replaces, "also_replaces": also,
+            "instruction": f"{FLASH_MMA} for every product in bf16 up to dh "
+                           "128; scalar f32 FMA in f32 and at dh 129-256",
+            "tensor_core_instructions": sum(
+                n for fn, n in report["tensor_core_instructions"].get(
+                    source.removesuffix(".cu"), {}).items()
+                if name.removeprefix("flash_") + "_mma_kernel" in fn),
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": summ["max_abs_err"],
             "ms": summ["ms"], "plain_ms": summ["plain_ms"],
@@ -2346,7 +2440,7 @@ def main() -> int:
     kernels.append({
         "name": "scored_fwd", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_fwd.cu",
-        "replaces": f"{pa_py}:190",
+        "replaces": f"{pa_py}:190", "instruction": "scalar f32 FMA",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],
         "max_score_rel_err": summ["max_score_rel_err"],
@@ -2370,7 +2464,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_bwd.cu",
-            "replaces": f"{pa_py}:350",
+            "replaces": f"{pa_py}:350", "instruction": "scalar f32 FMA",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": summ["max_abs_err"],
             "max_norm_err": summ["max_norm_err"],
@@ -2401,6 +2495,7 @@ def main() -> int:
         "name": "fused_block", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/fused_block.cu",
         "replaces": "multimodal_emotion_processing_tpu/ops/fused_block.py:109",
+        "instruction": "scalar f32 FMA",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],
         "max_score_rel_err": summ["max_score_rel_err"],

@@ -10,7 +10,10 @@
 // compute a score only through `tile_dots` and `masked_score`: a
 // sequential fmaf over d = 0 .. DH-1 (zero-padded past dh, which adds
 // exact zeros), then one fmaf with the scale and the penalty.  The scale
-// comes from `score_scale` and the penalty from `mask_penalty`.
+// comes from `score_scale` and the penalty from `mask_penalty`.  The bf16
+// flash kernels up to dh 128 take their raw dots from flash_mma.cuh
+// `score_dots` instead, one tensor-core chain shared by the forward and
+// both backward kernels, and then the same `masked_score`.
 
 #pragma once
 

@@ -17,36 +17,55 @@
 // every row, (B, H, Lq) f32 each, when it is given the two pointers.  They
 // stay separate, never folded into lse = m + log l: in a fully masked row
 // m is about -1e8, where the f32 spacing is 8, and log l would round away.
-// Scores come from flash_common.cuh, the same code the backward uses.
 // The mask penalty is the reference's finite 1e8, never -inf, so a row whose
 // mask is all zero gets a uniform softmax over its Lkv real keys.  Columns at
 // or past Lkv are skipped inside the kernel: kv is never padded, so padded
 // keys cannot join that uniform softmax (the JAX wrapper zero-pads kv to a
 // multiple of 128 and its fully masked rows then average over the padded
-// length).
-//
-// Layout: q (B, Lq, H*dh), k and v (B, Lkv, H*dh), o like q, all row-major
-// and contiguous; heads are read by stride, so no split/merge copies.  mask
-// is (B, Lkv) f32 or null.  Grid: (q tiles of 64 rows) x heads x batch.
-// Block: 256 threads as 16 x 16; thread (tx, ty) owns query rows ty + 16r
-// (r < 4), score columns tx + 16c of each kv tile, and output columns
-// tx + 16j.  Q stays in shared memory for the whole kv loop; K and V tiles
-// of at most 64 keys are staged per step.
+// length).  Layout: q (B, Lq, H*dh), k and v (B, Lkv, H*dh), o like q, all
+// row-major and contiguous; heads are read by stride, so no split/merge
+// copies; mask is (B, Lkv) f32 or null.
 //
 // What bounds it on an H100: per (b, h) the work is 4*Lq*Lkv*dh flops
 // against (2*Lq + 2*Lkv)*dh elements moved, i.e. Lq*Lkv/(Lq+Lkv) flops per
-// byte in bf16: 64 to 256 at the s1024 serving shapes (L 128 to 512), under
-// the card's bf16 ridge of ~295, so the bound is the bytes (HBM); in f32,
-// with the 67 TFLOP/s of the non-tensor-core units, it is the operations.
-// This first version computes both products with scalar f32 FMAs out of
-// shared memory (no tensor cores, no wgmma or TMA yet), so what limits it in
-// practice is the shared-memory operand traffic of those FMAs, far above
-// either bound.  Moving S = Q.K^T and O = P.V onto the tensor cores (wgmma)
-// is the work that makes it fast.
+// byte in bf16: 64 to 256 at the s1024 serving shapes (L 128 to 512, dh
+// 128), under the card's bf16 ridge of ~295, so the bound is the bytes: 176
+// MB for the nine shapes at batch 8, 0.053 ms at 3.35 TB/s, against 26 GFLOP
+// (0.027 ms at 989 TFLOP/s).  In f32, with the 67 TFLOP/s outside the tensor
+// cores, it is the operations.
+//
+// Two kernels, chosen by dtype and head-width bucket (16/32/64/128/256) with
+// the predicate the backward uses, mma::takes_tensor_cores:
+// - bf16, dh <= 128: flash_fwd_mma_kernel.  Four warps, each owning 16 query
+//   rows (the FA2 layout), so a block is 64 query rows; grid (q tiles) x
+//   heads x batch.  Q, K and V stay bf16 in swizzled shared memory; K / V
+//   tiles of 64 keys come in by cp.async (16 bytes a thread) into a
+//   two-stage ring, so the next tile's copy overlaps this tile's products.
+//   S = Q.K^T comes from flash_mma.cuh `score_dots` (mma.sync m16n8k16,
+//   bf16 in, f32 accumulator), the same chain both backward kernels use.  P
+//   is built in registers from the S accumulator, summed into l in f32, and
+//   only then rounded to bf16, as the A operand of O += P.V (mma.sync again,
+//   V read with ldmatrix.trans), never passing through shared memory.  It
+//   enters that product as three bf16 terms (flash_mma.cuh `split_bf16`),
+//   which carry f32 p's 24 bits: with one bf16 P the output differed from
+//   the f32-softmax path's by a bf16 step in many elements, and the s1024
+//   bf16 model amplified that to step-1 gradients 9.0e-2 from impl="xla"
+//   (bound 5e-2, on an H100 80GB HBM3 at 700 W).  A tile of 64 keys keeps
+//   the per-thread state at 64 f32 of O, 32 of S and 48 packed P registers
+//   at dh 128, which ptxas fits without spilling; 64 query rows keep the
+//   s1024 serving grids at 128 to 512 blocks.  Shared memory: 80.5 KB at dh
+//   128,
+//   two blocks per SM.
+// - f32, and bf16 at dh 129..256: flash_fwd_kernel, scalar f32 FMAs out of
+//   shared memory (16 x 16 threads, 64 query rows, the scores through
+//   flash_common.cuh `tile_dots`).  It is exact with TF32 off; no main path
+//   runs flash in f32.  Above dh 128 bf16 stays here because the dkv
+//   kernel does (flash_mma.cuh `takes_tensor_cores`).
 
 #include <float.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -203,15 +222,187 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+// f32 over the head-width buckets (bf16 takes the 256 bucket only)
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* mask, void* o, float* m, float* l, int B,
                      int H, int Lq, int Lkv, int dh, cudaStream_t s) {
-  if (dh <= 16) return launch<T, 16>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
-  if (dh <= 32) return launch<T, 32>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
-  if (dh <= 64) return launch<T, 64>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
-  if (dh <= 128) return launch<T, 128>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
-  return launch<T, 256>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 16) return launch<float, 16>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 32) return launch<float, 32>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 64) return launch<float, 64>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 128) return launch<float, 128>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  return launch<float, 256>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+}
+
+
+// ---- bf16 on the tensor cores, dh <= 128 --------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaBQ = mma::kWarps * mma::kRows;   // 64 query rows a block
+constexpr int kMmaBKV = 64;                         // keys a tile
+
+template <int DH>
+constexpr size_t mma_fwd_smem() {
+  // sQ, two stages of sK and sV, two stages of penalties
+  return sizeof(bf16) * (size_t)(kMmaBQ * DH + 4 * kMmaBKV * DH) +
+         sizeof(float) * 2 * kMmaBKV;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(mma::kThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ mask,
+                     bf16* __restrict__ o, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int Lq, int Lkv, int H, int dh,
+                     float scale, bool vec) {
+  constexpr int BQ = kMmaBQ, BKV = kMmaBKV, NT = BKV / 8, DT = DH / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BQ * DH;         // two stages
+  bf16* sV = sK + 2 * BKV * DH;    // two stages
+  float* sNeg = reinterpret_cast<float*>(sV + 2 * BKV * DH);   // two stages
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const size_t D = (size_t)H * dh;
+  const bf16* qb = q + (size_t)b * Lq * D + (size_t)h * dh;
+  const bf16* kb = k + (size_t)b * Lkv * D + (size_t)h * dh;
+  const bf16* vb = v + (size_t)b * Lkv * D + (size_t)h * dh;
+  const float* mb = mask ? mask + (size_t)b * Lkv : nullptr;
+  const int n_tiles = (Lkv + BKV - 1) / BKV;
+
+  auto load_kv = [=](int tile, int stage) {
+    const int kv0 = tile * BKV, nkv = min(BKV, Lkv - kv0);
+    mma::load_rows<DH, BKV>(sK + stage * BKV * DH, kb, D, kv0, nkv, dh, vec);
+    mma::load_rows<DH, BKV>(sV + stage * BKV * DH, vb, D, kv0, nkv, dh, vec);
+    for (int c = threadIdx.x; c < BKV; c += mma::kThreads)
+      sNeg[stage * BKV + c] = c < nkv ? mask_penalty(mb, kv0 + c) : 0.f;
+  };
+
+  mma::load_rows<DH, BQ>(sQ, qb, D, q0, Lq - q0, dh, vec);
+  load_kv(0, 0);
+  mma::cp_async_commit();
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-FLT_MAX, -FLT_MAX}, l_run[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {   // the next tile's copy overlaps this one's work
+      load_kv(t + 1, stage ^ 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int nkv = min(BKV, Lkv - t * BKV);
+    const float* neg = sNeg + stage * BKV;
+
+    float s[NT][4];
+    mma::score_dots<DH, NT>(sQ, warp * mma::kRows, sK + stage * BKV * DH, 0, s);
+
+    // rows g (e = 0, 1) and g + 8 (e = 2, 3); every tile holds at least one
+    // real column, so each row's tile max is finite
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t4 + (e & 1);
+        if (col < nkv) {
+          s[j][e] = masked_score(s[j][e], scale, neg[col]);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        } else {
+          s[j][e] = -INFINITY;
+        }
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], mma::quad_max(mx[r]));
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_run[e >> 1]);   // p, f32
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + mma::quad_sum(sum[r]);
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // p rounded to bf16 only here, as the terms of the A operand of
+    // O += P.V, straight from the S accumulators
+    uint32_t pa[mma::kSplit][NT / 2][4];
+    mma::to_a_split<NT>(s, pa);
+    mma::mma_regA<DH, NT / 2>(acc, pa, sV + stage * BKV * DH, 0);
+    __syncthreads();   // this stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * mma::kRows + g + 8 * r;
+    if (row >= Lq) continue;
+    if (m_out && t4 == 0) {
+      const size_t stat = ((size_t)b * H + h) * Lq + row;
+      m_out[stat] = m_run[r];
+      l_out[stat] = l_run[r];
+    }
+    const float inv = 1.f / l_run[r];   // l >= 1: the row max contributes exp(0)
+    bf16* orow = o + ((size_t)b * Lq + row) * D + (size_t)h * dh;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int d = n * 8 + 2 * t4;
+      if (d >= dh) continue;
+      if (vec) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      } else {
+        orow[d] = __float2bfloat16_rn(acc[n][2 * r] * inv);
+        if (d + 1 < dh) orow[d + 1] = __float2bfloat16_rn(acc[n][2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* mask, void* o, float* m_out, float* l_out,
+                       int B, int H, int Lq, int Lkv, int dh,
+                       cudaStream_t stream) {
+  constexpr size_t smem = mma_fwd_smem<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + kMmaBQ - 1) / kMmaBQ, H, B);
+  flash_fwd_mma_kernel<DH><<<grid, mma::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(mask),
+      static_cast<bf16*>(o), m_out, l_out, Lq, Lkv, H, dh, score_scale(dh),
+      mma::vec_ok(dh, {q, k, v, o}));
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
+                         const void* mask, void* o, float* m, float* l, int B,
+                         int H, int Lq, int Lkv, int dh, cudaStream_t s) {
+  if (dh <= 16) return launch_mma<16>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 32) return launch_mma<32>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  if (dh <= 64) return launch_mma<64>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+  return launch_mma<128>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
 }
 
 }  // namespace
@@ -229,7 +420,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s)
-              : dispatch<float>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
+      flash::mma::takes_tensor_cores(is_bf16, dh)
+          ? dispatch_mma(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s)
+      : is_bf16
+          ? launch<__nv_bfloat16, 256>(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s)
+          : dispatch(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
   return (int)err;
 }

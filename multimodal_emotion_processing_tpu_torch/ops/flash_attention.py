@@ -1,7 +1,10 @@
 """Flash (online-softmax) attention for terminal blocks, forward and backward.
 
 The kernels are written by hand in CUDA C++ for Hopper; each source's header
-says what bounds it on the card.
+says what bounds it on the card.  bf16 up to a head width of 128 runs on the
+tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulators; P and dS
+enter their products as three bf16 terms, so the outputs match f32 p and ds),
+f32 and wider heads on scalar f32 FMAs.
 
 - csrc/flash_fwd.cu `flash_fwd` replaces the JAX package's two forward Pallas
   kernels (ops/flash_attention.py `_flash_forward_whole` and
@@ -14,7 +17,9 @@ says what bounds it on the card.
   from q, k, the mask and the saved stats.  m and l stay separate, never a
   folded lse = m + log l: in a fully masked row m ≈ −1e8, where the f32
   spacing is 8, and log l would round away.  Both .cu files compute a score
-  through csrc/flash_common.cuh, so s is bit-identical forward and backward.
+  through one chain per dtype and head width (csrc/flash_mma.cuh on the
+  tensor cores, csrc/flash_common.cuh on scalar FMAs), so s is
+  bit-identical forward and backward.
 
 Terminal blocks only: scores_prev is None and the scores are not emitted, so
 S is never materialized.  The mask is the reference's finite 1e8 penalty, and

@@ -51,8 +51,9 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
     """Compile every named source that has no library for its current hash,
     one `nvcc` process per source, all started together.  Returns, per
     name, the library's `path`, the `seconds` its build took (0.0 when it
-    was already built) and the compiler's resource report `ptxas`
-    (registers, shared memory, spills)."""
+    was already built) and the compiler's resource report `ptxas`: its
+    lines per kernel function (the entry's name, then its stack frame and
+    spills, then its registers)."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: {"path": _target(n), "seconds": 0.0, "ptxas": "cached"}
@@ -73,7 +74,7 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
         os.replace(tmp, out[n]["path"])
         out[n]["seconds"] = time.perf_counter() - t0
         out[n]["ptxas"] = "\n".join(line for line in log.splitlines()
-                                    if "ptxas" in line)
+                                    if "ptxas" in line or "spill" in line)
     return out
 
 

@@ -155,15 +155,25 @@ def _grad_inputs(b, lq, lkv, h, dh, dtype, device, seed=0, q_scale=1.0,
             for t in (q, k, v, m, do)]
 
 
+# Cases that fail if any of the three kernels computes a score with other
+# bits than the others (bf16 takes the tensor cores up to dh 128): a fully
+# masked row with q x 4 at each tensor-core head-width bucket, Lkv and Lq
+# not multiples of the 64-wide tiles, and Lq 1.
+SCORE_ORDER_CASES = [(2, 64, 77, 2, 32, 4.0), (2, 64, 77, 2, 64, 4.0),
+                     (2, 64, 77, 2, 128, 4.0), (2, 96, 130, 4, 128, 4.0),
+                     (2, 1, 77, 2, 128, 4.0)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("b,lq,lkv,h,dh", [(2, 20, 200, 2, 16),
-                                           (2, 128, 512, 8, 128),
-                                           (1, 1, 1, 1, 1), (2, 70, 300, 2, 256),
-                                           (2, 33, 77, 3, 48)])
-def test_stats_match_plain_on_card(cuda, dtype, tol, b, lq, lkv, h, dh):
-    q, k, v, m, _ = _grad_inputs(b, lq, lkv, h, dh, dtype, cuda)
+@pytest.mark.parametrize("b,lq,lkv,h,dh,q_scale", [
+    (2, 20, 200, 2, 16, 1.0), (2, 128, 512, 8, 128, 1.0), (1, 1, 1, 1, 1, 1.0),
+    (2, 70, 300, 2, 256, 1.0), (2, 33, 77, 3, 48, 1.0)] + SCORE_ORDER_CASES)
+def test_stats_match_plain_on_card(cuda, dtype, tol, b, lq, lkv, h, dh,
+                                   q_scale):
+    q, k, v, m, _ = _grad_inputs(b, lq, lkv, h, dh, dtype, cuda,
+                                 q_scale=q_scale)
     before = tfa.flash_forward_kernel.stats_launches
     o, ms, ls = tfa.flash_forward_kernel(q, k, v, m, n_heads=h, stats=True)
     torch.cuda.synchronize()
@@ -181,7 +191,8 @@ def test_stats_match_plain_on_card(cuda, dtype, tol, b, lq, lkv, h, dh):
 @pytest.mark.parametrize("b,lq,lkv,h,dh,q_scale,mask", [
     (2, 20, 200, 2, 16, 1.0, "zero_row"), (2, 128, 512, 8, 128, 1.0, "zero_row"),
     (1, 1, 1, 1, 1, 1.0, "zero_row"), (2, 70, 300, 2, 256, 1.0, "zero_row"),
-    (2, 33, 77, 3, 48, 1.0, "none"), (2, 64, 77, 2, 16, 4.0, "zero_row")])
+    (2, 33, 77, 3, 48, 1.0, "none"), (2, 64, 77, 2, 16, 4.0, "zero_row")]
+    + [c + ("zero_row",) for c in SCORE_ORDER_CASES])
 def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, b, lq, lkv, h,
                                               dh, q_scale, mask):
     """Each side from its own forward (kernel stats for the kernels, plain
