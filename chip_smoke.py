@@ -7,8 +7,10 @@ Phases, each reported on its own lines:
   1. device: the card's name and power limit, the build of every CUDA
      kernel from the sources in this checkout (one nvcc per source, started
      together), and the count of tensor-core instructions (HMMA / HGMMA) in
-     each flash kernel's machine code (cuobjdump -sass): the bf16 flash
-     kernels up to dh 128 must have them;
+     each kernel's machine code (cuobjdump -sass): the bf16 flash kernels
+     up to dh 128 and every kernel of scored_fwd, scored_bwd and
+     fused_block must have them, and scored_fwd and scored_bwd must not
+     spill;
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the main paths give it and at edge cases, with its time, the
      plain version's, one library call's (timing yardstick only) and the
@@ -16,7 +18,9 @@ Phases, each reported on its own lines:
      row stats), flash_bwd_dq and flash_bwd_dkv, scored_fwd in its four
      variants (S_prev given or not, S emitted or not), scored_bwd_dq and
      scored_bwd_dkv in the same four, with dc and dmask held at the scale of
-     the terms they sum, and fused_block in the same four;
+     the terms they sum, fully masked q x 4 rows at dh 16 and 32 among the
+     edge cases, and their dq, dk and dv bit-equal whether they read the
+     forward's S or rebuild s, and fused_block in the same four;
   3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
      trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
      an eval pass after each, with the kernel launch counts of that run, the
@@ -174,6 +178,12 @@ SCORED_EDGE_CASES = (
     (2, 64, 1024, 4, 64, "zero_row"), (2, 128, 1000, 2, 128, "ragged"),
     (3, 1, 100, 6, 32, "zero_row"), (2, 64, 64, 6, 32, "none"),
     (1, 1, 1, 1, 1, "ragged"))
+# the score-chained kernels' fully masked rows with q x 4 at the main paths'
+# head widths: raw scores straddle +-4, so -1e8 + raw and -(1 + c) 1e8 + raw
+# land on neighbouring multiples of 8, and the forward's S, the s its
+# backward rebuilds and fused_block's S must come from one chain
+SCORED_QX4_CASES = ((2, 64, 77, 2, 16, "zero_row", 4.0),
+                    (2, 64, 77, 2, 32, "zero_row", 4.0))
 # training: configs.SCALE_POINTS["s1024"] batch 64; 256 / 64 synthetic
 # samples and 2 epochs give 8 optimizer steps and 2 eval passes
 TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
@@ -197,6 +207,12 @@ BWD_EDGE_CASES = (
     (2, 50, 33, 2, 3, "zero_row", 4.0))
 # the instruction the bf16 flash kernels use for every product, up to dh 128
 FLASH_MMA = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+# the score-chained kernels' instruction, every f32 operand split into two
+# TF32 terms and each product taken as three (csrc/scored_mma.cuh)
+SCORED_MMA = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+SCORED_INSTRUCTION = (f"{SCORED_MMA} for every product, each f32 operand as "
+                      "hi + lo TF32 terms, three products into f32 "
+                      "accumulators (the two small terms into their own)")
 
 
 def log(msg: str) -> None:
@@ -622,14 +638,16 @@ def scored_cases(torch, g, report):
     for dtype in (torch.float32, torch.bfloat16):
         for lq, lkv in ROBOT_SHAPES:
             cases.append((True, dtype, (SERVE_BUCKET, lq, lkv, ROBOT_HEADS,
-                                        ROBOT_DH, "zero_row")))
-        cases += [(False, dtype, c) for c in SCORED_EDGE_CASES]
+                                        ROBOT_DH, "zero_row", 1.0)))
+        cases += [(False, dtype, c + (1.0,)) for c in SCORED_EDGE_CASES]
+        cases += [(False, dtype, c) for c in SCORED_QX4_CASES]
     rows, ok, timed_calls = [], True, []
-    for main, dtype, (b, lq, lkv, h, dh, mask_kind) in cases:
+    for main, dtype, (b, lq, lkv, h, dh, mask_kind, q_scale) in cases:
         dname = str(dtype).removeprefix("torch.")
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
         q, k, v, mask = attention_inputs(torch, g, b, lq, lkv, h, dh, dtype,
                                          mask_kind)
+        q = (q.float() * q_scale).to(dtype)
         q0 = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
         sprev = pa.scored_forward_plain(q0, k, v, mask, None, None,
                                         n_heads=h)[1].contiguous()
@@ -647,9 +665,9 @@ def scored_cases(torch, g, report):
                     and s_err <= SCORE_RTOL and (s is None) == (not emit))
             ok &= good
             row = dict(dtype=dname, b=b, lq=lq, lkv=lkv, h=h, dh=dh,
-                       mask=mask_kind, has_sprev=has_sprev, emit=emit,
-                       main_path=main, max_abs_err=abs_err, max_norm_err=err,
-                       score_rel_err=s_err, tol=tol, ok=good)
+                       mask=mask_kind, q_scale=q_scale, has_sprev=has_sprev,
+                       emit=emit, main_path=main, max_abs_err=abs_err,
+                       max_norm_err=err, score_rel_err=s_err, tol=tol, ok=good)
             timing = ""
             if main and dtype == torch.float32 and (has_sprev, emit) in MAIN_VARIANTS:
                 qh, kh, vh = (split_heads(t, h).contiguous() for t in (q, k, v))
@@ -672,7 +690,7 @@ def scored_cases(torch, g, report):
                           f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
             rows.append(row)
             log(f"[kernels] scored_fwd {dname} B={b} Lq={lq} Lkv={lkv} H={h} "
-                f"dh={dh} mask={mask_kind} sprev={int(has_sprev)} "
+                f"dh={dh} mask={mask_kind} q_scale={q_scale:g} sprev={int(has_sprev)} "
                 f"emit={int(emit)} max_abs_err={abs_err:.3e} norm_err={err:.3e} "
                 f"S_rel_err={s_err:.2e} tol={tol:g} {'ok' if good else 'FAIL'}"
                 + timing)
@@ -706,29 +724,35 @@ def scored_cases(torch, g, report):
 
 def scored_bwd_bounds(b, h, lq, lkv, dh, dtype_name, has_sprev, emit):
     """Least times for the score-chained backward on this card, per kernel
-    and for the pair.  The pair reads q, k, v, dctx and the f32 mask once,
-    S_prev when given, S and dscores when S was emitted, and writes dq, dk,
-    dv and (with S_prev) dS_prev, against 8 B·H·Lq·Lkv·dh flops (dp, dq, dk,
-    dv), 10 where s is rebuilt.  scored_bwd_dq: q, k, v, dctx, the mask,
-    S_prev, S and dscores in; dq, the row stats and dS_prev out; dp and dq
-    (+ s).  scored_bwd_dkv: the same inputs (S_prev only where s is rebuilt)
-    and the stats; dk and dv out; dp, dk and dv (+ s)."""
+    and for the pair.  The pair reads q, k, v, dctx, the forward's ctx and
+    row stats (m, l) and the f32 mask once, S_prev when given, S and
+    dscores when S was emitted, and writes dq, dk, dv and (with S_prev)
+    dS_prev, against 8 B·H·Lq·Lkv·dh flops (dp, dq, dk, dv), 10 where s is
+    rebuilt.  scored_bwd_dq: q, k, v, dctx, ctx, the mask, the stats,
+    S_prev, S and dscores in; dq, the row stats with delta and dS_prev
+    out; dp and dq (+ s).  scored_bwd_dkv: q, k, v, dctx, the mask, S and
+    dscores (S_prev only where s is rebuilt) and the stats with delta in; dk
+    and dv out; dp, dk and dv (+ s).  The flops are counted once, at the
+    f32 rate outside the tensor cores, though the kernels take each f32
+    product as three TF32 products on them."""
     it = 2 if dtype_name == "bfloat16" else 4
     q_like, kv_like = b * lq * h * dh * it, b * lkv * h * dh * it
     score = b * h * lq * lkv * 4
     stats = 3 * b * h * lq * 4
+    fwd_stats = 2 * b * h * lq * 4
     common = 2 * q_like + 2 * kv_like + b * lkv * 4 + 2 * score * int(emit)
     unit = float(b * h * lq * lkv * dh)
     s_flops = 0 if emit else 2
     sprev_in = score * int(has_sprev)
     return {
-        "scored_bwd_dq": _bound(common + sprev_in + q_like + stats + sprev_in,
+        "scored_bwd_dq": _bound(common + q_like + fwd_stats + sprev_in
+                                + q_like + stats + sprev_in,
                                 (4 + s_flops) * unit, dtype_name),
         "scored_bwd_dkv": _bound(common + sprev_in * int(not emit) + stats
                                  + 2 * kv_like, (6 + s_flops) * unit,
                                  dtype_name),
-        "pair": _bound(common + 2 * sprev_in + q_like + 2 * kv_like,
-                       (8 + s_flops) * unit, dtype_name)}
+        "pair": _bound(common + q_like + fwd_stats + 2 * sprev_in + q_like
+                       + 2 * kv_like, (8 + s_flops) * unit, dtype_name)}
 
 
 def scored_bwd_term_scales(torch, pa, q, k, v, mask, sprev, c, dctx, dscores, h):
@@ -756,6 +780,43 @@ def elementwise_errors(got, ref):
     return (got - ref).abs().max().item(), score_errors(got, ref)
 
 
+def scored_backward_reference(pa, q, k, v, mask, sp, c, emit, dsc, dctx, h):
+    """scored_backward_plain on the kernels' inputs, evaluated in f64 from
+    the plain forward's S in f32 (so a fully masked row keeps f32's
+    rounding of −1e8 + raw; without an emitted S, p is then that of the
+    rebuilt s), cast back to f32.  The f32 evaluation's own error reaches
+    9.6e-6 of max(1, |ref|) in dq at Lkv 1000 (cuBLAS's f32 sum over the
+    keys) where the kernel's is 2.3e-6, both against f64, on an H100: as
+    large as the 1e-5 bound, so the checks hold the kernels against the
+    exact answer.  bf16 inputs are upcast first, as the kernels compute in
+    f32 from them."""
+    q32, k32, v32, c32 = (None if t is None else t.float() for t in (q, k, v, c))
+    s32 = pa.scored_forward_plain(q32, k32, v32, mask, sp, c32, n_heads=h)[1]
+    f64 = [None if t is None else t.double() for t in (q, k, v, sp, c, s32,
+                                                       dsc, dctx)]
+    out = pa.scored_backward_plain(*f64[:3], mask, *f64[3:5], f64[5],
+                                   f64[6] if emit else None, f64[7], n_heads=h)
+    return tuple(None if t is None else t.float() for t in out)
+
+
+def scored_rebuild_equal(torch, pa, q, k, v, mask, c, dctx, h) -> bool:
+    """Whether scored_bwd returns the same dq, dk and dv bits when it reads
+    the forward's emitted S as when it rebuilds s (no S, no dS, no S_prev),
+    from the same row stats and ctx: the forward, both backward kernels and
+    the rebuild must share one score chain.  The forward's ctx and stats
+    must not depend on whether it emits S either."""
+    ctx, s, st = pa.scored_forward_kernel(q, k, v, mask, None, c, n_heads=h,
+                                          stats=True)
+    ctx2, _, st2 = pa.scored_forward_kernel(q, k, v, mask, None, c, n_heads=h,
+                                            emit_scores=False, stats=True)
+    read = pa.scored_backward_kernel(q, k, v, mask, None, c, s, None, dctx,
+                                     n_heads=h, out=ctx, stats=st)
+    rebuilt = pa.scored_backward_kernel(q, k, v, mask, None, c, None, None,
+                                        dctx, n_heads=h, out=ctx, stats=st)
+    return (torch.equal(ctx, ctx2) and torch.equal(st, st2)
+            and all(torch.equal(a, b) for a, b in zip(read[:3], rebuilt[:3])))
+
+
 def scored_bwd_cases(torch, g, report):
     """scored_bwd_dq and scored_bwd_dkv against scored_backward_plain in the
     four variants, each side from its own forward (the kernels from
@@ -780,9 +841,10 @@ def scored_bwd_cases(torch, g, report):
     shapes += [(False, (SERVE_BUCKET, lq, lkv, ROBOT_HEADS, ROBOT_DH,
                         "zero_row", 1.0)) for lq, lkv in ROBOT_SHAPES]
     shapes += [(False, c + (1.0,)) for c in SCORED_EDGE_CASES]
-    shapes.append((False, (2, 64, 77, 2, 16, "zero_row", 4.0)))
+    shapes += [(False, c) for c in SCORED_QX4_CASES]
     bwd = pa.scored_backward_kernel
     rows, ok, timed = [], True, {"scored_bwd_dq": [], "scored_bwd_dkv": []}
+    rebuild_equal = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
@@ -797,18 +859,22 @@ def scored_bwd_cases(torch, g, report):
             c = torch.tensor([0.7], device="cuda").to(dtype)
             dctx = torch.randn(b, lq, h * dh, generator=g, device="cuda").to(dtype)
             dsc_all = torch.randn(b, h, lq, lkv, generator=g, device="cuda")
+            rebuild_equal.append(scored_rebuild_equal(torch, pa, q, k, v, mask,
+                                                      c, dctx, h))
             for has_sprev, emit in pa.VARIANTS:
                 sp = sprev if has_sprev else None
                 dsc = dsc_all if emit else None
-                _, s = pa.scored_forward_kernel(q, k, v, mask, sp, c, n_heads=h,
-                                                emit_scores=emit)
+                ctx, s, st = pa.scored_forward_kernel(
+                    q, k, v, mask, sp, c, n_heads=h, emit_scores=emit,
+                    stats=True)
                 args = (q, k, v, mask, sp, c, s, dsc, dctx)
-                dq, dk, dv, dmask, dsprev, dc = bwd(*args, n_heads=h)
+                dq, dk, dv, dmask, dsprev, dc = bwd(*args, n_heads=h, out=ctx,
+                                                    stats=st)
                 torch.cuda.synchronize()
                 _, rs = pa.scored_forward_plain(q, k, v, mask, sp, c, n_heads=h,
                                                 emit_scores=emit)
-                ref = pa.scored_backward_plain(q, k, v, mask, sp, c, rs, dsc,
-                                               dctx, n_heads=h)
+                ref = scored_backward_reference(pa, q, k, v, mask, sp, c,
+                                                emit, dsc, dctx, h)
                 errs = {n: elementwise_errors(got, want) for n, got, want in (
                     ("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
                 dc_scale, dm_scale = scored_bwd_term_scales(
@@ -837,18 +903,20 @@ def scored_bwd_cases(torch, g, report):
                     # as the main path calls them: the batch mask needs no
                     # gradient.  Each kernel on inputs checked once; the pair
                     # through the wrapper, checks included
-                    ins, dims, variant = bwd.check(*args, n_heads=h)
-                    stats = bwd.dq.launch(ins, dims, variant)[1]
+                    ins, dims, variant = bwd.check(*args, n_heads=h, out=ctx,
+                                                   stats=st)
+                    _, stats3, _, dcpart = bwd.dq.launch(ins, dims, variant)
                     calls = {
                         "scored_bwd_dq": functools.partial(
                             bwd.dq.launch, ins, dims, variant),
                         "scored_bwd_dkv": functools.partial(
-                            bwd.dkv.launch, ins, stats, dims, variant, False)}
+                            bwd.dkv.launch, ins, stats3, dcpart, dims,
+                            variant, False)}
                     for kname, call in calls.items():
                         timed[kname].append(call)
                         row[f"{kname}_ms"] = time_ms(torch, call)
                     row["pair_ms"] = time_ms(torch, lambda: bwd(
-                        *args, n_heads=h, want_dmask=False))
+                        *args, n_heads=h, out=ctx, stats=st, want_dmask=False))
                     row["plain_ms"] = time_ms(torch, lambda: pa.scored_backward_plain(
                         q, k, v, mask, sp, c, rs, dsc, dctx, n_heads=h))
                     bias = -MASK_PENALTY * (1.0 - mask.float())[:, None, None, :]
@@ -878,9 +946,17 @@ def scored_bwd_cases(torch, g, report):
                     + " ".join(f"{n}={e[1]:.2e}" for n, e in errs.items())
                     + f" tol={tol:g} {'ok' if good else 'FAIL'}" + timing)
     report["scored_bwd_cases"] = rows
+    report["scored_bwd_rebuild_equal"] = rebuild_equal
+    n_equal = sum(rebuild_equal)
+    log(f"[kernels] scored_bwd rebuilding s (no S, no dS, no S_prev) against "
+        f"reading the forward's S, same stats and ctx: dq, dk, dv bit-equal "
+        f"in {n_equal} of {len(rebuild_equal)} cases")
     if not ok:
         raise AssertionError("the scored backward kernels disagree with "
                              "their plain version")
+    if n_equal != len(rebuild_equal):
+        raise AssertionError("scored_bwd gives other bits when it rebuilds s "
+                             "than when it reads the forward's S")
     main = [r for r in rows if "plain_ms" in r]
     lib = [r["library_ms"] for r in main]
     out = {}
@@ -919,6 +995,8 @@ def scored_bwd_cases(torch, g, report):
             pair_bound_ms=sum(r["pair_bound_ms"] for r in main
                               if (r["has_sprev"], r["emit"]) == (a, e)))
             for a, e in MAIN_VARIANTS})
+    out["scored_bwd_pair"]["mosei_trans"] = scored_bwd_fused_timing(
+        torch, g, pa)
     report["scored_bwd_summary"] = out
     dq, dkv = out["scored_bwd_dq"], out["scored_bwd_dkv"]
     log(f"[kernels] scored_bwd, sum over the {len(main)} calls of one "
@@ -932,6 +1010,65 @@ def scored_bwd_cases(torch, g, report):
         f"{dq['plain_ms']:.3f} ms; SDPA backward with the float bias "
         f"{dq['library_ms']} ms")
     return out
+
+
+def scored_bwd_fused_timing(torch, g, pa):
+    """The scored_bwd pair as FusedMinusBlock's backward calls it in a
+    mosei_trans train step at impl="pallas_fused": the nine stream shapes
+    at B 64 (dh 16, L 20/100/200, f32), no S_prev, no emitted S (s
+    rebuilt), no forward stats (dq takes them in a sweep of its own), the
+    batch mask without a gradient.  Each call checked against
+    scored_backward_plain; timed through the wrapper, with its device time,
+    bound, plain and SDPA times."""
+    from multimodal_emotion_processing_tpu_torch.ops.attention import MASK_PENALTY
+
+    bwd = pa.scored_backward_kernel
+    res = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_norm_err=0.0)
+    calls, lib = [], []
+    for lq, lkv in MT_SHAPES:
+        h, dh = MT_HEADS, MT_DH
+        q, k, v, mask = attention_inputs(torch, g, MT_BATCH, lq, lkv, h, dh,
+                                         torch.float32, "zero_row")
+        dctx = torch.randn(q.shape, generator=g, device="cuda")
+        ctx, _ = pa.scored_forward_kernel(q, k, v, mask, None, None,
+                                          n_heads=h, emit_scores=False)
+        call = functools.partial(bwd, q, k, v, mask, None, None, None, None,
+                                 dctx, n_heads=h, out=ctx, want_dmask=False)
+        got = call()
+        ref = scored_backward_reference(pa, q, k, v, mask, None, None,
+                                        False, None, dctx, h)
+        res["max_norm_err"] = max([res["max_norm_err"]] + [
+            elementwise_errors(a, b)[1] for a, b in zip(got[:3], ref[:3])])
+        calls.append(call)
+        res["ms"] += time_ms(torch, call)
+        res["plain_ms"] += time_ms(torch, lambda: pa.scored_backward_plain(
+            q, k, v, mask, None, None, None, None, dctx, n_heads=h))
+        bias = (-MASK_PENALTY * (1.0 - mask.float()))[:, None, None, :]
+        try:
+            lib.append(sdpa_backward_ms(
+                torch, q, k, v, bias.expand(MT_BATCH, h, lq, lkv), dctx, h))
+        except RuntimeError as e:   # a yardstick only
+            lib.append(None)
+            log(f"[kernels] SDPA backward not measured: {e}")
+        res["bound_ms"] += scored_bwd_bounds(MT_BATCH, h, lq, lkv, dh,
+                                             "float32", False, False)[
+                                                 "pair"]["bound_ms"]
+    res["library_ms"] = None if None in lib else sum(lib)
+    if res["max_norm_err"] > F32_TOL:
+        raise AssertionError("scored_bwd at the mosei_trans shapes disagrees "
+                             "with its plain version")
+    try:
+        res["device_ms"] = kernel_device_ms(torch, calls, "scored_bwd")
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        res["device_ms"] = None
+    log(f"[kernels] scored_bwd pair as FusedMinusBlock calls it, sum over the "
+        f"nine mosei_trans stream shapes at B={MT_BATCH} f32 (s rebuilt, no "
+        f"forward stats): {res['ms']:.4f} ms through the wrapper, device "
+        f"{res['device_ms']} ms; bound {res['bound_ms']:.4f}, plain "
+        f"{res['plain_ms']:.4f}, SDPA backward {res['library_ms']} ms; "
+        f"norm_err {res['max_norm_err']:.2e}")
+    return res
 
 
 def fused_bound(b, h, lq, lkv, dh, dtype_name, has_sprev, emit, save_ctx):
@@ -2375,6 +2512,28 @@ def main() -> int:
             failed.append("device")
             log(f"[device] FAIL: a bf16 flash kernel of {name} has no "
                 "tensor-core instruction")
+    # the score-chained libraries: every kernel runs its score dots (and in
+    # scored_fwd / scored_bwd every product) as split-TF32 mma.sync, without
+    # spilling
+    for name in ("scored_fwd", "scored_bwd", "fused_block"):
+        counts = tensor_core_counts(built[name]["path"])
+        tensor_cores[name] = counts
+        # the dh-256 bucket (no model's head width) may spill a few bytes
+        spilled = [(k, sp) for k, _, sp in built[name]["kernels"]
+                   if sp and ",256" not in k]
+        log(f"[device] {name}: "
+            + (f"{sum(counts.values())} HMMA instructions in cuobjdump -sass "
+               f"over its {len(counts)} kernels, fewest "
+               f"{min(counts.values())}" if counts
+               else "tensor-core instructions not measured (no cuobjdump)")
+            + f"; {len(spilled)} kernels spill up to dh 128")
+        if counts and min(counts.values()) == 0:
+            failed.append("device")
+            log(f"[device] FAIL: a kernel of {name} has no tensor-core "
+                "instruction")
+        if spilled:
+            failed.append("device")
+            log(f"[device] FAIL: {name} spills: {spilled}")
     report["tensor_core_instructions"] = tensor_cores
 
     summaries, launches = None, {}
@@ -2401,6 +2560,10 @@ def main() -> int:
     if failed:
         print(f"FAIL: phases {failed}", file=sys.stderr)
         return 1
+    def tc_count(library, kernel):
+        return sum(n for fn, n in report["tensor_core_instructions"].get(
+            library, {}).items() if kernel in fn)
+
     fa_py = "multimodal_emotion_processing_tpu/ops/flash_attention.py"
     pa_py = "multimodal_emotion_processing_tpu/ops/pallas_attention.py"
     kernels = []
@@ -2440,7 +2603,8 @@ def main() -> int:
     kernels.append({
         "name": "scored_fwd", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_fwd.cu",
-        "replaces": f"{pa_py}:190", "instruction": "scalar f32 FMA",
+        "replaces": f"{pa_py}:190", "instruction": SCORED_INSTRUCTION,
+        "tensor_core_instructions": tc_count("scored_fwd", "scored_fwd_kernel"),
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],
         "max_score_rel_err": summ["max_score_rel_err"],
@@ -2464,7 +2628,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_bwd.cu",
-            "replaces": f"{pa_py}:350", "instruction": "scalar f32 FMA",
+            "replaces": f"{pa_py}:350", "instruction": SCORED_INSTRUCTION,
+            "tensor_core_instructions": tc_count("scored_bwd", name + "_kernel"),
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": summ["max_abs_err"],
             "max_norm_err": summ["max_norm_err"],
@@ -2474,6 +2639,7 @@ def main() -> int:
             "bound_ms": summ["bound_ms"], "bound_by": summ["bound_by"],
             "library_ms": summ["library_ms"],
             "pair_ms": summaries["scored_bwd_pair"]["ms"],
+            "pair_mosei_trans": summaries["scored_bwd_pair"]["mosei_trans"],
             "timed_at": (f"sum over the {summ['calls_timed']} calls of one "
                          f"mosei_realformer train step (nine 50x50 stream "
                          f"shapes x two chained blocks), B={RF_CLIPS} clips, "
@@ -2495,7 +2661,9 @@ def main() -> int:
         "name": "fused_block", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/fused_block.cu",
         "replaces": "multimodal_emotion_processing_tpu/ops/fused_block.py:109",
-        "instruction": "scalar f32 FMA",
+        "instruction": f"{SCORED_MMA} in split-TF32 form for the score dots; "
+                       "scalar f32 FMA for P.V and the epilogue",
+        "tensor_core_instructions": tc_count("fused_block", "fused_block_kernel"),
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],
         "max_score_rel_err": summ["max_score_rel_err"],

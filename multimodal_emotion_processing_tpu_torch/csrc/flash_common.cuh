@@ -14,6 +14,12 @@
 // flash kernels up to dh 128 take their raw dots from flash_mma.cuh
 // `score_dots` instead, one tensor-core chain shared by the forward and
 // both backward kernels, and then the same `masked_score`.
+//
+// The score-chained kernels (csrc/scored_fwd.cu, both kernels of
+// csrc/scored_bwd.cu and csrc/fused_block.cu) take their raw dots from
+// csrc/scored_mma.cuh `score_dots`, one split-TF32 tensor-core chain (Q as
+// A, K as B, d in 8-wide chunks from zero up to the head-width bucket), and
+// then `chained_score` below; none of them uses `tile_dots`.
 
 #pragma once
 
@@ -60,8 +66,9 @@ __device__ __forceinline__ float masked_score(float dot, float scale, float neg)
   return fmaf(dot, scale, -neg);
 }
 
-// The score of the score-chained kernels (csrc/scored_fwd.cu and
-// csrc/scored_bwd.cu): dot * scale, + c * S_prev when `sprev` is not null,
+// The score of the score-chained kernels (csrc/scored_fwd.cu,
+// csrc/scored_bwd.cu and csrc/fused_block.cu), from the raw dot of
+// scored_mma.cuh `score_dots`: dot * scale, + c * S_prev when `sprev` is not null,
 // - penalty, each step rounded on its own in the plain path's order.  A key
 // masked in the previous block carries S_prev ~ -1e8, so s there is
 // ~ -(1 + c) * 1e8, where the f32 spacing is 8 to 16: one fused rounding

@@ -23,11 +23,15 @@
 // and, when asked for, ctx_i at q's dtype as a residual for the backward
 // (ops/fused_block.py `FusedMinusBlock`), which recomputes x and y from it.
 //
-// The scores come only from flash_common.cuh's `tile_dots` -> `chained_score`
-// with scored_fwd.cu's head-width buckets, so S is bit-identical to
-// scored_fwd's, and to the s that csrc/scored_bwd.cu rebuilds when it is given
-// no S: at -1e8 the f32 spacing is 8 to 16, so a fully masked row depends on
-// every score being rounded the same way in each kernel.
+// The scores come only from csrc/scored_mma.cuh's `score_dots` (split-TF32
+// tensor-core products, Q as A and K as B) -> flash_common.cuh's
+// `chained_score`, with scored_fwd.cu's head-width buckets, so S is
+// bit-identical to scored_fwd's, and to the s that csrc/scored_bwd.cu
+// rebuilds when it is given no S (FusedMinusBlock's backward, whose forward
+// here emits no S on a stream's last block): at -1e8 the f32 spacing is 8 to
+// 16, so a fully masked row depends on every score being rounded the same
+// way in each kernel.  The dots go through the sP tile, one 16 x 8 mma unit
+// per warp, to the 16 x 16 thread mapping of the softmax below.
 //
 // Layout: q (B, Lq, D), k and v (B, Lkv, D), out and ctx like q, all
 // row-major and contiguous; mask (B, Lkv) f32 or null; S_prev and S
@@ -68,13 +72,15 @@
 // and bytes the two whose 20 queries read 100 or 200 keys.  A block that
 // emits S writes H*Lq*Lkv f32 per sample, at 200 x 200 ~75 % of the
 // bytes, and drops to 10-47 flops per byte; with S_prev and ctx too, 7-29.
-// This first version runs every product on scalar f32 FMAs
-// (shared memory for the attention, global/L1 weights for the epilogue); the
-// tensor cores (wgmma) and TMA-fed weight tiles come later.
+// The score dots run on the tensor cores (the shared chain above); P.V and
+// the epilogue's products still run on scalar f32 FMAs (shared memory for
+// the attention, global/L1 weights for the epilogue), and its serial loop
+// over heads leaves a small batch's grid short of the card; those, the
+// tensor cores for the rest and TMA-fed weight tiles are its redesign.
 
 #include <float.h>
 
-#include "flash_common.cuh"
+#include "scored_mma.cuh"
 
 namespace {
 
@@ -204,8 +210,24 @@ fused_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sNeg[j] = j < nkv ? mask_penalty(mb, kv0 + j) : 0.f;
       __syncthreads();
 
+      // the raw dots from scored_mma.cuh's chain, one 16-row x 8-key unit
+      // per warp in turn, through sP to this kernel's 16 x 16 mapping
+      for (int u = tid / 32; u < (R / 16) * (BKV / 8); u += kWarps) {
+        const int rs = 16 * (u / (BKV / 8)), ks = 8 * (u % (BKV / 8));
+        const int g = (tid & 31) >> 2, t = tid & 3;
+        float d[1][4];
+        tf32::score_dots<DH, 1, LDS>(sQ, rs, sK, ks, d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sP[(rs + g + 8 * (e >> 1)) * LDP + ks + 2 * t + (e & 1)] = d[0][e];
+      }
+      __syncthreads();
       float s[RM][CN];
-      tile_dots<DH, RM, CN, LDS>(sQ, sK, tx, ty, s);
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int cc = 0; cc < CN; ++cc)
+          s[r][cc] = sP[(ty + kTY * r) * LDP + tx + kTX * cc];
 
       float alpha[RM];
 #pragma unroll

@@ -95,12 +95,35 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def _launch(self, device, pointers, dims, is_bf16: bool) -> None:
+    def _launch(self, device, pointers, dims, is_bf16: bool,
+                stream: Optional[int] = None) -> None:
+        """Launch on `device`'s current stream (or `stream`, taken once by
+        a caller that launches several kernels) and count.  The device is
+        made current only when it is not already."""
         fn = self._bind()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+        if stream is None:
+            stream = launch_stream(device)
+        current = torch.cuda.current_device()
+        if device.index is None or device.index == current:
             rc = fn(*pointers, *dims, int(is_bf16), stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*pointers, *dims, int(is_bf16), stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {rc}")
         with self._lock:
             self.launches += 1
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch_stream(device) -> int:
+    """The raw handle of `device`'s current CUDA stream, through the binding
+    that PyTorch's generated code uses where this build has one (it builds
+    no Stream object), else `torch.cuda.current_stream`."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream

@@ -192,7 +192,7 @@ class FusedMinusBlock(torch.autograd.Function):
         else:
             dq, dk, dv, dmask, dsprev, dc = scored_backward_kernel(
                 q, k, v, mask, scores_prev, c, scores, dscores, dctx,
-                n_heads=ctx.n_heads, want_dmask=want_dmask)
+                n_heads=ctx.n_heads, out=attn, want_dmask=want_dmask)
             if dc is not None:
                 dc = dc.to(c.dtype).reshape(c.shape)
         dmask = dmask.to(q.dtype).to(mask.dtype) if want_dmask else None

@@ -19,7 +19,14 @@ says what bounds it on the card.
       dmask = 1e8·Σ_{h,q} ds           dq, dk, dv
 
   s is read from the emitted S or rebuilt exactly as the forward kernel
-  computed it (csrc/flash_common.cuh `chained_score`).
+  computed it (csrc/scored_mma.cuh `score_dots`, then csrc/flash_common.cuh
+  `chained_score`); m and l come from the forward's row stats and delta
+  from dctx·ctx, so dq sweeps the keys once.  At bf16, where ctx comes
+  back rounded, dq takes m, l and delta = Σ p·dp in a first sweep.
+
+Every product of the three kernels runs on the tensor cores in split-TF32
+form (csrc/scored_mma.cuh: each f32 operand as two TF32 terms, three
+products into f32 accumulators), which keeps f32 accuracy.
 
 A stream's first block has no S_prev and emits S for the next one; its last
 block reads S_prev and emits nothing.  The kernels read the gate c from the
@@ -46,7 +53,8 @@ import torch
 
 from .attention import (MASK_PENALTY, _scored_attention_xla, chained_scores,
                         merge_heads, split_heads)
-from .cuda_binding import Kernel, check_like, check_qkv, needs_grad, ptr
+from .cuda_binding import (Kernel, check_like, check_qkv, launch_stream,
+                           needs_grad, ptr)
 
 # (has S_prev, emits S): the four kernel variants
 VARIANTS = ((False, True), (True, False), (False, False), (True, True))
@@ -124,10 +132,10 @@ class _VariantKernel(Kernel):
             self.launches = 0
             self.variant_launches = dict.fromkeys(VARIANTS, 0)
 
-    def _run(self, tensors, dims, variant) -> None:
+    def _run(self, tensors, dims, variant, stream=None) -> None:
         """Launch on the tensors' pointers (the first is q) and count."""
         self._launch(tensors[0].device, [ptr(t) for t in tensors], dims,
-                     tensors[0].dtype == torch.bfloat16)
+                     tensors[0].dtype == torch.bfloat16, stream)
         with self._lock:
             self.variant_launches[variant] += 1
 
@@ -136,17 +144,19 @@ class ScoredForwardKernel(_VariantKernel):
     """`scored_fwd` in csrc/scored_fwd.cu."""
 
     name = library = "scored_fwd"
-    n_pointers = 8
+    n_pointers = 9
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: Optional[torch.Tensor],
                  scores_prev: Optional[torch.Tensor],
                  c: Optional[torch.Tensor], *, n_heads: int,
-                 emit_scores: bool = True):
+                 emit_scores: bool = True, stats: bool = False):
         """q (B, Lq, D), k/v (B, Lkv, D) on one CUDA device, f32 or bf16;
         mask None or (B, Lkv); scores_prev None or (B, H, Lq, Lkv) f32 with
         the gate c, one value on the device (cast to q's dtype).  Returns
-        (ctx (B, Lq, D) at q's dtype, S (B, H, Lq, Lkv) f32 or None)."""
+        (ctx (B, Lq, D) at q's dtype, S (B, H, Lq, Lkv) f32 or None), and
+        with `stats` also the row stats (2, B, H, Lq) f32 (the max m and
+        the sum l of exp(s − m)) that the backward reads."""
         _check_grad_free(self.name, q, k, v, mask, scores_prev, c)
         b, lq, lkv, dh, mask = check_qkv(self.name, q, k, v, mask, n_heads)
         if scores_prev is not None:
@@ -158,9 +168,11 @@ class ScoredForwardKernel(_VariantKernel):
         ctx = torch.empty_like(q)
         scores = (torch.empty(b, n_heads, lq, lkv, dtype=torch.float32,
                               device=q.device) if emit_scores else None)
-        self._run([q, k, v, mask, scores_prev, c, ctx, scores],
+        row_stats = (torch.empty(2, b, n_heads, lq, dtype=torch.float32,
+                                 device=q.device) if stats else None)
+        self._run([q, k, v, mask, scores_prev, c, ctx, scores, row_stats],
                   (b, n_heads, lq, lkv, dh), (scores_prev is not None, emit_scores))
-        return ctx, scores
+        return (ctx, scores, row_stats) if stats else (ctx, scores)
 
 
 class ScoredBwdDqKernel(_VariantKernel):
@@ -168,32 +180,26 @@ class ScoredBwdDqKernel(_VariantKernel):
 
     name = "scored_bwd_dq"
     library = "scored_bwd"
-    n_pointers = 13
+    n_pointers = 15
 
-    def launch(self, ins, dims, variant):
+    def launch(self, ins, dims, variant, stream=None):
         """`ins`, `dims` and `variant` as ScoredBackwardKernel.check gives
-        them.  Returns (dq at q's dtype, the row stats (3, B, H, Lq) f32 for
-        scored_bwd_dkv, dS_prev (B, H, Lq, Lkv) f32 and dc (one f32 value)
-        or None, None without scores_prev)."""
+        them.  Returns (dq at q's dtype, the row stats m, l and delta
+        (3, B, H, Lq) f32 for scored_bwd_dkv, dS_prev (B, H, Lq, Lkv) f32
+        and the dc partials (B, H, ⌈Lq/16⌉) f32 or None, None without
+        scores_prev)."""
         q = ins[0]
-        b, h, lq, lkv, dh = dims
+        b, h, lq, lkv, _ = dims
         dq = torch.empty_like(q)
         stats = torch.empty(3, b, h, lq, dtype=torch.float32, device=q.device)
         dsprev = dcpart = None
         if variant[0]:
             dsprev = torch.empty(b, h, lq, lkv, dtype=torch.float32,
                                  device=q.device)
-            dcpart = torch.empty(b, h, self.q_tiles(lq, dh),
-                                 dtype=torch.float32, device=q.device)
-        self._run(ins + [stats, dq, dsprev, dcpart], dims, variant)
-        return dq, stats, dsprev, None if dcpart is None else dcpart.sum()
-
-    @staticmethod
-    def q_tiles(lq: int, dh: int) -> int:
-        """scored_bwd_dq's grid width: q tiles of 64 rows up to dh 128,
-        32 above (csrc/scored_bwd.cu `DqTiles`)."""
-        rows = 64 if dh <= 128 else 32
-        return -(-lq // rows)
+            dcpart = torch.empty(b, h, -(-lq // 16), dtype=torch.float32,
+                                 device=q.device)
+        self._run(ins + [stats, dq, dsprev, dcpart], dims, variant, stream)
+        return dq, stats, dsprev, dcpart
 
 
 class ScoredBwdDkvKernel(_VariantKernel):
@@ -201,27 +207,33 @@ class ScoredBwdDkvKernel(_VariantKernel):
 
     name = "scored_bwd_dkv"
     library = "scored_bwd"
-    n_pointers = 13
+    n_pointers = 15
 
-    def launch(self, ins, stats, dims, variant, want_dmask: bool):
-        """`stats` from scored_bwd_dq on the same inputs.  Returns (dk, dv
-        at k's dtype, dmask (B, Lkv) f32: 1e8 times the kernel's per-head
-        rows Σ_q ds summed over heads; None without a mask or when
-        `want_dmask` is false)."""
+    def launch(self, ins, stats, dcpart, dims, variant, want_dmask: bool,
+               stream=None):
+        """`stats` and `dcpart` from scored_bwd_dq on the same inputs.
+        Returns (dk, dv at k's dtype, dmask (B, Lkv) f32: the kernel's
+        per-head rows 1e8·Σ_q ds summed over heads, None without a mask or
+        when `want_dmask` is false; dc (1,) f32, the partials summed in a
+        fixed order by the kernel, or None without them)."""
         b, h, _, lkv, _ = dims
         dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
         dmh = None
         if want_dmask and ins[3] is not None:
             dmh = torch.empty(b, h, lkv, dtype=torch.float32,
                               device=dk.device)
-        self._run(ins + [stats, dk, dv, dmh], dims, variant)
-        return dk, dv, None if dmh is None else MASK_PENALTY * dmh.sum(dim=1)
+        dc = (None if dcpart is None else
+              torch.empty(1, dtype=torch.float32, device=dk.device))
+        self._run(ins[:9] + [stats, dcpart, dk, dv, dmh, dc], dims, variant,
+                  stream)
+        return dk, dv, None if dmh is None else dmh.sum(dim=1), dc
 
 
 class ScoredBackwardKernel:
     """The backward of csrc/scored_bwd.cu: checks its inputs once, then
-    launches `scored_bwd_dq` (dq, dS_prev, dc and the row stats) and
-    `scored_bwd_dkv` (dk, dv, dmask), each counting its own launches."""
+    launches `scored_bwd_dq` (dq, dS_prev, the dc partials and the row
+    stats) and `scored_bwd_dkv` (dk, dv, dmask, dc) on one stream, each
+    counting its own launches."""
 
     name = "scored_bwd"
 
@@ -230,15 +242,25 @@ class ScoredBackwardKernel:
         self.dkv = ScoredBwdDkvKernel()
 
     def check(self, q, k, v, mask, scores_prev, c, scores, dscores, dctx, *,
-              n_heads: int):
+              n_heads: int, out=None, stats=None):
         """The forward's q, k, v, mask, S_prev and c, the emitted S (None
         where the forward emitted none: the kernels rebuild s) with its
-        cotangent dscores (None counts as zero), and the cotangent dctx
-        (like q).  Returns (the inputs in the kernels' order, (B, H, Lq,
-        Lkv, dh), the variant (has S_prev, emits S))."""
+        cotangent dscores (None counts as zero), the cotangent dctx (like
+        q), the forward's output `out` (ctx: delta = dctx·ctx) and, where
+        the forward wrote them, its row stats (2, B, H, Lq) f32 (None: the
+        dq kernel takes them in a sweep of its own).  Returns (the inputs
+        in the kernels' order, (B, H, Lq, Lkv, dh), the variant (has S_prev,
+        emits S))."""
         _check_grad_free(self.name, q, k, v, mask, scores_prev, c, scores,
                          dscores, dctx)
         b, lq, lkv, dh, mask = check_qkv(self.name, q, k, v, mask, n_heads)
+        if out is None:
+            raise ValueError("scored_bwd needs the forward's output ctx "
+                             "(`out`): delta = dctx·ctx")
+        out = check_like("out", out, q.shape, q.dtype, q.device)
+        if stats is not None:
+            stats = check_like("stats", stats, (2, b, n_heads, lq),
+                               torch.float32, q.device)
         score_shape = (b, n_heads, lq, lkv)
         if scores_prev is not None:
             scores_prev = check_like("scores_prev", scores_prev, score_shape,
@@ -255,20 +277,25 @@ class ScoredBackwardKernel:
         c = _check_gate(scores_prev, c, q)
         dctx = check_like("dctx", dctx, q.shape, q.dtype, q.device)
         ins = [t.contiguous() for t in (q, k, v)] + [
-            mask, scores, dscores, scores_prev, c, dctx]
+            mask, scores, dscores, scores_prev, c, dctx, out, stats]
         variant = (scores_prev is not None, scores is not None)
         return ins, (b, n_heads, lq, lkv, dh), variant
 
     def __call__(self, q, k, v, mask, scores_prev, c, scores, dscores, dctx,
-                 *, n_heads: int, want_dmask: bool = True):
-        """Returns (dq, dk, dv at the input dtype, dmask (B, Lkv) f32 or
-        None without a mask or when `want_dmask` is false, dS_prev (B, H,
-        Lq, Lkv) f32 and dc (one f32 value) or None, None without
-        scores_prev)."""
+                 *, n_heads: int, out=None, stats=None,
+                 want_dmask: bool = True):
+        """`out` and `stats` as `check` takes them.  Returns (dq, dk, dv at
+        the input dtype, dmask (B, Lkv) f32 or None without a mask or when
+        `want_dmask` is false, dS_prev (B, H, Lq, Lkv) f32 and dc (1,) f32
+        or None, None without scores_prev)."""
         ins, dims, variant = self.check(q, k, v, mask, scores_prev, c, scores,
-                                        dscores, dctx, n_heads=n_heads)
-        dq, stats, dsprev, dc = self.dq.launch(ins, dims, variant)
-        dk, dv, dmask = self.dkv.launch(ins, stats, dims, variant, want_dmask)
+                                        dscores, dctx, n_heads=n_heads,
+                                        out=out, stats=stats)
+        stream = launch_stream(q.device)
+        dq, row_stats, dsprev, dcpart = self.dq.launch(ins, dims, variant,
+                                                       stream)
+        dk, dv, dmask, dc = self.dkv.launch(ins, row_stats, dcpart, dims,
+                                            variant, want_dmask, stream)
         return dq, dk, dv, dmask, dsprev, dc
 
 
@@ -286,26 +313,35 @@ class ScoredAttention(torch.autograd.Function):
     dmask (at the mask's dtype, when the mask needs a gradient), dS_prev
     and dc (at c's dtype; c gets none in the variants without S_prev, as on
     the plain path).  CPU tensors take the plain versions, CUDA tensors the
-    kernels.  Returns (ctx, S) when S is emitted, else ctx."""
+    kernels; where a gradient is needed the forward kernel also writes its
+    row stats, and the backward kernels read them with ctx (one sweep over
+    the keys in dq).  Returns (ctx, S) when S is emitted, else ctx."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scores_prev, c, n_heads, emit_scores):
         ctx.set_materialize_grads(False)
+        out_saved = stats = None
         if q.device.type == "cpu":
             out, scores = scored_forward_plain(q, k, v, mask, scores_prev, c,
                                                n_heads=n_heads,
                                                emit_scores=emit_scores)
+        elif any(ctx.needs_input_grad[:6]):
+            out, scores, stats = scored_forward_kernel(
+                q, k, v, mask, scores_prev, c, n_heads=n_heads,
+                emit_scores=emit_scores, stats=True)
+            out_saved = out
         else:
             out, scores = scored_forward_kernel(q, k, v, mask, scores_prev, c,
                                                 n_heads=n_heads,
                                                 emit_scores=emit_scores)
-        ctx.save_for_backward(q, k, v, mask, scores_prev, c, scores)
+        ctx.save_for_backward(q, k, v, mask, scores_prev, c, scores,
+                              out_saved, stats)
         ctx.n_heads = n_heads
         return (out, scores) if emit_scores else out
 
     @staticmethod
     def backward(ctx, dctx, dscores=None):
-        q, k, v, mask, scores_prev, c, scores = ctx.saved_tensors
+        q, k, v, mask, scores_prev, c, scores, out, stats = ctx.saved_tensors
         h = ctx.n_heads
         if dctx is None:
             dctx = torch.zeros_like(q)
@@ -317,7 +353,7 @@ class ScoredAttention(torch.autograd.Function):
         else:
             dq, dk, dv, dmask, dsprev, dc = scored_backward_kernel(
                 q, k, v, mask, scores_prev, c, scores, dscores, dctx,
-                n_heads=h, want_dmask=want_dmask)
+                n_heads=h, out=out, stats=stats, want_dmask=want_dmask)
             if dc is not None:
                 dc = dc.to(c.dtype).reshape(c.shape)
         # at q's dtype, as JAX has it (the cotangent of mask.astype(q.dtype))

@@ -277,12 +277,12 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, has_sprev, emit, b, lq,
     m = None if x["m"] is None else torch.from_numpy(x["m"]).to(cuda)
     sp = torch.from_numpy(x["sprev"]).to(cuda) if has_sprev else None
     dsc = torch.from_numpy(x["w_s"]).to(cuda) if emit else None
-    _, s = tpa.scored_forward_kernel(q, k, v, m, sp, c, n_heads=h,
-                                     emit_scores=emit)
+    ctx, s, stats = tpa.scored_forward_kernel(q, k, v, m, sp, c, n_heads=h,
+                                              emit_scores=emit, stats=True)
     kernels = (tpa.scored_backward_kernel.dq, tpa.scored_backward_kernel.dkv)
     before = [kern.variant_launches[(has_sprev, emit)] for kern in kernels]
     dq, dk, dv, dmask, dsprev, dc = tpa.scored_backward_kernel(
-        q, k, v, m, sp, c, s, dsc, dctx, n_heads=h)
+        q, k, v, m, sp, c, s, dsc, dctx, n_heads=h, out=ctx, stats=stats)
     torch.cuda.synchronize()
     assert [kern.variant_launches[(has_sprev, emit)] for kern in kernels] \
         == [n + 1 for n in before]
