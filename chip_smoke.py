@@ -9,8 +9,8 @@ Phases, each reported on its own lines:
      together), and the count of tensor-core instructions (HMMA / HGMMA) in
      each kernel's machine code (cuobjdump -sass): the bf16 flash kernels
      up to dh 128 and every kernel of scored_fwd, scored_bwd and
-     fused_block must have them, and scored_fwd and scored_bwd must not
-     spill;
+     fused_block must have them (fused_block more than the 744 its score
+     dots alone had), and none of the three may spill up to dh 128;
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the main paths give it and at edge cases, with its time, the
      plain version's, one library call's (timing yardstick only) and the
@@ -20,7 +20,10 @@ Phases, each reported on its own lines:
      scored_bwd_dkv in the same four, with dc and dmask held at the scale of
      the terms they sum, fully masked q x 4 rows at dh 16 and 32 among the
      edge cases, and their dq, dk and dv bit-equal whether they read the
-     forward's S or rebuild s, and fused_block in the same four;
+     forward's S or rebuild s, and fused_block in the same four (its S
+     and row stats m bit-equal to scored_fwd's, l within 1e-6, out, S and
+     the stats the same bits over two launches; each launch's cluster size
+     and blocks logged);
   3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
      trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
      an eval pass after each, with the kernel launch counts of that run, the
@@ -63,7 +66,8 @@ Phases, each reported on its own lines:
      lengths 40/76/275, the shared-LayerNorm unify, 1,317,544 parameters),
      four seeded members in f32 served at impl="pallas_fused" (eval mode,
      so its dropout is inactive) the same way as phase 4, with fused_block
-     counted and the outputs held against impl="xla".  The kernels phase
+     counted and the outputs held against impl="xla", then profiled at
+     both impls.  The kernels phase
      also holds fused_block against its plain version in its four
      variants (and its S bit for bit against scored_fwd's).
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
@@ -89,6 +93,9 @@ OUT_JSON = ROOT / "chip_smoke_out" / "chip_smoke.json"
 # bf16 on the tensor cores, f32 outside them (TF32 is off in this script)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# f32 work on the tensor cores as the split-TF32 kernels take it: three
+# TF32 products (495 TFLOP/s dense) for each f32 one
+SPLIT_TF32_FLOPS = 495e12 / 3
 
 F32_TOL = 1e-5     # f32 with TF32 off: only summation order differs
 BF16_TOL = 5e-2    # bf16 operands and output (tests/test_flash.py:90)
@@ -162,13 +169,23 @@ REN_SHAPES = tuple((REN_LEN[q], REN_LEN[kv]) for q, kv in STREAM_PAIRS)
 REN_HEADS, REN_DH, REN_PARAMS = 8, 16, 1_317_544
 # fused_block edge cases: (B, Lq, Lkv, H, dh, mask); dh 1 and 256, Lq 1,
 # ragged Lkv 275 and 1000, no mask, and fully masked rows under S_prev
-# from a previous block (c = 0.7); then one s1024 stream shape, bf16 only
+# from a previous block (c = 0.7); one head (a cluster of one block), 12
+# heads of 8 (more than a cluster's 8 blocks), one s1024 stream shape (D
+# 1024, dh 128), and ren_mme's longest streams at batch 1
 FUSED_EDGE_CASES = (
     (2, 20, 50, 2, 1, "zero_row"), (2, 70, 300, 2, 256, "zero_row"),
     (3, 1, 100, 6, 16, "zero_row"), (2, 37, 275, 8, 16, "ragged"),
     (2, 33, 1000, 4, 64, "ragged"), (2, 64, 64, 6, 32, "none"),
-    (4, 100, 200, 6, 16, "zero_row"))
-FUSED_S1024_CASE = (2, 128, 512, 8, 128, "zero_row")
+    (4, 100, 200, 6, 16, "zero_row"), (2, 37, 77, 1, 64, "zero_row"),
+    (2, 40, 100, 12, 8, "zero_row"), (2, 128, 512, 8, 128, "zero_row"),
+    (1, 40, 275, 8, 16, "zero_row"), (1, 275, 76, 8, 16, "zero_row"))
+# the fused_block library's HMMA count when only its score dots ran on the
+# tensor cores: with every product on them it must count more
+FUSED_SCORE_DOTS_HMMA = 744
+# fused_block's row stats against scored_fwd's: m bit-equal, l within this
+# relative error (the two kernels may split a tile's keys over warps
+# differently)
+FUSED_L_RTOL = 1e-6
 # scored_fwd edge cases: (B, Lq, Lkv, H, dh, mask); dh 1/16/48/256, ragged
 # Lkv up to 1024, Lq 1, no mask; every "zero_row" case has a fully masked
 # row, whose S_prev (block 0's output) holds -1e8 + raw under c = 0.7
@@ -1016,10 +1033,10 @@ def scored_bwd_fused_timing(torch, g, pa):
     """The scored_bwd pair as FusedMinusBlock's backward calls it in a
     mosei_trans train step at impl="pallas_fused": the nine stream shapes
     at B 64 (dh 16, L 20/100/200, f32), no S_prev, no emitted S (s
-    rebuilt), no forward stats (dq takes them in a sweep of its own), the
-    batch mask without a gradient.  Each call checked against
-    scored_backward_plain; timed through the wrapper, with its device time,
-    bound, plain and SDPA times."""
+    rebuilt), the forward's row stats (dq sweeps the keys once), the batch
+    mask without a gradient.  Each call checked against
+    scored_backward_plain; timed through the wrapper, with its device time
+    (and dq's alone), bound, plain and SDPA times."""
     from multimodal_emotion_processing_tpu_torch.ops.attention import MASK_PENALTY
 
     bwd = pa.scored_backward_kernel
@@ -1030,10 +1047,12 @@ def scored_bwd_fused_timing(torch, g, pa):
         q, k, v, mask = attention_inputs(torch, g, MT_BATCH, lq, lkv, h, dh,
                                          torch.float32, "zero_row")
         dctx = torch.randn(q.shape, generator=g, device="cuda")
-        ctx, _ = pa.scored_forward_kernel(q, k, v, mask, None, None,
-                                          n_heads=h, emit_scores=False)
+        ctx, _, st = pa.scored_forward_kernel(q, k, v, mask, None, None,
+                                              n_heads=h, emit_scores=False,
+                                              stats=True)
         call = functools.partial(bwd, q, k, v, mask, None, None, None, None,
-                                 dctx, n_heads=h, out=ctx, want_dmask=False)
+                                 dctx, n_heads=h, out=ctx, stats=st,
+                                 want_dmask=False)
         got = call()
         ref = scored_backward_reference(pa, q, k, v, mask, None, None,
                                         False, None, dctx, h)
@@ -1059,13 +1078,15 @@ def scored_bwd_fused_timing(torch, g, pa):
                              "with its plain version")
     try:
         res["device_ms"] = kernel_device_ms(torch, calls, "scored_bwd")
+        res["dq_device_ms"] = kernel_device_ms(torch, calls, "scored_bwd_dq")
     except Exception:   # a measurement only: the checks above stand
         traceback.print_exc()
-        res["device_ms"] = None
+        res["device_ms"] = res["dq_device_ms"] = None
     log(f"[kernels] scored_bwd pair as FusedMinusBlock calls it, sum over the "
-        f"nine mosei_trans stream shapes at B={MT_BATCH} f32 (s rebuilt, no "
-        f"forward stats): {res['ms']:.4f} ms through the wrapper, device "
-        f"{res['device_ms']} ms; bound {res['bound_ms']:.4f}, plain "
+        f"nine mosei_trans stream shapes at B={MT_BATCH} f32 (s rebuilt, the "
+        f"forward's stats): {res['ms']:.4f} ms through the wrapper, device "
+        f"{res['device_ms']} ms (dq {res['dq_device_ms']} ms); bound "
+        f"{res['bound_ms']:.4f}, plain "
         f"{res['plain_ms']:.4f}, SDPA backward {res['library_ms']} ms; "
         f"norm_err {res['max_norm_err']:.2e}")
     return res
@@ -1077,15 +1098,20 @@ def fused_bound(b, h, lq, lkv, dh, dtype_name, has_sprev, emit, save_ctx):
     once, S_prev (f32) when given, out written once, S (f32) and the ctx
     residual when asked for, against 4·B·H·Lq·Lkv·dh flops for the
     attention plus 6·B·Lq·D² for the three products, at the peak of the
-    operand type."""
+    operand type (bound_ms); and the same at the split-TF32 rate, 495/3
+    TFLOP/s, at which the kernel runs every f32 product on the tensor cores
+    (bound_split_tf32_ms)."""
     it = 2 if dtype_name == "bfloat16" else 4
     d = h * dh
     scores = b * h * lq * lkv * 4
     nbytes = ((2 * b * lq * d + 2 * b * lkv * d + 3 * d * d + 2 * d) * it
               + b * lkv * 4 + scores * (int(has_sprev) + int(emit))
               + b * lq * d * it * int(save_ctx))
-    return _bound(nbytes, 4.0 * b * h * lq * lkv * dh + 6.0 * b * lq * d * d,
-                  dtype_name)
+    flops = 4.0 * b * h * lq * lkv * dh + 6.0 * b * lq * d * d
+    out = _bound(nbytes, flops, dtype_name)
+    out["bound_split_tf32_ms"] = max(out["bytes_ms"],
+                                     flops / SPLIT_TF32_FLOPS * 1e3)
+    return out
 
 
 def fused_weights(torch, g, d, dtype):
@@ -1129,14 +1155,17 @@ def fused_cases(torch, g, report):
     """fused_block against fused_block_plain (out and S) and
     scored_forward_plain (the ctx residual) in its four variants, in f32
     and bf16: the nine mosei_trans stream shapes at the training batch 64,
-    the nine ren_mme shapes at the serving bucket 8, the edge cases, and one
-    s1024 shape in bf16.  S_prev is what a previous block emits (the plain
-    version's S of another q on the same keys and mask), so it holds
-    −1e8 + raw where the mask is 0; c is 0.7.  S must also equal
-    scored_fwd's S on the same inputs bit for bit.  Timed in f32 as the
-    main paths call it (no S_prev, no S; the training forward with the ctx
-    residual, serving without), with the backward through FusedMinusBlock
-    against autograd through the plain version at the training shapes."""
+    the nine ren_mme shapes at the serving bucket 8 and the edge cases.
+    S_prev is what a previous block emits (the plain version's S of another
+    q on the same keys and mask), so it holds −1e8 + raw where the mask is
+    0; c is 0.7.  S must also equal scored_fwd's S on the same inputs bit
+    for bit, the row stats m scored_fwd's bit for bit and l within 1e-6
+    relative, and out, S and the stats must be the same bits over two
+    launches.  Each case logs its launch's cluster size and blocks.  Timed
+    in f32 as the main paths call it (no S_prev, no S; the training forward
+    with the ctx residual, serving without), with the backward through
+    FusedMinusBlock against autograd through the plain version at the
+    training shapes."""
     from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
     from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
 
@@ -1147,7 +1176,6 @@ def fused_cases(torch, g, report):
         cases += [("serve", dtype, (SERVE_BUCKET, lq, lkv, REN_HEADS, REN_DH,
                                     "zero_row")) for lq, lkv in REN_SHAPES]
         cases += [("edge", dtype, c) for c in FUSED_EDGE_CASES]
-    cases.append(("edge", torch.bfloat16, FUSED_S1024_CASE))
     rows, ok, timed_calls = [], True, {"train": [], "serve": []}
     for path, dtype, (b, lq, lkv, h, dh, mask_kind) in cases:
         dname = str(dtype).removeprefix("torch.")
@@ -1159,11 +1187,15 @@ def fused_cases(torch, g, report):
                                         n_heads=h)[1].contiguous()
         c = torch.tensor([0.7], device="cuda").to(dtype)
         ws = fused_weights(torch, g, h * dh, dtype)
+        geo = fb.fused_block_kernel.geometry(b, h, lq, lkv, dh, dtype)
         for has_sprev, emit in pa.VARIANTS:
             sp = sprev if has_sprev else None
-            out, s, ctx = fb.fused_block_kernel(q, k, v, mask, sp, c, *ws,
-                                                n_heads=h, emit_scores=emit,
-                                                save_ctx=True)
+            out, s, ctx, st = fb.fused_block_kernel(
+                q, k, v, mask, sp, c, *ws, n_heads=h, emit_scores=emit,
+                save_ctx=True, stats=True)
+            out2, s2, _, st2 = fb.fused_block_kernel(
+                q, k, v, mask, sp, c, *ws, n_heads=h, emit_scores=emit,
+                save_ctx=True, stats=True)
             torch.cuda.synchronize()
             ref, rs = fb.fused_block_plain(q, k, v, mask, sp, c, *ws,
                                            n_heads=h, emit_scores=emit)
@@ -1171,20 +1203,28 @@ def fused_cases(torch, g, report):
                                               emit_scores=False)
             abs_err, err = errors(out, ref)
             ctx_err = errors(ctx, rctx)[1]
+            _, s_sc, st_sc = pa.scored_forward_kernel(
+                q, k, v, mask, sp, c, n_heads=h, emit_scores=emit, stats=True)
             s_err, s_bits = 0.0, True
             if emit:
                 s_err = score_errors(s, rs)
-                s_bits = torch.equal(s, pa.scored_forward_kernel(
-                    q, k, v, mask, sp, c, n_heads=h)[1])
+                s_bits = torch.equal(s, s_sc)
+            m_bits = torch.equal(st[0], st_sc[0])
+            l_err = ((st[1] - st_sc[1]).abs() / st_sc[1]).max().item()
+            repeat_bits = (torch.equal(out, out2) and torch.equal(st, st2)
+                           and (s is None or torch.equal(s, s2)))
             good = (bool(torch.isfinite(out).all().item()) and err <= tol
                     and ctx_err <= tol and s_err <= SCORE_RTOL and s_bits
+                    and m_bits and l_err <= FUSED_L_RTOL and repeat_bits
                     and (s is None) == (not emit) and out.dtype == dtype)
             ok &= good
             row = dict(path=path, dtype=dname, b=b, lq=lq, lkv=lkv, h=h, dh=dh,
                        mask=mask_kind, has_sprev=has_sprev, emit=emit,
                        max_abs_err=abs_err, max_norm_err=err,
                        ctx_norm_err=ctx_err, score_rel_err=s_err,
-                       scores_equal_scored_fwd=s_bits, tol=tol, ok=good)
+                       scores_equal_scored_fwd=s_bits,
+                       stats_m_equal_scored_fwd=m_bits, stats_l_rel_err=l_err,
+                       repeat_bits_equal=repeat_bits, tol=tol, ok=good, **geo)
             timing = ""
             if (path != "edge" and dtype == torch.float32
                     and (has_sprev, emit) == (False, False)):
@@ -1202,7 +1242,9 @@ def fused_cases(torch, g, report):
                                        save))
                 timing = (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
                           f" library_ms={row['library_ms']:.4f} bound_ms="
-                          f"{row['bound_ms']:.5f} ({row['bound_by']})")
+                          f"{row['bound_ms']:.5f} ({row['bound_by']}) "
+                          f"bound_split_tf32_ms="
+                          f"{row['bound_split_tf32_ms']:.5f}")
                 if save:
                     row.update(fused_backward_timing(torch, fb, q, k, v, mask,
                                                      c, ws, h, g))
@@ -1215,8 +1257,11 @@ def fused_cases(torch, g, report):
             rows.append(row)
             log(f"[kernels] fused_block {dname} B={b} Lq={lq} Lkv={lkv} H={h} "
                 f"dh={dh} mask={mask_kind} sprev={int(has_sprev)} "
-                f"emit={int(emit)} norm_err={err:.3e} ctx_err={ctx_err:.2e} "
-                f"S_rel_err={s_err:.2e} S==scored_fwd={s_bits} tol={tol:g} "
+                f"emit={int(emit)} cluster={geo['cluster']} rows={geo['rows']} "
+                f"blocks={geo['blocks']} norm_err={err:.3e} "
+                f"ctx_err={ctx_err:.2e} S_rel_err={s_err:.2e} "
+                f"S==scored_fwd={s_bits} m==scored_fwd={m_bits} "
+                f"l_rel_err={l_err:.1e} repeat_bits={repeat_bits} tol={tol:g} "
                 f"{'ok' if row['ok'] else 'FAIL'}" + timing)
     report["fused_cases"] = rows
     if not ok:
@@ -1225,7 +1270,9 @@ def fused_cases(torch, g, report):
     for path in ("train", "serve"):
         timed = [r for r in rows if r["path"] == path and "ms" in r]
         summ = {k: sum(r[k] for r in timed)
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_split_tf32_ms")}
+        summ["blocks"] = [r["blocks"] for r in timed]
         summ["bound_by"] = majority_bound(timed)
         summ["calls_timed"] = len(timed)
         if path == "train":
@@ -1242,6 +1289,10 @@ def fused_cases(torch, g, report):
     out["max_score_rel_err"] = max(r["score_rel_err"] for r in rows)
     out["scores_equal_scored_fwd"] = all(r["scores_equal_scored_fwd"]
                                          for r in rows)
+    out["stats_m_equal_scored_fwd"] = all(r["stats_m_equal_scored_fwd"]
+                                          for r in rows)
+    out["max_stats_l_rel_err"] = max(r["stats_l_rel_err"] for r in rows)
+    out["repeat_bits_equal"] = all(r["repeat_bits_equal"] for r in rows)
     report["fused_summary"] = out
     for path, what in (("train", f"the nine mosei_trans stream shapes at "
                                  f"B={MT_BATCH} f32 with the ctx residual "
@@ -1255,7 +1306,9 @@ def fused_cases(torch, g, report):
             "called (CUDA events), "
             + ("device time not measured" if dev is None else
                f"{dev:.4f} ms device time (profiler)")
-            + f"; bound {summ['bound_ms']:.4f} ({summ['bound_by']}), plain "
+            + f"; bound {summ['bound_ms']:.4f} ({summ['bound_by']}; at the "
+            f"split-TF32 rate {summ['bound_split_tf32_ms']:.4f}), blocks "
+            f"{summ['blocks']}, plain "
             f"{summ['plain_ms']:.4f} ms, library composite (SDPA + F.linear + "
             f"F.layer_norm, no S) {summ['library_ms']:.4f} ms"
             + (f"; backward through FusedMinusBlock {summ['bwd_ms']:.4f} ms, "
@@ -2406,6 +2459,16 @@ def phase_serve_ren_mme(torch, report):
     report["ren_mme_profile"] = profile_serving(torch, exp, members, batch, sp,
                                                 samples[0], impl=impl,
                                                 dtype=dtype)
+    # the same forwards through the plain attention path, for comparison
+    from multimodal_emotion_processing_tpu_torch.serve import StreamingPredictor
+
+    sp_xla = StreamingPredictor(members, exp.thresholds, impl="xla",
+                                dtype=dtype)
+    sp_xla.warmup(samples[0])
+    log("[ren_mme] profile at impl=xla:")
+    report["ren_mme_profile_xla"] = profile_serving(
+        torch, exp, members, batch, sp_xla, samples[0], impl="xla",
+        dtype=dtype)
     return launches
 
 
@@ -2512,9 +2575,8 @@ def main() -> int:
             failed.append("device")
             log(f"[device] FAIL: a bf16 flash kernel of {name} has no "
                 "tensor-core instruction")
-    # the score-chained libraries: every kernel runs its score dots (and in
-    # scored_fwd / scored_bwd every product) as split-TF32 mma.sync, without
-    # spilling
+    # the score-chained libraries: every kernel runs every product as
+    # split-TF32 mma.sync, without spilling
     for name in ("scored_fwd", "scored_bwd", "fused_block"):
         counts = tensor_core_counts(built[name]["path"])
         tensor_cores[name] = counts
@@ -2531,6 +2593,13 @@ def main() -> int:
             failed.append("device")
             log(f"[device] FAIL: a kernel of {name} has no tensor-core "
                 "instruction")
+        if (name == "fused_block" and counts
+                and sum(counts.values()) <= FUSED_SCORE_DOTS_HMMA):
+            failed.append("device")
+            log(f"[device] FAIL: fused_block has {sum(counts.values())} HMMA "
+                f"instructions, no more than its score dots alone "
+                f"({FUSED_SCORE_DOTS_HMMA}): P.V or the epilogue is off the "
+                "tensor cores")
         if spilled:
             failed.append("device")
             log(f"[device] FAIL: {name} spills: {spilled}")
@@ -2661,8 +2730,9 @@ def main() -> int:
         "name": "fused_block", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/fused_block.cu",
         "replaces": "multimodal_emotion_processing_tpu/ops/fused_block.py:109",
-        "instruction": f"{SCORED_MMA} in split-TF32 form for the score dots; "
-                       "scalar f32 FMA for P.V and the epilogue",
+        "instruction": SCORED_INSTRUCTION + "; launched as thread-block "
+                       "clusters of min(H, 8) blocks, one per head, ctx and "
+                       "x exchanged through distributed shared memory",
         "tensor_core_instructions": tc_count("fused_block", "fused_block_kernel"),
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],
@@ -2671,8 +2741,13 @@ def main() -> int:
         "ms": train["ms"], "device_ms": train["device_ms"],
         "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+        "bound_split_tf32_ms": train["bound_split_tf32_ms"],
         "library_ms": train["library_ms"],
         "bwd_ms": train["bwd_ms"], "plain_bwd_ms": train["plain_bwd_ms"],
+        "stats_m_equal_scored_fwd": summ["stats_m_equal_scored_fwd"],
+        "max_stats_l_rel_err": summ["max_stats_l_rel_err"],
+        "repeat_bits_equal": summ["repeat_bits_equal"],
+        "blocks": train["blocks"],
         "serve": summ["serve"],
         "timed_at": (f"sum over the {train['calls_timed']} mosei_trans stream "
                      f"shapes (one grid of a train step's forward), B={MT_BATCH},"
@@ -2684,7 +2759,10 @@ def main() -> int:
                      "sequence (no single PyTorch call computes the block; it "
                      "writes no S); bwd_ms the backward through FusedMinusBlock "
                      "(scored_bwd kernels + plain epilogue products), "
-                     "plain_bwd_ms autograd through fused_block_plain; serve: "
+                     "plain_bwd_ms autograd through fused_block_plain; "
+                     "bound_ms at 67 TFLOP/s of scalar f32, "
+                     "bound_split_tf32_ms at 495/3 TFLOP/s, the rate of the "
+                     "kernel's split-TF32 products; blocks per launch; serve: "
                      f"the same sums over the nine ren_mme shapes at "
                      f"B={SERVE_BUCKET}, no ctx residual")})
     print(json.dumps({"kernels": kernels}))

@@ -45,12 +45,10 @@
 // the card's SMs (robot_demo at B 8 runs 96-336 blocks where 64-row tiles
 // gave 48-96), and the 4 / W warps of a slab split its keys, each taking
 // every (4 / W)-th step of 16 keys, then merge their (m, l, acc) in a fixed
-// order, so a small grid's blocks run a quarter of the steps each.  Each kv
-// tile (64 keys up to dh 64, 32 at dh 128, 16 at dh 256) is staged once for
-// the block in f32; a step is the warp's 16 x 16 scores on the tensor
-// cores, an online-softmax update in registers (row max and sum across the
-// four lanes of a quad), S written straight from the accumulator layout,
-// and P.V on the tensor cores with P split into TF32 terms.
+// order, so a small grid's blocks run a quarter of the steps each.  That
+// per-head body is csrc/scored_head.cuh `attend_head`, which
+// csrc/fused_block.cu runs too; this kernel normalises its rows and stores
+// ctx and the stats.
 //
 // What bounds it on an H100: per (b, h), 4*Lq*Lkv*dh flops against
 // (2*Lq + 2*Lkv)*dh input and output elements plus Lq*Lkv f32 scores read
@@ -63,24 +61,16 @@
 // design cuts the host side (the shared-memory attribute is set once per
 // instance) and fills the card with small blocks.
 
-#include <float.h>
-
-#include "scored_mma.cuh"
+#include "scored_head.cuh"
 
 namespace {
 
 using namespace flash;
 using namespace flash::tf32;
 
-// shared memory of a block of `slabs` row slabs: sQ, sK, sV and the
-// penalties, which the merge of the key groups' (m, l, acc) then reuses
 template <int DH>
 size_t smem_bytes(int slabs) {
-  using Bk = Bucket<DH>;
-  const size_t tiles = (size_t)kRows * slabs * Bk::LD +
-                       2 * (size_t)Bk::BKV * Bk::LD + Bk::BKV;
-  const size_t merge = (size_t)kMaxWarps * kRows * (Bk::LD + 2);
-  return sizeof(float) * (tiles > merge ? tiles : merge);
+  return sizeof(float) * head_floats<DH>(slabs);
 }
 
 template <typename T, int DH>
@@ -91,180 +81,40 @@ scored_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   T* __restrict__ o, float* __restrict__ s_out,
                   float* __restrict__ stats, int B, int Lq, int Lkv, int H,
                   int dh, float scale, bool vec, int slabs) {
-  constexpr int BKV = Bucket<DH>::BKV, LD = Bucket<DH>::LD;
-  constexpr int NT = kSub / 8, NO = DH / 8;
-  const int BQ = kRows * slabs;
-  const int groups = kMaxWarps / slabs;   // key groups per row slab
-
   extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BKV * LD;
-  float* sNeg = sV + BKV * LD;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+  const int t = threadIdx.x & 3;
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t D = (size_t)H * dh;
-  const T* qb = q + (size_t)b * Lq * D + (size_t)h * dh;
-  const T* kb = k + (size_t)b * Lkv * D + (size_t)h * dh;
-  const T* vb = v + (size_t)b * Lkv * D + (size_t)h * dh;
-  const float* mb = mask ? mask + (size_t)b * Lkv : nullptr;
   // row (b, h, i) of S_prev and S starts at (head_row0 + i) * Lkv
   const size_t head_row0 = ((size_t)b * H + h) * Lq;
-  const float cv = s_prev ? to_f32(c[0]) : 0.f;
-
-  stage<T, DH, LD>(sQ, qb, D, q0, BQ, Lq - q0, dh, vec);
-
-  // warp = slab + slabs * group: its 16 rows, and every groups-th 16-key step
-  const int slab = warp % slabs, group = warp / slabs;
-  const int r0 = kRows * slab;
-  const bool active = q0 + r0 < Lq;
-  int row[2];
-  bool live[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    row[hr] = q0 + r0 + g + 8 * hr;
-    live[hr] = row[hr] < Lq;   // rows past Lq are computed, never stored
-  }
-  float m_run[2] = {-FLT_MAX, -FLT_MAX}, l_run[2] = {0.f, 0.f};
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kv0 = 0; kv0 < Lkv; kv0 += BKV) {
-    const int nkv = min(BKV, Lkv - kv0);
-    __syncthreads();  // sQ is written; the last tile's sK / sV readers are done
-    stage<T, DH, LD>(sK, kb, D, kv0, BKV, nkv, dh, vec);
-    stage<T, DH, LD>(sV, vb, D, kv0, BKV, nkv, dh, vec);
-    for (int j = threadIdx.x; j < BKV; j += blockDim.x)
-      sNeg[j] = j < nkv ? mask_penalty(mb, kv0 + j) : 0.f;
-    stage_wait();
-    __syncthreads();
-    if (!active) continue;
-
-    // the group's steps of 16 keys, each an online-softmax update
-#pragma unroll 1
-    for (int c0 = kSub * group; c0 < nkv; c0 += kSub * groups) {
-      float s[NT][4];
-      score_dots<DH, NT, LD>(sQ, r0, sK, c0, s);
-      float mx[2] = {-FLT_MAX, -FLT_MAX};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1, col = c0 + 8 * j + 2 * t + (e & 1);
-          if (col < nkv) {
-            const size_t off = (head_row0 + row[hr]) * (size_t)Lkv + kv0 + col;
-            const float x = chained_score(
-                s[j][e], scale, s_prev && live[hr] ? s_prev + off : nullptr,
-                cv, sNeg[col]);
-            if (s_out && live[hr]) s_out[off] = x;
-            s[j][e] = x;
-            mx[hr] = fmaxf(mx[hr], x);
-          }
-        }
-      // every step holds at least one real column, so its max is finite
-      float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        m_new[hr] = fmaxf(m_run[hr], quad_max(mx[hr]));
-        alpha[hr] = expf(m_run[hr] - m_new[hr]);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1, col = c0 + 8 * j + 2 * t + (e & 1);
-          const float p = col < nkv ? expf(s[j][e] - m_new[hr]) : 0.f;
-          s[j][e] = p;
-          sum[hr] += p;
-        }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        l_run[hr] = l_run[hr] * alpha[hr] + quad_sum(sum[hr]);
-        m_run[hr] = m_new[hr];
-      }
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-      mma_regA<DH, NT, LD>(acc, s, sV, c0);
-    }
-  }
-
-  if (groups > 1) {
-    // merge the groups of each slab in a fixed order: m the max of theirs,
-    // l and acc their sums rescaled to it (a group that saw no key holds
-    // m = -FLT_MAX, l = 0, acc = 0 and adds nothing)
-    float* sAcc = smem;                              // [warp][row][LD]
-    float* sML = smem + kMaxWarps * kRows * LD;      // [warp][row][m, l]
-    __syncthreads();  // every warp is done with sQ, sK and sV
-    if (active) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = g + 8 * hr;
-        float* dst = sAcc + (warp * kRows + r) * LD;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          dst[8 * n + 2 * t] = acc[n][2 * hr];
-          dst[8 * n + 2 * t + 1] = acc[n][2 * hr + 1];
-        }
-        if (t == 0) {
-          sML[(warp * kRows + r) * 2] = m_run[hr];
-          sML[(warp * kRows + r) * 2 + 1] = l_run[hr];
-        }
-      }
-    }
-    __syncthreads();
-    if (group != 0 || !active) return;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = g + 8 * hr;
-      float m_tot = -FLT_MAX;
-      for (int gr = 0; gr < groups; ++gr)
-        m_tot = fmaxf(m_tot, sML[((slab + slabs * gr) * kRows + r) * 2]);
-      float l_tot = 0.f;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) acc[n][2 * hr] = acc[n][2 * hr + 1] = 0.f;
-      for (int gr = 0; gr < groups; ++gr) {
-        const int w = slab + slabs * gr;
-        const float f = expf(sML[(w * kRows + r) * 2] - m_tot);
-        l_tot += sML[(w * kRows + r) * 2 + 1] * f;
-        const float* src = sAcc + (w * kRows + r) * LD;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          acc[n][2 * hr] += src[8 * n + 2 * t] * f;
-          acc[n][2 * hr + 1] += src[8 * n + 2 * t + 1] * f;
-        }
-      }
-      m_run[hr] = m_tot;
-      l_run[hr] = l_tot;
-    }
-  }
-  if (!active) return;
+  HeadRows<DH> r;
+  if (!attend_head<T, DH>(
+          smem, q + (size_t)b * Lq * D + (size_t)h * dh,
+          k + (size_t)b * Lkv * D + (size_t)h * dh,
+          v + (size_t)b * Lkv * D + (size_t)h * dh,
+          mask ? mask + (size_t)b * Lkv : nullptr, s_prev, s_out, head_row0,
+          s_prev ? to_f32(c[0]) : 0.f, D, blockIdx.x * kRows * slabs, Lq, Lkv,
+          dh, scale, vec, slabs, r))
+    return;
 
   const size_t n_rows = (size_t)B * H * Lq;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    if (!live[hr]) continue;
+    if (!r.live[hr]) continue;
     // l >= 1 (the row max contributes exp(0)): the fast reciprocal, which
     // has no slow path for tiny or huge divisors and so no call
-    const float inv = __fdividef(1.f, l_run[hr]);
-    T* orow = o + ((size_t)b * Lq + row[hr]) * D + (size_t)h * dh;
+    const float inv = __fdividef(1.f, r.l[hr]);
+    T* orow = o + ((size_t)b * Lq + r.row[hr]) * D + (size_t)h * dh;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = 8 * n + 2 * t + e;
-        if (d < dh) store(orow + d, acc[n][2 * hr + e] * inv);
+        if (d < dh) store(orow + d, r.acc[n][2 * hr + e] * inv);
       }
     if (stats && t == 0) {
-      stats[head_row0 + row[hr]] = m_run[hr];
-      stats[n_rows + head_row0 + row[hr]] = l_run[hr];
+      stats[head_row0 + r.row[hr]] = r.m[hr];
+      stats[n_rows + head_row0 + r.row[hr]] = r.l[hr];
     }
   }
 }

@@ -123,7 +123,7 @@ __device__ __forceinline__ void mma3_neg(float (&neg)[4], float (&corr)[4],
 // g + 8 in s[j][2 + e]: the hi.hi chain over d plus the chain of the small
 // terms, added once.  Scores are score_dots(sQ, ., sK, .); dP = dO.V^T
 // uses it too.
-template <int DH, int NT, int LD>
+template <int DH, int NT, int LD, int UNROLL = 0>
 __device__ __forceinline__ void score_dots(const float* sA, int a_row0,
                                            const float* sB, int b_row0,
                                            float (&s)[NT][4]) {
@@ -133,9 +133,10 @@ __device__ __forceinline__ void score_dots(const float* sA, int a_row0,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = corr[j][e] = 0.f;
-  // whole up to dh 64 and for one n-tile (fused_block); four chunks at a
-  // time where 16 keys x dh 128-256 would hold too many loads in flight
-  constexpr int kUnroll = DH <= 64 || NT == 1 ? DH / 8 : 4;
+  // whole up to dh 64 and for one n-tile; four chunks at a time where 16
+  // keys x dh 128-256 would hold too many loads in flight, or UNROLL where
+  // a caller asks (the order of the products, and so the bits, is the same)
+  constexpr int kUnroll = UNROLL ? UNROLL : DH <= 64 || NT == 1 ? DH / 8 : 4;
 #pragma unroll (kUnroll)
   for (int k0 = 0; k0 < DH; k0 += 8) {
     const float* pa = sA + (a_row0 + g) * LD + k0 + t;
@@ -240,6 +241,46 @@ __device__ __forceinline__ void mma_transA(float (&acc)[NC][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += (main[e] - neg[e]) + corr[e];
     }
+  }
+}
+
+// acc (16 x 8) += A . W^T over k < KC (a multiple of 16), as a Linear
+// takes it: A is rows a_row0 .. a_row0 + 15 of the tile sA (rows LDA floats
+// apart) from column ka0, and the 8 columns of W^T are rows w_row0 ..
+// w_row0 + 7 of the tile sW (rows LDW floats apart, from column 0), torch's
+// (out, in) rows.  The fragments are score_dots' (A row-major, W rows as
+// B), and k runs in slices as in mma_regA and mma_transA: each 16-deep
+// slice starts from zero, its second chunk through mma3_neg, and is added
+// to acc in f32.  fused_block's epilogue products.
+template <int KC>
+__device__ __forceinline__ void mma_rowsW(float (&acc)[4], const float* sA,
+                                          int LDA, int a_row0, int ka0,
+                                          const float* sW, int LDW,
+                                          int w_row0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < KC; k0 += 16) {
+    float main[4] = {0.f, 0.f, 0.f, 0.f}, neg[4] = {0.f, 0.f, 0.f, 0.f};
+    float corr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float* pa = sA + (a_row0 + g) * LDA + ka0 + k0 + 8 * c + t;
+      uint32_t ah[4], al[4];
+      split(pa[0], ah[0], al[0]);
+      split(pa[8 * LDA], ah[1], al[1]);
+      split(pa[4], ah[2], al[2]);
+      split(pa[8 * LDA + 4], ah[3], al[3]);
+      const float* pb = sW + (w_row0 + g) * LDW + k0 + 8 * c + t;
+      uint32_t bh[2], bl[2];
+      split(pb[0], bh[0], bl[0]);
+      split(pb[4], bh[1], bl[1]);
+      if (c)
+        mma3_neg(neg, corr, ah, al, bh, bl);
+      else
+        mma3(main, corr, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += (main[e] - neg[e]) + corr[e];
   }
 }
 

@@ -10,18 +10,24 @@ products on the split weight, and LayerNorm, in one launch:
     ctx = softmax(S)·v
     out = LN(q·W_minus[:, :D]ᵀ + (ctx·W_projᵀ)·W_minus[:, D:]ᵀ)   at q's dtype
 
-Its S is bit-identical to csrc/scored_fwd.cu's (both build it through
-csrc/flash_common.cuh `chained_score`).  Like scored_fwd it has four
-variants, S_prev given or not times S emitted or not; the JAX kernel always
-reads S_prev (zeros when there is none) and always writes S.  The weights
-keep torch's (out, in) layout, as `MinusBlock` stores them.
+It launches as thread-block clusters, one block per head of a query-row
+tile, and runs each head's attention through scored_fwd's own per-head body
+(csrc/scored_head.cuh), so its S is bit-identical to csrc/scored_fwd.cu's;
+ctx and x pass between the heads' blocks through distributed shared memory,
+and P·V and the epilogue's three products run on the tensor cores in
+split-TF32 form.  Like scored_fwd it has four variants, S_prev given or not
+times S emitted or not; the JAX kernel always reads S_prev (zeros when there
+is none) and always writes S.  It can also write each head's row stats m, l
+as scored_fwd does.  The weights keep torch's (out, in) layout, as
+`MinusBlock` stores them.
 
 `FusedMinusBlock` stands in for JAX `_make`'s custom VJP.  Its backward
 follows the JAX one: x and y are recomputed from ctx (the kernel's
 residual on the card, the plain forward's on the CPU), then the LayerNorm,
 combine and projection backward as plain products, then the attention's
 backward through the score-chained backward kernels of
-ops/pallas_attention.py (`scored_backward_kernel`; `scored_backward_plain`
+ops/pallas_attention.py (`scored_backward_kernel`, which reads the
+forward's row stats and so sweeps the keys once; `scored_backward_plain`
 on the CPU), from the emitted S, or rebuilding s where the block emitted
 none.  CUDA tensors launch the kernels and CPU tensors take the plain
 versions; there is no other fallback.
@@ -30,6 +36,8 @@ versions; there is no other fallback.
 from __future__ import annotations
 
 from typing import Optional
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -76,17 +84,39 @@ class FusedBlockKernel(_VariantKernel):
     (has S_prev, emits S)."""
 
     name = library = "fused_block"
-    n_pointers = 13
+    n_pointers = 14
+
+    def geometry(self, b: int, n_heads: int, lq: int, lkv: int, dh: int,
+                 dtype=torch.float32) -> dict:
+        """The launch a call of these sizes makes, from the kernel's own
+        plan: the cluster size, the query rows of a block, the blocks of
+        the grid and each block's dynamic shared memory in bytes."""
+        fn = self._bind_geometry()
+        out = (ctypes.c_int * 4)()
+        rc = fn(b, n_heads, lq, lkv, dh, int(dtype == torch.bfloat16), out)
+        if rc != 0:
+            raise RuntimeError(f"fused_block_geometry failed with CUDA error {rc}")
+        return dict(cluster=out[0], rows=out[1], blocks=out[2],
+                    smem_bytes=out[3])
+
+    def _bind_geometry(self):
+        from ..utils import native
+
+        fn = native.load(self.library).fused_block_geometry
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        return fn
 
     def __call__(self, q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w,
                  ln_b, *, n_heads: int, emit_scores: bool = True,
-                 save_ctx: bool = False):
+                 save_ctx: bool = False, stats: bool = False):
         """q (B, Lq, D), k/v (B, Lkv, D) on one CUDA device, f32 or bf16,
         D ≤ 1024 and head width 1-256; mask None or (B, Lkv); scores_prev
         None or (B, H, Lq, Lkv) f32 with the gate c (one value on the
         device); proj_w (D, D), minus_w (D, 2D), ln_w and ln_b (D,) at q's
         dtype.  Returns (out like q, S (B, H, Lq, Lkv) f32 or None, ctx like
-        q when `save_ctx`, else None)."""
+        q when `save_ctx`, else None), and with `stats` also the row stats
+        (2, B, H, Lq) f32 (m, l) that the backward reads."""
         _check_grad_free(self.name, q, k, v, mask, scores_prev, c, proj_w,
                          minus_w, ln_w, ln_b, via="FusedMinusBlock")
         b, lq, lkv, dh, mask = check_qkv(self.name, q, k, v, mask, n_heads)
@@ -108,10 +138,14 @@ class FusedBlockKernel(_VariantKernel):
         scores = (torch.empty(b, n_heads, lq, lkv, dtype=torch.float32,
                               device=q.device) if emit_scores else None)
         ctx = torch.empty_like(q) if save_ctx else None
-        self._run([q, k, v, mask, scores_prev, c, *weights, out, scores, ctx],
+        row_stats = (torch.empty(2, b, n_heads, lq, dtype=torch.float32,
+                                 device=q.device) if stats else None)
+        self._run([q, k, v, mask, scores_prev, c, *weights, out, scores, ctx,
+                   row_stats],
                   (b, n_heads, lq, lkv, dh),
                   (scores_prev is not None, emit_scores))
-        return out, scores, ctx
+        return ((out, scores, ctx, row_stats) if stats
+                else (out, scores, ctx))
 
 
 fused_block_kernel = FusedBlockKernel()
@@ -125,9 +159,10 @@ def _flat(x):
 class FusedMinusBlock(torch.autograd.Function):
     """The whole minus block with its backward, in place of JAX `_make`'s
     custom VJP.  The forward saves its inputs, the emitted S and, when a
-    gradient is needed (`save_ctx`), ctx; the backward takes the cotangents
-    of out and of S (None where nothing downstream reads them) and returns
-    dq, dk, dv, dmask (at the mask's dtype, when the mask needs a
+    gradient is needed (`save_ctx`), ctx and, on the card, the row stats;
+    the backward takes the cotangents of out and of S (None where nothing
+    downstream reads them) and returns dq, dk, dv, dmask (at the mask's
+    dtype, when the mask needs a
     gradient), dS_prev and dc (at c's dtype; c gets none without S_prev,
     where JAX's zeros give exactly 0), and the gradients of proj_w, minus_w
     (its two halves joined along dim 1), ln_w and ln_b in their layouts.
@@ -137,23 +172,30 @@ class FusedMinusBlock(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w,
                 ln_b, n_heads, emit_scores, save_ctx):
         ctx.set_materialize_grads(False)
+        stats = None
         if q.device.type == "cpu":
             out, scores, attn = _plain_parts(
                 q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w, ln_b,
                 n_heads=n_heads, emit_scores=emit_scores)
+        elif save_ctx:
+            out, scores, attn, stats = fused_block_kernel(
+                q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w, ln_b,
+                n_heads=n_heads, emit_scores=emit_scores, save_ctx=True,
+                stats=True)
         else:
             out, scores, attn = fused_block_kernel(
                 q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w, ln_b,
-                n_heads=n_heads, emit_scores=emit_scores, save_ctx=save_ctx)
+                n_heads=n_heads, emit_scores=emit_scores)
         ctx.save_for_backward(q, k, v, mask, scores_prev, c, proj_w, minus_w,
-                              ln_w, ln_b, scores, attn if save_ctx else None)
+                              ln_w, ln_b, scores, attn if save_ctx else None,
+                              stats)
         ctx.n_heads = n_heads
         return (out, scores) if emit_scores else out
 
     @staticmethod
     def backward(ctx, dout, dscores=None):
         (q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w, ln_b, scores,
-         attn) = ctx.saved_tensors
+         attn, stats) = ctx.saved_tensors
         if attn is None:
             raise RuntimeError("FusedMinusBlock saved no ctx: call it through "
                                "fused_minus_block")
@@ -192,7 +234,8 @@ class FusedMinusBlock(torch.autograd.Function):
         else:
             dq, dk, dv, dmask, dsprev, dc = scored_backward_kernel(
                 q, k, v, mask, scores_prev, c, scores, dscores, dctx,
-                n_heads=ctx.n_heads, out=attn, want_dmask=want_dmask)
+                n_heads=ctx.n_heads, out=attn, stats=stats,
+                want_dmask=want_dmask)
             if dc is not None:
                 dc = dc.to(c.dtype).reshape(c.shape)
         dmask = dmask.to(q.dtype).to(mask.dtype) if want_dmask else None

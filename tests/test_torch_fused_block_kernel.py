@@ -4,9 +4,14 @@ CUDA tensors, in its four variants (S_prev given or not, S emitted or
 not), f32 with TF32 off and bf16: out within 1e-5 (f32) and 5e-2 (bf16) of
 max(1, |ref|), S at rtol 1e-5 elementwise and bit-equal to
 csrc/scored_fwd.cu's S on the same inputs, and the ctx residual against
-the plain attention.  Then `FusedMinusBlock`'s gradients against the
-same Function on the CPU.  Every test here needs a GPU and skips without
-one; they need no JAX:
+the plain attention.  At the shapes that stress the cluster launch (one
+head, more heads than a cluster holds, D 1024, Lq 1, ren_mme at B 1 and
+B 8) the row stats m are bit-equal to scored_fwd's and l within 1e-6
+relative, out and S are the same bits over two launches, and
+`FusedMinusBlock`'s f32 gradients with the stats lie within 1e-6 of those
+without them.  Then `FusedMinusBlock`'s gradients against the same
+Function on the CPU.  Every test here needs a GPU and skips without one;
+they need no JAX:
 
     python -m pytest --noconftest tests/test_torch_fused_block_kernel.py -q
 """
@@ -23,6 +28,17 @@ F32_TOL = 1e-5    # f32, TF32 off: only the summation order differs
 BF16_TOL = 5e-2   # bf16 operands and output (tests/test_flash.py:90)
 S_RTOL = 1e-5
 GRAD_TOL = 2e-4   # the CPU and card backwards, f32 (tests/test_interop.py:20)
+L_RTOL = 1e-6     # l against scored_fwd's: the key split may differ
+STATS_GRAD_TOL = 1e-6   # one key sweep in dq against two, f32
+# (B, Lq, Lkv, H, dh, mask): one head (a cluster of one block), 12 heads
+# of 8 (more than a cluster's 8 blocks), D 1024, Lq 1, ren_mme's three
+# query lengths at B 1 and B 8
+CLUSTER_SHAPES = [
+    (2, 37, 77, 1, 64, "zero_row"), (2, 40, 100, 12, 8, "zero_row"),
+    (2, 33, 128, 8, 128, "zero_row"), (3, 1, 100, 6, 16, "zero_row"),
+    (1, 40, 275, 8, 16, "zero_row"), (1, 76, 40, 8, 16, "zero_row"),
+    (1, 275, 76, 8, 16, "zero_row"), (8, 40, 275, 8, 16, "zero_row"),
+    (8, 76, 40, 8, 16, "zero_row"), (8, 275, 76, 8, 16, "zero_row")]
 
 
 @pytest.fixture
@@ -77,7 +93,7 @@ def _close(got, ref, tol):
     (8, 20, 200, 6, 16, "zero_row"), (4, 100, 20, 6, 16, "zero_row"),
     (4, 40, 275, 8, 16, "zero_row"), (2, 70, 300, 2, 256, "none"),
     (3, 1, 100, 4, 1, "zero_row"), (2, 33, 1000, 4, 64, "zero_row"),
-    (2, 128, 512, 8, 128, "zero_row")])
+    (2, 128, 512, 8, 128, "zero_row")] + CLUSTER_SHAPES)
 def test_kernel_matches_plain_on_card(cuda, dtype, tol, has_sprev, emit, b,
                                       lq, lkv, h, dh, mask):
     q, k, v, m, sprev, c, ws = _inputs(b, lq, lkv, h, dh, mask, dtype, cuda)
@@ -97,6 +113,71 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol, has_sprev, emit, b,
         assert (((s - rs).abs() / rs.abs().clamp(min=1.0)) <= S_RTOL).all()
         _, s_scored = tpa.scored_forward_kernel(q, k, v, m, sp, c, n_heads=h)
         assert torch.equal(s, s_scored)
+
+
+def _dtypes(dh, h):
+    """f32 everywhere; bf16 too at D 1024."""
+    return [torch.float32, torch.bfloat16] if h * dh == 1024 else [torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_sprev,emit", tpa.VARIANTS)
+@pytest.mark.parametrize("b,lq,lkv,h,dh,mask", CLUSTER_SHAPES)
+def test_stats_and_repeat_bits_on_card(cuda, has_sprev, emit, b, lq, lkv, h,
+                                       dh, mask):
+    """m bit-equal to scored_fwd's row stats, l within 1e-6 relative (the
+    two kernels may split the keys over warps differently), and out, S and
+    the stats the same bits over two launches."""
+    for dtype in _dtypes(dh, h):
+        q, k, v, m, sprev, c, ws = _inputs(b, lq, lkv, h, dh, mask, dtype,
+                                           cuda, seed=5)
+        sp = sprev if has_sprev else None
+        runs = [tfb.fused_block_kernel(q, k, v, m, sp, c, *ws, n_heads=h,
+                                       emit_scores=emit, stats=True)
+                for _ in range(2)]
+        _, _, st = tpa.scored_forward_kernel(q, k, v, m, sp, c, n_heads=h,
+                                             emit_scores=False, stats=True)
+        torch.cuda.synchronize()
+        (out, s, _, stats), (out2, s2, _, stats2) = runs
+        assert torch.equal(out, out2) and torch.equal(stats, stats2)
+        assert (s is None and s2 is None) or torch.equal(s, s2)
+        assert torch.equal(stats[0], st[0])
+        assert float(((stats[1] - st[1]).abs() / st[1]).max()) <= L_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("b,lq,lkv,h,dh,mask", CLUSTER_SHAPES)
+def test_gradients_with_stats_match_without(cuda, monkeypatch, emit, b, lq,
+                                            lkv, h, dh, mask):
+    """FusedMinusBlock's f32 gradients when its backward reads the forward's
+    row stats (dq sweeps the keys once) against the same backward with no
+    stats (dq takes them in a sweep of its own), S_prev given."""
+    real = tfb.fused_block_kernel
+
+    def without_stats(*args, stats=False, **kw):
+        out = real(*args, **kw)
+        return (*out, None) if stats else out
+
+    grads = []
+    for patched in (False, True):
+        if patched:
+            monkeypatch.setattr(tfb, "fused_block_kernel", without_stats)
+        q, k, v, m, sprev, c, ws = _inputs(b, lq, lkv, h, dh, mask,
+                                           torch.float32, cuda, seed=7)
+        leaves = [q, k, v, sprev, c, *ws]
+        for a in leaves:
+            a.requires_grad_(True)
+        out, s = tfb.fused_minus_block(q, k, v, m, sprev, c, *ws, n_heads=h,
+                                       emit_scores=emit)
+        g = torch.Generator().manual_seed(1)
+        loss = (out * torch.randn(out.shape, generator=g).to(cuda)).sum()
+        if emit:
+            loss = loss + (s * torch.randn(s.shape, generator=g).to(cuda)).sum()
+        loss.backward()
+        grads.append([a.grad for a in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, STATS_GRAD_TOL)
 
 
 @pytest.mark.cuda
