@@ -69,7 +69,24 @@ Phases, each reported on its own lines:
      counted and the outputs held against impl="xla", then profiled at
      both impls.  The kernels phase
      also holds fused_block against its plain version in its four
-     variants (and its S bit for bit against scored_fwd's).
+     variants (and its S bit for bit against scored_fwd's);
+ 10. train_ren_mme: `ren_mme` at its reference width, f32, AdamW, dropout
+     0.1 and R-Drop (16 pairs a step, each duplicated: 32 rows), trained
+     by the port's Trainer at impl="pallas_fused" for 2 epochs of 4 steps
+     with an eval pass after each: active dropout routes every block to
+     scored_fwd with the plain epilogue and the scored_bwd pair, the eval
+     passes to fused_block, all counted per variant; the 8 losses and the
+     step-1 gradients held against impl="xla" from the same weights,
+     batches and dropout generator seed; one profiled step;
+ 11. train_robot: `robot_demo` at full width, gates set, f32, AdamW,
+     dropout 0.1, batch 64, trained the same way at impl="pallas"
+     (scored_fwd and the scored_bwd pair in their chained variants, dh 32);
+ 12. train_rencecps: `rencecps` (the concat_linear head at dim 2304, no
+     kernel) trained for 2 epochs of 4 steps at batch 64, with no kernel
+     launched, its step-1 gradients held against the port's own CPU run.
+     The kernels phase also holds scored_bwd against its plain version at
+     the training shapes of phases 10 and 11 and checks dropout itself on
+     the card (keep rate, exact x / keep, the same bits from a seed).
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -167,6 +184,25 @@ MT_CHAINED_BATCH = 8
 REN_LEN = {"l": 40, "v": 76, "a": 275}
 REN_SHAPES = tuple((REN_LEN[q], REN_LEN[kv]) for q, kv in STREAM_PAIRS)
 REN_HEADS, REN_DH, REN_PARAMS = 8, 16, 1_317_544
+# ren_mme training (Ren-MME/run.py): 16 pairs a step, each duplicated for
+# R-Drop into adjacent rows (32 rows), f32, AdamW, dropout 0.1; 64 / 16
+# synthetic pairs and 2 epochs give 8 optimizer steps and 2 eval passes of
+# one batch.  robot_demo training: batch 64, 256 / 64 synthetic samples, 2
+# epochs, gates set, dropout 0.1.  Both against impl="xla" from the same
+# weights, batches and dropout generator seed: the 8 losses at 1e-3
+# relative, the step-1 gradients at 2e-4 relative L2 per tensor
+# (tests/test_interop.py:20), f32 with TF32 off
+REN_PAIRS, REN_N_TRAIN, REN_N_VALID, REN_EPOCHS = 16, 64, 16, 2
+ROBOT_BATCH, ROBOT_N_TRAIN, ROBOT_N_VALID, ROBOT_EPOCHS = 64, 256, 64, 2
+DROP_GRAD_TOL, DROP_LOSS_TOL = 2e-4, 1e-3
+# rencecps at its reference width (dim 2304, 42,390 parameters, batch 64,
+# AdamW): 256 / 64 synthetic pairs, 2 epochs; the step-1 gradients on the
+# card against the port's own CPU run of the same step at 2e-4 relative L2
+RC_BATCH, RC_N_TRAIN, RC_N_VALID, RC_EPOCHS, RC_PARAMS = 64, 256, 64, 2, 42_390
+RC_GRAD_TOL = 2e-4
+# the dropout check: keep rate within 5 sigma of 1 - rate over this many
+# elements, kept values exactly x / keep, the same bits from the same seed
+DROPOUT_N, DROPOUT_RATE = 1 << 21, 0.1
 # fused_block edge cases: (B, Lq, Lkv, H, dh, mask); dh 1 and 256, Lq 1,
 # ragged Lkv 275 and 1000, no mask, and fully masked rows under S_prev
 # from a previous block (c = 0.7); one head (a cluster of one block), 12
@@ -477,7 +513,50 @@ def phase_kernels(torch, report):
     summaries["scored_fwd"] = scored_cases(torch, g, report)
     summaries.update(scored_bwd_cases(torch, g, report))
     summaries["fused_block"] = fused_cases(torch, g, report)
+    report["dropout_check"] = dropout_check(torch)
     return summaries
+
+
+def dropout_check(torch):
+    """The port's dropout on the card, from a CUDA torch.Generator: the keep
+    share over DROPOUT_N elements within 5 sigma of 1 - rate, every kept
+    value x / keep exactly (numpy's IEEE f32 division on the host), every
+    other 0, the same bits from the same seed and other bits from another
+    seed; and its time."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch.models.layers import dropout
+
+    keep = 1.0 - DROPOUT_RATE
+    x = torch.randn(DROPOUT_N, generator=torch.Generator(device="cuda")
+                    .manual_seed(3), device="cuda").abs() + 0.5
+
+    def run(seed):
+        y = dropout(x, DROPOUT_RATE,
+                    torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        return y
+
+    y = run(11)
+    kept = (y != 0).cpu().numpy()
+    share = float(kept.mean())
+    sigma = (keep * DROPOUT_RATE / DROPOUT_N) ** 0.5
+    want = x.cpu().numpy() / np.float32(keep)
+    exact = bool(np.array_equal(y.cpu().numpy()[kept], want[kept]))
+    same = bool(torch.equal(run(11), y))
+    other = not torch.equal(run(12), y)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    ms = time_ms(torch, lambda: dropout(x, DROPOUT_RATE, g))
+    out = dict(n=DROPOUT_N, rate=DROPOUT_RATE, keep_share=share,
+               z=(share - keep) / sigma, kept_exact=exact, same_seed_equal=same,
+               other_seed_differs=other, ms=ms)
+    log(f"[kernels] dropout on the card, {DROPOUT_N} f32 elements at rate "
+        f"{DROPOUT_RATE}: keep share {share:.6f} ({out['z']:+.2f} sigma), "
+        f"kept values x / keep exactly: {exact}, same seed same bits: {same},"
+        f" another seed other bits: {other}; {ms:.4f} ms a call")
+    if not (abs(out["z"]) < 5 and exact and same and other):
+        raise AssertionError(f"dropout on the card: {out}")
+    return out
 
 
 def majority_bound(rows, key="bound_by"):
@@ -840,9 +919,9 @@ def scored_bwd_cases(torch, g, report):
     scored_fwd's S, the plain version from scored_forward_plain's), in f32
     and bf16: the nine mosei_realformer stream shapes at B·P = 384 (the two
     variants of the training path timed in f32) and that shape once more
-    with a ragged mask, the nine robot_demo shapes at B 8 and the edge
-    cases, each with a fully masked row (but the no-mask and ragged
-    cases), dscores from the seeded generator where S is
+    with a ragged mask, the nine robot_demo shapes at B 8, the edge cases,
+    and the training shapes of ren_mme (B 32) and robot_demo (B 64), each
+    with a fully masked row (but the no-mask and ragged cases), dscores from the seeded generator where S is
     emitted, and c = 0.7 over an S_prev that holds −1e8 + raw where the
     mask is 0.  dq, dk, dv and dS_prev elementwise against max(1, |ref|);
     dc and dmask at the scale of their summed terms."""
@@ -859,6 +938,12 @@ def scored_bwd_cases(torch, g, report):
                         "zero_row", 1.0)) for lq, lkv in ROBOT_SHAPES]
     shapes += [(False, c + (1.0,)) for c in SCORED_EDGE_CASES]
     shapes += [(False, c) for c in SCORED_QX4_CASES]
+    # the training shapes of ren_mme (B 32: 16 R-Drop pairs; 8 heads of 16)
+    # and robot_demo (B 64; 6 heads of 32, its chained variants)
+    shapes += [(False, (2 * REN_PAIRS, lq, lkv, REN_HEADS, REN_DH, "zero_row",
+                        1.0)) for lq, lkv in REN_SHAPES]
+    shapes += [(False, (ROBOT_BATCH, lq, lkv, ROBOT_HEADS, ROBOT_DH,
+                        "zero_row", 1.0)) for lq, lkv in ROBOT_SHAPES]
     bwd = pa.scored_backward_kernel
     rows, ok, timed = [], True, {"scored_bwd_dq": [], "scored_bwd_dkv": []}
     rebuild_equal = []
@@ -1529,14 +1614,27 @@ def timed_trainer(torch, engine):
     return TimedTrainer
 
 
-def step_gradients(engine, model, tcfg, batch, impls=("flash", "xla")):
+def dropout_kwargs(engine, model, generator_seed):
+    """{"generator": a fresh dropout generator of `generator_seed` on the
+    model's device} (the one `engine.init_state(seed=generator_seed)`
+    carries, so step 1 of a fit draws the same masks), or {} for None."""
+    if generator_seed is None:
+        return {}
+    device = next(model.parameters()).device
+    return {"generator": engine.dropout_generator(generator_seed, device)}
+
+
+def step_gradients(engine, model, tcfg, batch, impls=("flash", "xla"), *,
+                   generator_seed=None):
     """{impl: {parameter name: gradient}} of one loss on the same weights
-    and batch, for each impl; the impls must give gradients to the same
-    parameters."""
+    and batch, for each impl, with dropout (if any) drawn by each impl from
+    its own generator of `generator_seed`, so every impl sees the same
+    masks; the impls must give gradients to the same parameters."""
     grads = {}
     model.train()
     for impl in impls:
-        engine.batch_loss(model, tcfg, batch, impl=impl).backward()
+        engine.batch_loss(model, tcfg, batch, impl=impl, **dropout_kwargs(
+            engine, model, generator_seed)).backward()
         grads[impl] = {n: p.grad for n, p in model.named_parameters()
                        if p.grad is not None}
         for p in model.parameters():
@@ -1548,7 +1646,7 @@ def step_gradients(engine, model, tcfg, batch, impls=("flash", "xla")):
 
 
 def pinned_step_gradients(torch, engine, model, tcfg, batch, impls, *,
-                          pin_pool: bool = False):
+                          pin_pool: bool = False, generator_seed=None):
     """step_gradients with every ReLU module's routing pinned, in every
     impl after the first, to what the first impl's forward chose: its
     backward passes a gradient where its input was > 0, so where an input
@@ -1558,9 +1656,10 @@ def pinned_step_gradients(torch, engine, model, tcfg, batch, impls, *,
     grid's max pool (its backward sends each column's gradient to its
     argmax row) is watched, and with `pin_pool` pinned the same way (the
     later impls take each column's value at the first impl's argmax).
-    Returns (grads, {"pool": n, "relu": n}: how many pooled columns and
-    ReLU inputs the later impls' own forward routed otherwise, {"pool": n,
-    "relu": n}: how many there are)."""
+    Dropout, if any, as in `step_gradients`.  Returns (grads, {"pool": n,
+    "relu": n}: how many pooled columns and ReLU inputs the later impls'
+    own forward routed otherwise, {"pool": n, "relu": n}: how many there
+    are)."""
     from multimodal_emotion_processing_tpu_torch.models import grid as grid_mod
 
     recorded = {"pool": [], "relu": []}
@@ -1600,7 +1699,8 @@ def pinned_step_gradients(torch, engine, model, tcfg, batch, impls, *,
         model.train()
         for impl in impls:
             calls.update(pool=0, relu=0)
-            engine.batch_loss(model, tcfg, batch, impl=impl).backward()
+            engine.batch_loss(model, tcfg, batch, impl=impl, **dropout_kwargs(
+                engine, model, generator_seed)).backward()
             grads[impl] = {n: p.grad for n, p in model.named_parameters()
                            if p.grad is not None}
             for p in model.parameters():
@@ -2472,6 +2572,336 @@ def phase_serve_ren_mme(torch, report):
     return launches
 
 
+def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
+                      n_valid, epochs, kernels, expected, prepare):
+    """One member of `exp` trained by the port's Trainer at `impl` for
+    `epochs` with an eval pass after each, `kernels` counted per variant
+    over that run (their counts set to 0 just before it) and held against
+    `expected(n_steps, n_eval)` = (launches, launches by variant); then the
+    same run at impl="xla" from the same weights, batches and dropout
+    generator seed.  Checks the step-1 gradients (max pool and ReLUs
+    pinned to `impl`'s forward, as in the realformer and fused phases) and
+    the losses against xla, and profiles one step of each.  `prepare`
+    moves the fresh model's weights (gates, LayerNorms) before anything
+    runs.  Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m, tcfg = exp.model, exp.train
+    dup = tcfg.rdrop_kl
+    rows = batch * (2 if dup else 1)
+    train = synthetic_dataset(exp.name, m, n_train, seed=0)
+    valid = synthetic_dataset(exp.name, m, n_valid, seed=1)
+
+    def loaders():
+        return (Batcher(train, batch, duplicate=dup, seed=1),
+                Batcher(valid, batch, duplicate=dup, shuffle=False))
+
+    state = engine.init_state(m, tcfg, seed=0, device="cuda")
+    prepare(state.model)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    init_weights = {k: v.detach().clone()
+                    for k, v in state.model.state_dict().items()}
+    log(f"[{tag}] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
+        f"{m.l_len}/{m.v_len}/{m.a_len} n_layers={m.n_layers} params="
+        f"{n_params} batch={batch} ({rows} rows{', R-Drop pairs' if dup else ''}"
+        f") f32, optimizer={tcfg.optimizer}, dropout={m.dropout}; {n_train} "
+        f"train / {n_valid} valid synthetic samples, {epochs} epochs, "
+        f"impl={impl}")
+
+    # step-1 gradients, impl against xla, on the same weights and batch and
+    # from the same dropout generator seed as the fit's first step
+    first = to_device(next(iter(loaders()[0]())), "cuda")
+    impls = (impl, "xla")
+    grads = step_gradients(engine, state.model, tcfg, first, impls=impls,
+                           generator_seed=0)
+    unpinned = max(e["rel_l2"] for e in gradient_errors(
+        grads[impl], grads["xla"]).values())
+    grads, flips, routes = pinned_step_gradients(
+        torch, engine, state.model, tcfg, first, impls, pin_pool=True,
+        generator_seed=0)
+    grad_err = gradient_errors(grads[impl], grads["xla"])
+    max_grad_err = max(e["rel_l2"] for e in grad_err.values())
+    del grads
+    for form in ("rel_l2", "max_abs"):
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1][form])[:4]
+        log(f"[{tag}] step-1 gradients {impl} vs xla, {len(grad_err)} tensors,"
+            f" max pool and ReLUs pinned, {form} per tensor, worst: "
+            + ", ".join(f"{n}={e[form]:.2e}" for n, e in worst))
+    log(f"[{tag}] the xla forward routes {flips['pool']} of {routes['pool']} "
+        f"pooled columns and {flips['relu']} of {routes['relu']} ReLU inputs "
+        f"otherwise than the {impl} one (bounds: shares of "
+        f"{MT_POOL_FLIP_SHARE:g} and {RF_RELU_FLIP_SHARE:g}); unpinned, the "
+        f"worst relative L2 is {unpinned:.2e}")
+
+    # the main path, counted: Trainer.fit at `impl`
+    for kern in kernels:
+        kern.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = timed_trainer(torch, engine)(m, tcfg, impl=impl, device="cuda")
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(*loaders(), state=state, epochs=epochs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    by_variant = variant_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = trainer.step_ms()
+    n_steps = sum(h.steps for h in hist)
+    n_eval = epochs * -(-n_valid // batch)
+    want, want_by_variant = expected(n_steps, n_eval)
+    losses = [x for h in hist for x in h.step_losses]
+    median = statistics.median(step_ms[1:])
+    for e, h in enumerate(hist):
+        log(f"[{tag}] epoch {e}: train_loss={h.train_loss:.6f} valid_loss="
+            f"{h.valid_loss:.6f} steps={h.steps} rows={h.samples} "
+            f"seconds={h.seconds:.3f} rows/s={h.samples_per_sec:.1f}")
+    log(f"[{tag}] step losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log(f"[{tag}] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
+        + f"; median after the first {median:.2f} ms = "
+        f"{batch / median * 1e3:.1f} samples/s ({rows / median * 1e3:.1f} "
+        f"rows/s); fit wall {wall_s:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+    log(f"[{tag}] launches {launches}, by variant {by_variant}; expected "
+        f"{want} ({n_steps} steps, {n_eval} eval forwards)")
+
+    # the same run through the plain attention path
+    twin = engine.init_state(m, tcfg, seed=0, device="cuda")
+    twin.model.load_state_dict(init_weights)
+    del init_weights
+    torch.cuda.reset_peak_memory_stats()
+    twin_trainer = timed_trainer(torch, engine)(m, tcfg, impl="xla",
+                                                device="cuda")
+    twin, hist_x = twin_trainer.fit(*loaders(), state=twin, epochs=epochs)
+    peak_x = torch.cuda.max_memory_allocated()
+    step_ms_x = twin_trainer.step_ms()
+    losses_x = [x for h in hist_x for x in h.step_losses]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(losses, losses_x))
+    log(f"[{tag}] impl=xla from the same weights, batches and dropout seed: "
+        "step losses " + ", ".join(f"{x:.6f}" for x in losses_x)
+        + f"; max relative loss difference {loss_rel:.2e} (bound "
+        f"{DROP_LOSS_TOL:g}); step ms median after the first "
+        f"{statistics.median(step_ms_x[1:]):.2f}; peak memory "
+        f"{peak_x / 2**30:.2f} GiB")
+
+    report[tag] = dict(
+        config=exp.name, impl=impl, params=n_params, batch=batch, rows=rows,
+        dropout=m.dropout, rdrop=dup, steps=n_steps, eval_forwards=n_eval,
+        step_losses=losses, step_losses_xla=losses_x,
+        epochs=[dataclasses.asdict(h) for h in hist],
+        epochs_xla=[dataclasses.asdict(h) for h in hist_x],
+        step_ms=step_ms, step_ms_xla=step_ms_x, step_ms_median=median,
+        step_ms_median_xla=statistics.median(step_ms_x[1:]),
+        samples_per_s=batch / median * 1e3, rows_per_s=rows / median * 1e3,
+        fit_wall_s=wall_s, peak_bytes=peak, peak_bytes_xla=peak_x,
+        launches=launches, launches_by_variant=by_variant,
+        expected_launches=want, grad_err=grad_err,
+        max_grad_rel_l2=max_grad_err, max_grad_rel_l2_unpinned=unpinned,
+        routing_flips=flips, routings=routes, max_loss_rel_err=loss_rel)
+    if not (len(losses) == len(losses_x) == n_steps == 8
+            and np.isfinite(losses + losses_x).all()):
+        raise AssertionError(f"step losses {losses} / {losses_x}")
+    if launches != want or by_variant != want_by_variant:
+        raise AssertionError(f"launches {launches} {by_variant}, expected "
+                             f"{want} {want_by_variant}")
+    if (flips["pool"] > MT_POOL_FLIP_SHARE * routes["pool"]
+            or flips["relu"] > RF_RELU_FLIP_SHARE * routes["relu"]):
+        raise AssertionError(f"the {impl} and xla forwards route {flips} of "
+                             f"{routes} pooled columns and ReLU inputs "
+                             "differently: more than rounding can move")
+    if max_grad_err > DROP_GRAD_TOL:
+        raise AssertionError(f"step-1 gradients disagree with impl='xla': "
+                             f"relative L2 {max_grad_err:.3e}")
+    if loss_rel > DROP_LOSS_TOL:
+        raise AssertionError(f"losses disagree with impl='xla': {loss_rel:.3e}")
+    try:
+        report[tag + "_profile"] = {
+            impl + "_step": profile_breakdown(
+                torch, lambda: trainer.train_step(state, first)),
+            "xla_step": profile_breakdown(
+                torch, lambda: twin_trainer.train_step(twin, first))}
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        report[tag + "_profile"] = "not measured: the profiler failed"
+        log("[profile] not measured: the profiler failed")
+    return launches
+
+
+def phase_train_ren_mme(torch, report):
+    """The ren_mme training slice: dropout 0.1 and R-Drop at
+    impl="pallas_fused", where active dropout routes every minus block to
+    scored_fwd with the plain epilogue (and the scored_bwd pair in the
+    backward), and the eval passes (dropout inactive) to fused_block; all
+    18 blocks terminal (no S_prev, no S)."""
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+
+    exp = configs.get("ren_mme")
+    m, tcfg = exp.model, exp.train
+    if (tcfg.batch_size, tcfg.compute_dtype, tcfg.optimizer, tcfg.rdrop_kl,
+            m.dim, m.n_heads, m.n_layers, m.dropout, m.unify, m.head) != (
+            REN_PAIRS, "float32", "adamw", True, 128, REN_HEADS, 1, 0.1,
+            "linear_ln", "concat_trans"):
+        raise AssertionError(f"unexpected config {exp}")
+
+    def expected(n_steps, n_eval):
+        want = {"fused_block": 18 * n_eval, "scored_fwd": 18 * n_steps,
+                "scored_bwd_dq": 18 * n_steps, "scored_bwd_dkv": 18 * n_steps}
+        return want, expected_variants(want, {(False, False): 1})
+
+    launches = train_against_xla(
+        torch, report, tag="train_ren_mme", exp=exp, impl="pallas_fused",
+        batch=REN_PAIRS, n_train=REN_N_TRAIN, n_valid=REN_N_VALID,
+        epochs=REN_EPOCHS, kernels=fb.KERNELS + pa.KERNELS, expected=expected,
+        prepare=lambda model: spread_ln(torch, [model], seed=97))
+    if report["train_ren_mme"]["params"] != REN_PARAMS:
+        raise AssertionError("ren_mme parameter count")
+    return launches
+
+
+def phase_train_robot(torch, report):
+    """The robot_demo training slice: dropout 0.1, gates set, at
+    impl="pallas": scored_fwd in every forward and the scored_bwd pair in
+    every backward, block 0 of a stream (no S_prev, emits S) and block 1
+    (reads S_prev, emits none) split evenly."""
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+
+    exp = configs.get("robot_demo")
+    m, tcfg = exp.model, exp.train
+    if (tcfg.batch_size, tcfg.compute_dtype, tcfg.optimizer, m.dim,
+            m.n_heads, m.n_layers, m.dropout, m.head) != (
+            ROBOT_BATCH, "float32", "adamw", 192, ROBOT_HEADS, 2, 0.1,
+            "grid_only"):
+        raise AssertionError(f"unexpected config {exp}")
+
+    def expected(n_steps, n_eval):
+        want = {"scored_fwd": 18 * (n_steps + n_eval),
+                "scored_bwd_dq": 18 * n_steps, "scored_bwd_dkv": 18 * n_steps}
+        return want, expected_variants(want, {v: 0.5 for v in MAIN_VARIANTS})
+
+    launches = train_against_xla(
+        torch, report, tag="train_robot", exp=exp, impl="pallas",
+        batch=ROBOT_BATCH, n_train=ROBOT_N_TRAIN, n_valid=ROBOT_N_VALID,
+        epochs=ROBOT_EPOCHS, kernels=pa.KERNELS, expected=expected,
+        prepare=lambda model: set_gates(torch, [model]))
+    if report["train_robot"]["params"] != ROBOT_PARAMS:
+        raise AssertionError("robot_demo parameter count")
+    return launches
+
+
+def phase_train_rencecps(torch, report):
+    """The rencecps training slice: the concat_linear head at dim 2304 (no
+    grid, no attention, no dropout site), trained by the port's Trainer for
+    RC_EPOCHS epochs at batch 64 with every kernel's count held at 0; the
+    step-1 gradients on the card against the port's own CPU run of the same
+    step, and one profiled step."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+    from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("rencecps")
+    m, tcfg = exp.model, exp.train
+    if (tcfg.batch_size, tcfg.optimizer, m.dim, m.head) != (
+            RC_BATCH, "adamw", 2304, "concat_linear"):
+        raise AssertionError(f"unexpected config {exp}")
+    train = synthetic_dataset(exp.name, m, RC_N_TRAIN, seed=0)
+    valid = synthetic_dataset(exp.name, m, RC_N_VALID, seed=1)
+
+    def loaders():
+        return (Batcher(train, RC_BATCH, seed=1),
+                Batcher(valid, RC_BATCH, shuffle=False))
+
+    state = engine.init_state(m, tcfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[rencecps] {exp.name}: dim={m.dim} head={m.head} params={n_params} "
+        f"batch={RC_BATCH} f32, optimizer={tcfg.optimizer}; {RC_N_TRAIN} train"
+        f" / {RC_N_VALID} valid synthetic pairs, {RC_EPOCHS} epochs")
+    if n_params != RC_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {RC_PARAMS}")
+
+    # step-1 gradients on the card against the same step on the CPU
+    first = next(iter(loaders()[0]()))
+    cpu = build_model(m, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
+    grads = {}
+    for dev, model in (("cuda", state.model), ("cpu", cpu)):
+        model.train()
+        engine.batch_loss(model, tcfg, to_device(first, dev)).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    grad_err = gradient_errors(grads["cuda"], grads["cpu"])
+    max_grad_err = max(e["rel_l2"] for e in grad_err.values())
+    log(f"[rencecps] step-1 gradients cuda vs cpu, {len(grad_err)} tensors, "
+        "relative L2 per tensor: " + ", ".join(
+            f"{n}={e['rel_l2']:.2e}" for n, e in grad_err.items()))
+
+    kernels = fa.KERNELS + pa.KERNELS + fb.KERNELS
+    for kern in kernels:
+        kern.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = timed_trainer(torch, engine)(m, tcfg, device="cuda")
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(*loaders(), state=state, epochs=RC_EPOCHS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = trainer.step_ms()
+    median = statistics.median(step_ms[1:])
+    losses = [x for h in hist for x in h.step_losses]
+    n_steps = sum(h.steps for h in hist)
+    log("[rencecps] step losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log("[rencecps] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
+        + f"; median after the first {median:.2f} ms = "
+        f"{RC_BATCH / median * 1e3:.1f} samples/s; fit wall {wall_s:.2f} s; "
+        f"peak memory {peak / 2**30:.3f} GiB; kernel launches {launches}")
+    report["train_rencecps"] = dict(
+        config=exp.name, params=n_params, batch=RC_BATCH, steps=n_steps,
+        step_losses=losses, epochs=[dataclasses.asdict(h) for h in hist],
+        step_ms=step_ms, step_ms_median=median,
+        samples_per_s=RC_BATCH / median * 1e3, fit_wall_s=wall_s,
+        peak_bytes=peak, launches=launches, grad_err=grad_err,
+        max_grad_rel_l2=max_grad_err)
+    if not (len(losses) == n_steps == 8 and np.isfinite(losses).all()):
+        raise AssertionError(f"step losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"rencecps launched a kernel: {launches}")
+    if max_grad_err > RC_GRAD_TOL:
+        raise AssertionError(f"step-1 gradients on the card disagree with "
+                             f"the CPU: relative L2 {max_grad_err:.3e}")
+    batch = to_device(first, "cuda")
+    try:
+        report["train_rencecps_profile"] = profile_breakdown(
+            torch, lambda: trainer.train_step(state, batch))
+    except Exception:   # a measurement only: the checks above stand
+        traceback.print_exc()
+        report["train_rencecps_profile"] = "not measured: the profiler failed"
+        log("[profile] not measured: the profiler failed")
+    return launches
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
@@ -2611,7 +3041,10 @@ def main() -> int:
                       ("train_realformer", phase_train_realformer),
                       ("serve_paragraph", phase_serve_paragraph),
                       ("train_fused", phase_train_fused),
-                      ("serve_ren_mme", phase_serve_ren_mme)):
+                      ("serve_ren_mme", phase_serve_ren_mme),
+                      ("train_ren_mme", phase_train_ren_mme),
+                      ("train_robot", phase_train_robot),
+                      ("train_rencecps", phase_train_rencecps)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -2668,7 +3101,9 @@ def main() -> int:
     summ = summaries["scored_fwd"]
     by_path = {"serve_robot": launches["serve_robot"],
                "train_realformer": launches["train_realformer"]["scored_fwd"],
-               "serve_paragraph": launches["serve_paragraph"]}
+               "serve_paragraph": launches["serve_paragraph"],
+               "train_ren_mme": launches["train_ren_mme"]["scored_fwd"],
+               "train_robot": launches["train_robot"]["scored_fwd"]}
     kernels.append({
         "name": "scored_fwd", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_fwd.cu",
@@ -2693,7 +3128,9 @@ def main() -> int:
         by_path = {"train_realformer": launches["train_realformer"][name],
                    "train_fused": launches["train_fused"]["main"][name],
                    "train_fused_chained":
-                       launches["train_fused"]["chained"][name]}
+                       launches["train_fused"]["chained"][name],
+                   "train_ren_mme": launches["train_ren_mme"][name],
+                   "train_robot": launches["train_robot"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_bwd.cu",
@@ -2724,7 +3161,8 @@ def main() -> int:
     by_path = {"train_fused": launches["train_fused"]["main"]["fused_block"],
                "train_fused_chained":
                    launches["train_fused"]["chained"]["fused_block"],
-               "serve_ren_mme": launches["serve_ren_mme"]}
+               "serve_ren_mme": launches["serve_ren_mme"],
+               "train_ren_mme": launches["train_ren_mme"]["fused_block"]}
     train = summ["train"]
     kernels.append({
         "name": "fused_block", "route": "cuda",

@@ -2,8 +2,10 @@
 
   train <config> [--epochs E] [--n-train N] [--n-test M]
         [--impl xla|flash|pallas|pallas_fused] [--device cpu] [--set K=V]
-        Train one member with the port's Trainer on synthetic data and
-        print one JSON line per epoch.
+        Train one member of any of the five families with the port's
+        Trainer on synthetic data and print one JSON line per epoch; under
+        the config's R-Drop (`ren_mme`) both loaders duplicate every
+        sample into adjacent rows.
   serve [<config>] [--concurrent N] [--device cpu]
         [--impl xla|flash|pallas|pallas_fused] [--thresholds T1,T2,...]
         Serve a 4-member ensemble of seeded random members on synthetic
@@ -14,8 +16,7 @@
         paragraph clip by clip with its recurrence state on the device; it
         has no thresholds of its own, so it needs --thresholds.
         `serve ren_mme --impl pallas_fused` serves Ren-MME through the
-        whole-block kernel; `train ren_mme` raises: its dropout and R-Drop
-        are not ported yet.
+        whole-block kernel.
 
 Runs on the GPU unless `--device cpu` is given.
 """
@@ -114,11 +115,14 @@ def cmd_train(args):
               flush=True)
 
     trainer = Trainer(exp, exp.train, impl=impl, device=args.device, log_cb=log)
+    dup = exp.train.rdrop_kl
     print(f"(training {exp.name} on {trainer.device}, impl={impl}, "
-          f"dtype={exp.train.compute_dtype}, {len(train)} train / "
-          f"{len(valid)} valid synthetic samples)", file=sys.stderr)
-    return trainer.fit(Batcher(train, bs, seed=1),
-                       Batcher(valid, bs, shuffle=False), epochs=args.epochs)
+          f"dtype={exp.train.compute_dtype}, dropout={exp.model.dropout}, "
+          f"R-Drop={dup}, {len(train)} train / {len(valid)} valid synthetic "
+          "samples)", file=sys.stderr)
+    return trainer.fit(Batcher(train, bs, duplicate=dup, seed=1),
+                       Batcher(valid, bs, duplicate=dup, shuffle=False),
+                       epochs=args.epochs)
 
 
 def cmd_serve(args):

@@ -2,9 +2,9 @@
 
 The port keeps its own copy of the configuration dataclasses and of the
 registered families, field for field the same as the JAX package's, so a
-config name means the same model on either side.  Registered so far: the
-`mosei_trans` family, `mosei_realformer`, `ren_mme` and `robot_demo`;
-`rencecps` arrives with the slice that ports its head.
+config name means the same model on either side: the five reference
+families (`mosei_trans` and its scale presets, `mosei_realformer`,
+`rencecps`, `ren_mme` and `robot_demo`).
 """
 
 from __future__ import annotations
@@ -132,6 +132,27 @@ def mosei_realformer() -> ExperimentConfig:
     )
 
 
+def rencecps() -> ExperimentConfig:
+    """Ren-CECps Chinese-text 8-emotion classifier (rencecps/run.py)."""
+    return ExperimentConfig(
+        name="rencecps",
+        model=ModelConfig(
+            l_dim=768 * 3, v_dim=0, a_dim=0, l_len=2, v_len=0, a_len=0,
+            dim=768 * 3, dropout=0.1,
+            block="minus", unify="linear", n_emotions=9, head="concat_linear",
+        ),
+        train=TrainConfig(
+            batch_size=64, lr=1e-3, epochs=99, grad_clip=1.0,
+            optimizer="adamw", plateau_patience=6, early_stop=15,
+            save_guard=0.009, n_folds=4, fold_size=6720,
+        ),
+        # rencecps/run.py:288-295
+        thresholds=(-0.7, -0.8, -0.3, -0.2, -0.2, -0.8, -0.8, -0.9),
+        emotion_names=("love", "anxi", "sorr", "joyy", "expe", "hate", "ange", "surp"),
+        emotion_index=(0, 1, 2, 3, 4, 5, 6, 7),
+    )
+
+
 def ren_mme() -> ExperimentConfig:
     """Ren-MME TV-drama multimodal 9-emotion trainer (Ren-MME/run.py)."""
     return ExperimentConfig(
@@ -216,6 +237,7 @@ def _mosei_trans_scaled(point: str) -> ExperimentConfig:
 REGISTRY = {
     "mosei_trans": mosei_trans,
     "mosei_realformer": mosei_realformer,
+    "rencecps": rencecps,
     "ren_mme": ren_mme,
     "robot_demo": robot_demo,
     **{f"mosei_trans_{p}": (lambda p=p: _mosei_trans_scaled(p))

@@ -5,13 +5,14 @@ package).
     with one vectorised gather per key; the final partial batch is
     zero-padded to full size and carries a `sample_weight` vector, so every
     step sees one shape and the weighted loss equals the reference's mean
-    over the unpadded batch;
+    over the unpadded batch; with `duplicate=True` (Ren-MME's R-Drop,
+    Ren-MME/run.py:143-146) each sample appears twice, in adjacent rows;
   * `prefetch_to_device` assembles batches in a background thread, stages
     them in pinned host memory and copies them to the GPU with non-blocking
     copies on a side stream, one or two batches ahead of the consumer.
 
-Not ported yet: the wire-compression dtypes (`cast_for_transfer`), R-Drop
-duplicates and per-epoch resampling.
+Not ported yet: the wire-compression dtypes (`cast_for_transfer`),
+per-epoch resampling, `pad_final=False` and `drop_remainder`.
 """
 
 from __future__ import annotations
@@ -27,15 +28,19 @@ import torch
 class Batcher:
     """A zero-arg callable: each call is one epoch's iterator of numpy batch
     dicts, shuffled by a generator seeded once at construction (so epochs
-    differ and runs repeat)."""
+    differ and runs repeat).  With `duplicate`, a batch holds
+    2 × `batch_size` rows, each sample in two adjacent ones, and padding
+    rows are zero with `sample_weight` 0."""
 
     def __init__(self, samples: Sequence[Dict[str, np.ndarray]],
-                 batch_size: int, *, shuffle: bool = True, seed: int = 0):
+                 batch_size: int, *, shuffle: bool = True,
+                 duplicate: bool = False, seed: int = 0):
         self.samples = list(samples)
         if not self.samples:
             raise ValueError("empty sample list")
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.duplicate = duplicate
         self._rng = np.random.default_rng(seed)
         self._stacked = {k: np.stack([s[k] for s in self.samples])
                          for k in self.samples[0]}
@@ -44,7 +49,9 @@ class Batcher:
         order = np.arange(len(self.samples))
         if self.shuffle:
             self._rng.shuffle(order)
-        bs = self.batch_size
+        if self.duplicate:
+            order = np.repeat(order, 2)
+        bs = self.batch_size * (2 if self.duplicate else 1)
         for start in range(0, len(order), bs):
             idx = order[start:start + bs]
             actual = len(idx)
@@ -62,6 +69,8 @@ class Batcher:
             yield batch
 
     def steps_per_epoch(self) -> int:
+        """Batches per epoch: with `duplicate`, 2N rows in batches of
+        2 × batch_size, the same count."""
         return -(-len(self.samples) // self.batch_size)
 
 

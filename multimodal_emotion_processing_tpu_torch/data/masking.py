@@ -5,6 +5,8 @@ inf/nan become -71; three summary frames (per-feature max, min, mean over
 the raw sequence) are prepended; a long sequence (len >= m_len - 3) gives
 TWO crops, head- and tail-anchored, both carrying the summary frames; a
 short one is right-padded with zeros and masked over its len + 3 frames.
+`summary_masking_bert` is its `is_bert=True` branch (cmu-mosei/run.py:
+111-130).
 
 The RealFormer paragraph model's masking (others/realformer.py:72-82,
 `simple_masking`): right-pad or truncate to a fixed length, a 1/0 mask, and
@@ -53,6 +55,35 @@ def summary_masking(
         mask = np.concatenate(
             [np.ones(len(m) + 3, np.float32), np.zeros(m_len - len(m) - 3, np.float32)]
         )
+        x = np.concatenate([summary, m], axis=0)
+        x = np.concatenate([x, np.zeros((m_len,) + m.shape[1:], np.float32)], axis=0)[:m_len]
+        feats.append(x)
+        masks.append(mask)
+    return feats, masks
+
+
+def summary_masking_bert(
+    m: np.ndarray, m_len: int
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """The reference's `is_bert=True` branch (cmu-mosei/run.py:111-130):
+    the summary frames over tokens[1:-1] (CLS and SEP left out); a long
+    input gives head- and tail-anchored crops that keep CLS right after the
+    summary frames and SEP last.  No reference config calls it (every call
+    site passes is_bert=False); it is part of the masking API."""
+    m = np.asarray(m, dtype=np.float32)
+    inner = m[1:-1]
+    summary = np.stack([inner.max(axis=0), inner.min(axis=0), inner.mean(axis=0)])
+    feats, masks = [], []
+    if len(m) > m_len - 5:
+        full_mask = np.ones(m_len, dtype=np.float32)
+        head = np.concatenate([summary, m[0:1], m[1:m_len - 4], m[-1:]], axis=0)
+        tail = np.concatenate([summary, m[0:1], m[len(m) - m_len + 4:-1], m[-1:]],
+                              axis=0)
+        feats.extend([head, tail])
+        masks.extend([full_mask, full_mask])
+    else:
+        mask = np.concatenate(
+            [np.ones(len(m) + 3, np.float32), np.zeros(m_len - len(m) - 3, np.float32)])
         x = np.concatenate([summary, m], axis=0)
         x = np.concatenate([x, np.zeros((m_len,) + m.shape[1:], np.float32)], axis=0)[:m_len]
         feats.append(x)

@@ -1,5 +1,4 @@
-"""Shape- and dtype-faithful synthetic requests for the `mosei_trans` family,
-`mosei_realformer`, `ren_mme` and `robot_demo`.
+"""Shape- and dtype-faithful synthetic requests for the five families.
 
 `mosei_trans` samples carry the real loader's quirks: variable raw lengths
 (both the pad and the two-crop paths of summary masking), inf/nan in audio,
@@ -7,10 +6,11 @@ and `no_name` pairs whose previous utterance is all zeros with an all-zero
 mask (cmu-mosei/run.py:154-198).  `mosei_realformer` samples are P-clip
 paragraph windows whose clips past a random count are all zero, with a
 per-clip validity mask `clip_mask`.  `ren_mme` samples are (pre, pro)
-utterance pairs padded or truncated to the fixed lengths.  `robot_demo`
-samples fill one of the three
-visual resolution slots and leave the other two zero.  The same seed gives
-the same samples as the JAX package's generator.
+utterance pairs padded or truncated to the fixed lengths.  `rencecps`
+samples are (previous, current) pairs of flattened BERT features, the
+previous one all zero for a `no_name` pair.  `robot_demo` samples fill one
+of the three visual resolution slots and leave the other two zero.  The
+same seed gives the same samples as the JAX package's generator.
 """
 
 from __future__ import annotations
@@ -109,6 +109,20 @@ def ren_mme_sample(rng, m) -> Dict[str, np.ndarray]:
     return sample
 
 
+def rencecps_sample(rng, m, *, no_name_prob: float = 0.1) -> Dict[str, np.ndarray]:
+    """(previous, current) flattened 2304-d BERT features
+    (rencecps/run.py:111-127); a `no_name` previous utterance is all zero,
+    and a sample without any label takes the neutral one (index 8,
+    rencecps/run.py:48-49)."""
+    prev = (np.zeros(m.dim, np.float32) if rng.random() < no_name_prob
+            else rng.standard_normal(m.dim).astype(np.float32))
+    cur = rng.standard_normal(m.dim).astype(np.float32)
+    label = (rng.random(9) > 0.7).astype(np.int32)
+    if label.sum() == 0:
+        label[8] = 1
+    return {"feat": np.stack([prev, cur]), "label": label}
+
+
 def robot_sample(rng, m) -> Dict[str, np.ndarray]:
     """Robot-demo sample: one active visual resolution slot, others zero
     (robot_demo.py:63-112)."""
@@ -130,6 +144,7 @@ def robot_sample(rng, m) -> Dict[str, np.ndarray]:
 
 SAMPLERS = {"mosei_trans": mosei_pair_sample,
             "mosei_realformer": realformer_paragraph_sample,
+            "rencecps": rencecps_sample,
             "ren_mme": ren_mme_sample,
             "robot_demo": robot_sample}
 

@@ -8,8 +8,9 @@ included, as the JAX package's `to_reference_state_dict`, kept here as the
 port's own copy), so `model.load_state_dict(from_jax_params(p, cfg))` loads
 JAX weights as they are.  Ported families: `concat_trans` (minus blocks,
 the linear unify, or Ren-MME's `linear_ln` unify with its names: the
-unify's shared `norm1`, the blocks' `norm2`, the top `norm3`), `grid_only`
-(RealFormer blocks, multi-resolution conv unify, position embeddings) and
+unify's shared `norm1`, the blocks' `norm2`, the top `norm3`),
+`concat_linear` (rencecps's grid-free head), `grid_only` (RealFormer
+blocks, multi-resolution conv unify, position embeddings) and
 `state_transfer` (RealFormer blocks, the bias-free conv unify, position
 embeddings, the feature head).
 """
@@ -109,17 +110,23 @@ def _linear(p, key: str, out: Dict) -> None:
 def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
     """JAX-package params (a nested dict of arrays, numpy or jax) of a
     ported family (`concat_trans` with minus blocks and the linear or
-    `linear_ln` unify, `grid_only` with RealFormer blocks, the
-    conv_multires unify and position embeddings, or `state_transfer` with
-    RealFormer blocks, the conv unify and position embeddings) -> a
-    reference-keyed state dict of CPU float32 tensors."""
+    `linear_ln` unify, `concat_linear`, `grid_only` with RealFormer
+    blocks, the conv_multires unify and position embeddings, or
+    `state_transfer` with RealFormer blocks, the conv unify and position
+    embeddings) -> a reference-keyed state dict of CPU float32 tensors."""
     cfg = getattr(cfg, "model", cfg)
     if not is_ported(cfg):
         raise NotImplementedError(
             f"head {cfg.head!r} / block {cfg.block!r} / unify {cfg.unify!r} "
             "is not ported yet")
     out: Dict[str, np.ndarray] = {}
-    if cfg.head == "grid_only":
+    if cfg.head == "concat_linear":
+        _linear(params["intensity"], "intensity", out)
+        _linear(params["stimulation"], "stimulation", out)
+        out["trans"] = _arr(params["trans"])
+        _ln(params["norm"], "norm", out)
+        _linear(params["out"], "out", out)
+    elif cfg.head == "grid_only":
         _grid(params, "", cfg, out)
         _linear(params["classifier"], "classifier", out)
     elif cfg.head == "state_transfer":

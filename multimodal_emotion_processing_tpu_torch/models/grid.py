@@ -21,7 +21,12 @@ Three ported variants, by the head on the pooled feature (`out`, as
   bias, robot_demo.py:377-441);
 - "feature": the paragraph model's grid (conv unify, position embeddings,
   RealFormer blocks, only each stream's last block collected, then
-  ReLU(LayerNorm(Linear_{6·dim→dim})), others/realformer.py:211-264).
+  Drop(ReLU(LayerNorm(Linear_{6·dim→dim}))), others/realformer.py:211-264).
+
+In training with dropout > 0 the dropout masks come from the one
+`torch.Generator` passed to `forward`, drawn in `apply_grid`'s order: the
+unify's sites, then each stream's blocks in `STREAMS` order, layer by
+layer, then the feature head's.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ from torch import nn
 from ..ops.pooling import mean_max_pool
 from ..utils import initializers as init
 from .layers import (MinusBlock, PositionEmbedding, RealformerBlock,
-                     UnifyConv, UnifyConvMultires, UnifyLinear,
-                     minus_norm_names)
+                     UnifyConv, UnifyConvMultires, UnifyLinear, active_rate,
+                     dropout, minus_norm_names)
 
 # (stream key, query modality, key/value modality) — reference order.
 STREAMS = (
@@ -68,10 +73,11 @@ class Grid(nn.Module):
                 shared_ln=cfg.unify == "linear_ln")
         elif cfg.unify == "conv":
             self.unify_dimension = UnifyConv(cfg.l_dim, cfg.v_dim, cfg.a_dim,
-                                             cfg.dim)
+                                             cfg.dim, dropout=cfg.dropout)
         elif cfg.unify == "conv_multires":
             self.unify_dimension = UnifyConvMultires(
-                cfg.l_dim, cfg.v_dims_multires, cfg.a_dim, cfg.dim)
+                cfg.l_dim, cfg.v_dims_multires, cfg.a_dim, cfg.dim,
+                dropout=cfg.dropout)
         else:
             raise NotImplementedError(f"unify {cfg.unify!r} is not ported yet")
         self.positions = cfg.use_position_embedding
@@ -84,7 +90,8 @@ class Grid(nn.Module):
                                  norm=minus_norm_names(cfg)[0])
                       for _ in range(9 * cfg.n_layers))
         elif cfg.block == "realformer":
-            blocks = (RealformerBlock(cfg.dim, cfg.n_heads, cfg.ffn)
+            blocks = (RealformerBlock(cfg.dim, cfg.n_heads, cfg.ffn,
+                                      dropout=cfg.dropout)
                       for _ in range(9 * cfg.n_layers))
         else:
             raise NotImplementedError(f"block {cfg.block!r} is not ported yet")
@@ -112,17 +119,14 @@ class Grid(nn.Module):
         else:
             init.linear_(self.classifier, generator)
 
-    def forward(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla"):
+    def forward(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla",
+                generator=None):
         """l/v/a (B, len, dm) and masks (B, len) -> logits (B, n_emotions),
         or the feature (B, dim) for `out="feature"`; with the
         `conv_multires` unify, v is the tuple (v256, v512, v1024).
-        In training mode a config with dropout > 0 raises: dropout is not
-        ported, and training without it would be another model."""
-        if self.training and self.dropout > 0:
-            raise NotImplementedError(
-                f"dropout {self.dropout} is not ported yet: this config "
-                "cannot be trained by the port")
-        l, v, a = self.unify_dimension(l, v, a)
+        `generator` (a `torch.Generator` on the inputs' device) feeds every
+        dropout site; in training mode with dropout > 0 it is required."""
+        l, v, a = self.unify_dimension(l, v, a, generator=generator)
         src = {"l": l, "v": v, "a": a}
         if self.positions:
             src = {m: getattr(self, attr)(src[m]) for m, attr in POSITIONS}
@@ -137,7 +141,7 @@ class Grid(nn.Module):
                 # the stream's last block has no consumer for its scores
                 q, scores = self.multimodal_blocks[self.n_layers * s + i](
                     q, src[kvm], src[kvm], masks[kvm], scores, impl=impl,
-                    emit_scores=i < self.n_layers - 1)
+                    emit_scores=i < self.n_layers - 1, generator=generator)
                 if per_layer or i == self.n_layers - 1:
                     collected[TARGET[name]].append(q)
         lc = torch.cat(collected["l"], dim=2)
@@ -147,7 +151,8 @@ class Grid(nn.Module):
         pooled = mean_max_pool(torch.cat([lc, ac, vc], dim=1))
         if per_layer:
             return self.classifier(pooled)
-        # Drop(ReLU(LN(FC(x)))) (others/realformer.py:263); dropout not ported
-        return torch.relu(init.layer_norm(self.fully_connected(pooled),
-                                          self.normalization.weight,
-                                          self.normalization.bias))
+        # Drop(ReLU(LN(FC(x)))) (others/realformer.py:263)
+        x = torch.relu(init.layer_norm(self.fully_connected(pooled),
+                                       self.normalization.weight,
+                                       self.normalization.bias))
+        return dropout(x, active_rate(self), generator)

@@ -1,4 +1,4 @@
-"""Model heads.  Ported so far:
+"""Model heads, one for each reference family:
 
 - the rank-3 emotion-transition head (Concat_Trans, cmu-mosei/run.py:321-339,
   and Ren-MME's Base_model, Ren-MME/run.py:273-292, the same head under other
@@ -7,6 +7,11 @@
       last = intensity_grid(slot 0);  this = stimulation_grid(slot 1)
       fused[b, h] = Σ_{g,e} this[b,g]·last[b,e]·trans[g,e,h]
       out = Linear([this ; LN(fused)])
+
+- the text-only variant of the same head (Concat_Linear,
+  rencecps/run.py:130-148): two bias-free Linears over the (previous,
+  current) BERT features take the grids' place; it has no dropout site,
+  as in JAX, whose head takes no rng;
 
 - the grid-only classifier of the robot demo (Multi_class,
   robot_demo.py:377-441): one grid whose classifier has a bias;
@@ -17,6 +22,10 @@
   feats), and a gated recurrence runs over the clips:
 
       α = σ(feats_t + feats_{t−1});  out_t = (1−α)·out_t1 + α·tanh(out_{t−1}·T)
+
+Every head's `forward(batch, *, impl, generator)` passes the dropout
+`torch.Generator` down in JAX's order: the intensity grid (slot 0) before
+the stimulation grid, the feature grid before its head.
 """
 
 from __future__ import annotations
@@ -68,7 +77,7 @@ class ConcatTrans(nn.Module):
         self.norm.bias.zero_()
         init.linear_(self.out, generator)
 
-    def forward(self, batch, *, impl: str = "xla"):
+    def forward(self, batch, *, impl: str = "xla", generator=None):
         """batch: l/v/a (B, 2, len, dm), *_mask (B, 2, len).  Returns logits
         (B, n_emotions)."""
 
@@ -76,10 +85,47 @@ class ConcatTrans(nn.Module):
             return grid(batch["l"][:, slot], batch["v"][:, slot],
                         batch["a"][:, slot], batch["l_mask"][:, slot],
                         batch["v_mask"][:, slot], batch["a_mask"][:, slot],
-                        impl=impl)
+                        impl=impl, generator=generator)
 
         last_feat = run(self.intensity, 0)
         this_feat = run(self.stimulation, 1)
+        fused = bilinear_transition(self.trans, last_feat, this_feat)
+        normed = init.layer_norm(fused, self.norm.weight, self.norm.bias)
+        return self.out(torch.cat([this_feat, normed], dim=1))
+
+
+class ConcatLinear(nn.Module):
+    """`concat_linear` (Concat_Linear, rencecps/run.py:130-148): bias-free
+    Linears `intensity` (previous utterance) and `stimulation` (current)
+    from dim to n_emotions, the bilinear transition, LayerNorm `norm` and
+    `out`.  No dropout site: JAX's head takes no rng, whatever the
+    config's rate says."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        e = cfg.n_emotions
+        self.intensity = nn.Linear(cfg.dim, e, bias=False)
+        self.stimulation = nn.Linear(cfg.dim, e, bias=False)
+        self.trans = nn.Parameter(torch.empty(e, e, e))
+        self.norm = nn.LayerNorm(e, eps=init.LN_EPS)
+        self.out = nn.Linear(2 * e, e)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init.linear_(self.intensity, generator)
+        init.linear_(self.stimulation, generator)
+        init.uniform01_(self.trans, generator)
+        self.norm.weight.fill_(1.0)
+        self.norm.bias.zero_()
+        init.linear_(self.out, generator)
+
+    def forward(self, batch, *, impl: str = "xla", generator=None):
+        """batch: feat (B, 2, dim), the (previous, current) features.
+        Returns logits (B, n_emotions); `impl` and `generator` are unused
+        (no attention, no dropout site)."""
+        feat = batch["feat"]
+        last_feat = self.intensity(feat[:, 0])
+        this_feat = self.stimulation(feat[:, 1])
         fused = bilinear_transition(self.trans, last_feat, this_feat)
         normed = init.layer_norm(fused, self.norm.weight, self.norm.bias)
         return self.out(torch.cat([this_feat, normed], dim=1))
@@ -93,13 +139,13 @@ class GridOnly(Grid):
     def __init__(self, cfg):
         super().__init__(cfg, out="classifier_bias")
 
-    def forward(self, batch, *, impl: str = "xla"):
+    def forward(self, batch, *, impl: str = "xla", generator=None):
         """batch: l (B, Ll, l_dim), v256/v512/v1024 (B, Lv, d), a (B, La,
         a_dim) and *_mask.  Returns logits (B, n_emotions)."""
         return super().forward(
             batch["l"], (batch["v256"], batch["v512"], batch["v1024"]),
             batch["a"], batch["l_mask"], batch["v_mask"], batch["a_mask"],
-            impl=impl)
+            impl=impl, generator=generator)
 
 
 def state_transfer_recurrence(trans, prev_out, prev_feats, out_t1, feats):
@@ -127,15 +173,16 @@ class StateTransfer(nn.Module):
         init.linear_(self.classifier, generator)
         init.uniform01_(self.trans, generator)
 
-    def clip(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla"):
+    def clip(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla",
+             generator=None):
         """The per-clip half (`state_transfer_clip`): grid → feature →
         classifier, split into (out_t1, feats), each (N, E), for
         clip-flattened inputs (N, len, dm) and masks (N, len)."""
         cls = self.classifier(self.feature(l, v, a, l_mask, v_mask, a_mask,
-                                           impl=impl))
+                                           impl=impl, generator=generator))
         return cls[..., :self.n_emotions], cls[..., self.n_emotions:]
 
-    def forward(self, batch, *, impl: str = "xla"):
+    def forward(self, batch, *, impl: str = "xla", generator=None):
         """batch: l/v/a (B, P, len, dm), *_mask (B, P, len).  Returns the
         per-clip logits (B, P, E)."""
         b, plen = batch["l"].shape[:2]
@@ -145,7 +192,8 @@ class StateTransfer(nn.Module):
 
         out_t1, feats = self.clip(
             *(flat(batch[k]) for k in ("l", "v", "a", "l_mask", "v_mask",
-                                       "a_mask")), impl=impl)
+                                       "a_mask")), impl=impl,
+            generator=generator)
         out_t1 = out_t1.reshape(b, plen, -1)
         feats = feats.reshape(b, plen, -1)
         outs = [out_t1[:, 0]]

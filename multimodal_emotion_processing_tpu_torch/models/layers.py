@@ -20,6 +20,12 @@ Module attribute names follow the reference's state-dict keys
 `b`, `c`), so a reference or exported JAX state dict loads with
 `load_state_dict` as it is.  Weights keep torch's (out, in) layout, and
 the convs' (out, in, 1).
+
+Dropout has JAX's form and sites (`dropout`): the conv unifies after each
+projection, the minus block after `proj` and after its LayerNorm, the
+RealFormer block after `proj` and after the FFN; the Linear unify has
+none.  It is active in training mode with a rate > 0, and then every site
+draws its keep mask from the `torch.Generator` the caller passes down.
 """
 
 from __future__ import annotations
@@ -31,6 +37,38 @@ from torch import nn
 from ..ops.attention import scored_attention
 from ..ops.fused_block import fused_minus_block
 from ..utils import initializers as init
+
+
+def keep_mask(shape, keep: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """A bool mask of `shape` on `device`, each entry True with probability
+    `keep`: the one place the port draws dropout bits, from `generator`
+    alone (never the global generator)."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """JAX's dropout (`layers.dropout`): where a Bernoulli(1 − rate) keep
+    mask is set, x / keep, else 0; x itself at rate 0.  The division is by
+    keep as a tensor of x's dtype, so it is a true division on the card too
+    (a Python-scalar divisor becomes a product with 1 / keep there, one
+    rounding away from JAX's x / keep).  Callers pass rate 0 outside
+    training; an active site without a generator raises."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            f"dropout {rate} is active (training mode) and no torch.Generator "
+            "was passed: the port draws every dropout mask from one")
+    keep = 1.0 - rate
+    mask = keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(
+        mask, x / torch.full((), keep, dtype=x.dtype, device=x.device), 0.0)
+
+
+def active_rate(module: nn.Module) -> float:
+    """`module.dropout` in training mode, else 0."""
+    return module.dropout if module.training else 0.0
 
 
 def minus_norm_names(cfg):
@@ -62,7 +100,9 @@ class UnifyLinear(nn.Module):
             self.norm1.weight.fill_(1.0)
             self.norm1.bias.zero_()
 
-    def forward(self, l, v, a):
+    def forward(self, l, v, a, generator=None):
+        """No dropout site (JAX `apply_unify_linear`): `generator` is
+        unused."""
         outs = self.linguistic(l), self.visual(v), self.acoustic(a)
         if self.norm1 is None:
             return outs
@@ -77,11 +117,13 @@ def _pointwise(conv: nn.Conv1d, x):
 
 class UnifyConv(nn.Module):
     """The paragraph model's unify (`apply_unify_conv`): a bias-free
-    kernel-1 Conv1d per modality, applied position-wise.  Dropout is not
-    ported."""
+    kernel-1 Conv1d per modality, applied position-wise, each output
+    through dropout in the order l, v, a."""
 
-    def __init__(self, l_dim: int, v_dim: int, a_dim: int, dim: int):
+    def __init__(self, l_dim: int, v_dim: int, a_dim: int, dim: int, *,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.linguistic = nn.Conv1d(l_dim, dim, 1, bias=False)
         self.visual = nn.Conv1d(v_dim, dim, 1, bias=False)
         self.acoustic = nn.Conv1d(a_dim, dim, 1, bias=False)
@@ -90,19 +132,24 @@ class UnifyConv(nn.Module):
         for conv in (self.linguistic, self.visual, self.acoustic):
             init.linear_(conv, generator)
 
-    def forward(self, l, v, a):
-        return (_pointwise(self.linguistic, l), _pointwise(self.visual, v),
-                _pointwise(self.acoustic, a))
+    def forward(self, l, v, a, generator=None):
+        rate = active_rate(self)
+        return tuple(dropout(_pointwise(conv, x), rate, generator) for conv, x
+                     in ((self.linguistic, l), (self.visual, v),
+                         (self.acoustic, a)))
 
 
 class UnifyConvMultires(nn.Module):
     """The robot demo's unify (`apply_unify_conv_multires`): kernel-1 Conv1d
     with bias per input; the three visual resolution slots each map to
-    dim // 3 and concatenate in the order 256, 512, 1024.  Dropout is not
-    ported (inference only)."""
+    dim // 3 and concatenate in the order 256, 512, 1024.  Each of the five
+    outputs goes through dropout before the concat, in the order l, v256,
+    v512, v1024, a."""
 
-    def __init__(self, l_dim: int, v_dims, a_dim: int, dim: int):
+    def __init__(self, l_dim: int, v_dims, a_dim: int, dim: int, *,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         d3 = dim // 3
         self.linguistic = nn.Conv1d(l_dim, dim, 1)
         self.visual_256 = nn.Conv1d(v_dims[0], d3, 1)
@@ -115,11 +162,15 @@ class UnifyConvMultires(nn.Module):
                      self.visual_1024, self.acoustic):
             init.linear_(conv, generator)
 
-    def forward(self, l, v, a):
+    def forward(self, l, v, a, generator=None):
         """l (B, Ll, l_dim), v a tuple (v256, v512, v1024), a (B, La, a_dim)."""
-        v = torch.cat([_pointwise(conv, x) for conv, x in zip(
-            (self.visual_256, self.visual_512, self.visual_1024), v)], dim=-1)
-        return _pointwise(self.linguistic, l), v, _pointwise(self.acoustic, a)
+        rate = active_rate(self)
+        l, v256, v512, v1024, a = (
+            dropout(_pointwise(conv, x), rate, generator) for conv, x in (
+                (self.linguistic, l), (self.visual_256, v[0]),
+                (self.visual_512, v[1]), (self.visual_1024, v[2]),
+                (self.acoustic, a)))
+        return l, torch.cat([v256, v512, v1024], dim=-1), a
 
 
 class PositionEmbedding(nn.Module):
@@ -138,12 +189,12 @@ class PositionEmbedding(nn.Module):
 
 class MinusBlock(nn.Module):
     """`apply_block_minus`: no Q/K/V projections; after attention,
-    q' = LN(Linear_{2d→d}([q ; proj(ctx)])).  Gradients flow through every
-    part, the attention kernels included.  The LayerNorm is `norm1`, or
-    `norm2` under Ren-MME's names (`norm=`).  Dropout is not ported: `Grid`
-    refuses to train a config with dropout > 0; `dropout` only decides, as
-    in JAX, whether `impl="pallas_fused"` may run the whole block in one
-    kernel (not while dropout is active in training)."""
+    q' = Drop(LN(Linear_{2d→d}([q ; Drop(proj(ctx))]))).  Gradients flow
+    through every part, the attention kernels included.  The LayerNorm is
+    `norm1`, or `norm2` under Ren-MME's names (`norm=`).  While dropout is
+    active (training, rate > 0), `impl="pallas_fused"` runs the attention
+    kernel with this epilogue, as in JAX: the whole-block kernel has no
+    dropout."""
 
     def __init__(self, dim: int, n_heads: int, *, dropout: float = 0.0,
                  norm: str = "norm1"):
@@ -169,11 +220,11 @@ class MinusBlock(nn.Module):
         self.c.zero_()
 
     def forward(self, q, k, v, mask, scores, *, impl: str = "xla",
-                emit_scores: bool = True):
+                emit_scores: bool = True, generator=None):
         """q, k, v (B, L, dim), k and v used raw; returns (q', scores')."""
+        rate = active_rate(self)
         if impl == "pallas_fused":
-            if (not (self.training and self.dropout > 0.0)
-                    and (mask is None or mask.ndim == 2)):
+            if rate <= 0.0 and (mask is None or mask.ndim == 2):
                 return fused_minus_block(
                     q, k, v, mask, scores, self.c, self.proj.weight,
                     self.minus.weight, self.norm.weight, self.norm.bias,
@@ -182,24 +233,26 @@ class MinusBlock(nn.Module):
         ctx, scores = scored_attention(
             q, k, v, mask, scores, self.c, n_heads=self.n_heads, impl=impl,
             emit_scores=emit_scores)
-        x = self.proj(ctx)
+        x = dropout(self.proj(ctx), rate, generator)
         # Linear(concat[q, x]) as q @ W[:d] + x @ W[d:]: the same function
         # without materializing the (B, L, 2d) concat
         d = q.shape[-1]
         w = self.minus.weight
         pre = F.linear(q, w[:, :d]) + F.linear(x, w[:, d:])
-        return init.layer_norm(pre, self.norm.weight, self.norm.bias), scores
+        out = init.layer_norm(pre, self.norm.weight, self.norm.bias)
+        return dropout(out, rate, generator), scores
 
 
 class RealformerBlock(nn.Module):
     """`apply_block_realformer`: bias-free Q/K/V projections of (q, k, v);
-    residual-score attention with gate c; q = LN1(q + a·proj(ctx));
-    q = LN2(q + b·FFN(q)) with a ReLU FFN of width ffn·dim.  Dropout is not
-    ported: `Grid` refuses to train a config with dropout > 0."""
+    residual-score attention with gate c; q = LN1(q + a·Drop(proj(ctx)));
+    q = LN2(q + b·Drop(FFN(q))) with a ReLU FFN of width ffn·dim."""
 
-    def __init__(self, dim: int, n_heads: int, ffn_mult: int):
+    def __init__(self, dim: int, n_heads: int, ffn_mult: int, *,
+                 dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout = dropout
         self.w_qkv = nn.ModuleList(nn.Linear(dim, dim, bias=False)
                                    for _ in range(3))
         self.proj = nn.Linear(dim, dim, bias=False)
@@ -222,7 +275,7 @@ class RealformerBlock(nn.Module):
             gate.zero_()
 
     def forward(self, q, k, v, mask, scores, *, impl: str = "xla",
-                emit_scores: bool = True):
+                emit_scores: bool = True, generator=None):
         """q (B, Lq, dim), k and v (B, Lkv, dim); returns (q', scores').
         `impl="pallas_fused"` runs `pallas` here, as in JAX: the whole-block
         kernel is the minus block's."""
@@ -232,8 +285,9 @@ class RealformerBlock(nn.Module):
         ctx, scores = scored_attention(
             wq(q), wk(k), wv(v), mask, scores, self.c, n_heads=self.n_heads,
             impl=impl, emit_scores=emit_scores)
-        q = init.layer_norm(q + self.a * self.proj(ctx), self.norm1.weight,
-                            self.norm1.bias)
-        q = init.layer_norm(q + self.b * self.ffn(q), self.norm2.weight,
-                            self.norm2.bias)
+        rate = active_rate(self)
+        x = dropout(self.proj(ctx), rate, generator)
+        q = init.layer_norm(q + self.a * x, self.norm1.weight, self.norm1.bias)
+        h = dropout(self.ffn(q), rate, generator)
+        q = init.layer_norm(q + self.b * h, self.norm2.weight, self.norm2.bias)
         return q, scores

@@ -5,13 +5,15 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from .heads import ConcatTrans, GridOnly, StateTransfer
+from .heads import ConcatLinear, ConcatTrans, GridOnly, StateTransfer
 
-_HEADS = {"concat_trans": ConcatTrans, "grid_only": GridOnly,
-          "state_transfer": StateTransfer}
-# the (block, unify, position embeddings) each head is ported with
+_HEADS = {"concat_trans": ConcatTrans, "concat_linear": ConcatLinear,
+          "grid_only": GridOnly, "state_transfer": StateTransfer}
+# the (block, unify, position embeddings) each head is ported with; the
+# grid-free `concat_linear` as rencecps's config names them
 PORTED = {"concat_trans": (("minus", "linear", False),
                            ("minus", "linear_ln", False)),
+          "concat_linear": (("minus", "linear", False),),
           "grid_only": (("realformer", "conv_multires", True),),
           "state_transfer": (("realformer", "conv", True),)}
 

@@ -1,14 +1,16 @@
-"""The ZLPR multi-label "circle" loss (ops/loss.py of the JAX package).
+"""Losses (ops/loss.py of the JAX package): the ZLPR multi-label "circle"
+loss and the Ren-MME R-Drop consistency KL.
 
-Byte-identical math across the reference scripts (cmu-mosei/run.py:342-351
-and friends): flip logits by label, knock out the wrong side with -1e12,
-append a zero logit to each side, and sum the two logsumexps.  It is
-threshold-free for multi-label training.
+ZLPR is byte-identical math across the reference scripts
+(cmu-mosei/run.py:342-351 and friends): flip logits by label, knock out the
+wrong side with -1e12, append a zero logit to each side, and sum the two
+logsumexps.  It is threshold-free for multi-label training.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _KNOCKOUT = 1e12
 
@@ -24,3 +26,29 @@ def zlpr_loss(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
     zeros = torch.zeros_like(y_pred[..., :1])
     return (torch.logsumexp(torch.cat([neg, zeros], dim=-1), dim=-1)
             + torch.logsumexp(torch.cat([pos, zeros], dim=-1), dim=-1))
+
+
+def symmetric_sigmoid_kl(logits: torch.Tensor,
+                         pair_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """The Ren-MME R-Drop consistency term (Ren-MME/run.py:332-334) over
+    adjacent duplicate rows, a = logits[::2] and b = logits[1::2]:
+    (KL(a ‖ b) + KL(b ‖ a)) / 2, each torch's kl_div(logsigmoid(q),
+    sigmoid(p), 'batchmean') = Σ p·(log p − log q) / n_pairs over the
+    element-wise sigmoid "probabilities".  p·log p is 0 where p is 0
+    (p·log(max(p, 1e-38)) elsewhere, as JAX guards it).  With
+    `pair_weight` (n_pairs,), 1 for a real pair and 0 for padding, the sum
+    is weighted and divided by max(Σ w, 1) instead."""
+    a, b = logits[::2], logits[1::2]
+
+    def kl(log_q_logits, p_logits):
+        log_q = F.logsigmoid(log_q_logits)
+        p = torch.sigmoid(p_logits)
+        plogp = torch.where(p > 0, p * torch.log(torch.clamp(p, min=1e-38)),
+                            0.0)
+        elem = plogp - p * log_q
+        if pair_weight is None:
+            return elem.sum() / log_q_logits.shape[0]
+        return ((elem * pair_weight[:, None]).sum()
+                / torch.clamp(pair_weight.sum(), min=1.0))
+
+    return (kl(a, b) + kl(b, a)) / 2.0

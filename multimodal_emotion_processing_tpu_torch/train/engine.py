@@ -2,15 +2,18 @@
 the optimizer, the train and eval steps, the epoch driver, and the
 compute-dtype casts of the inference path.
 
-PyTorch runs eagerly, so a step is a plain function: forward, ZLPR loss,
-backward, global-norm clip, Adam(W) update, with no host round trip; the
-per-step losses stay on the device until the epoch ends.  The learning rate
-is an attribute of the optimizer that the host-side plateau controller
-(schedule.py) changes between epochs.
+PyTorch runs eagerly, so a step is a plain function: forward, ZLPR loss
+(+ the R-Drop KL under `rdrop_kl`), backward, global-norm clip, Adam(W)
+update, with no host round trip; the per-step losses stay on the device
+until the epoch ends.  The learning rate is an attribute of the optimizer
+that the host-side plateau controller (schedule.py) changes between
+epochs.  Dropout draws its masks from the `TrainState`'s own
+`torch.Generator` (JAX's `k_rng`), seeded from the state's seed; the eval
+step draws none.
 
-Not ported yet: the device mesh, scan-chained steps, gradient accumulation,
-the profile option, the wire-compression dtypes, R-Drop and dropout (a
-config with dropout > 0 raises in training).
+Not ported yet: the device mesh, scan-chained steps, gradient accumulation
+(and with it R-Drop under accumulation), the profile option and the
+wire-compression dtypes.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.loss import zlpr_loss
+from ..ops.loss import symmetric_sigmoid_kl, zlpr_loss
 from . import schedule
 
 # loss-side weight vectors stay f32 under bf16 compute: a bf16 sum of the
@@ -127,7 +130,8 @@ def make_optimizer(tcfg, params) -> Optimizer:
     return Optimizer(params, tcfg)
 
 
-def batch_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+def batch_loss(model, tcfg, batch, *, impl: str = "xla",
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The reference loss contract: the ZLPR loss, averaged with the
     optional `sample_weight` (1 for real rows, 0 for padding) as
     Σ w·loss / max(Σ w, 1), so a zero-padded batch gives the reference's
@@ -135,48 +139,69 @@ def batch_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
     multiplied by `clip_mask` under `clip_mask_loss`
     (others/realformer.py:312) and averaged as Σ w·loss / max(Σ w·P, 1): the
     denominator counts every clip of a real row, masked or not, as JAX's
-    `batch_loss` does.
+    `batch_loss` does.  Under `rdrop_kl`, with the model in training mode,
+    `symmetric_sigmoid_kl` over the adjacent duplicate rows is added,
+    weighted by w[::2] (Ren-MME/run.py:332-334).  `generator` feeds the
+    model's dropout sites (passed on only when given).
 
     Under `compute_dtype="bfloat16"` the f32 parameters are cast to bf16
     inside the graph (`functional_call` with `p.to(bfloat16)`), so their
     gradients land in the f32 masters; batch floats go to bf16 except the
     keep-set, and the logits are upcast before the loss."""
-    if tcfg.rdrop_kl:
-        raise NotImplementedError("R-Drop is not ported yet")
     dtype = getattr(tcfg, "compute_dtype", "float32")
     batch = cast_batch(batch, dtype)
+    kwargs = {"impl": impl}
+    if generator is not None:
+        kwargs["generator"] = generator
     if dtype == "bfloat16":
         params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
-        logits = torch.func.functional_call(model, params, (batch,),
-                                            {"impl": impl})
+        logits = torch.func.functional_call(model, params, (batch,), kwargs)
     else:
-        logits = model(batch, impl=impl)
-    per_sample = zlpr_loss(infer_upcast(logits), batch["label"])
+        logits = model(batch, **kwargs)
+    logits = infer_upcast(logits)
+    per_sample = zlpr_loss(logits, batch["label"])
     if tcfg.clip_mask_loss:
         per_sample = per_sample * batch["clip_mask"]            # (B, P)
     w = batch.get("sample_weight")
     if w is None:
-        return per_sample.mean()
-    if per_sample.ndim == 2:
-        return ((per_sample * w[:, None]).sum()
+        loss = per_sample.mean()
+    elif per_sample.ndim == 2:
+        loss = ((per_sample * w[:, None]).sum()
                 / torch.clamp(w.sum() * per_sample.shape[1], min=1.0))
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    else:
+        loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if tcfg.rdrop_kl and model.training:
+        loss = loss + symmetric_sigmoid_kl(
+            logits, pair_weight=None if w is None else w[::2])
+    return loss
 
 
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer
+    generator: torch.Generator   # dropout masks, on the model's device
     step: int = 0
+
+
+def dropout_generator(seed: int, device) -> torch.Generator:
+    """The dropout stream of a state built from `seed`, on `device`: seeded
+    from numpy's SeedSequence((seed, 1)), apart from the init stream that
+    `build_model` seeds with `seed` itself."""
+    gseed = int(np.random.SeedSequence((seed, 1)).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(gseed)
 
 
 def init_state(cfg, tcfg, seed: int, *, device=None) -> TrainState:
     """A model built from `seed` (`build_model`) on `device` ("cuda" unless
-    "cpu" is asked for) and a fresh optimizer over its parameters."""
+    "cpu" is asked for), a fresh optimizer over its parameters and the
+    dropout generator of `seed`."""
     from ..models import build_model
 
     model = build_model(cfg, device=device, seed=seed)
-    return TrainState(model, make_optimizer(tcfg, model.parameters()))
+    dev = next(model.parameters()).device
+    return TrainState(model, make_optimizer(tcfg, model.parameters()),
+                      dropout_generator(seed, dev))
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
@@ -186,9 +211,11 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
 
 def train_step(state: TrainState, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
     """One optimizer step on `batch` (a dict of tensors on the model's
-    device); returns the loss, detached, on the device."""
+    device), dropout drawn from the state's generator; returns the loss,
+    detached, on the device."""
     state.model.train()
-    loss = batch_loss(state.model, tcfg, batch, impl=impl)
+    loss = batch_loss(state.model, tcfg, batch, impl=impl,
+                      generator=state.generator)
     loss.backward()
     state.optimizer.step()
     state.step += 1
@@ -197,6 +224,7 @@ def train_step(state: TrainState, tcfg, batch, *, impl: str = "xla") -> torch.Te
 
 @torch.no_grad()
 def eval_step(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+    """The loss in eval mode: no dropout mask drawn, no R-Drop KL."""
     model.eval()
     return batch_loss(model, tcfg, batch, impl=impl)
 

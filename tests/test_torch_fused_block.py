@@ -305,7 +305,7 @@ def test_minus_block_routes_pallas_fused():
             np.testing.assert_allclose(s.detach(), rs.detach(), rtol=1e-6)
     dropout = _minus_block(dropout=0.1)
     out, s = dropout.train()(t["q"], t["k"], t["v"], t["m"], None,
-                             impl="pallas_fused")
+                             impl="pallas_fused", generator=torch.Generator())
     assert "ScoredAttention" in type(s.grad_fn).__name__
     out, s = dropout.eval()(t["q"], t["k"], t["v"], t["m"], None,
                             impl="pallas_fused")

@@ -80,6 +80,21 @@ def test_the_fused_block_slice_is_covered():
     assert {"fused_block.cu", "scored_bwd.cu", "flash_common.cuh"} <= names
 
 
+def test_the_training_families_slice_is_covered():
+    """The modules of the slice that trains every family (dropout, the
+    R-Drop KL and duplicated batches, the `concat_linear` head, the
+    `rencecps` config, sampler and BERT masking) are among those the tests
+    below import and scan."""
+    mods = set(_port_modules())
+    for m in ("configs", "data.masking", "data.synthetic", "data.loader",
+              "models.layers", "models.grid", "models.heads",
+              "models.registry", "interop.torch_compat", "ops.loss",
+              "train.engine", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+    names = {p.name for p in _sources()}
+    assert {"scored_fwd.cu", "scored_bwd.cu", "fused_block.cu"} <= names
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"

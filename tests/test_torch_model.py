@@ -139,11 +139,15 @@ def test_build_model_is_seeded_and_torch_default_distributed():
 
 
 def test_build_model_refuses_unported_families_and_missing_gpu():
+    """concat_trans over RealFormer blocks, a combination no reference
+    config has, is not in the port's PORTED table; nor is an unknown
+    head."""
     exp = _exp()
-    rencecps = dataclasses.replace(exp, model=dataclasses.replace(
-        exp.model, head="concat_linear"))
-    with pytest.raises(NotImplementedError):
-        build_model(rencecps, device="cpu")
+    for change in ({"block": "realformer"}, {"head": "no_such_head"}):
+        unported = dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, **change))
+        with pytest.raises(NotImplementedError):
+            build_model(unported, device="cpu")
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -166,7 +170,7 @@ def test_infer_cast_copies_and_keeps_loss_vectors_f32():
 
 @pytest.mark.parametrize("name", ["mosei_trans", "mosei_trans_s256",
                                   "mosei_trans_s512", "mosei_trans_s1024",
-                                  "mosei_realformer", "ren_mme"])
+                                  "mosei_realformer", "ren_mme", "rencecps"])
 def test_configs_equal_jax(name):
     assert dataclasses.asdict(configs.get(name)) == dataclasses.asdict(
         jconfigs.get(name))

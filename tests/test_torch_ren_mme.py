@@ -191,8 +191,36 @@ def test_cli_serve_ren_mme_on_cpu(capsys, extra):
 
 
 def test_cli_train_ren_mme_raises():
-    """R-Drop and dropout are not ported: training ren_mme raises."""
-    with pytest.raises(NotImplementedError):
-        main(["train", "ren_mme", "--device", "cpu", "--epochs", "1",
-              "--n-train", "3", "--n-test", "2", "--impl", "pallas_fused",
-              *TINY_SET, "--set", "train.batch_size=3"])
+    """A ren_mme forward in training mode raises without a dropout
+    generator; `cli train ren_mme` trains (dropout 0.1, R-Drop, duplicated
+    rows), and its train loss carries the KL term: the same step's loss
+    without `rdrop_kl` is smaller by the KL of its logits."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.ops.loss import symmetric_sigmoid_kl
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    exp = _exp()
+    model = build_model(exp, device="cpu").train()
+    samples = synthetic.synthetic_dataset(exp.name, exp.model, 3, seed=4)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(iter(Batcher(samples, 2, duplicate=True)())).items()}
+    with pytest.raises(ValueError, match="Generator"):
+        model(batch, impl="pallas_fused")
+    losses, logits = {}, []
+    model.register_forward_hook(lambda m, a, out: logits.append(out.detach()))
+    for rdrop in (True, False):
+        tcfg = dataclasses.replace(exp.train, rdrop_kl=rdrop)
+        with torch.no_grad():
+            losses[rdrop] = float(engine.batch_loss(
+                model, tcfg, batch, impl="pallas_fused",
+                generator=torch.Generator().manual_seed(5)))
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=0)
+    kl = float(symmetric_sigmoid_kl(logits[0], batch["sample_weight"][::2]))
+    assert kl > 0
+    assert losses[True] == pytest.approx(losses[False] + kl, rel=1e-6)
+
+    _, hist = main(["train", "ren_mme", "--device", "cpu", "--epochs", "1",
+                    "--n-train", "3", "--n-test", "2", "--impl",
+                    "pallas_fused", *TINY_SET, "--set", "train.batch_size=2"])
+    assert hist[0].steps == 2 and hist[0].samples == 6   # duplicated rows
+    assert np.isfinite([hist[0].train_loss, hist[0].valid_loss]).all()

@@ -273,15 +273,28 @@ def test_schedule_matches_jax():
     assert dataclasses.asdict(ours[1]) == dataclasses.asdict(theirs[1])
 
 
-def test_training_with_dropout_raises():
+def test_training_with_dropout_raises(monkeypatch):
+    """A train-mode forward with dropout > 0 and no generator raises; with
+    the state's generator the step runs and draws a mask at each of the 36
+    sites (two per minus block); eval draws nothing."""
+    from multimodal_emotion_processing_tpu_torch.models import layers
+
     exp = _exp()
     exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model,
                                                              dropout=0.1))
     state = engine.init_state(exp, exp.train, seed=0, device="cpu")
     batch = _tensors(_batch(exp.model))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        engine.train_step(state, exp.train, batch)
-    engine.eval_step(state.model, exp.train, batch)      # eval has no dropout
+    with pytest.raises(ValueError, match="dropout"):
+        engine.batch_loss(state.model.train(), exp.train, batch)
+    draws = []
+    real = layers.keep_mask
+    monkeypatch.setattr(layers, "keep_mask",
+                        lambda *a: draws.append(a[0]) or real(*a))
+    loss = engine.train_step(state, exp.train, batch)
+    assert np.isfinite(float(loss)) and len(draws) == 2 * 18
+    del draws[:]
+    engine.eval_step(state.model, exp.train, batch)
+    assert draws == []
 
 
 def test_cli_train_on_cpu(capsys):
