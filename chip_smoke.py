@@ -75,18 +75,21 @@ Phases, each reported on its own lines:
      by the port's Trainer at impl="pallas_fused" for 2 epochs of 4 steps
      with an eval pass after each: active dropout routes every block to
      scored_fwd with the plain epilogue and the scored_bwd pair, the eval
-     passes to fused_block, all counted per variant; the 8 losses and the
-     step-1 gradients held against impl="xla" from the same weights,
-     batches and dropout generator seed; one profiled step;
+     passes to fused_block, all counted per variant; the 8 losses, the 2
+     valid losses and the step-1 gradients held against impl="xla" from
+     the same weights, batches and dropout generator seed; one profiled
+     step;
  11. train_robot: `robot_demo` at full width, gates set, f32, AdamW,
      dropout 0.1, batch 64, trained the same way at impl="pallas"
      (scored_fwd and the scored_bwd pair in their chained variants, dh 32);
  12. train_rencecps: `rencecps` (the concat_linear head at dim 2304, no
-     kernel) trained for 2 epochs of 4 steps at batch 64, with no kernel
-     launched, its step-1 gradients held against the port's own CPU run.
-     The kernels phase also holds scored_bwd against its plain version at
-     the training shapes of phases 10 and 11 and checks dropout itself on
-     the card (keep rate, exact x / keep, the same bits from a seed).
+     kernel) trained the same way for 2 epochs of 4 steps at batch 64,
+     with no kernel launched, against the port's own run on the CPU.
+     The kernels phase also holds scored_fwd and scored_bwd against their
+     plain versions at the training shapes of phases 10 and 11, and
+     fused_block at the shapes of phase 10's eval passes, and checks
+     dropout itself on the card (keep rate, exact x / keep, the same bits
+     from a seed).
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -189,17 +192,26 @@ REN_HEADS, REN_DH, REN_PARAMS = 8, 16, 1_317_544
 # synthetic pairs and 2 epochs give 8 optimizer steps and 2 eval passes of
 # one batch.  robot_demo training: batch 64, 256 / 64 synthetic samples, 2
 # epochs, gates set, dropout 0.1.  Both against impl="xla" from the same
-# weights, batches and dropout generator seed: the 8 losses at 1e-3
-# relative, the step-1 gradients at 2e-4 relative L2 per tensor
+# weights, batches and dropout generator seed: the 8 losses and each
+# epoch's valid loss at 1e-3 relative, the step-1 gradients at 2e-4
+# relative L2 per tensor
 # (tests/test_interop.py:20), f32 with TF32 off
 REN_PAIRS, REN_N_TRAIN, REN_N_VALID, REN_EPOCHS = 16, 64, 16, 2
 ROBOT_BATCH, ROBOT_N_TRAIN, ROBOT_N_VALID, ROBOT_EPOCHS = 64, 256, 64, 2
 DROP_GRAD_TOL, DROP_LOSS_TOL = 2e-4, 1e-3
+# the kernels phase holds scored_fwd and scored_bwd at these training
+# shapes: (B, Lq, Lkv, H, dh, mask, q scale), ren_mme's nine at B 32 (16
+# R-Drop pairs; 8 heads of 16) and robot_demo's at B 64 (6 heads of 32,
+# its chained variants); fused_block at ren_mme's, its eval passes
+TRAIN_DROPOUT_SHAPES = tuple(
+    [(2 * REN_PAIRS, lq, lkv, REN_HEADS, REN_DH, "zero_row", 1.0)
+     for lq, lkv in REN_SHAPES]
+    + [(ROBOT_BATCH, lq, lkv, ROBOT_HEADS, ROBOT_DH, "zero_row", 1.0)
+       for lq, lkv in ROBOT_SHAPES])
 # rencecps at its reference width (dim 2304, 42,390 parameters, batch 64,
-# AdamW): 256 / 64 synthetic pairs, 2 epochs; the step-1 gradients on the
-# card against the port's own CPU run of the same step at 2e-4 relative L2
+# AdamW): 256 / 64 synthetic pairs, 2 epochs, held against the port's own
+# CPU run of the same fit at the bounds above
 RC_BATCH, RC_N_TRAIN, RC_N_VALID, RC_EPOCHS, RC_PARAMS = 64, 256, 64, 2, 42_390
-RC_GRAD_TOL = 2e-4
 # the dropout check: keep rate within 5 sigma of 1 - rate over this many
 # elements, kept values exactly x / keep, the same bits from the same seed
 DROPOUT_N, DROPOUT_RATE = 1 << 21, 0.1
@@ -722,8 +734,9 @@ def kernel_device_ms(torch, calls, name: str, reps: int = 20):
 def scored_cases(torch, g, report):
     """scored_fwd against scored_forward_plain, ctx and S, in its four
     variants, in f32 and bf16: the nine robot_demo stream shapes at B 8
-    (the two variants of the main path timed in f32, the serving dtype)
-    and the edge cases.  S_prev is what block 0 emits (the plain version's
+    (the two variants of the main path timed in f32, the serving dtype),
+    the edge cases, and the training shapes of ren_mme (B 32) and
+    robot_demo (B 64).  S_prev is what block 0 emits (the plain version's
     S of another q on the same keys and mask), so it holds −1e8 + raw where
     the mask is 0; c is 0.7."""
     from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
@@ -737,6 +750,7 @@ def scored_cases(torch, g, report):
                                         ROBOT_DH, "zero_row", 1.0)))
         cases += [(False, dtype, c + (1.0,)) for c in SCORED_EDGE_CASES]
         cases += [(False, dtype, c) for c in SCORED_QX4_CASES]
+        cases += [(False, dtype, c) for c in TRAIN_DROPOUT_SHAPES]
     rows, ok, timed_calls = [], True, []
     for main, dtype, (b, lq, lkv, h, dh, mask_kind, q_scale) in cases:
         dname = str(dtype).removeprefix("torch.")
@@ -938,12 +952,7 @@ def scored_bwd_cases(torch, g, report):
                         "zero_row", 1.0)) for lq, lkv in ROBOT_SHAPES]
     shapes += [(False, c + (1.0,)) for c in SCORED_EDGE_CASES]
     shapes += [(False, c) for c in SCORED_QX4_CASES]
-    # the training shapes of ren_mme (B 32: 16 R-Drop pairs; 8 heads of 16)
-    # and robot_demo (B 64; 6 heads of 32, its chained variants)
-    shapes += [(False, (2 * REN_PAIRS, lq, lkv, REN_HEADS, REN_DH, "zero_row",
-                        1.0)) for lq, lkv in REN_SHAPES]
-    shapes += [(False, (ROBOT_BATCH, lq, lkv, ROBOT_HEADS, ROBOT_DH,
-                        "zero_row", 1.0)) for lq, lkv in ROBOT_SHAPES]
+    shapes += [(False, c) for c in TRAIN_DROPOUT_SHAPES]
     bwd = pa.scored_backward_kernel
     rows, ok, timed = [], True, {"scored_bwd_dq": [], "scored_bwd_dkv": []}
     rebuild_equal = []
@@ -1240,7 +1249,8 @@ def fused_cases(torch, g, report):
     """fused_block against fused_block_plain (out and S) and
     scored_forward_plain (the ctx residual) in its four variants, in f32
     and bf16: the nine mosei_trans stream shapes at the training batch 64,
-    the nine ren_mme shapes at the serving bucket 8 and the edge cases.
+    the nine ren_mme shapes at the serving bucket 8 and at the 32 rows of
+    its training's eval passes, and the edge cases.
     S_prev is what a previous block emits (the plain version's S of another
     q on the same keys and mask), so it holds −1e8 + raw where the mask is
     0; c is 0.7.  S must also equal scored_fwd's S on the same inputs bit
@@ -1260,6 +1270,8 @@ def fused_cases(torch, g, report):
                                     "zero_row")) for lq, lkv in MT_SHAPES]
         cases += [("serve", dtype, (SERVE_BUCKET, lq, lkv, REN_HEADS, REN_DH,
                                     "zero_row")) for lq, lkv in REN_SHAPES]
+        cases += [("eval", dtype, (2 * REN_PAIRS, lq, lkv, REN_HEADS, REN_DH,
+                                   "zero_row")) for lq, lkv in REN_SHAPES]
         cases += [("edge", dtype, c) for c in FUSED_EDGE_CASES]
     rows, ok, timed_calls = [], True, {"train": [], "serve": []}
     for path, dtype, (b, lq, lkv, h, dh, mask_kind) in cases:
@@ -1311,7 +1323,7 @@ def fused_cases(torch, g, report):
                        stats_m_equal_scored_fwd=m_bits, stats_l_rel_err=l_err,
                        repeat_bits_equal=repeat_bits, tol=tol, ok=good, **geo)
             timing = ""
-            if (path != "edge" and dtype == torch.float32
+            if (path in timed_calls and dtype == torch.float32
                     and (has_sprev, emit) == (False, False)):
                 save = path == "train"
                 call = functools.partial(
@@ -1976,8 +1988,9 @@ def phase_serve_robot(torch, report):
 
 
 def variant_counts(kernels):
+    """{kernel: {variant: launches}}, {} for a kernel without variants."""
     return {k.name: {f"sprev={int(a)},emit={int(e)}": n
-                     for (a, e), n in k.variant_launches.items()}
+                     for (a, e), n in getattr(k, "variant_launches", {}).items()}
             for k in kernels}
 
 
@@ -2573,17 +2586,20 @@ def phase_serve_ren_mme(torch, report):
 
 
 def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
-                      n_valid, epochs, kernels, expected, prepare):
+                      n_valid, epochs, kernels, expected, prepare=None,
+                      ref_device="cuda"):
     """One member of `exp` trained by the port's Trainer at `impl` for
     `epochs` with an eval pass after each, `kernels` counted per variant
     over that run (their counts set to 0 just before it) and held against
     `expected(n_steps, n_eval)` = (launches, launches by variant); then the
-    same run at impl="xla" from the same weights, batches and dropout
-    generator seed.  Checks the step-1 gradients (max pool and ReLUs
-    pinned to `impl`'s forward, as in the realformer and fused phases) and
-    the losses against xla, and profiles one step of each.  `prepare`
-    moves the fresh model's weights (gates, LayerNorms) before anything
-    runs.  Returns the launches."""
+    same run at impl="xla" on `ref_device` from the same weights, batches
+    and dropout generator seed.  Checks the step-1 gradients (on the card,
+    max pool and ReLUs pinned to `impl`'s forward, as in the realformer and
+    fused phases), the step losses and each epoch's valid loss against the
+    reference, and profiles one step of each run on the card.  A CPU
+    reference draws other dropout masks, so it serves only models without
+    a dropout site.  `prepare` moves the fresh model's weights (gates,
+    LayerNorms) before anything runs.  Returns the launches."""
     import dataclasses
 
     import numpy as np
@@ -2599,47 +2615,66 @@ def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
     rows = batch * (2 if dup else 1)
     train = synthetic_dataset(exp.name, m, n_train, seed=0)
     valid = synthetic_dataset(exp.name, m, n_valid, seed=1)
+    ref = f"xla on {ref_device}"
 
     def loaders():
         return (Batcher(train, batch, duplicate=dup, seed=1),
                 Batcher(valid, batch, duplicate=dup, shuffle=False))
 
     state = engine.init_state(m, tcfg, seed=0, device="cuda")
-    prepare(state.model)
+    if prepare is not None:
+        prepare(state.model)
     n_params = sum(p.numel() for p in state.model.parameters())
     init_weights = {k: v.detach().clone()
                     for k, v in state.model.state_dict().items()}
     log(f"[{tag}] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
-        f"{m.l_len}/{m.v_len}/{m.a_len} n_layers={m.n_layers} params="
-        f"{n_params} batch={batch} ({rows} rows{', R-Drop pairs' if dup else ''}"
-        f") f32, optimizer={tcfg.optimizer}, dropout={m.dropout}; {n_train} "
-        f"train / {n_valid} valid synthetic samples, {epochs} epochs, "
-        f"impl={impl}")
+        f"{m.l_len}/{m.v_len}/{m.a_len} n_layers={m.n_layers} head={m.head} "
+        f"params={n_params} batch={batch} ({rows} rows"
+        f"{', R-Drop pairs' if dup else ''}) f32, optimizer={tcfg.optimizer},"
+        f" dropout={m.dropout}; {n_train} train / {n_valid} valid synthetic "
+        f"samples, {epochs} epochs, impl={impl}, reference {ref}")
 
-    # step-1 gradients, impl against xla, on the same weights and batch and
-    # from the same dropout generator seed as the fit's first step
-    first = to_device(next(iter(loaders()[0]())), "cuda")
-    impls = (impl, "xla")
-    grads = step_gradients(engine, state.model, tcfg, first, impls=impls,
-                           generator_seed=0)
-    unpinned = max(e["rel_l2"] for e in gradient_errors(
-        grads[impl], grads["xla"]).values())
-    grads, flips, routes = pinned_step_gradients(
-        torch, engine, state.model, tcfg, first, impls, pin_pool=True,
-        generator_seed=0)
-    grad_err = gradient_errors(grads[impl], grads["xla"])
+    # step-1 gradients against the reference, on the same weights and batch
+    # and from the same dropout generator seed as the fit's first step
+    first = next(iter(loaders()[0]()))
+    if ref_device == "cuda":
+        first = to_device(first, "cuda")
+        impls = (impl, "xla")
+        grads = step_gradients(engine, state.model, tcfg, first, impls=impls,
+                               generator_seed=0)
+        unpinned = max(e["rel_l2"] for e in gradient_errors(
+            grads[impl], grads["xla"]).values())
+        grads, flips, routes = pinned_step_gradients(
+            torch, engine, state.model, tcfg, first, impls, pin_pool=True,
+            generator_seed=0)
+        grad_err = gradient_errors(grads[impl], grads["xla"])
+        log(f"[{tag}] the xla forward routes {flips['pool']} of "
+            f"{routes['pool']} pooled columns and {flips['relu']} of "
+            f"{routes['relu']} ReLU inputs otherwise than the {impl} one "
+            f"(bounds: shares of {MT_POOL_FLIP_SHARE:g} and "
+            f"{RF_RELU_FLIP_SHARE:g}); unpinned, the worst relative L2 is "
+            f"{unpinned:.2e}")
+    else:
+        ref_state = engine.init_state(m, tcfg, seed=0, device=ref_device)
+        ref_state.model.load_state_dict(init_weights)
+        grads = {}
+        for key, model, dev in (("got", state.model, "cuda"),
+                                ("ref", ref_state.model, ref_device)):
+            model.train()
+            engine.batch_loss(model, tcfg, to_device(first, dev), impl=impl,
+                              **dropout_kwargs(engine, model, 0)).backward()
+            grads[key] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+        grad_err = gradient_errors(grads["got"], grads["ref"])
+        unpinned, flips, routes = None, None, None
+        first = to_device(first, "cuda")
     max_grad_err = max(e["rel_l2"] for e in grad_err.values())
     del grads
     for form in ("rel_l2", "max_abs"):
         worst = sorted(grad_err.items(), key=lambda kv: -kv[1][form])[:4]
-        log(f"[{tag}] step-1 gradients {impl} vs xla, {len(grad_err)} tensors,"
-            f" max pool and ReLUs pinned, {form} per tensor, worst: "
+        log(f"[{tag}] step-1 gradients {impl} vs {ref}, {len(grad_err)} "
+            f"tensors, {form} per tensor, worst: "
             + ", ".join(f"{n}={e[form]:.2e}" for n, e in worst))
-    log(f"[{tag}] the xla forward routes {flips['pool']} of {routes['pool']} "
-        f"pooled columns and {flips['relu']} of {routes['relu']} ReLU inputs "
-        f"otherwise than the {impl} one (bounds: shares of "
-        f"{MT_POOL_FLIP_SHARE:g} and {RF_RELU_FLIP_SHARE:g}); unpinned, the "
-        f"worst relative L2 is {unpinned:.2e}")
 
     # the main path, counted: Trainer.fit at `impl`
     for kern in kernels:
@@ -2668,66 +2703,81 @@ def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
     log(f"[{tag}] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
         + f"; median after the first {median:.2f} ms = "
         f"{batch / median * 1e3:.1f} samples/s ({rows / median * 1e3:.1f} "
-        f"rows/s); fit wall {wall_s:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+        f"rows/s); fit wall {wall_s:.2f} s; peak memory {peak / 2**30:.3f} GiB")
     log(f"[{tag}] launches {launches}, by variant {by_variant}; expected "
         f"{want} ({n_steps} steps, {n_eval} eval forwards)")
 
-    # the same run through the plain attention path
-    twin = engine.init_state(m, tcfg, seed=0, device="cuda")
+    # the same run at impl="xla" on the reference device
+    twin = engine.init_state(m, tcfg, seed=0, device=ref_device)
     twin.model.load_state_dict(init_weights)
     del init_weights
+    on_card = ref_device == "cuda"
     torch.cuda.reset_peak_memory_stats()
-    twin_trainer = timed_trainer(torch, engine)(m, tcfg, impl="xla",
-                                                device="cuda")
+    twin_trainer = (timed_trainer(torch, engine) if on_card else
+                    engine.Trainer)(m, tcfg, impl="xla", device=ref_device)
     twin, hist_x = twin_trainer.fit(*loaders(), state=twin, epochs=epochs)
-    peak_x = torch.cuda.max_memory_allocated()
-    step_ms_x = twin_trainer.step_ms()
+    peak_x = torch.cuda.max_memory_allocated() if on_card else None
+    step_ms_x = twin_trainer.step_ms() if on_card else None
+    median_x = statistics.median(step_ms_x[1:]) if on_card else None
     losses_x = [x for h in hist_x for x in h.step_losses]
     loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
                    for a, b in zip(losses, losses_x))
-    log(f"[{tag}] impl=xla from the same weights, batches and dropout seed: "
+    valid_rel = [abs(h.valid_loss - hx.valid_loss) / max(abs(hx.valid_loss),
+                                                         1e-30)
+                 for h, hx in zip(hist, hist_x)]
+    log(f"[{tag}] {ref} from the same weights, batches and dropout seed: "
         "step losses " + ", ".join(f"{x:.6f}" for x in losses_x)
-        + f"; max relative loss difference {loss_rel:.2e} (bound "
-        f"{DROP_LOSS_TOL:g}); step ms median after the first "
-        f"{statistics.median(step_ms_x[1:]):.2f}; peak memory "
-        f"{peak_x / 2**30:.2f} GiB")
+        + f"; max relative loss difference {loss_rel:.2e}; valid losses "
+        + ", ".join(f"{h.valid_loss:.6f}" for h in hist_x)
+        + ", relative differences " + ", ".join(f"{x:.2e}" for x in valid_rel)
+        + f" (bound {DROP_LOSS_TOL:g})"
+        + (f"; step ms median after the first {median_x:.2f}; peak memory "
+           f"{peak_x / 2**30:.3f} GiB" if on_card else ""))
 
     report[tag] = dict(
-        config=exp.name, impl=impl, params=n_params, batch=batch, rows=rows,
-        dropout=m.dropout, rdrop=dup, steps=n_steps, eval_forwards=n_eval,
-        step_losses=losses, step_losses_xla=losses_x,
+        config=exp.name, impl=impl, reference=ref, params=n_params,
+        batch=batch, rows=rows, dropout=m.dropout, rdrop=dup, steps=n_steps,
+        eval_forwards=n_eval, step_losses=losses, step_losses_xla=losses_x,
         epochs=[dataclasses.asdict(h) for h in hist],
         epochs_xla=[dataclasses.asdict(h) for h in hist_x],
         step_ms=step_ms, step_ms_xla=step_ms_x, step_ms_median=median,
-        step_ms_median_xla=statistics.median(step_ms_x[1:]),
+        step_ms_median_xla=median_x,
         samples_per_s=batch / median * 1e3, rows_per_s=rows / median * 1e3,
         fit_wall_s=wall_s, peak_bytes=peak, peak_bytes_xla=peak_x,
         launches=launches, launches_by_variant=by_variant,
         expected_launches=want, grad_err=grad_err,
         max_grad_rel_l2=max_grad_err, max_grad_rel_l2_unpinned=unpinned,
-        routing_flips=flips, routings=routes, max_loss_rel_err=loss_rel)
+        routing_flips=flips, routings=routes, max_loss_rel_err=loss_rel,
+        valid_loss_rel_err=valid_rel)
     if not (len(losses) == len(losses_x) == n_steps == 8
-            and np.isfinite(losses + losses_x).all()):
-        raise AssertionError(f"step losses {losses} / {losses_x}")
+            and len(hist) == len(hist_x) == epochs
+            and np.isfinite(losses + losses_x).all()
+            and np.isfinite([h.valid_loss for h in hist + hist_x]).all()):
+        raise AssertionError(f"step losses {losses} / {losses_x}, valid "
+                             f"losses {[h.valid_loss for h in hist]} / "
+                             f"{[h.valid_loss for h in hist_x]}")
     if launches != want or by_variant != want_by_variant:
         raise AssertionError(f"launches {launches} {by_variant}, expected "
                              f"{want} {want_by_variant}")
-    if (flips["pool"] > MT_POOL_FLIP_SHARE * routes["pool"]
+    if flips is not None and (
+            flips["pool"] > MT_POOL_FLIP_SHARE * routes["pool"]
             or flips["relu"] > RF_RELU_FLIP_SHARE * routes["relu"]):
         raise AssertionError(f"the {impl} and xla forwards route {flips} of "
                              f"{routes} pooled columns and ReLU inputs "
                              "differently: more than rounding can move")
     if max_grad_err > DROP_GRAD_TOL:
-        raise AssertionError(f"step-1 gradients disagree with impl='xla': "
+        raise AssertionError(f"step-1 gradients disagree with {ref}: "
                              f"relative L2 {max_grad_err:.3e}")
     if loss_rel > DROP_LOSS_TOL:
-        raise AssertionError(f"losses disagree with impl='xla': {loss_rel:.3e}")
+        raise AssertionError(f"losses disagree with {ref}: {loss_rel:.3e}")
+    if max(valid_rel) > DROP_LOSS_TOL:
+        raise AssertionError(f"valid losses disagree with {ref}: {valid_rel}")
+    steps = {impl + "_step": lambda: trainer.train_step(state, first)}
+    if on_card:
+        steps["xla_step"] = lambda: twin_trainer.train_step(twin, first)
     try:
-        report[tag + "_profile"] = {
-            impl + "_step": profile_breakdown(
-                torch, lambda: trainer.train_step(state, first)),
-            "xla_step": profile_breakdown(
-                torch, lambda: twin_trainer.train_step(twin, first))}
+        report[tag + "_profile"] = {k: profile_breakdown(torch, fn)
+                                    for k, fn in steps.items()}
     except Exception:   # a measurement only: the checks above stand
         traceback.print_exc()
         report[tag + "_profile"] = "not measured: the profiler failed"
@@ -2802,103 +2852,32 @@ def phase_train_robot(torch, report):
 def phase_train_rencecps(torch, report):
     """The rencecps training slice: the concat_linear head at dim 2304 (no
     grid, no attention, no dropout site), trained by the port's Trainer for
-    RC_EPOCHS epochs at batch 64 with every kernel's count held at 0; the
-    step-1 gradients on the card against the port's own CPU run of the same
-    step, and one profiled step."""
-    import dataclasses
-
-    import numpy as np
-
+    RC_EPOCHS epochs at batch 64 with every kernel's count held at 0,
+    against the same run of the port on the CPU."""
     from multimodal_emotion_processing_tpu_torch import configs
-    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
-    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
-    from multimodal_emotion_processing_tpu_torch.models import build_model
     from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
     from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
     from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
-    from multimodal_emotion_processing_tpu_torch.train import engine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     exp = configs.get("rencecps")
     m, tcfg = exp.model, exp.train
-    if (tcfg.batch_size, tcfg.optimizer, m.dim, m.head) != (
-            RC_BATCH, "adamw", 2304, "concat_linear"):
+    if (tcfg.batch_size, tcfg.optimizer, tcfg.rdrop_kl, m.dim, m.head) != (
+            RC_BATCH, "adamw", False, 2304, "concat_linear"):
         raise AssertionError(f"unexpected config {exp}")
-    train = synthetic_dataset(exp.name, m, RC_N_TRAIN, seed=0)
-    valid = synthetic_dataset(exp.name, m, RC_N_VALID, seed=1)
-
-    def loaders():
-        return (Batcher(train, RC_BATCH, seed=1),
-                Batcher(valid, RC_BATCH, shuffle=False))
-
-    state = engine.init_state(m, tcfg, seed=0, device="cuda")
-    n_params = sum(p.numel() for p in state.model.parameters())
-    log(f"[rencecps] {exp.name}: dim={m.dim} head={m.head} params={n_params} "
-        f"batch={RC_BATCH} f32, optimizer={tcfg.optimizer}; {RC_N_TRAIN} train"
-        f" / {RC_N_VALID} valid synthetic pairs, {RC_EPOCHS} epochs")
-    if n_params != RC_PARAMS:
-        raise AssertionError(f"{n_params} parameters, expected {RC_PARAMS}")
-
-    # step-1 gradients on the card against the same step on the CPU
-    first = next(iter(loaders()[0]()))
-    cpu = build_model(m, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
-    grads = {}
-    for dev, model in (("cuda", state.model), ("cpu", cpu)):
-        model.train()
-        engine.batch_loss(model, tcfg, to_device(first, dev)).backward()
-        grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-    grad_err = gradient_errors(grads["cuda"], grads["cpu"])
-    max_grad_err = max(e["rel_l2"] for e in grad_err.values())
-    log(f"[rencecps] step-1 gradients cuda vs cpu, {len(grad_err)} tensors, "
-        "relative L2 per tensor: " + ", ".join(
-            f"{n}={e['rel_l2']:.2e}" for n, e in grad_err.items()))
-
     kernels = fa.KERNELS + pa.KERNELS + fb.KERNELS
-    for kern in kernels:
-        kern.reset()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    trainer = timed_trainer(torch, engine)(m, tcfg, device="cuda")
-    t0 = time.perf_counter()
-    state, hist = trainer.fit(*loaders(), state=state, epochs=RC_EPOCHS)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = trainer.step_ms()
-    median = statistics.median(step_ms[1:])
-    losses = [x for h in hist for x in h.step_losses]
-    n_steps = sum(h.steps for h in hist)
-    log("[rencecps] step losses: " + ", ".join(f"{x:.6f}" for x in losses))
-    log("[rencecps] step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
-        + f"; median after the first {median:.2f} ms = "
-        f"{RC_BATCH / median * 1e3:.1f} samples/s; fit wall {wall_s:.2f} s; "
-        f"peak memory {peak / 2**30:.3f} GiB; kernel launches {launches}")
-    report["train_rencecps"] = dict(
-        config=exp.name, params=n_params, batch=RC_BATCH, steps=n_steps,
-        step_losses=losses, epochs=[dataclasses.asdict(h) for h in hist],
-        step_ms=step_ms, step_ms_median=median,
-        samples_per_s=RC_BATCH / median * 1e3, fit_wall_s=wall_s,
-        peak_bytes=peak, launches=launches, grad_err=grad_err,
-        max_grad_rel_l2=max_grad_err)
-    if not (len(losses) == n_steps == 8 and np.isfinite(losses).all()):
-        raise AssertionError(f"step losses {losses}")
-    if any(launches.values()):
-        raise AssertionError(f"rencecps launched a kernel: {launches}")
-    if max_grad_err > RC_GRAD_TOL:
-        raise AssertionError(f"step-1 gradients on the card disagree with "
-                             f"the CPU: relative L2 {max_grad_err:.3e}")
-    batch = to_device(first, "cuda")
-    try:
-        report["train_rencecps_profile"] = profile_breakdown(
-            torch, lambda: trainer.train_step(state, batch))
-    except Exception:   # a measurement only: the checks above stand
-        traceback.print_exc()
-        report["train_rencecps_profile"] = "not measured: the profiler failed"
-        log("[profile] not measured: the profiler failed")
+
+    def expected(n_steps, n_eval):
+        return ({k.name: 0 for k in kernels},
+                {name: dict.fromkeys(counts, 0)
+                 for name, counts in variant_counts(kernels).items()})
+
+    launches = train_against_xla(
+        torch, report, tag="train_rencecps", exp=exp, impl="xla",
+        batch=RC_BATCH, n_train=RC_N_TRAIN, n_valid=RC_N_VALID,
+        epochs=RC_EPOCHS, kernels=kernels, expected=expected,
+        ref_device="cpu")
+    if report["train_rencecps"]["params"] != RC_PARAMS:
+        raise AssertionError("rencecps parameter count")
     return launches
 
 

@@ -142,7 +142,8 @@ def batch_loss(model, tcfg, batch, *, impl: str = "xla",
     `batch_loss` does.  Under `rdrop_kl`, with the model in training mode,
     `symmetric_sigmoid_kl` over the adjacent duplicate rows is added,
     weighted by w[::2] (Ren-MME/run.py:332-334).  `generator` feeds the
-    model's dropout sites (passed on only when given).
+    model's dropout sites; it is passed on only when given, so that any
+    callable of (batch, impl) without dropout can stand as the model.
 
     Under `compute_dtype="bfloat16"` the f32 parameters are cast to bf16
     inside the graph (`functional_call` with `p.to(bfloat16)`), so their
