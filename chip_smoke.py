@@ -89,7 +89,30 @@ Phases, each reported on its own lines:
      plain versions at the training shapes of phases 10 and 11, and
      fused_block at the shapes of phase 10's eval passes, and checks
      dropout itself on the card (keep rate, exact x / keep, the same bits
-     from a seed).
+     from a seed);
+ 13. experiment: the k-fold experiment of `mosei_trans` at its reference
+     width through `cli train` (pipelines.run_experiment) at
+     impl="pallas_fused" (4
+     folds of 128 from 512 synthetic pairs, 2 epochs, best checkpoints and
+     per-epoch resume points, the 4 best members' mean over 128 test
+     pairs, the fixed thresholds), with every kernel counted, each
+     member's fit wall and step times, the checkpoint saves and the
+     ensemble pass timed and profiled; held against the same experiment at
+     impl="xla" (epoch losses, best epochs, decisions), the restored
+     members at both impls, run_predict from the store (the same bits as
+     the run's eval logits) and `cli serve --checkpoint-dir` (batch-1 and
+     16 concurrent requests against Ensemble.logits); then run_kfold over 2
+     folds cut during member 1's epoch 2 and resumed, bit-equal to the
+     uninterrupted run;
+ 14. experiment_families: `ren_mme` (R-Drop, dropout 0.1, 2 folds, summed
+     members, the joint threshold grid) at impl="pallas_fused",
+     `mosei_realformer` (3 folds, its two best members at 0.6/0.4, the
+     400-point sweep, paragraph clips) at impl="pallas", 1 epoch each, and
+     4 seeded `mosei_trans_s1024` members written with save_params and
+     scored by run_predict at impl="flash" in bf16: the launches of each
+     path, the restored members' logits against impl="xla" (2e-4 f32, 5e-2
+     bf16, the realformer's through gate-perturbed copies) and the swept or
+     gridded thresholds against the same search on the xla logits.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -97,6 +120,7 @@ Details go to chip_smoke_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -249,6 +273,29 @@ SCORED_EDGE_CASES = (
 # backward rebuilds and fused_block's S must come from one chain
 SCORED_QX4_CASES = ((2, 64, 77, 2, 16, "zero_row", 4.0),
                     (2, 64, 77, 2, 32, "zero_row", 4.0))
+# the experiment phase: mosei_trans (dim 96, f32, AdamW) through
+# pipelines.run_experiment with the config's 4 folds; fold_size 4096 x 4
+# exceeds 512 samples, so the folds are the fractional carving's 128 each;
+# 2 epochs, 128 test pairs.  Against the same experiment at impl="xla":
+# each epoch's train and valid loss at 1e-3 relative, the ensemble's
+# logits at 2e-4 normalised (tests/test_interop.py:20), the decisions equal
+# wherever a logit lies 1e-4 or more from its threshold.  Its resume check:
+# 2 folds of 128, 4 epochs, cut in member 1's epoch 2.  Stores and
+# checkpoints go under STORES and are removed after each phase
+STORES = ROOT / "chip_smoke_out" / "stores"
+EXP_FOLDS, EXP_N_TRAIN, EXP_N_TEST, EXP_EPOCHS = 4, 512, 128, 2
+EXP_LOSS_TOL, EXP_LOGIT_TOL, EXP_MARGIN = 1e-3, 2e-4, 1e-4
+EXP_RESUME_N, EXP_RESUME_EPOCHS = 256, 4
+# the families' experiments, 1 epoch each: ren_mme 2 folds of 64 pairs (16
+# a step) and 64 test pairs; mosei_realformer 3 folds of 64 paragraphs and
+# 64 test paragraphs; mosei_trans_s1024 4 seeded members over 64 test
+# samples.  A swept or gridded threshold that differs from the one found on
+# the xla logits must score within this of it
+FAM_EPOCHS = 1
+FAM_REN_N_TRAIN, FAM_REN_N_TEST = 128, 64
+FAM_RF_N_TRAIN, FAM_RF_N_TEST = 192, 64
+FAM_S1024_N_TEST = 64
+FAM_OBJECTIVE_TOL = 1e-6
 # training: configs.SCALE_POINTS["s1024"] batch 64; 256 / 64 synthetic
 # samples and 2 epochs give 8 optimizer steps and 2 eval passes
 TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
@@ -2881,6 +2928,667 @@ def phase_train_rencecps(torch, report):
     return launches
 
 
+def all_kernels():
+    """Every kernel wrapper of the port, each with its launch counter."""
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+    from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+
+    return fa.KERNELS + pa.KERNELS + fb.KERNELS
+
+
+def reset_counts(kernels):
+    for k in kernels:
+        k.reset()
+
+
+def read_counts(kernels):
+    return {k.name: k.launches for k in kernels}
+
+
+class Preempted(Exception):
+    """Raised by a run's log callback to cut it as a preemption would."""
+
+
+@contextlib.contextmanager
+def experiment_hooks(torch, *, spread: bool):
+    """Instruments the experiment path for the duration of the block and
+    restores it after: with `spread`, `engine.init_state` moves every
+    LayerNorm bias of a new member by 0.1·N(0, 1) from a generator seeded by
+    the member's seed (at init they tie across blocks, and the max pool's
+    routing would then rest on the last ulp of each impl: spread_ln);
+    `engine.Trainer` records each fit's wall time and CUDA events around
+    its train steps; the checkpoint store's save_best, save_last and
+    restore_last record their wall times; and `Ensemble.predict_all` records
+    its wall time and the kernel launches it made.  Yields the record."""
+    from multimodal_emotion_processing_tpu_torch.eval import ensemble
+    from multimodal_emotion_processing_tpu_torch.train import checkpoint, engine
+
+    rec = {"fits": [], "save_best_ms": [], "save_last_ms": [],
+           "restore_last_ms": [], "predict_all": []}
+    kernels = all_kernels()
+    init, trainer = engine.init_state, engine.Trainer
+    store_cls, ens_cls = checkpoint.CheckpointStore, ensemble.Ensemble
+    saved = {n: getattr(store_cls, n)
+             for n in ("save_best", "save_last", "restore_last")}
+    predict_all = ens_cls.predict_all
+    base = timed_trainer(torch, engine)
+
+    def spread_init(cfg, tcfg, seed, **kw):
+        state = init(cfg, tcfg, seed, **kw)
+        spread_ln(torch, [state.model], seed=99 + seed)
+        return state
+
+    class FitTimer(base):
+        def fit(self, *args, **kw):
+            self.events = []
+            t0 = time.perf_counter()
+            out = super().fit(*args, **kw)
+            torch.cuda.synchronize()
+            rec["fits"].append({"wall_s": time.perf_counter() - t0,
+                                "step_ms": self.step_ms(),
+                                "epochs": len(out[1]),
+                                "epoch_s": [h.seconds for h in out[1]]})
+            return out
+
+    def timed(name):
+        fn = saved[name]
+
+        def wrapper(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kw)
+            rec[name + "_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return wrapper
+
+    def counted_predict_all(self, loader):
+        before = read_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predict_all(self, loader)
+        wall = time.perf_counter() - t0
+        after = read_counts(kernels)
+        rec["predict_all"].append({
+            "wall_s": wall, "rows": int(out.shape[0]), "members": self.k,
+            "impl": self.impl,
+            "launches": {n: after[n] - before[n] for n in after}})
+        return out
+
+    if spread:
+        engine.init_state = spread_init
+    engine.Trainer = FitTimer
+    for name in saved:
+        setattr(store_cls, name, timed(name))
+    ens_cls.predict_all = counted_predict_all
+    try:
+        yield rec
+    finally:
+        engine.init_state, engine.Trainer = init, trainer
+        for name, fn in saved.items():
+            setattr(store_cls, name, fn)
+        ens_cls.predict_all = predict_all
+
+
+def log_fits(tag, fits, names):
+    """Each member's fit wall time and median step after its first."""
+    out = []
+    for name, fit in zip(names, fits):
+        steps = fit["step_ms"]
+        median = statistics.median(steps[1:] if len(steps) > 1 else steps)
+        out.append({"member": name, "fit_wall_s": fit["wall_s"],
+                    "epochs": fit["epochs"], "epoch_s": fit["epoch_s"],
+                    "steps": len(steps), "step_ms": steps,
+                    "step_ms_median": median})
+        log(f"[{tag}] {name}: fit wall {fit['wall_s']:.3f} s over "
+            f"{fit['epochs']} epochs (their loops "
+            + ", ".join(f"{x:.3f}" for x in fit["epoch_s"])
+            + f" s), {len(steps)} steps, median step after the first "
+            f"{median:.2f} ms, slowest {max(steps):.2f} ms")
+    return out
+
+
+def normalised_err(got, ref):
+    import numpy as np
+
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+def phase_experiment(torch, report):
+    """The k-fold experiment of mosei_trans at its reference width through
+    `cli train` (pipelines.run_experiment) at impl="pallas_fused" and
+    through run_experiment at "xla";
+    the same store's members evaluated at both impls, through run_predict
+    and served by `cli serve --checkpoint-dir`; run_kfold cut mid-member and
+    resumed on the card."""
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import cli, configs, pipelines
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.eval.ensemble import (
+        Ensemble, apply_thresholds)
+    from multimodal_emotion_processing_tpu_torch.serve import StreamingPredictor
+    from multimodal_emotion_processing_tpu_torch.train import engine
+    from multimodal_emotion_processing_tpu_torch.train.checkpoint import CheckpointStore
+    from multimodal_emotion_processing_tpu_torch.train.kfold import run_kfold
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = configs.get("mosei_trans")
+    m, tcfg = exp.model, exp.train
+    if (tcfg.n_folds, tcfg.fold_size, tcfg.batch_size, tcfg.compute_dtype,
+            tcfg.optimizer, m.dim, m.n_heads, m.n_layers, m.dropout) != (
+            EXP_FOLDS, 4096, MT_BATCH, "float32", "adamw", 96, MT_HEADS, 1,
+            0.0):
+        raise AssertionError(f"unexpected config {exp}")
+    root = STORES / "experiment"
+    shutil.rmtree(root, ignore_errors=True)
+    kernels = all_kernels()
+    names = [f"mosei_trans_{i + 1}" for i in range(EXP_FOLDS)]
+    out = {"config": exp.name, "folds": EXP_FOLDS, "n_train": EXP_N_TRAIN,
+           "n_test": EXP_N_TEST, "epochs": EXP_EPOCHS}
+    log(f"[experiment] {exp.name}: dim={m.dim} heads={m.n_heads} lens l/v/a="
+        f"{m.l_len}/{m.v_len}/{m.a_len} f32 AdamW; {EXP_FOLDS} folds of "
+        f"{EXP_N_TRAIN // EXP_FOLDS} from {EXP_N_TRAIN} synthetic pairs "
+        f"(fold_size {tcfg.fold_size} x {EXP_FOLDS} > {EXP_N_TRAIN}: the "
+        f"fractional carving), {EXP_EPOCHS} epochs, {EXP_N_TEST} test pairs; "
+        "LN biases spread by 0.1 N(0, 1) at every member's init")
+    try:
+        runs = {}
+        # the main path is `cli train`, which runs pipelines.run_experiment;
+        # the reference run calls run_experiment itself
+        train_out = io.StringIO()
+        for impl in ("pallas_fused", "xla"):
+            with experiment_hooks(torch, spread=True) as rec:
+                reset_counts(kernels)
+                t0 = time.perf_counter()
+                if impl == "pallas_fused":
+                    with contextlib.redirect_stdout(train_out):
+                        res = cli.main([
+                            "train", exp.name, "--impl", impl, "--epochs",
+                            str(EXP_EPOCHS), "--n-train", str(EXP_N_TRAIN),
+                            "--n-test", str(EXP_N_TEST), "--checkpoint-dir",
+                            str(root / impl), "--quiet"])
+                else:
+                    res = pipelines.run_experiment(
+                        exp.name, n_train=EXP_N_TRAIN, n_test=EXP_N_TEST,
+                        epochs=EXP_EPOCHS, checkpoint_dir=str(root / impl),
+                        impl=impl, quiet=True, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            runs[impl] = (res, rec, read_counts(kernels), wall)
+        res, rec, launches, wall = runs["pallas_fused"]
+        res_x, rec_x, launches_x, wall_x = runs["xla"]
+        lines = [json.loads(x) for x in train_out.getvalue().splitlines()]
+        log(f"[experiment] cli train printed {len(lines)} JSON lines: "
+            f"{sum('epoch' in x for x in lines)} member epochs, then "
+            f"{[k for x in lines if 'epoch' not in x for k in x]}")
+        if (sum("epoch" in x for x in lines) != EXP_FOLDS * EXP_EPOCHS
+                or lines[-1] != {"report": res.report}):
+            raise AssertionError("cli train printed other lines than a "
+                                 "member's epochs and the report")
+        fits = log_fits("experiment", rec["fits"], names)
+        fits_x = log_fits("experiment xla", rec_x["fits"], names)
+        n_epochs = sum(f["epochs"] for f in rec["fits"])
+        saves = {k: rec[k] for k in ("save_best_ms", "save_last_ms")}
+        (pred,) = rec["predict_all"]
+        outside = wall - sum(f["wall_s"] for f in rec["fits"]) - pred["wall_s"]
+        log(f"[experiment] run_experiment wall {wall:.2f} s at pallas_fused "
+            f"({wall / n_epochs:.3f} s per member-epoch; {outside:.2f} s of it "
+            "outside the fits and the ensemble pass: the synthetic data, "
+            f"loaders, restores and report), {wall_x:.2f} s at "
+            f"xla; save_best {len(saves['save_best_ms'])} x median "
+            f"{statistics.median(saves['save_best_ms']):.1f} ms, save_last "
+            f"{len(saves['save_last_ms'])} x median "
+            f"{statistics.median(saves['save_last_ms']):.1f} ms; the ensemble "
+            f"pass {pred['wall_s'] * 1e3:.1f} ms for {pred['rows']} pairs x "
+            f"{pred['members']} members")
+
+        # launches: 18 blocks a forward; each member trains 6 steps and
+        # validates 2 batches an epoch, the ensemble runs 4 members x 2
+        # batches
+        steps = EXP_EPOCHS * -(-(EXP_N_TRAIN - EXP_N_TRAIN // EXP_FOLDS)
+                               // MT_BATCH)
+        evals = EXP_EPOCHS * -(-(EXP_N_TRAIN // EXP_FOLDS) // MT_BATCH)
+        ens_forwards = EXP_FOLDS * -(-EXP_N_TEST // MT_BATCH)
+        expected = {k.name: 0 for k in kernels}
+        expected.update(
+            fused_block=18 * (EXP_FOLDS * (steps + evals) + ens_forwards),
+            scored_bwd_dq=18 * EXP_FOLDS * steps,
+            scored_bwd_dkv=18 * EXP_FOLDS * steps)
+        ens_launches = pred["launches"]["fused_block"]
+        log(f"[experiment] launches {launches}, expected {expected}; the "
+            f"ensemble pass {ens_launches} fused_block = 18 x "
+            f"{ens_forwards} member forwards; xla run {launches_x}")
+        if launches != expected or ens_launches != 18 * ens_forwards:
+            raise AssertionError(f"launches {launches} (ensemble "
+                                 f"{ens_launches}), expected {expected}")
+        if any(launches_x.values()):
+            raise AssertionError(f"the xla run launched kernels: {launches_x}")
+
+        # the two runs agree
+        loss_rel = 0.0
+        for hist, hist_x in zip(res.fold_histories, res_x.fold_histories):
+            if len(hist) != len(hist_x) or len(hist) != EXP_EPOCHS:
+                raise AssertionError("the runs trained different epochs")
+            for h, hx in zip(hist, hist_x):
+                for a, b in ((h.train_loss, hx.train_loss),
+                             (h.valid_loss, hx.valid_loss)):
+                    if not np.isfinite(a):
+                        raise AssertionError(f"loss {a}")
+                    loss_rel = max(loss_rel, abs(a - b) / max(abs(b), 1e-30))
+        best = [res.store.manifest[n]["epoch"] for n in names]
+        best_x = [res_x.store.manifest[n]["epoch"] for n in names]
+        th, idx = exp.thresholds, exp.emotion_index
+        dec = apply_thresholds(res.logits, th, idx)
+        dec_x = apply_thresholds(res_x.logits, th, idx)
+        cols = np.stack([res.logits[:, i] for i in idx], 1)
+        cols_x = np.stack([res_x.logits[:, i] for i in idx], 1)
+        near = np.minimum(np.abs(cols - np.asarray(th)),
+                          np.abs(cols_x - np.asarray(th))) < EXP_MARGIN
+        flips = int((dec != dec_x).sum())
+        unexplained = int(((dec != dec_x) & ~near).sum())
+        logit_err = normalised_err(res.logits, res_x.logits)
+        log("[experiment] per-member epoch losses at pallas_fused: "
+            + "; ".join(", ".join(f"{h.train_loss:.6f}/{h.valid_loss:.6f}"
+                                  for h in hist) for hist in res.fold_histories)
+            + f"; max relative difference to xla {loss_rel:.2e} (bound "
+            f"{EXP_LOSS_TOL:g}); best epochs {best} (xla {best_x}); ensemble "
+            f"logits of the two runs {logit_err:.2e} apart; {flips} of "
+            f"{dec.size} decisions differ, {unexplained} of them with both "
+            f"logits {EXP_MARGIN:g} or more from the threshold; micro F1 "
+            f"{res.report['micro_f1']:.6f} (xla {res_x.report['micro_f1']:.6f})")
+        if loss_rel > EXP_LOSS_TOL:
+            raise AssertionError(f"losses disagree with xla: {loss_rel:.3e}")
+        if best != best_x:
+            raise AssertionError(f"best epochs {best} vs {best_x}")
+        if unexplained or (not flips and res.report != res_x.report):
+            raise AssertionError("the reports disagree")
+
+        # what a save_last costs: the state's copy to the host, then the
+        # file (a fresh member's state has the same tensors and bytes)
+        state = engine.init_state(m, tcfg, seed=0, device="cuda")
+        sd_ms, save_ms = [], []
+        path = root / "probe.pt"
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sd = state.state_dict()
+            t1 = time.perf_counter()
+            CheckpointStore._save(str(path), sd)
+            t2 = time.perf_counter()
+            sd_ms.append((t1 - t0) * 1e3)
+            save_ms.append((t2 - t1) * 1e3)
+        n_tensors = len(sd["model"]) + 2 * len(sd["optimizer"]["mu"])
+        nbytes = path.stat().st_size
+        log(f"[experiment] a save_last's parts: state_dict() (the copies of "
+            f"{n_tensors} tensors to the host) median "
+            f"{statistics.median(sd_ms):.1f} ms, torch.save of {nbytes} bytes "
+            f"and the rename median {statistics.median(save_ms):.1f} ms")
+        del state
+
+        # the same members, evaluated at both impls
+        store = CheckpointStore(str(root / "pallas_fused"))
+        members, _ = pipelines._restore_members(exp.name, exp, store, "cuda")
+        test = synthetic_dataset(exp.name, m, EXP_N_TEST, seed=1)
+        loader = Batcher(test, MT_BATCH, shuffle=False)
+        ens = Ensemble(members, impl="pallas_fused")
+        lf = ens.predict_all(loader)
+        lx = Ensemble(members, impl="xla").predict_all(loader)
+        eval_err = normalised_err(lf, lx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ens.predict_all(loader)
+        torch.cuda.synchronize()
+        pass_s = (time.perf_counter() - t0) / 3
+        log(f"[experiment] restored members, pallas_fused vs xla: "
+            f"{eval_err:.2e} (bound {EXP_LOGIT_TOL:g}); again bit-equal to "
+            f"the run's eval logits: {np.array_equal(lf, res.logits)}; "
+            f"predict_all {pass_s * 1e3:.2f} ms = "
+            f"{EXP_N_TEST / pass_s:.1f} samples/s")
+        try:
+            profile = profile_breakdown(torch, lambda: ens.predict_all(loader))
+            if "launches_per_call" in profile:
+                profile["device_ops_per_batch"] = (
+                    profile["launches_per_call"] / -(-EXP_N_TEST // MT_BATCH))
+        except Exception:   # a measurement only: the checks stand
+            traceback.print_exc()
+            profile = "not measured: the profiler failed"
+        if eval_err > EXP_LOGIT_TOL:
+            raise AssertionError(f"eval logits disagree with xla: {eval_err:.3e}")
+        if not np.array_equal(lf, res.logits):
+            raise AssertionError("predict_all is not the run's eval logits")
+
+        table = pipelines.run_predict(exp.name, checkpoint_dir=str(
+            root / "pallas_fused"), n_test=EXP_N_TEST, impl="pallas_fused",
+            quiet=True, device="cuda")
+        predict_equal = bool(np.array_equal(table["logits"], res.logits))
+        log(f"[experiment] run_predict from the store: {table['rows']} rows, "
+            f"{table['members']} members, bit-equal to the eval logits: "
+            f"{predict_equal}")
+        if not predict_equal:
+            raise AssertionError("run_predict differs from the eval logits")
+
+        # cli serve from the store: one batch-1 request, then a burst
+        streamed, predict = [], StreamingPredictor.predict
+
+        def spy(self, sample):
+            got = predict(self, sample)
+            streamed.append(got[0])
+            return got
+
+        StreamingPredictor.predict = spy
+        text = io.StringIO()
+        try:
+            reset_counts(kernels)
+            with contextlib.redirect_stdout(text):
+                cli.main(["serve", exp.name, "--checkpoint-dir",
+                          str(root / "pallas_fused"), "--impl", "pallas_fused"])
+                served = cli.main(["serve", exp.name, "--checkpoint-dir",
+                                   str(root / "pallas_fused"), "--impl",
+                                   "pallas_fused", "--concurrent",
+                                   str(N_CONCURRENT)])
+            serve_launches = read_counts(kernels)
+        finally:
+            StreamingPredictor.predict = predict
+        one = synthetic_dataset(exp.name, m, 1, seed=7)[0]
+        burst = synthetic_dataset(exp.name, m, N_CONCURRENT, seed=7)
+        ref1 = ens.logits({k: v[None] for k, v in one.items()}).cpu().numpy()[0]
+        refs = ens.logits({k: np.stack([s[k] for s in burst])
+                           for k in burst[0]}).cpu().numpy()
+        serve_err = max([normalised_err(s, ref1) for s in streamed]
+                        + [normalised_err(lg, r)
+                           for (lg, _), r in zip(served, refs)])
+        log(f"[experiment] cli serve --checkpoint-dir: {len(streamed)} "
+            f"batch-1 predicts and {len(served)} concurrent requests within "
+            f"{serve_err:.2e} of Ensemble.logits (bound {EXP_LOGIT_TOL:g}); "
+            f"launches {serve_launches}; its output: "
+            + " | ".join(text.getvalue().splitlines()))
+        if serve_err > EXP_LOGIT_TOL or len(served) != N_CONCURRENT:
+            raise AssertionError(f"served logits {serve_err:.3e} off")
+        del members, ens
+
+        # resume on the card: 2 folds, unshuffled, cut in member 1's epoch 2
+        samples = synthetic_dataset(exp.name, m, EXP_RESUME_N, seed=3)
+        rtcfg = dataclasses.replace(tcfg, n_folds=2)
+
+        def resume_run(sub, *, crash=None, resume=False):
+            losses = {}
+
+            def log_cb(name, epoch, stats):
+                if (name, epoch) == crash:
+                    raise Preempted(f"{name} epoch {epoch}")
+                losses.setdefault(name, []).append(
+                    (stats.train_loss, stats.valid_loss))
+
+            def make_loaders(train, valid):
+                return (Batcher(train, MT_BATCH, shuffle=False),
+                        Batcher(valid, MT_BATCH, shuffle=False))
+
+            results = run_kfold(
+                samples, make_loaders, exp, rtcfg,
+                store=CheckpointStore(str(root / sub)), name_prefix="m",
+                epochs=EXP_RESUME_EPOCHS, impl="pallas_fused", log_cb=log_cb,
+                resume=resume, device="cuda")
+            return results, losses
+
+        with experiment_hooks(torch, spread=True) as rrec:
+            full, full_losses = resume_run("full")
+            try:
+                resume_run("cut", crash=("m_1", 2))
+                raise AssertionError("the cut did not happen")
+            except Preempted:
+                pass
+            resumed, res_losses = resume_run("cut", resume=True)
+        equal = all(torch.equal(a, b) for (s, _), (t, _) in zip(full, resumed)
+                    for a, b in zip(s.model.state_dict().values(),
+                                    t.model.state_dict().values()))
+        log(f"[experiment] resume: member 1 ran epochs "
+            f"{len(full_losses['m_1']) - len(res_losses['m_1'])}-"
+            f"{EXP_RESUME_EPOCHS - 1} after the cut, member 2 "
+            f"{len(res_losses['m_2'])} epochs; losses bit-equal "
+            f"{res_losses['m_1'] == full_losses['m_1'][2:]} / "
+            f"{res_losses['m_2'] == full_losses['m_2']}; final parameters "
+            f"bit-equal {equal}; restore_last "
+            + ", ".join(f"{x:.1f}" for x in rrec["restore_last_ms"]) + " ms")
+        if not (len(res_losses["m_1"]) == 2 and len(res_losses["m_2"]) == 4
+                and res_losses["m_1"] == full_losses["m_1"][2:]
+                and res_losses["m_2"] == full_losses["m_2"] and equal):
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+        out.update(
+            run_wall_s=wall, run_wall_s_xla=wall_x,
+            s_per_member_epoch=wall / n_epochs, outside_fits_s=outside,
+            fits=fits, fits_xla=fits_x,
+            save_best_ms=saves["save_best_ms"],
+            save_last_ms=saves["save_last_ms"],
+            restore_last_ms=rrec["restore_last_ms"],
+            save_parts={"state_dict_ms": sd_ms, "file_ms": save_ms,
+                        "tensors": n_tensors, "bytes": nbytes},
+            launches=launches, expected_launches=expected,
+            ensemble_pass=pred, max_loss_rel_err=loss_rel, best_epochs=best,
+            best_epochs_xla=best_x, decision_flips=flips,
+            run_logit_err=logit_err, report=res.report,
+            report_xla=res_x.report, eval_err_vs_xla=eval_err,
+            predict_all_ms=pass_s * 1e3,
+            predict_all_samples_per_s=EXP_N_TEST / pass_s,
+            predict_all_profile=profile, run_predict_bit_equal=predict_equal,
+            serve_err=serve_err, serve_launches=serve_launches,
+            resume_bit_equal=equal)
+        report["experiment"] = out
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_experiment_families(torch, report):
+    """The other families' experiment paths at their full widths: ren_mme
+    (R-Drop, dropout 0.1, summed members, the joint threshold grid) at
+    pallas_fused, mosei_realformer (its two best of 3 members at 0.6/0.4,
+    the 400-point sweep, paragraph clips) at pallas, and 4 seeded
+    mosei_trans_s1024 members through run_predict at flash in bf16; each
+    held against xla on the same members."""
+    import copy
+    import shutil
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs, pipelines
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.eval.ensemble import (
+        joint_threshold_grid, realformer_threshold_grid, ren_mme_joint_grids,
+        threshold_sweep)
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.train.checkpoint import CheckpointStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = STORES / "families"
+    shutil.rmtree(root, ignore_errors=True)
+    kernels = all_kernels()
+    total = {k.name: 0 for k in kernels}
+    out = {}
+
+    def run(name, impl, folds, n_train, n_test):
+        exp = configs.with_overrides(configs.get(name),
+                                     {"train": {"n_folds": folds}})
+        with experiment_hooks(torch, spread=False) as rec:
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            res = pipelines.run_experiment(
+                name, n_train=n_train, n_test=n_test, epochs=FAM_EPOCHS,
+                checkpoint_dir=str(root / name), impl=impl,
+                sweep_thresholds=True, quiet=True, device="cuda",
+                overrides={"train": {"n_folds": folds}})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        for k, v in launches.items():
+            total[k] += v
+        fits = log_fits(name, rec["fits"],
+                        [f"{name}_{i + 1}" for i in range(folds)])
+        (pred,) = rec["predict_all"]
+        log(f"[{name}] run_experiment at {impl}: wall {wall:.2f} s, "
+            f"{folds} folds of {n_train // folds}, {FAM_EPOCHS} epoch; "
+            f"launches {launches}, of them in the ensemble pass "
+            f"{pred['launches']}")
+        store = CheckpointStore(str(root / name))
+        members, losses = pipelines._restore_members(name, exp, store, "cuda")
+        test = synthetic_dataset(name, exp.model, n_test, seed=1)
+        loader = Batcher(test, exp.train.batch_size, shuffle=False)
+        logits = {}
+        for i in (impl, "xla"):
+            ens = pipelines._make_ensemble(name, members, losses, impl=i,
+                                           dtype=exp.train.compute_dtype)
+            logits[i], labels = pipelines._collapse_test_outputs(
+                ens.predict_all(loader), test)
+        err = normalised_err(logits[impl], logits["xla"])
+        entry = dict(impl=impl, folds=folds, n_train=n_train, n_test=n_test,
+                     wall_s=wall, fits=fits, launches=launches,
+                     ensemble_pass=pred, members=ens.k,
+                     weights=ens.weights.tolist(), logit_err_vs_xla=err,
+                     eval_bit_equal=bool(np.array_equal(logits[impl],
+                                                        res.logits)))
+        log(f"[{name}] restored members ({ens.k} in the ensemble, weights "
+            f"{entry['weights']}): {impl} vs xla {err:.2e} (bound "
+            f"{EXP_LOGIT_TOL:g}); bit-equal to the run's eval logits: "
+            f"{entry['eval_bit_equal']}")
+        if err > EXP_LOGIT_TOL or not entry["eval_bit_equal"]:
+            raise AssertionError(f"{name}: eval logits disagree")
+        return exp, res, members, losses, logits, labels, entry, launches
+
+    try:
+        # ren_mme: dropout trains through scored_fwd and the scored_bwd pair,
+        # the eval passes and the summed ensemble through fused_block
+        exp, res, _, _, logits, labels, entry, launches = run(
+            "ren_mme", "pallas_fused", 2, FAM_REN_N_TRAIN, FAM_REN_N_TEST)
+        pairs = exp.train.batch_size
+        steps = FAM_EPOCHS * -(-(FAM_REN_N_TRAIN // 2) // pairs)
+        evals = FAM_EPOCHS * -(-(FAM_REN_N_TRAIN // 2) // pairs)
+        ens_fw = 2 * -(-FAM_REN_N_TEST // pairs)
+        expected = {k.name: 0 for k in kernels}
+        expected.update(scored_fwd=18 * 2 * steps, scored_bwd_dq=18 * 2 * steps,
+                        scored_bwd_dkv=18 * 2 * steps,
+                        fused_block=18 * (2 * evals + ens_fw))
+        jx = joint_threshold_grid(logits["xla"], labels, ren_mme_joint_grids(),
+                                  exp.emotion_index, exp.emotion_names)
+        joint = res.sweep["joint"]
+        same = joint["thresholds"] == jx["thresholds"]
+        obj_gap = abs(joint["objective"] - jx["objective"])
+        entry.update(expected_launches=expected, joint=joint, joint_xla=jx,
+                     objective_gap=obj_gap)
+        log(f"[ren_mme] expected launches {expected}; joint grid "
+            f"{joint['thresholds']} (objective {joint['objective']:.6f}), on "
+            f"the xla logits {'the same' if same else jx['thresholds']} "
+            f"({jx['objective']:.6f})")
+        if launches != expected:
+            raise AssertionError(f"ren_mme launches {launches}, expected "
+                                 f"{expected}")
+        if not same and obj_gap > FAM_OBJECTIVE_TOL:
+            raise AssertionError("ren_mme joint grids disagree")
+        out["ren_mme"] = entry
+
+        # mosei_realformer: 3 members, the two best at 0.6/0.4, 400-point sweep
+        exp, res, members, losses, logits, labels, entry, launches = run(
+            "mosei_realformer", "pallas", 3, FAM_RF_N_TRAIN, FAM_RF_N_TEST)
+        steps = FAM_EPOCHS * -(-(FAM_RF_N_TRAIN * 2 // 3) // RF_BATCH)
+        evals = FAM_EPOCHS * -(-(FAM_RF_N_TRAIN // 3) // RF_BATCH)
+        ens_fw = 2 * -(-FAM_RF_N_TEST // RF_BATCH)
+        expected = {k.name: 0 for k in kernels}
+        expected.update(scored_fwd=18 * (3 * (steps + evals) + ens_fw),
+                        scored_bwd_dq=18 * 3 * steps,
+                        scored_bwd_dkv=18 * 3 * steps)
+        sx = threshold_sweep(logits["xla"], labels, realformer_threshold_grid(),
+                             exp.emotion_index, exp.emotion_names)
+        gaps = {e: (res.sweep[e]["t"] == sx[e]["t"],
+                    abs(res.sweep[e]["f1"] - sx[e]["f1"]))
+                for e in exp.emotion_names}
+        if entry["members"] != 2 or not np.allclose(entry["weights"],
+                                                     [0.6, 0.4]):
+            raise AssertionError(f"realformer ensemble {entry['members']} "
+                                 f"members at {entry['weights']}")
+        # the trained gates sit near their initial 0: copies with the gates
+        # set, written with save_params, held at pallas against xla
+        copies = [copy.deepcopy(mm) for mm in members]
+        set_gates(torch, copies)
+        gstore = CheckpointStore(str(root / "realformer_gates"))
+        names = [f"{exp.name}_{i + 1}" for i in range(3)]
+        for name, mm, loss in zip(names, copies, losses):
+            gstore.save_params(name, mm, valid_loss=loss, imported=False)
+        gated = {i: pipelines.run_predict(
+            exp.name, checkpoint_dir=str(root / "realformer_gates"),
+            n_test=FAM_RF_N_TEST, impl=i, quiet=True, device="cuda")["logits"]
+            for i in ("pallas", "xla")}
+        gate_err = normalised_err(gated["pallas"], gated["xla"])
+        gate_effect = normalised_err(gated["xla"], logits["xla"])
+        entry.update(expected_launches=expected, sweep=res.sweep,
+                     sweep_xla=sx, gated_err_vs_xla=gate_err,
+                     gate_effect=gate_effect, members_written=names)
+        log(f"[mosei_realformer] expected launches {expected}; sweep "
+            f"thresholds {[res.sweep[e]['t'] for e in exp.emotion_names]}, on "
+            f"the xla logits {[sx[e]['t'] for e in exp.emotion_names]}; "
+            f"gate-perturbed copies through run_predict: pallas vs xla "
+            f"{gate_err:.2e} (bound {EXP_LOGIT_TOL:g}); the gates move the "
+            f"logits by {gate_effect:.2e}")
+        if launches != expected:
+            raise AssertionError(f"realformer launches {launches}, expected "
+                                 f"{expected}")
+        if any(not eq and gap > FAM_OBJECTIVE_TOL for eq, gap in gaps.values()):
+            raise AssertionError(f"realformer sweeps disagree: {gaps}")
+        if gate_err > EXP_LOGIT_TOL or gate_effect <= 100 * EXP_LOGIT_TOL:
+            raise AssertionError("gate-perturbed realformer check failed")
+        out["mosei_realformer"] = entry
+        del members, copies
+
+        # mosei_trans_s1024: 4 seeded members, run_predict at flash in bf16
+        exp = configs.get("mosei_trans_s1024")
+        sstore = CheckpointStore(str(root / "s1024"))
+        for i in range(N_MEMBERS):
+            sstore.save_params(f"{exp.name}_{i + 1}",
+                               build_model(exp, device="cuda", seed=i),
+                               imported=False)
+        tables = {}
+        for impl in ("flash", "xla"):
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            tables[impl] = pipelines.run_predict(
+                exp.name, checkpoint_dir=str(root / "s1024"),
+                n_test=FAM_S1024_N_TEST, impl=impl, quiet=True, device="cuda")
+            torch.cuda.synchronize()
+            if impl == "flash":
+                wall = time.perf_counter() - t0
+                launches = read_counts(kernels)
+        for k, v in launches.items():
+            total[k] += v
+        expected = {k.name: 0 for k in kernels}
+        expected["flash_fwd"] = 18 * N_MEMBERS * -(-FAM_S1024_N_TEST
+                                                   // exp.train.batch_size)
+        err = normalised_err(tables["flash"]["logits"],
+                             tables["xla"]["logits"])
+        out["mosei_trans_s1024"] = dict(
+            impl="flash", dtype=exp.train.compute_dtype, n_test=FAM_S1024_N_TEST,
+            members=tables["flash"]["members"], wall_s=wall, launches=launches,
+            expected_launches=expected, logit_err_vs_xla=err)
+        log(f"[mosei_trans_s1024] run_predict at flash, bf16, "
+            f"{tables['flash']['members']} members, {FAM_S1024_N_TEST} samples: "
+            f"{wall:.2f} s; launches {launches} (expected {expected}); vs xla "
+            f"{err:.2e} (bound {BF16_TOL:g})")
+        if launches != expected or err > BF16_TOL:
+            raise AssertionError("mosei_trans_s1024 run_predict check failed")
+        out["launches"] = total
+        report["experiment_families"] = out
+        return total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
@@ -3023,7 +3731,9 @@ def main() -> int:
                       ("serve_ren_mme", phase_serve_ren_mme),
                       ("train_ren_mme", phase_train_ren_mme),
                       ("train_robot", phase_train_robot),
-                      ("train_rencecps", phase_train_rencecps)):
+                      ("train_rencecps", phase_train_rencecps),
+                      ("experiment", phase_experiment),
+                      ("experiment_families", phase_experiment_families)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -3041,6 +3751,10 @@ def main() -> int:
     if failed:
         print(f"FAIL: phases {failed}", file=sys.stderr)
         return 1
+    def experiment_paths(name):
+        return {p: launches[p][name]
+                for p in ("experiment", "experiment_families")}
+
     def tc_count(library, kernel):
         return sum(n for fn, n in report["tensor_core_instructions"].get(
             library, {}).items() if kernel in fn)
@@ -3056,6 +3770,7 @@ def main() -> int:
         by_path = {"train": launches["train"][name]}
         if name == "flash_fwd":
             by_path["serve"] = launches["serve"]
+        by_path.update(experiment_paths(name))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"multimodal_emotion_processing_tpu_torch/csrc/{source}",
@@ -3082,7 +3797,8 @@ def main() -> int:
                "train_realformer": launches["train_realformer"]["scored_fwd"],
                "serve_paragraph": launches["serve_paragraph"],
                "train_ren_mme": launches["train_ren_mme"]["scored_fwd"],
-               "train_robot": launches["train_robot"]["scored_fwd"]}
+               "train_robot": launches["train_robot"]["scored_fwd"],
+               **experiment_paths("scored_fwd")}
     kernels.append({
         "name": "scored_fwd", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_fwd.cu",
@@ -3109,7 +3825,8 @@ def main() -> int:
                    "train_fused_chained":
                        launches["train_fused"]["chained"][name],
                    "train_ren_mme": launches["train_ren_mme"][name],
-                   "train_robot": launches["train_robot"][name]}
+                   "train_robot": launches["train_robot"][name],
+                   **experiment_paths(name)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "multimodal_emotion_processing_tpu_torch/csrc/scored_bwd.cu",
@@ -3141,7 +3858,8 @@ def main() -> int:
                "train_fused_chained":
                    launches["train_fused"]["chained"]["fused_block"],
                "serve_ren_mme": launches["serve_ren_mme"],
-               "train_ren_mme": launches["train_ren_mme"]["fused_block"]}
+               "train_ren_mme": launches["train_ren_mme"]["fused_block"],
+               **experiment_paths("fused_block")}
     train = summ["train"]
     kernels.append({
         "name": "fused_block", "route": "cuda",

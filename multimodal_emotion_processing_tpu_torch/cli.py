@@ -1,30 +1,41 @@
 """Command line of the PyTorch port.
 
-  train <config> [--epochs E] [--n-train N] [--n-test M]
-        [--impl xla|flash|pallas|pallas_fused] [--device cpu] [--set K=V]
-        Train one member of any of the five families with the port's
-        Trainer on synthetic data and print one JSON line per epoch; under
-        the config's R-Drop (`ren_mme`) both loaders duplicate every
-        sample into adjacent rows.
-  serve [<config>] [--concurrent N] [--device cpu]
-        [--impl xla|flash|pallas|pallas_fused] [--thresholds T1,T2,...]
-        Serve a 4-member ensemble of seeded random members on synthetic
-        requests: N concurrent requests through the micro-batching server,
-        or one batch-1 request without --concurrent.  The config defaults
-        to robot_demo, the reference's streaming demo.  The paragraph model
-        (`mosei_realformer`, head state_transfer) streams one synthetic
-        paragraph clip by clip with its recurrence state on the device; it
-        has no thresholds of its own, so it needs --thresholds.
-        `serve ren_mme --impl pallas_fused` serves Ren-MME through the
-        whole-block kernel.
+  train <config>  k-fold bagged training and ensemble evaluation of one
+        reference script on synthetic data (pipelines.run_experiment):
+        [--checkpoint-dir D] [--log-dir L] [--resume] [--sweep-thresholds]
+        [--seeds-per-fold S] [--epochs E] [--n-train N] [--n-test M]
+        [--impl xla|flash|pallas|pallas_fused] [--set K=V] [--device cpu];
+        prints one JSON line per member epoch, then the report and any
+        swept thresholds as JSON lines.
+  eval <config> --checkpoint-dir D   the same evaluation of the store's
+        best members, training nothing (epochs 0).
+  predict <config> -o OUT.npz|.csv|.jsonl  [--checkpoint-dir D |
+        --init-random] [--split test|train|all] [--thresholds T1,...]
+        [--calibration]: every sample's ensemble logits, calibrated
+        probabilities and decisions to a file (pipelines.run_predict).
+  checkpoints <dir> [--prefix P]  the store's members, losses, best
+        epochs, resume points and bytes.
+  configs   the registered configs.
+  serve [<config>] [--checkpoint-dir D] [--concurrent N] [--device cpu]
+        [--impl ...] [--thresholds T1,T2,...]
+        Serve the store's best members, or without a store four seeded
+        random members, on synthetic requests: N concurrent requests
+        through the micro-batching server, or one batch-1 request without
+        --concurrent.  The config defaults to robot_demo, the reference's
+        streaming demo.  The paragraph model (`mosei_realformer`, head
+        state_transfer) streams one synthetic paragraph clip by clip with
+        its recurrence state on the device.  The calibration offsets are
+        --thresholds, else the store's tuned thresholds.json, else the
+        config's; `mosei_realformer` has none of its own.
 
-Runs on the GPU unless `--device cpu` is given.
+Every command runs on the GPU unless `--device cpu` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -49,31 +60,95 @@ def parse_overrides(pairs):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="multimodal_emotion_processing_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    tr = sub.add_parser(
-        "train", help="train one member on synthetic data",
-        description="Train one member of <config> with the port's Trainer "
-                    "on synthetic data (train split seed 0, valid split "
-                    "seed 1) and print one JSON line per epoch.  K-fold "
-                    "bagging, checkpoints and ensemble evaluation are not "
-                    "ported yet.")
-    tr.add_argument("config")
-    tr.add_argument("--epochs", type=int, default=None,
-                    help="epochs (default: the config's, with its early stop)")
-    tr.add_argument("--n-train", type=int, default=256)
-    tr.add_argument("--n-test", type=int, default=64)
-    tr.add_argument("--impl", choices=IMPLS, default=None,
-                    help="attention implementation (default: the config's)")
-    tr.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
-    tr.add_argument("--set", action="append", default=[], metavar="K=V",
-                    help="config override, model.K=V or train.K=V")
+
+    def device(sp):
+        sp.add_argument("--device", default=None,
+                        help="'cuda' (default) or 'cpu'")
+
+    def overrides(sp):
+        sp.add_argument("--set", action="append", default=[], metavar="K=V",
+                        help="config override, model.K=V or train.K=V "
+                             "(values parsed as JSON)")
+
+    def common(sp):
+        sp.add_argument("config")
+        sp.add_argument("--epochs", type=int, default=None,
+                        help="epochs (default: the config's, with its "
+                             "early stop)")
+        sp.add_argument("--n-train", type=int, default=256)
+        sp.add_argument("--n-test", type=int, default=64)
+        sp.add_argument("--log-dir", default=None,
+                        help="one CSV of epoch losses per member")
+        sp.add_argument("--checkpoint-dir", default=None)
+        sp.add_argument("--impl", choices=IMPLS, default=None,
+                        help="attention implementation (default: the config's)")
+        sp.add_argument("--sweep-thresholds", action="store_true",
+                        help="choose the thresholds by the reference's "
+                             "search over the test logits instead of the "
+                             "config's fixed ones")
+        sp.add_argument("--quiet", action="store_true")
+        sp.add_argument("--resume", action="store_true",
+                        help="resume an interrupted k-fold run from its "
+                             "per-epoch checkpoints (needs --checkpoint-dir)")
+        sp.add_argument("--seeds-per-fold", type=int, default=1,
+                        help="train N members from different seeds per fold "
+                             "and ensemble all k*N")
+        overrides(sp)
+        device(sp)
+
+    common(sub.add_parser(
+        "train", help="k-fold bagged training and ensemble evaluation",
+        description="Carve the config's k folds from synthetic samples, "
+                    "train one member per fold (best checkpoints and "
+                    "per-epoch resume points with --checkpoint-dir), then "
+                    "evaluate the members' ensemble on held-out samples."))
+    common(sub.add_parser("eval", help="ensemble evaluation of a "
+                                       "checkpoint store's members"))
+
+    pd = sub.add_parser(
+        "predict", help="per-sample ensemble logits, calibrated "
+                        "probabilities and decisions to .npz/.csv/.jsonl")
+    pd.add_argument("config")
+    pd.add_argument("--output", "-o", required=True,
+                    help="output path; the format by extension: "
+                         ".npz/.csv/.jsonl")
+    pd.add_argument("--checkpoint-dir", default=None)
+    pd.add_argument("--init-random", action="store_true",
+                    help="smoke mode: one fresh member instead of trained "
+                         "checkpoints")
+    pd.add_argument("--n-test", type=int, default=64,
+                    help="synthetic test-split size")
+    pd.add_argument("--n-train", type=int, default=None,
+                    help="synthetic train-split size for --split train/all "
+                         "(default: --n-test)")
+    pd.add_argument("--split", choices=["test", "train", "all"],
+                    default="test")
+    pd.add_argument("--impl", choices=IMPLS, default=None)
+    pd.add_argument("--thresholds", default=None, metavar="T1,T2,...",
+                    help="per-emotion decision thresholds (default: the "
+                         "store's tuned ones, else the config's); use "
+                         "--thresholds=-0.3,... for negative values")
+    pd.add_argument("--calibration", action="store_true",
+                    help="add the per-emotion calibration report (ECE and "
+                         "reliability bins) to the printed summary")
+    pd.add_argument("--quiet", action="store_true")
+    overrides(pd)
+    device(pd)
+
+    cp = sub.add_parser("checkpoints", help="inspect a checkpoint store")
+    cp.add_argument("checkpoint_dir")
+    cp.add_argument("--prefix", default="",
+                    help="only members whose name starts with this")
+
+    sub.add_parser("configs", help="list the configs")
+
     sv = sub.add_parser("serve", help="ensemble serving on synthetic requests")
     sv.add_argument("config", nargs="?", default="robot_demo")
+    sv.add_argument("--checkpoint-dir", default=None,
+                    help="serve the store's best members (default: four "
+                         "seeded random members)")
     sv.add_argument("--impl", choices=IMPLS, default=None,
                     help="attention implementation (default: the config's)")
-    sv.add_argument("--device", default=None,
-                    help="'cuda' (default) or 'cpu'")
-    sv.add_argument("--set", action="append", default=[], metavar="K=V",
-                    help="config override, model.K=V or train.K=V")
     sv.add_argument("--concurrent", type=int, default=0, metavar="N",
                     help="drive N concurrent requests through the "
                          "micro-batching server instead of one batch-1 "
@@ -81,48 +156,158 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--max-delay-ms", type=float, default=3.0)
     sv.add_argument("--thresholds", default=None, metavar="T1,T2,...",
                     help="per-emotion calibration offsets, in place of the "
-                         "config's (needed by configs without any, such as "
-                         "mosei_realformer); use --thresholds=-0.3,... for "
-                         "negative values")
+                         "store's tuned ones and the config's (needed by "
+                         "configs without any, such as mosei_realformer); "
+                         "use --thresholds=-0.3,... for negative values")
+    overrides(sv)
+    device(sv)
     return p
 
 
-def load_members(exp, device):
-    """Seeded random members: this slice has no checkpoints."""
+def cmd_train(args, eval_only: bool = False):
+    from .pipelines import run_experiment
+
+    if eval_only and not args.checkpoint_dir:
+        raise SystemExit(
+            "eval requires --checkpoint-dir (otherwise there are no trained "
+            "members to ensemble; run `train` first)")
+    result = run_experiment(
+        args.config, n_train=args.n_train, n_test=args.n_test,
+        epochs=0 if eval_only else args.epochs, log_dir=args.log_dir,
+        checkpoint_dir=args.checkpoint_dir, impl=args.impl,
+        sweep_thresholds=args.sweep_thresholds, quiet=args.quiet,
+        overrides=parse_overrides(args.set), resume=args.resume,
+        seeds_per_fold=args.seeds_per_fold, device=args.device)
+    for i, hist in enumerate(result.fold_histories):
+        for epoch, stats in enumerate(hist):
+            print(json.dumps({
+                "member": f"{args.config}_{i + 1}", "epoch": epoch,
+                "train_loss": stats.train_loss,
+                "valid_loss": stats.valid_loss, "steps": stats.steps,
+                "samples": stats.samples, "seconds": stats.seconds,
+                "samples_per_sec": stats.samples_per_sec}), flush=True)
+    if result.report is not None:
+        print(json.dumps({"report": result.report}))
+    if result.sweep is not None:
+        print(json.dumps({"best_thresholds": result.sweep}))
+    return result
+
+
+def cmd_predict(args):
+    from .pipelines import run_predict
+
+    if not args.checkpoint_dir and not args.init_random:
+        raise SystemExit("predict requires --checkpoint-dir (trained members) "
+                         "or --init-random (an untrained smoke run)")
+    table = run_predict(
+        args.config, checkpoint_dir=args.checkpoint_dir,
+        init_random=args.init_random, n_test=args.n_test,
+        n_train=args.n_train, impl=args.impl,
+        overrides=parse_overrides(args.set),
+        thresholds=([float(t) for t in args.thresholds.split(",")]
+                    if args.thresholds else None),
+        split=args.split, output=args.output, quiet=args.quiet,
+        device=args.device)
+    summary = {
+        "config": args.config, "output": args.output,
+        "rows": table["rows"], "members": table["members"],
+        "emotions": table["emotions"],
+        "positives": {n: int(table["pred"][:, j].sum())
+                      for j, n in enumerate(table["emotions"])},
+    }
+    if args.calibration:
+        from .eval.predictions import calibration_report
+
+        summary["calibration"] = calibration_report(table)
+    print(json.dumps(summary, indent=2))
+    return table
+
+
+def cmd_checkpoints(args):
+    from .train.checkpoint import CheckpointStore
+
+    def size(path):
+        return os.path.getsize(path) if os.path.isfile(path) else 0
+
+    store = CheckpointStore(args.checkpoint_dir)
+    members = {}
+    for name, e in sorted(store.manifest.items()):
+        if not name.startswith(args.prefix):
+            continue
+        kinds = [k for k in ("params", "full") if k in e]
+        resume = e.get("last") or e.get("last_prev")
+        nbytes = sum(size(e[k]) for k in kinds)
+        nbytes += sum(size(e[s]["path"]) for s in ("last", "last_prev")
+                      if e.get(s))
+        members[name] = {
+            "valid_loss": e.get("valid_loss"),
+            "best_epoch": e.get("epoch"),
+            "kinds": kinds + (["resume"] if resume else []),
+            "resume_epoch": resume["epoch"] if resume else None,
+            "done": bool(e.get("done", False)),
+            "imported": bool(e.get("imported", False)),
+            "bytes": nbytes,
+        }
+    ranked = sorted((n for n in members if members[n]["valid_loss"] is not None),
+                    key=lambda n: members[n]["valid_loss"])
+    meta = os.path.join(args.checkpoint_dir, "run_meta.json")
+    out = {"checkpoint_dir": args.checkpoint_dir, "members": members,
+           "ranked_by_valid_loss": ranked,
+           "total_bytes": sum(m["bytes"] for m in members.values()),
+           "run_meta": meta if os.path.isfile(meta) else None}
+    print(json.dumps(out, indent=2))
+    return out
+
+
+def cmd_configs():
+    from . import configs
+
+    for name in sorted(configs.REGISTRY):
+        exp = configs.get(name)
+        m, t = exp.model, exp.train
+        print(f"{name}: dim={m.dim} heads={m.n_heads} layers={m.n_layers} "
+              f"block={m.block} head={m.head} "
+              f"lens=({m.l_len},{m.v_len},{m.a_len}) batch={t.batch_size} "
+              f"lr={t.lr} folds={t.n_folds} E={m.n_emotions}")
+
+
+def load_members(args, exp, device):
+    """Serving members: the checkpoint store's best members, or without a
+    store four seeded random ones (with a note on stderr)."""
     from .models import build_model
 
+    if args.checkpoint_dir:
+        from .pipelines import _restore_members
+        from .train.checkpoint import CheckpointStore
+
+        try:
+            members, _ = _restore_members(
+                args.config, exp, CheckpointStore(args.checkpoint_dir), device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        print(f"({len(members)} trained members from {args.checkpoint_dir})",
+              file=sys.stderr)
+        return members
+    print(f"(no --checkpoint-dir: {N_MEMBERS}-member seeded random ensemble)",
+          file=sys.stderr)
     return [build_model(exp, device=device, seed=i) for i in range(N_MEMBERS)]
 
 
-def cmd_train(args):
-    from . import configs
-    from .data.loader import Batcher
-    from .data.synthetic import synthetic_dataset
-    from .train.engine import Trainer
+def resolve_offsets(args, exp):
+    """Calibration offsets: `--thresholds` wins over the tuned thresholds a
+    swept eval saved in the store (pipelines.save_tuned_thresholds), which
+    win over the config's table."""
+    if args.thresholds:
+        return tuple(float(t) for t in args.thresholds.split(","))
+    if args.checkpoint_dir:
+        from .pipelines import load_tuned_thresholds
 
-    exp = configs.with_overrides(configs.get(args.config),
-                                 parse_overrides(args.set))
-    impl = args.impl or exp.model.attn_impl
-    train = synthetic_dataset(args.config, exp.model, args.n_train, seed=0)
-    valid = synthetic_dataset(args.config, exp.model, args.n_test, seed=1)
-    bs = exp.train.batch_size
-
-    def log(epoch, stats):
-        print(json.dumps({"epoch": epoch, "train_loss": stats.train_loss,
-                          "valid_loss": stats.valid_loss, "steps": stats.steps,
-                          "samples": stats.samples, "seconds": stats.seconds,
-                          "samples_per_sec": stats.samples_per_sec}),
-              flush=True)
-
-    trainer = Trainer(exp, exp.train, impl=impl, device=args.device, log_cb=log)
-    dup = exp.train.rdrop_kl
-    print(f"(training {exp.name} on {trainer.device}, impl={impl}, "
-          f"dtype={exp.train.compute_dtype}, dropout={exp.model.dropout}, "
-          f"R-Drop={dup}, {len(train)} train / {len(valid)} valid synthetic "
-          "samples)", file=sys.stderr)
-    return trainer.fit(Batcher(train, bs, duplicate=dup, seed=1),
-                       Batcher(valid, bs, duplicate=dup, shuffle=False),
-                       epochs=args.epochs)
+        t = load_tuned_thresholds(args.checkpoint_dir, args.config, exp)
+        if t is not None:
+            print(f"(using tuned thresholds from "
+                  f"{args.checkpoint_dir}/thresholds.json)", file=sys.stderr)
+            return tuple(t)
+    return exp.thresholds
 
 
 def cmd_serve(args):
@@ -135,11 +320,10 @@ def cmd_serve(args):
                                  parse_overrides(args.set))
     device = resolve_device(args.device)
     impl = args.impl or exp.model.attn_impl
-    members = load_members(exp, device)
-    print(f"({len(members)}-member seeded random ensemble on {device}, "
-          f"impl={impl}, dtype={exp.train.compute_dtype})", file=sys.stderr)
-    offsets = (tuple(float(t) for t in args.thresholds.split(","))
-               if args.thresholds else exp.thresholds)
+    members = load_members(args, exp, device)
+    print(f"({len(members)}-member ensemble on {device}, impl={impl}, "
+          f"dtype={exp.train.compute_dtype})", file=sys.stderr)
+    offsets = resolve_offsets(args, exp)
     names = exp.emotion_names[: len(offsets)]
 
     if exp.model.head == "state_transfer":
@@ -213,6 +397,14 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.cmd == "train":
         return cmd_train(args)
+    if args.cmd == "eval":
+        return cmd_train(args, eval_only=True)
+    if args.cmd == "predict":
+        return cmd_predict(args)
+    if args.cmd == "checkpoints":
+        return cmd_checkpoints(args)
+    if args.cmd == "configs":
+        return cmd_configs()
     if args.cmd == "serve":
         return cmd_serve(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

@@ -1,0 +1,251 @@
+"""Ensembling and threshold selection (eval/ensemble.py of the JAX package).
+
+The reference reloads k loss-tagged checkpoints and combines their logits
+at test time (cmu-mosei/run.py:446-477: mean of 4; others/realformer.py:420:
+a 0.6/0.4 blend; Ren-MME/run.py:727: sum).  Its realformer threshold sweep
+re-runs the whole inference 400 times (others/realformer.py:411-441); here
+the logits are computed once and every threshold is scored from them.
+
+`Ensemble` runs its k members one after another in a Python loop, as
+serving does (serve/stream.py): each forward launches the CUDA kernels
+through ctypes, which `torch.func.vmap` cannot trace through.
+
+Not ported yet: the device-resident driver `predict_all_staged`, sharded
+inference over several cards (`mesh=`) and the wire-compression dtypes
+(`transfer_dtype`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..train import metrics
+from ..train.engine import infer_cast, infer_upcast
+
+
+class Ensemble:
+    """k same-architecture `nn.Module` members and their combination
+    weights: 1/k each for `combine="mean"`, 1 each for `"sum"` (Ren-MME),
+    or the explicit `weights` (the realformer's 0.6/0.4).
+
+    `dtype="bfloat16"` runs the forwards in bf16 on bf16 copies of the
+    members, cast once here (`infer_cast`; the caller's stay f32), with the
+    batches cast per call; each member's logits are upcast to f32 before
+    they are combined, so the threshold and score math stays f32.  The
+    members run in eval mode (no dropout) on the device of their
+    parameters."""
+
+    def __init__(self, members: Sequence[torch.nn.Module],
+                 weights: Optional[Sequence[float]] = None, *,
+                 combine: str = "mean", impl: str = "xla",
+                 dtype: str = "float32"):
+        if not members:
+            raise ValueError("an ensemble needs at least one member")
+        if combine not in ("mean", "sum"):
+            raise ValueError(f"combine {combine!r}: expected mean or sum")
+        devices = {next(m.parameters()).device for m in members}
+        if len(devices) != 1:
+            raise ValueError(f"ensemble members live on several devices: {devices}")
+        self.device = devices.pop()
+        self.k = len(members)
+        self.impl = impl
+        self.dtype = dtype
+        self.members = [infer_cast(m, None, dtype)[0].eval() for m in members]
+        if weights is not None:
+            if len(weights) != self.k:
+                raise ValueError(f"{len(weights)} weights for {self.k} members")
+            w = [float(x) for x in weights]
+        elif combine == "mean":
+            w = [1.0 / self.k] * self.k
+        else:
+            w = [1.0] * self.k
+        self.weights = torch.tensor(w, dtype=torch.float32, device=self.device)
+
+    @torch.inference_mode()
+    def _combine(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        _, batch = infer_cast(None, batch, self.dtype)
+        per = torch.stack([infer_upcast(m(batch, impl=self.impl))
+                           for m in self.members])          # (k, B, ...)
+        w = self.weights.reshape((self.k,) + (1,) * (per.ndim - 1))
+        return (per * w).sum(dim=0)
+
+    def logits(self, batch) -> torch.Tensor:
+        """The weighted combination of the members' logits for one batch
+        (numpy arrays or tensors), on the members' device: (B, E), or
+        (B, P, E) for the paragraph model."""
+        return self._combine({
+            k: (v if torch.is_tensor(v)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
+            for k, v in batch.items()})
+
+    def predict_all(self, loader) -> np.ndarray:
+        """The combined logits over a loader (a zero-arg callable such as a
+        `data.loader.Batcher`, or an iterable of numpy batches), the rows
+        whose `sample_weight` is 0 (padding) dropped.  On a CUDA device the
+        batches are copied ahead by `prefetch_to_device` and the logits
+        stay on the card until one copy back at the end."""
+        from ..data.loader import prefetch_to_device, to_device
+
+        keeps = []
+
+        def keeping(it):
+            for b in it:
+                w = b.get("sample_weight")
+                keeps.append(None if w is None else np.asarray(w) > 0)
+                yield b
+
+        it = keeping(iter(loader() if callable(loader) else loader))
+        if self.device.type == "cuda":
+            it = prefetch_to_device(it, device=self.device, size=2)
+        else:
+            it = (to_device(b, self.device) for b in it)
+        outs = [self._combine(b) for b in it]
+        if not outs:
+            raise ValueError("predict_all: the loader gave no batch")
+        lg = torch.cat(outs).cpu().numpy()
+        if all(k is None for k in keeps):
+            return lg
+        keep = np.concatenate([np.ones(len(o), bool) if k is None else k
+                               for k, o in zip(keeps, outs)])
+        return lg[keep]
+
+
+def group_average(logits: np.ndarray, group_ids: Sequence[int],
+                  labels: Optional[np.ndarray] = None):
+    """Average logit rows sharing a group id (order-preserving by first
+    appearance); labels reduce to the group's first row.  This is the
+    reference's two-crop test protocol: one prediction per sentence PAIR from
+    the mean of its head/tail crop logits (cmu-mosei/run.py:462,477-480)."""
+    logits = np.asarray(logits)
+    gids = np.asarray(group_ids)
+    uniq, first_idx, inverse = np.unique(gids, return_index=True,
+                                         return_inverse=True)
+    order = np.argsort(first_idx)  # preserve first-appearance order
+    summed = np.zeros((len(uniq), logits.shape[-1]), np.float64)
+    np.add.at(summed, inverse, logits)
+    counts = np.bincount(inverse, minlength=len(uniq))
+    avg = (summed / counts[:, None]).astype(logits.dtype)[order]
+    if labels is None:
+        return avg
+    return avg, np.asarray(labels)[first_idx[order]]
+
+
+def apply_thresholds(logits: np.ndarray, thresholds: Sequence[float],
+                     emotion_index: Sequence[int]) -> np.ndarray:
+    """Binary predictions: pred[:, j] = logits[:, emotion_index[j]] > thresholds[j]."""
+    logits = np.asarray(logits)
+    cols = np.stack([logits[:, idx] for idx in emotion_index], axis=1)
+    return (cols > np.asarray(thresholds)[None, :]).astype(np.int32)
+
+
+def threshold_sweep(
+    logits: np.ndarray,
+    labels: np.ndarray,
+    thresholds: Sequence[float],
+    emotion_index: Sequence[int],
+    emotion_names: Sequence[str],
+    *,
+    metric: Callable = metrics.weighted_f1,
+) -> Dict[str, Dict[str, float]]:
+    """Per-emotion best threshold by the given metric, from CACHED logits —
+    one inference pass total (vs the reference's sweep re-running inference
+    per threshold).  Returns {emotion: {t, f1, acc}}."""
+    logits = np.asarray(logits)
+    labels = np.asarray(labels)
+    best = {}
+    for j, name in enumerate(emotion_names):
+        col = logits[:, emotion_index[j]]
+        lab = labels[:, emotion_index[j]]
+        b = {"t": 0.0, "f1": -1.0, "acc": 0.0}
+        for t in thresholds:
+            pred = (col > t).astype(np.int32)
+            f1 = metric(lab, pred)
+            if f1 > b["f1"]:
+                b = {"t": float(t), "f1": float(f1),
+                     "acc": metrics.accuracy(lab, pred)}
+        best[name] = b
+    return best
+
+
+def realformer_threshold_grid(n: int = 400):
+    """The reference's sweep grid: t/200 - 1 for t in range(400)
+    (others/realformer.py:411-412)."""
+    return [t / 200 - 1.0 for t in range(n)]
+
+
+def robot_threshold_grid(n: int = 13):
+    """robot_demo.py:532-533: i/10 - 1 for i in range(13)."""
+    return [i / 10 - 1.0 for i in range(n)]
+
+
+def joint_threshold_grid(
+    logits: np.ndarray,
+    labels: np.ndarray,
+    grids: Sequence[Sequence[float]],
+    emotion_index: Sequence[int],
+    emotion_names: Sequence[str],
+) -> Dict[str, object]:
+    """Ren-MME's JOINT threshold grid search (Ren-MME/run.py:582-613): score
+    every combination of per-emotion thresholds by micro-F1 + macro-F1 of the
+    full multi-label matrix, keep the first maximizer in nested-loop order.
+
+    The reference re-binarizes the whole prediction matrix per combination
+    (its executed grid is degenerate — one value per emotion); here the
+    per-emotion (TP, FP, FN) count curves are computed ONCE per threshold and
+    every combination is scored by broadcast-summing count tables — micro-F1
+    couples emotions only through ΣTP/ΣFP/ΣFN, macro-F1 is separable — so a
+    g^8 grid costs O(N·Σg) counting + O(Πg) adds instead of O(N·Πg).
+    Non-degenerate grids are fully supported (guarded at ~2e7 combinations).
+
+    Returns {"thresholds": {name: t}, "objective", "micro_f1", "macro_f1"}.
+    """
+    logits = np.asarray(logits)
+    labels = np.asarray(labels)
+    e = len(emotion_names)
+    sizes = [len(g) for g in grids]
+    total = int(np.prod(sizes))
+    if total > 20_000_000:
+        raise ValueError(f"grid product {total} too large; coarsen the grids")
+    tp, fp, fn, f1e = [], [], [], []
+    for j in range(e):
+        col = logits[:, emotion_index[j]][:, None]      # (N, 1)
+        lab = labels[:, emotion_index[j]][:, None] > 0  # (N, 1)
+        pred = col > np.asarray(grids[j], col.dtype)[None, :]  # (N, g_j)
+        tp_j = np.sum(pred & lab, axis=0).astype(np.float64)
+        fp_j = np.sum(pred & ~lab, axis=0).astype(np.float64)
+        fn_j = np.sum(~pred & lab, axis=0).astype(np.float64)
+        shape = [1] * e
+        shape[j] = sizes[j]
+        tp.append(tp_j.reshape(shape))
+        fp.append(fp_j.reshape(shape))
+        fn.append(fn_j.reshape(shape))
+        denom = 2 * tp_j + fp_j + fn_j
+        f1e.append(np.divide(2 * tp_j, denom, out=np.zeros_like(denom),
+                             where=denom > 0).reshape(shape))
+    tp_sum = sum(tp)    # broadcast to the full (g_1, ..., g_e) table
+    denom = 2 * tp_sum + sum(fp) + sum(fn)
+    micro = np.divide(2 * tp_sum, denom, out=np.zeros_like(denom),
+                      where=denom > 0)
+    macro = sum(np.broadcast_to(x, micro.shape) / e for x in f1e)
+    obj = micro + macro
+    # np.argmax C-order = the reference's nested-loop order (love outermost),
+    # strict-> keeps the FIRST maximizer exactly like its `f1 > temp_max`
+    best = np.unravel_index(int(np.argmax(obj)), obj.shape)
+    return {
+        "thresholds": {emotion_names[j]: float(grids[j][best[j]])
+                       for j in range(e)},
+        "objective": float(obj[best]),
+        "micro_f1": float(micro[best]),
+        "macro_f1": float(np.broadcast_to(macro, obj.shape)[best]),
+    }
+
+
+def ren_mme_joint_grids(per: int = 5, lo: float = -4.2, hi: float = -1.0):
+    """A non-degenerate default grid for the joint search, spanning the
+    reference's tuned threshold range (love -3.6 ... anxi -1.2,
+    Ren-MME/run.py:582-589): `per` evenly spaced values per emotion."""
+    pts = [lo + (hi - lo) * i / (per - 1) for i in range(per)]
+    return [list(pts) for _ in range(8)]

@@ -1,0 +1,398 @@
+"""End-to-end pipelines (pipelines.py of the JAX package): each reference
+script becomes one function call over the shared engine: data, k-fold
+bagged training with best-member checkpoints, reloading the best members,
+ensemble inference, the threshold decision and the metric report
+(`run_experiment`); and offline batch prediction from a checkpoint store
+to a file (`run_predict`).
+
+Both run on synthetic samples shaped as the real corpora are (the corpora
+are not distributable) and on the card unless `device="cpu"` is given.
+The k-fold members train one after another.
+
+Not ported yet: real-data loading (`data_root`), the vmapped,
+device-resident and one-dispatch k-fold drivers, scan-chained steps,
+gradient accumulation, data- and tensor-parallel meshes, the
+wire-compression dtypes, asynchronous checkpoints, the profile option and
+the stacked grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import platform
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import configs
+from .data import synthetic
+from .data.loader import Batcher
+from .eval.ensemble import (Ensemble, group_average, joint_threshold_grid,
+                            realformer_threshold_grid, ren_mme_joint_grids,
+                            robot_threshold_grid, threshold_sweep)
+from .eval.report import evaluate, format_report
+from .models import build_model
+from .train.checkpoint import CheckpointStore
+from .train.kfold import run_kfold
+from .utils.device import resolve_device
+from .utils.logging import RunLogger
+
+
+def _log(msg, quiet=False):
+    if not quiet:
+        print(msg, file=sys.stderr, flush=True)
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    config_name: str
+    fold_histories: List
+    report: Optional[Dict]
+    sweep: Optional[Dict]
+    store: Optional[CheckpointStore]
+    # the ensemble's test logits and labels as scored: crop pairs averaged,
+    # paragraph clips flattened
+    logits: Optional[np.ndarray] = None
+    labels: Optional[np.ndarray] = None
+
+
+def _synthetic_data(exp, n_train: int, n_test: int, seed: int = 0):
+    train = synthetic.synthetic_dataset(exp.name, exp.model, n_train, seed)
+    test = synthetic.synthetic_dataset(exp.name, exp.model, n_test, seed + 1)
+    return train, test
+
+
+def _write_run_meta(dirs, *, config_name, overrides, exp, drivers, data,
+                    device):
+    """Write `run_meta.json` into every artifact directory of a run: the
+    resolved config (every hyperparameter, after the overrides), the
+    driver knobs, the data mode and the environment (torch, CUDA, the
+    device), enough to reproduce or audit the run from its artifacts."""
+    if not dirs:
+        return
+    env = {"torch": torch.__version__, "cuda": torch.version.cuda,
+           "device": str(device), "python": platform.python_version()}
+    if device.type == "cuda":
+        env["device_name"] = torch.cuda.get_device_name(device)
+    meta = {
+        "config": config_name,
+        "overrides": overrides or {},
+        "resolved_config": dataclasses.asdict(exp),
+        "drivers": drivers,
+        "data": data,
+        "env": env,
+        "started_unix": time.time(),
+    }
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "run_meta.json"), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+
+
+def save_tuned_thresholds(checkpoint_dir, config_name, exp, thresholds,
+                          source: str) -> None:
+    """Persist swept per-emotion thresholds next to the checkpoints, where
+    `predict` and `serve` pick them up.  The reference reads its sweep off
+    the logs and hand-edits the values back into the script (the tables at
+    cmu-mosei/run.py:481-486, Ren-MME/run.py:735-742)."""
+    with open(os.path.join(checkpoint_dir, "thresholds.json"), "w") as f:
+        json.dump({"config": config_name,
+                   "emotion_names": list(exp.emotion_names),
+                   "thresholds": [float(t) for t in thresholds],
+                   "source": source}, f, indent=2)
+
+
+def load_tuned_thresholds(checkpoint_dir, config_name, exp):
+    """Tuned thresholds persisted by a swept eval in this store, or None
+    (no file, another config family, or another emotion set)."""
+    path = os.path.join(checkpoint_dir, "thresholds.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        d = json.load(f)
+    if (configs.family(d.get("config", "")) != configs.family(config_name)
+            or d.get("emotion_names") != list(exp.emotion_names)):
+        return None
+    return [float(t) for t in d["thresholds"]]
+
+
+def _restore_members(config_name, exp, store, device):
+    """The store's trained members, each fold's best checkpoint (the
+    reference always reloads the best, cmu-mosei/run.py:447-453), as
+    models on `device`, with their recorded valid losses (the realformer's
+    member selection needs them)."""
+    names = store.best_members(config_name)
+    if not names and f"{config_name}_sweep_winner" in store.manifest:
+        # a sweep-only store: its winner is the one servable model
+        names = [f"{config_name}_sweep_winner"]
+    if not names:
+        raise ValueError(
+            f"no trained members named {config_name!r} in the checkpoint "
+            f"store (manifest has {sorted(store.manifest)}); run `train` "
+            "with --checkpoint-dir first")
+    members = [store.restore_params(n, build_model(exp, device=device))
+               for n in names]
+    member_losses = [store.manifest[n]["valid_loss"] for n in names]
+    return members, member_losses
+
+
+def _make_ensemble(config_name, members, member_losses, *,
+                   impl: str = "xla", dtype: str = "float32"):
+    """The config's combination: Ren-MME sums the members' logits
+    (Ren-MME/run.py:560-575), the realformer keeps its two best folds at
+    0.6/0.4 (others/realformer.py:420,482-485), every other config
+    averages."""
+    combine = "sum" if configs.family(config_name) == "ren_mme" else "mean"
+    weights = None
+    if configs.family(config_name) == "mosei_realformer" \
+            and member_losses is not None and len(members) >= 2:
+        order = np.argsort(member_losses)[:2]
+        members = [members[i] for i in order]
+        weights = [0.6, 0.4]
+    return Ensemble(members, weights=weights, combine=combine, impl=impl,
+                    dtype=dtype)
+
+
+def _flatten_units(units, with_groups: bool = False):
+    """Flatten pair-level LIST units (folds count pairs) to samples.
+    `with_groups` gives each unit's samples a crop-group id, so that crop
+    averaging keeps one prediction per pair."""
+    out = []
+    for i, u in enumerate(units):
+        if isinstance(u, list):
+            for s in u:
+                out.append({**s, "group": np.asarray(i, np.int32)}
+                           if with_groups else s)
+        else:
+            out.append(u)
+    return out
+
+
+def _collapse_test_outputs(logits, test_samples):
+    """Reduce per-row ensemble logits to the reference's test units:
+    two-crop pairs average to one prediction per pair (cmu-mosei/
+    run.py:462,477-480); paragraph logits flatten to valid clips, keeping
+    only those before the first invalid clip (others/realformer.py:427-441
+    breaks there rather than skipping holes)."""
+    labels = (np.stack([s["label"] for s in test_samples])
+              if "label" in test_samples[0] else None)
+    if "group" in test_samples[0]:
+        gids = [int(s["group"]) for s in test_samples]
+        if labels is None:
+            logits = group_average(logits, gids)
+        else:
+            logits, labels = group_average(logits, gids, labels)
+    if logits.ndim == 3:  # paragraph model: flatten valid clips
+        clip_mask = np.stack([s["clip_mask"] for s in test_samples])
+        keep = np.cumprod(clip_mask, axis=1).reshape(-1) > 0
+        logits = logits.reshape(-1, logits.shape[-1])[keep]
+        if labels is not None:
+            labels = labels.reshape(-1, labels.shape[-1])[keep]
+    return logits, labels
+
+
+def _choose_thresholds(config_name, exp, logits, labels, sweep_thresholds,
+                       checkpoint_dir):
+    """(thresholds, sweep): the config's fixed thresholds, or, when asked
+    for or when the config has none, the reference's search over the
+    cached logits: Ren-MME's joint grid scored by micro + macro F1 of the
+    whole label matrix (Ren-MME/run.py:582-613), the robot demo's 13-point
+    grid (robot_demo.py:533) or the 400-point t/200 − 1 grid
+    (others/realformer.py:412).  Swept values are saved to the store."""
+    if not (sweep_thresholds or not exp.thresholds):
+        return list(exp.thresholds), None
+    if config_name == "ren_mme":
+        joint = joint_threshold_grid(logits, labels, ren_mme_joint_grids(),
+                                     exp.emotion_index, exp.emotion_names)
+        sweep = {"joint": joint}
+        thresholds = [joint["thresholds"][e] for e in exp.emotion_names]
+    else:
+        grid = (robot_threshold_grid() if config_name == "robot_demo"
+                else realformer_threshold_grid())
+        sweep = threshold_sweep(logits, labels, grid, exp.emotion_index,
+                                exp.emotion_names)
+        thresholds = [sweep[e]["t"] for e in exp.emotion_names]
+    if checkpoint_dir:
+        save_tuned_thresholds(checkpoint_dir, config_name, exp, thresholds,
+                              source="sweep")
+    return thresholds, sweep
+
+
+def run_experiment(
+    config_name: str,
+    *,
+    n_train: int = 256,
+    n_test: int = 64,
+    epochs: Optional[int] = None,
+    log_dir: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    impl: Optional[str] = None,
+    sweep_thresholds: bool = False,
+    quiet: bool = False,
+    overrides: Optional[Dict] = None,
+    resume: bool = False,
+    seeds_per_fold: int = 1,
+    device=None,
+) -> PipelineResult:
+    """One reference script on synthetic data: n_train samples carved into
+    the config's k folds, one member trained per fold (and per extra seed,
+    `seeds_per_fold`: member i trains fold i % k from seed tcfg.seed + i),
+    then the members' ensemble scored on n_test held-out samples.
+
+    With `checkpoint_dir` each member's best epoch and an every-epoch
+    resume point are saved, the ensemble reloads the best members, and
+    `resume=True` continues an interrupted run.  `epochs=0` evaluates the
+    store's members without training (the `eval` command).  Without a
+    store the ensemble is the members' final states.  `log_dir` keeps one
+    CSV of epoch losses per member."""
+    exp = configs.with_overrides(configs.get(config_name), overrides)
+    impl = impl or exp.model.attn_impl
+    device = resolve_device(device)
+    train_samples, test_samples = _synthetic_data(exp, n_train, n_test)
+    _log(f"[{config_name}] {len(train_samples)} train / {len(test_samples)} "
+         f"test samples; device={device}, impl={impl}", quiet)
+    if resume and not checkpoint_dir:
+        raise ValueError("resume=True requires checkpoint_dir")
+    store = CheckpointStore(checkpoint_dir) if checkpoint_dir else None
+    loggers: Dict[str, RunLogger] = {}
+    # provenance written before training, so a crashed run has it too; an
+    # eval-only pass must not overwrite the training run's
+    trains = (epochs if epochs is not None else exp.train.epochs) != 0
+    _write_run_meta(
+        [d for d in (log_dir, checkpoint_dir) if d] if trains else [],
+        config_name=config_name, overrides=overrides, exp=exp,
+        drivers={"epochs": epochs, "impl": impl,
+                 "seeds_per_fold": seeds_per_fold, "resume": resume,
+                 "sweep_thresholds": sweep_thresholds},
+        data={"synthetic": True, "n_train": n_train, "n_test": n_test},
+        device=device)
+
+    def log_cb(name, epoch, stats):
+        if log_dir:
+            if name not in loggers:
+                loggers[name] = RunLogger(log_dir, name)
+            loggers[name].log_epoch(epoch, stats)
+        _log(f"[{name}] epoch {epoch + 1}: train {stats.train_loss:.4f} "
+             f"valid {stats.valid_loss:.4f} ({stats.samples_per_sec:.0f} "
+             "samples/s)", quiet)
+
+    duplicate = exp.train.rdrop_kl  # Ren-MME's R-Drop duplicates each sample
+
+    def make_loaders(train, valid):
+        return (Batcher(_flatten_units(train), exp.train.batch_size,
+                        duplicate=duplicate, seed=1),
+                Batcher(_flatten_units(valid), exp.train.batch_size,
+                        duplicate=duplicate, shuffle=False))
+
+    results = run_kfold(train_samples, make_loaders, exp, exp.train,
+                        store=store, name_prefix=config_name, epochs=epochs,
+                        impl=impl, log_cb=log_cb,
+                        fold_size=exp.train.fold_size, resume=resume,
+                        seeds_per_fold=seeds_per_fold, device=device)
+
+    report = sweep = logits = labels = None
+    if test_samples:
+        member_losses = None
+        if store is not None:
+            members, member_losses = _restore_members(config_name, exp,
+                                                      store, device)
+        else:
+            members = [state.model for state, _ in results]
+        ens = _make_ensemble(config_name, members, member_losses, impl=impl,
+                             dtype=exp.train.compute_dtype)
+        # eval batches: no shuffle, no R-Drop duplicates (Ren-MME/run.py:427-449)
+        test_loader = Batcher(test_samples, exp.train.batch_size, shuffle=False)
+        logits, labels = _collapse_test_outputs(ens.predict_all(test_loader),
+                                                test_samples)
+        thresholds, sweep = _choose_thresholds(
+            config_name, exp, logits, labels, sweep_thresholds, checkpoint_dir)
+        report = evaluate(logits, labels, thresholds, exp.emotion_index,
+                          exp.emotion_names)
+        _log(format_report(report, title=config_name), quiet)
+    for lg in loggers.values():
+        lg.close()
+    return PipelineResult(config_name, [h for _, h in results], report, sweep,
+                          store, logits, labels)
+
+
+def run_predict(
+    config_name: str,
+    *,
+    checkpoint_dir: Optional[str] = None,
+    init_random: bool = False,
+    n_test: int = 64,
+    n_train: Optional[int] = None,
+    impl: Optional[str] = None,
+    overrides: Optional[Dict] = None,
+    thresholds: Optional[List[float]] = None,
+    output: Optional[str] = None,
+    quiet: bool = False,
+    split: str = "test",
+    device=None,
+) -> Dict:
+    """Offline batch inference: the trained ensemble over a split once,
+    every sample's outputs kept (eval/predictions.py): the artifact
+    between `eval` (metrics only) and `serve` (one sample at a time).
+
+    Samples: the synthetic test split (n_test, seed 1), the train split
+    (n_train, default n_test, seed 0) or both (`split="all"`).  Members:
+    the store's best checkpoints with the config's combination, or one
+    fresh member from the config's seed with `init_random=True` (a smoke
+    run).  Decisions use `thresholds`, else the store's tuned ones, else
+    the config's, else zeros.  `output` writes .npz/.csv/.jsonl.  Returns
+    the prediction table with "rows" and "members" counts."""
+    from .eval.predictions import prediction_table, write_predictions
+
+    exp = configs.with_overrides(configs.get(config_name), overrides)
+    impl = impl or exp.model.attn_impl
+    device = resolve_device(device)
+    if split not in ("test", "train", "all"):
+        raise ValueError(f"split must be test/train/all, got {split!r}")
+    n_tr = n_train if n_train is not None else n_test
+
+    def _train():
+        return synthetic.synthetic_dataset(exp.name, exp.model, n_tr, 0)
+
+    def _test():
+        return synthetic.synthetic_dataset(exp.name, exp.model, n_test, 1)
+
+    samples = {"train": _train, "test": _test,
+               "all": lambda: _train() + _test()}[split]()
+    if not samples:
+        raise ValueError("no samples to predict on")
+    if checkpoint_dir:
+        store = CheckpointStore(checkpoint_dir)
+        members, member_losses = _restore_members(config_name, exp, store,
+                                                  device)
+    elif init_random:
+        members = [build_model(exp, device=device, seed=exp.train.seed)]
+        member_losses = None
+    else:
+        raise ValueError("checkpoint_dir required (or init_random=True for "
+                         "an untrained smoke run)")
+    ens = _make_ensemble(config_name, members, member_losses, impl=impl,
+                         dtype=exp.train.compute_dtype)
+    loader = Batcher(samples, exp.train.batch_size, shuffle=False)
+    logits, labels = _collapse_test_outputs(ens.predict_all(loader), samples)
+    if thresholds is None and checkpoint_dir:
+        thresholds = load_tuned_thresholds(checkpoint_dir, config_name, exp)
+        if thresholds is not None:
+            _log(f"[{config_name}] using tuned thresholds from "
+                 f"{checkpoint_dir}/thresholds.json", quiet)
+    if thresholds is None:
+        thresholds = (list(exp.thresholds) if exp.thresholds
+                      else [0.0] * len(exp.emotion_names))
+    table = prediction_table(logits, thresholds, exp.emotion_index,
+                             exp.emotion_names, labels=labels)
+    table["rows"] = int(table["pred"].shape[0])
+    table["members"] = ens.k
+    if output:
+        write_predictions(output, table)
+        _log(f"[{config_name}] wrote {table['rows']} predictions "
+             f"({ens.k} members) to {output}", quiet)
+    return table

@@ -124,6 +124,31 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The moments `mu` and `nu` (one tensor per parameter, in the
+        order of `params`; references, as `nn.Module.state_dict` gives),
+        the step `count` and the learning rate `lr`."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": self.count, "lr": self.lr}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a `state_dict()` in place; a moment of another count or
+        shape than the parameters' raises."""
+        for key in ("mu", "nu"):
+            got = sd[key]
+            if len(got) != len(self.params):
+                raise ValueError(f"optimizer state {key}: {len(got)} tensors "
+                                 f"for {len(self.params)} parameters")
+            for dst, src in zip(getattr(self, key), got):
+                if dst.shape != src.shape:
+                    raise ValueError(f"optimizer state {key}: shape "
+                                     f"{tuple(src.shape)} for a parameter of "
+                                     f"shape {tuple(dst.shape)}")
+                dst.copy_(src)
+        self.count = int(sd["count"])
+        self.lr = float(sd["lr"])
+
 
 def make_optimizer(tcfg, params) -> Optimizer:
     """Global-norm clip then AdamW (or Adam) over `params`."""
@@ -183,6 +208,28 @@ class TrainState:
     optimizer: Optimizer
     generator: torch.Generator   # dropout masks, on the model's device
     step: int = 0
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs, as host tensors and numbers: the
+        model's `state_dict()` (the reference key names), the optimizer's
+        moments, count and learning rate, the dropout generator's state and
+        the step (JAX's params, opt_state, rng and step)."""
+        opt = self.optimizer.state_dict()
+        return {"model": {k: v.detach().cpu()
+                          for k, v in self.model.state_dict().items()},
+                "optimizer": {**opt, "mu": [t.cpu() for t in opt["mu"]],
+                              "nu": [t.cpu() for t in opt["nu"]]},
+                "generator": self.generator.get_state(),
+                "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> "TrainState":
+        """Restore a `state_dict()` in place, onto this state's devices; a
+        model or optimizer of another structure raises."""
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.generator.set_state(sd["generator"])
+        self.step = int(sd["step"])
+        return self
 
 
 def dropout_generator(seed: int, device) -> torch.Generator:
@@ -294,18 +341,31 @@ class Trainer:
 
     def fit(self, train_loader, valid_loader, *,
             state: Optional[TrainState] = None, epochs: Optional[int] = None,
-            seed: Optional[int] = None):
-        """Returns (state, history of EpochStats)."""
+            seed: Optional[int] = None, start_epoch: int = 0,
+            plateau: Optional[schedule.PlateauState] = None,
+            stopper: Optional[schedule.EarlyStop] = None,
+            last_cb: Optional[Callable] = None):
+        """Returns (state, history of EpochStats).  `start_epoch`, `plateau`
+        and `stopper` inject a restored resume point
+        (`CheckpointStore.restore_last`); `last_cb(state, epoch, plateau,
+        stopper)` fires after every epoch, so the caller can persist one."""
         tcfg = self.tcfg
         if state is None:
             state = init_state(self.cfg, tcfg, tcfg.seed if seed is None else seed,
                                device=self.device)
-        plateau = schedule.PlateauState(lr=tcfg.lr, factor=tcfg.plateau_factor,
-                                        patience=tcfg.plateau_patience)
-        stopper = schedule.EarlyStop(patience=tcfg.early_stop,
-                                     save_guard=tcfg.save_guard)
+        plateau = plateau or schedule.PlateauState(
+            lr=tcfg.lr, factor=tcfg.plateau_factor,
+            patience=tcfg.plateau_patience)
+        stopper = stopper or schedule.EarlyStop(patience=tcfg.early_stop,
+                                                save_guard=tcfg.save_guard)
         history = []
-        for epoch in range(tcfg.epochs if epochs is None else epochs):
+        # a restored stopper that already fired trains no further: the
+        # uninterrupted run stopped at that epoch.  Only a resume carries
+        # one; a fresh stopper with patience 0 starts at bad == patience
+        # and must still train
+        if start_epoch > 0 and stopper.bad >= stopper.patience:
+            return state, history
+        for epoch in range(start_epoch, tcfg.epochs if epochs is None else epochs):
             t0 = time.perf_counter()
             counter = {"n": 0}
             # losses stay on the device until the epoch ends: fetching per
@@ -328,6 +388,8 @@ class Trainer:
             save, stop = stopper.step(stats.valid_loss)
             if save and self.checkpoint_cb:
                 self.checkpoint_cb(state, epoch, stats.valid_loss)
+            if last_cb:
+                last_cb(state, epoch, plateau, stopper)
             if stop:
                 break
         return state, history

@@ -417,11 +417,16 @@ def test_tiny_mosei_trans_matches_jax_xla(n_layers):
 
 
 def test_cli_train_mosei_trans_pallas_fused_on_cpu(capsys):
-    state, hist = main(["train", "mosei_trans", "--device", "cpu",
-                        "--epochs", "1", "--n-train", "5", "--n-test", "3",
-                        "--impl", "pallas_fused", *TINY_SET,
-                        "--set", "train.batch_size=3"])
+    """`cli train` is the k-fold experiment: two members, each trained on
+    5 of the 10 samples (2 steps of batch 3), then evaluated."""
+    res = main(["train", "mosei_trans", "--device", "cpu",
+                "--epochs", "1", "--n-train", "10", "--n-test", "3",
+                "--impl", "pallas_fused", *TINY_SET,
+                "--set", "train.batch_size=3", "--set", "train.n_folds=2"])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert len(lines) == 1 and lines[0]["steps"] == 2
-    assert np.isfinite(lines[0]["train_loss"]) and np.isfinite(lines[0]["valid_loss"])
-    assert state.step == 2
+    epochs = [x for x in lines if "epoch" in x]
+    assert len(epochs) == 2 and all(x["steps"] == 2 for x in epochs)
+    assert all(np.isfinite(x["train_loss"]) and np.isfinite(x["valid_loss"])
+               for x in epochs)
+    assert sum(h.steps for hist in res.fold_histories for h in hist) == 4
+    assert lines[-1] == {"report": res.report}

@@ -95,6 +95,18 @@ def test_the_training_families_slice_is_covered():
     assert {"scored_fwd.cu", "scored_bwd.cu", "fused_block.cu"} <= names
 
 
+def test_the_experiment_slice_is_covered():
+    """The modules of the k-fold experiment slice (folds, checkpoints,
+    metrics, the ensemble and its thresholds, the report, prediction files,
+    the pipelines, the run logs and the CLI's front doors) are among those
+    the tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("train.kfold", "train.checkpoint", "train.metrics",
+              "eval.ensemble", "eval.report", "eval.predictions",
+              "pipelines", "utils.logging", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"

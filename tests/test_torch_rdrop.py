@@ -267,12 +267,15 @@ def test_ren_mme_loss_carries_the_rdrop_kl(monkeypatch):
 @pytest.mark.parametrize("name", ["ren_mme", "robot_demo"])
 def test_cli_train_on_cpu(capsys, name):
     tiny = [f"--set=model.{k}={json.dumps(v)}" for k, v in TINY[name].items()]
-    _, hist = main(["train", name, "--device", "cpu", "--epochs", "2",
-                    "--n-train", "5", "--n-test", "3",
-                    "--impl", KERNEL_IMPL[name], *tiny,
-                    "--set", "train.batch_size=2"])
+    # the k-fold experiment: two members, each trained on 5 of 10 samples
+    res = main(["train", name, "--device", "cpu", "--epochs", "2",
+                "--n-train", "10", "--n-test", "3",
+                "--impl", KERNEL_IMPL[name], *tiny,
+                "--set", "train.batch_size=2", "--set", "train.n_folds=2"])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    lines = [x for x in lines if "epoch" in x]
     rows = 2 if name == "ren_mme" else 1            # R-Drop's duplicates
-    assert [x["epoch"] for x in lines] == [0, 1]
+    assert [x["epoch"] for x in lines] == [0, 1, 0, 1]
     assert all(x["steps"] == 3 and x["samples"] == 5 * rows for x in lines)
-    assert all(np.isfinite([h.train_loss, h.valid_loss]).all() for h in hist)
+    assert all(np.isfinite([h.train_loss, h.valid_loss]).all()
+               for hist in res.fold_histories for h in hist)

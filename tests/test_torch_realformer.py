@@ -367,16 +367,21 @@ def test_realformer_trains_through_the_function_on_cpu():
 
 
 def test_cli_train_mosei_realformer_on_cpu(capsys):
-    state, hist = main(["train", "mosei_realformer", "--device", "cpu",
-                        "--epochs", "2", "--n-train", "5", "--n-test", "3",
-                        "--impl", "pallas", *TINY_SET,
-                        "--set", "train.batch_size=3"])
+    # the k-fold experiment: two members, each trained on 5 of 10
+    # paragraphs, then the 400-point threshold sweep (no fixed thresholds)
+    res = main(["train", "mosei_realformer", "--device", "cpu",
+                "--epochs", "2", "--n-train", "10", "--n-test", "3",
+                "--impl", "pallas", *TINY_SET,
+                "--set", "train.batch_size=3", "--set", "train.n_folds=2"])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [x["epoch"] for x in lines] == [0, 1]
-    assert all(x["steps"] == 2 and x["samples"] == 5 for x in lines)
+    epochs = [x for x in lines if "epoch" in x]
+    assert [x["epoch"] for x in epochs] == [0, 1, 0, 1]
+    assert all(x["steps"] == 2 and x["samples"] == 5 for x in epochs)
     assert all(np.isfinite(x["train_loss"]) and np.isfinite(x["valid_loss"])
-               for x in lines)
-    assert state.step == 4
+               for x in epochs)
+    assert [sum(h.steps for h in hist) for hist in res.fold_histories] == [4, 4]
+    assert set(lines[-1]["best_thresholds"]) == set(
+        configs.get("mosei_realformer").emotion_names)
 
 
 def test_cli_serve_mosei_realformer_on_cpu(capsys):

@@ -219,8 +219,12 @@ def test_cli_train_ren_mme_raises():
     assert kl > 0
     assert losses[True] == pytest.approx(losses[False] + kl, rel=1e-6)
 
-    _, hist = main(["train", "ren_mme", "--device", "cpu", "--epochs", "1",
-                    "--n-train", "3", "--n-test", "2", "--impl",
-                    "pallas_fused", *TINY_SET, "--set", "train.batch_size=2"])
+    # the k-fold experiment: two members, each trained on 3 of 6 samples
+    res = main(["train", "ren_mme", "--device", "cpu", "--epochs", "1",
+                "--n-train", "6", "--n-test", "2", "--impl",
+                "pallas_fused", *TINY_SET, "--set", "train.batch_size=2",
+                "--set", "train.n_folds=2"])
+    assert len(res.fold_histories) == 2
+    hist = res.fold_histories[0]
     assert hist[0].steps == 2 and hist[0].samples == 6   # duplicated rows
     assert np.isfinite([hist[0].train_loss, hist[0].valid_loss]).all()

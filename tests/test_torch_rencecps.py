@@ -192,10 +192,14 @@ def test_loss_gradients_and_two_steps_match_jax(pair):
 def test_cli_train_rencecps_on_cpu(capsys):
     import json
 
-    _, hist = main(["train", "rencecps", "--device", "cpu", "--epochs", "2",
-                    "--n-train", "10", "--n-test", "4",
-                    f"--set=model.dim={DIM}", "--set", "train.batch_size=4"])
+    # the k-fold experiment: two members, each trained on 10 of 20 samples
+    res = main(["train", "rencecps", "--device", "cpu", "--epochs", "2",
+                "--n-train", "20", "--n-test", "4",
+                f"--set=model.dim={DIM}", "--set", "train.batch_size=4",
+                "--set", "train.n_folds=2"])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [x["epoch"] for x in lines] == [0, 1]
+    lines = [x for x in lines if "epoch" in x]
+    assert [x["epoch"] for x in lines] == [0, 1, 0, 1]
     assert all(x["steps"] == 3 and x["samples"] == 10 for x in lines)
-    assert all(np.isfinite([h.train_loss, h.valid_loss]).all() for h in hist)
+    assert all(np.isfinite([h.train_loss, h.valid_loss]).all()
+               for hist in res.fold_histories for h in hist)

@@ -300,15 +300,21 @@ def test_training_with_dropout_raises(monkeypatch):
 def test_cli_train_on_cpu(capsys):
     from multimodal_emotion_processing_tpu_torch import cli
 
-    state, hist = cli.main(["train", "mosei_trans", "--device", "cpu",
-                            "--epochs", "2", "--n-train", "10", "--n-test", "6",
-                            "--impl", "flash", "--set", "model.dim=12",
-                            "--set", "model.n_heads=2",
-                            "--set", "train.batch_size=4"])
+    # the k-fold experiment: two members, each trained on 10 of 20 samples
+    res = cli.main(["train", "mosei_trans", "--device", "cpu",
+                    "--epochs", "2", "--n-train", "20", "--n-test", "6",
+                    "--impl", "flash", "--set", "model.dim=12",
+                    "--set", "model.n_heads=2",
+                    "--set", "train.batch_size=4", "--set", "train.n_folds=2"])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [x["epoch"] for x in lines] == [0, 1]
-    assert all(x["steps"] == 3 and x["samples"] == 10 for x in lines)
+    epochs = [x for x in lines if "epoch" in x]
+    assert [(x["member"], x["epoch"]) for x in epochs] == [
+        ("mosei_trans_1", 0), ("mosei_trans_1", 1),
+        ("mosei_trans_2", 0), ("mosei_trans_2", 1)]
+    assert all(x["steps"] == 3 and x["samples"] == 10 for x in epochs)
     assert all(np.isfinite(x["train_loss"]) and np.isfinite(x["valid_loss"])
-               for x in lines)
-    assert lines[1]["train_loss"] == pytest.approx(hist[1].train_loss)
-    assert state.step == 6
+               for x in epochs)
+    hist = res.fold_histories[1]
+    assert epochs[3]["train_loss"] == pytest.approx(hist[1].train_loss)
+    assert [sum(h.steps for h in h_) for h_ in res.fold_histories] == [6, 6]
+    assert lines[-1] == {"report": res.report}
