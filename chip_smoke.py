@@ -112,7 +112,24 @@ Phases, each reported on its own lines:
      scored by run_predict at impl="flash" in bf16: the launches of each
      path, the restored members' logits against impl="xla" (2e-4 f32, 5e-2
      bf16, the realformer's through gate-perturbed copies) and the swept or
-     gridded thresholds against the same search on the xla logits.
+     gridded thresholds against the same search on the xla logits;
+ 15. real_data: corpus trees written at the reference widths with numpy
+     and pickle (Ren-MME: 160 utterances, a video file missing; the
+     shared Ren-CECps tree over cet_1..cet_1487 with 768-d tokens; 128
+     robot clips of mixed-resolution pickles, one empty) and read by the
+     port's corpus readers: `ren_mme` (R-Drop, dropout 0.1, the joint
+     grid) through `cli train --data-root` at impl="pallas_fused", 2 folds,
+     1 epoch; `robot_demo` (dropout 0.1, gates set) at impl="pallas", 2
+     folds, 2 epochs of texts substituted anew; `rencecps` at impl="xla";
+     each held against run_experiment(data_root=...) at "xla" from the
+     same start (rencecps: on the CPU) with phase 13's bounds, with its
+     launches, load_real_data's wall, robot's resample walls and the wall
+     per member-epoch beside the synthetic figure at the same fold sizes;
+     the store's members at both impls on the tree's test split;
+     `cli predict --split all --data-root` bit-equal to the eval logits;
+     `check-data` on every tree, and exit 1 naming a removed file.  The
+     MOSEI `.csd` tree (mosei_trans at pallas_fused against xla, held as
+     ren_mme is) runs only where h5py imports (a line says so).
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -296,6 +313,23 @@ FAM_REN_N_TRAIN, FAM_REN_N_TEST = 128, 64
 FAM_RF_N_TRAIN, FAM_RF_N_TEST = 192, 64
 FAM_S1024_N_TEST = 64
 FAM_OBJECTIVE_TOL = 1e-6
+# the real-corpus phase: trees written at the reference widths under
+# REAL_ROOT and removed after it.  Ren-MME: episodes 1-8 train and 9-10
+# test, 4 dialogues of 4 sentences each (128 / 32 utterances), lengths drawn
+# up to twice the model's (so truncation runs), video 1_1_3 missing.  The
+# shared Ren tree: cet_1..cet_1487, 768-d BERT tokens, 3 to REAL_REN_TOKENS
+# per sentence.  Robot: REAL_ROBOT_CLIPS clips.  ren_mme trains 2 folds of
+# 64 for 1 epoch, robot_demo 2 folds of 64 for 2 epochs (so epoch 1's
+# resample runs), rencecps 2 folds for 1 epoch; each against impl="xla"
+# (rencecps against the same run on the CPU) with the experiment's bounds
+REAL_ROOT = ROOT / "chip_smoke_out" / "real_data"
+REAL_SEED = 11
+REAL_REN_TOKENS = 50
+REAL_ROBOT_CLIPS = 128
+REAL_FOLDS = 2
+REAL_EPOCHS = {"ren_mme": 1, "robot_demo": 2, "rencecps": 1,
+               "mosei_trans": 1}
+REAL_MISSING_VIDEO = "1_1_3"
 # training: configs.SCALE_POINTS["s1024"] batch 64; 256 / 64 synthetic
 # samples and 2 epochs give 8 optimizer steps and 2 eval passes
 TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
@@ -2951,12 +2985,15 @@ class Preempted(Exception):
 
 
 @contextlib.contextmanager
-def experiment_hooks(torch, *, spread: bool):
+def experiment_hooks(torch, *, spread: bool, gates: bool = False):
     """Instruments the experiment path for the duration of the block and
     restores it after: with `spread`, `engine.init_state` moves every
     LayerNorm bias of a new member by 0.1·N(0, 1) from a generator seeded by
     the member's seed (at init they tie across blocks, and the max pool's
-    routing would then rest on the last ulp of each impl: spread_ln);
+    routing would then rest on the last ulp of each impl: spread_ln); with
+    `gates`, it sets a new member's RealFormer gates from a generator seeded
+    by the member's seed (set_gates; at their initial 0 the attention cannot
+    reach the logits);
     `engine.Trainer` records each fit's wall time and CUDA events around
     its train steps; the checkpoint store's save_best, save_last and
     restore_last record their wall times; and `Ensemble.predict_all` records
@@ -2974,9 +3011,12 @@ def experiment_hooks(torch, *, spread: bool):
     predict_all = ens_cls.predict_all
     base = timed_trainer(torch, engine)
 
-    def spread_init(cfg, tcfg, seed, **kw):
+    def prepared_init(cfg, tcfg, seed, **kw):
         state = init(cfg, tcfg, seed, **kw)
-        spread_ln(torch, [state.model], seed=99 + seed)
+        if spread:
+            spread_ln(torch, [state.model], seed=99 + seed)
+        if gates:
+            set_gates(torch, [state.model], seed=1234 + seed)
         return state
 
     class FitTimer(base):
@@ -3015,8 +3055,8 @@ def experiment_hooks(torch, *, spread: bool):
             "launches": {n: after[n] - before[n] for n in after}})
         return out
 
-    if spread:
-        engine.init_state = spread_init
+    if spread or gates:
+        engine.init_state = prepared_init
     engine.Trainer = FitTimer
     for name in saved:
         setattr(store_cls, name, timed(name))
@@ -3589,6 +3629,592 @@ def phase_experiment_families(torch, report):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def write_ren_mme_tree(root, m, rng):
+    """Ren-MME's layout (Ren-MME/run.py:18-23,42-148): data/zero_one_adjust
+    .csv, text_feat / video_feat .npy of (T, dim) and audio_feat .npy stored
+    transposed (dim, T); episodes 1-10, 4 dialogues of 4 sentences, each
+    length drawn from 2 to twice the model's; video REAL_MISSING_VIDEO has
+    no file.  Returns the utterance names."""
+    import numpy as np
+
+    emotions = ("Love", "Anxiety", "Sorrow", "Joy", "Expect", "Hate", "Anger",
+                "Surprise", "Neutral")
+    for d in ("data", "text_feat", "video_feat", "audio_feat"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    names, rows = [], []
+    for ep in range(1, 11):
+        for dlg in range(1, 5):
+            for sent in range(1, 5):
+                name = f"{ep}_{dlg}_{sent}"
+                names.append(name)
+                lab = (rng.random(9) > 0.7).astype(int)
+                rows.append(f"{ep},{dlg},{sent}," + ",".join(map(str, lab)))
+    (root / "data" / "zero_one_adjust.csv").write_text(
+        "Episode,Dialogue,Sentence," + ",".join(emotions) + "\n"
+        + "\n".join(rows) + "\n")
+
+    def feats(length, dim):
+        t = int(rng.integers(2, 2 * length + 1))
+        return rng.standard_normal((t, dim)).astype(np.float32)
+
+    for name in names:
+        np.save(root / "text_feat" / f"{name}.npy", feats(m.l_len, m.l_dim))
+        if name != REAL_MISSING_VIDEO:
+            np.save(root / "video_feat" / f"{name}.npy",
+                    feats(m.v_len, m.v_dim))
+        np.save(root / "audio_feat" / f"{name}.npy",
+                feats(m.a_len, m.a_dim).T)
+    return names
+
+
+def write_ren_tree(root, rng, tok_dim):
+    """The Ren-CECps layout (rencecps/run.py:30-127) that rencecps and the
+    robot demo read: cet_1..cet_1487 .txt / .xml and one .npy of BERT
+    tokens per kept sentence.  Every 50th document has three sentences, the
+    second an empty-text line the loaders skip; every 7th sentence is all
+    zero (the neutral label); every 97th document's text is not Chinese
+    (robot_demo.py:157-162 leaves it out, rencecps keeps it)."""
+    import numpy as np
+
+    txt_dir = root / "1487_txt_hier_sents_202002"
+    xml_dir = root / "1487_xml_doc_segmented_utf8"
+    feat_dir = root / "ren_text_feat"
+    for d in (txt_dir, xml_dir, feat_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    count = 0
+    for doc in range(1, 1488):
+        plan = ([("1", "1", True), ("1", "2", False), ("2", "1", True)]
+                if doc % 50 == 0 else [("1", "1", True)])
+        txt, xml = [], []
+        for para, sent, keep in plan:
+            count += 1
+            if not keep:
+                txt.append("s:0.0,0.0,0.0,0.0,0.0,0.0,0.0,0.0:/n\n")
+            else:
+                intens = ["0.0"] * 8
+                if count % 7:
+                    intens[int(rng.integers(0, 8))] = "0.6"
+                text = ("hello/n  world/n" if doc % 97 == 0
+                        else "今天/t  天气/n  很好/a")
+                txt.append("s:" + ",".join(intens) + f":{text}\n")
+                n = int(rng.integers(3, REAL_REN_TOKENS + 1))
+                np.save(feat_dir / f"{doc}_{para}_{sent}.npy",
+                        rng.standard_normal((n, tok_dim)).astype(np.float32))
+            xml.append(f"<S_no>第{para}段第{sent}句</S_no>\n")
+        (txt_dir / f"cet_{doc}.txt").write_text("".join(txt))
+        (xml_dir / f"cet_{doc}.xml").write_text("".join(xml))
+
+
+def write_robot_tree(root, m, rng):
+    """The robot demo's layout (robot_demo.py:21-29,45-112) beside the Ren
+    tree: Feature(0)-360/<clip>.pk (a pickled list of per-frame vectors of
+    mixed resolutions: the majority rotates over 256/512/1024, every other
+    clip adds minority frames, every 16th ties 512 with 1024, the last is
+    empty), WAV_feature/<clip>.npy of (T, 40) and a MOSEI labels.txt."""
+    import pickle
+
+    import numpy as np
+
+    video_dir, wav_dir = root / "Feature(0)-360", root / "WAV_feature"
+    video_dir.mkdir(parents=True, exist_ok=True)
+    wav_dir.mkdir(parents=True, exist_ok=True)
+    dims = m.v_dims_multires
+    lines = ["name, start_time, end_time, happy, sad, angry, disgust, "
+             "surprise, fear, neutral \n"]
+    for i in range(REAL_ROBOT_CLIPS):
+        name = f"clip{i}[0]"
+        lab = (rng.random(7) > 0.6).astype(int)
+        lines.append(f"{name},{i}.0,{i + 5}.0," + ",".join(map(str, lab)) + "\n")
+        n = int(rng.integers(3, 2 * m.v_len))
+        frames = [rng.standard_normal(dims[i % 3]).astype(np.float32)
+                  for _ in range(n)]
+        if i % 16 == 5:
+            frames = [rng.standard_normal(d).astype(np.float32)
+                      for d in (dims[1], dims[2]) for _ in range(n)]
+        elif i % 2 == 0:
+            frames += [rng.standard_normal(dims[(i + 1) % 3]).astype(np.float32)
+                       for _ in range(n // 3)]
+        if i == REAL_ROBOT_CLIPS - 1:
+            frames = []
+        with open(video_dir / f"{name}.pk", "wb") as f:
+            pickle.dump(frames, f)
+        t = int(rng.integers(2, 2 * m.a_len + 1))
+        np.save(wav_dir / f"{name}.npy",
+                rng.standard_normal((t, m.a_dim)).astype(np.float32))
+    (root / "labels.txt").write_text("".join(lines))
+
+
+def write_mosei_tree(root, m, rng, h5py):
+    """CMU-MOSEI's layout (cmu-mosei/run.py:21-25,45-61): labels.txt, the
+    glove / FACET / COVAREP computational sequences (.csd, HDF5, mmsdk's
+    <sequence>/data/<sentence>/features layout) and standard_test_fold.txt;
+    12 videos of 2-6 sentences, 3 of them the test fold, lengths drawn up
+    to the model's plus 6 (so both the pad and the two-crop paths run)."""
+    import numpy as np
+
+    root.mkdir(parents=True, exist_ok=True)
+    videos = [f"v{i}" for i in range(12)]
+    sentences = [f"{v}[{j}]" for v in videos
+                 for j in range(int(rng.integers(2, 7)))]
+    lines = ["name, start_time, end_time, happy, sad, angry, disgust, "
+             "surprise, fear, neutral \n"]
+    for name in sentences:
+        start = float(rng.random() * 100)
+        lab = (rng.random(7) > 0.6).astype(int)
+        lines.append(f"{name},{start:.3f},{start + 5:.3f},"
+                     + ",".join(map(str, lab)) + "\n")
+    (root / "labels.txt").write_text("".join(lines))
+    (root / "standard_test_fold.txt").write_text("\n".join(videos[-3:]) + "\n")
+    for fname, dim, length in (("glove_vectors", m.l_dim, m.l_len),
+                               ("FACET 4.2", m.v_dim, m.v_len),
+                               ("COAVAREP", m.a_dim, m.a_len)):
+        with h5py.File(root / f"{fname}.csd", "w") as h:
+            grp = h.create_group(f"{fname}/data")
+            for name in sentences:
+                n = int(rng.integers(1, length + 7))
+                grp.create_group(name).create_dataset(
+                    "features",
+                    data=rng.standard_normal((n, dim)).astype(np.float32))
+
+
+def tree_bytes(root) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def phase_real_data(torch, report):
+    """Real corpus trees on disk at the reference widths, read by the port's
+    corpus readers and trained on the card: ren_mme (R-Drop, dropout 0.1,
+    the joint grid) through `cli train --data-root` at impl="pallas_fused",
+    robot_demo (dropout 0.1, gates set, 2 epochs of resampled texts) at
+    impl="pallas", rencecps at impl="xla", each against run_experiment(
+    data_root=...) at "xla" from the same start (rencecps: on the CPU); then
+    check-data on every tree and on one with a file removed, and `cli
+    predict --split all --data-root` from ren_mme's store.  MOSEI's `.csd`
+    path (mosei_trans at "pallas_fused" against "xla", held as ren_mme is)
+    runs only where h5py imports."""
+    import io
+    import shutil
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import cli, configs, pipelines
+    from multimodal_emotion_processing_tpu_torch.data import robot
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.eval.ensemble import apply_thresholds
+    from multimodal_emotion_processing_tpu_torch.train import engine
+    from multimodal_emotion_processing_tpu_torch.train.checkpoint import CheckpointStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    stores = STORES / "real_data"
+    for d in (REAL_ROOT, stores):
+        shutil.rmtree(d, ignore_errors=True)
+    kernels = all_kernels()
+    total = {k.name: 0 for k in kernels}
+    out = {"card": smi}
+    loads, resamples = [], []
+    load_real_data = pipelines.load_real_data
+    epoch_materialize = robot.RobotAssembler.epoch_materialize
+
+    def timed_load(exp, data_root):
+        t0 = time.perf_counter()
+        got = load_real_data(exp, data_root)
+        wall = time.perf_counter() - t0
+        n = sum(len(u) if isinstance(u, list) else 1
+                for part in got[:2] for u in part)
+        loads.append({"family": configs.family(exp.name), "wall_s": wall,
+                      "samples": n, "samples_per_s": n / wall})
+        return got
+
+    def timed_resample(self, names, base_table, epoch, seed=0):
+        t0 = time.perf_counter()
+        got = epoch_materialize(self, names, base_table, epoch, seed=seed)
+        resamples.append({"epoch": epoch, "seed": seed, "clips": len(got),
+                          "wall_s": time.perf_counter() - t0})
+        return got
+
+    def train(name, impl, root, *, via_cli, device="cuda", spread=False,
+              gates=False):
+        """One k-fold run on the tree: through `cli train` (the main path)
+        or run_experiment; its launches, wall and records."""
+        store = stores / f"{name}_{impl}_{device}"
+        sweep = name == "ren_mme"
+        epochs = REAL_EPOCHS[name]
+        del loads[:]
+        del resamples[:]
+        with experiment_hooks(torch, spread=spread, gates=gates) as rec:
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            if via_cli:
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    res = cli.main(
+                        ["train", name, "--data-root", str(root), "--impl",
+                         impl, "--epochs", str(epochs), "--checkpoint-dir",
+                         str(store), "--quiet", "--set",
+                         f"train.n_folds={REAL_FOLDS}"]
+                        + (["--sweep-thresholds"] if sweep else []))
+                lines = [json.loads(x) for x in text.getvalue().splitlines()]
+                if sum("epoch" in x for x in lines) != REAL_FOLDS * epochs:
+                    raise AssertionError(f"{name}: cli train printed "
+                                         f"{len(lines)} lines")
+            else:
+                res = pipelines.run_experiment(
+                    name, synthetic_data=False, data_root=str(root),
+                    epochs=epochs, checkpoint_dir=str(store), impl=impl,
+                    sweep_thresholds=sweep, quiet=True, device=device,
+                    overrides={"train": {"n_folds": REAL_FOLDS}})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        return dict(res=res, launches=launches, wall=wall, rec=rec,
+                    loads=list(loads), resamples=list(resamples), store=store)
+
+    def hold(name, run, ref, *, decisions):
+        """Epoch losses within EXP_LOSS_TOL and the same best epochs; with
+        `decisions`, the ensemble's decisions at the kernel run's
+        thresholds equal wherever a logit lies EXP_MARGIN or more from
+        them.  Returns the readings."""
+        res, res_x = run["res"], ref["res"]
+        loss_rel = 0.0
+        for hist, hist_x in zip(res.fold_histories, res_x.fold_histories):
+            if len(hist) != len(hist_x) or len(hist) != REAL_EPOCHS[name]:
+                raise AssertionError(f"{name}: the runs trained other epochs")
+            for h, hx in zip(hist, hist_x):
+                if h.steps != hx.steps or h.samples != hx.samples:
+                    raise AssertionError(f"{name}: other steps or samples")
+                for a, b in ((h.train_loss, hx.train_loss),
+                             (h.valid_loss, hx.valid_loss)):
+                    if not np.isfinite(a):
+                        raise AssertionError(f"{name}: loss {a}")
+                    loss_rel = max(loss_rel, abs(a - b) / max(abs(b), 1e-30))
+        members = [f"{name}_{i + 1}" for i in range(REAL_FOLDS)]
+        best = [res.store.manifest[n]["epoch"] for n in members]
+        best_x = [res_x.store.manifest[n]["epoch"] for n in members]
+        got = {"max_loss_rel_err": loss_rel, "best_epochs": best,
+               "best_epochs_ref": best_x,
+               "epoch_losses": [[(h.train_loss, h.valid_loss) for h in hist]
+                                for hist in res.fold_histories]}
+        msg = (f"[real_data] {name}: epoch losses (train/valid) "
+               + "; ".join(", ".join(f"{a:.6f}/{b:.6f}" for a, b in member)
+                           for member in got["epoch_losses"])
+               + f"; max relative difference to the reference {loss_rel:.2e}"
+               f" (bound {EXP_LOSS_TOL:g}); best epochs {best} (reference "
+               f"{best_x})")
+        if decisions:
+            exp = configs.get(name)
+            th = (list(exp.thresholds) if res.sweep is None else
+                  [res.sweep["joint"]["thresholds"][e]
+                   for e in exp.emotion_names])
+            idx = exp.emotion_index
+            dec = apply_thresholds(res.logits, th, idx)
+            dec_x = apply_thresholds(res_x.logits, th, idx)
+            cols = np.stack([res.logits[:, i] for i in idx], 1)
+            cols_x = np.stack([res_x.logits[:, i] for i in idx], 1)
+            near = np.minimum(np.abs(cols - np.asarray(th)),
+                              np.abs(cols_x - np.asarray(th))) < EXP_MARGIN
+            flips = int((dec != dec_x).sum())
+            unexplained = int(((dec != dec_x) & ~near).sum())
+            got.update(decision_flips=flips, unexplained_flips=unexplained,
+                       run_logit_err=normalised_err(res.logits, res_x.logits),
+                       micro_f1=res.report["micro_f1"],
+                       micro_f1_ref=res_x.report["micro_f1"])
+            msg += (f"; the two runs' ensemble logits "
+                    f"{got['run_logit_err']:.2e} apart, {flips} of {dec.size}"
+                    f" decisions differ, {unexplained} of them with both "
+                    f"logits {EXP_MARGIN:g} or more from the threshold; micro"
+                    f" F1 {got['micro_f1']:.6f} (reference "
+                    f"{got['micro_f1_ref']:.6f})")
+            if unexplained:
+                raise AssertionError(f"{name}: decisions disagree")
+        log(msg + f"; {smi}")
+        if loss_rel > EXP_LOSS_TOL:
+            raise AssertionError(f"{name}: losses {loss_rel:.3e} apart")
+        if best != best_x:
+            raise AssertionError(f"{name}: best epochs {best} vs {best_x}")
+        return got
+
+    def member_epoch_s(rec):
+        fits = rec["fits"]
+        return (sum(f["wall_s"] for f in fits)
+                / max(1, sum(f["epochs"] for f in fits)))
+
+    def log_run(name, run, impl):
+        (load,) = run["loads"]
+        log(f"[real_data] {name} at {impl} through cli train --data-root: "
+            f"load_real_data {load['wall_s']:.3f} s for {load['samples']} "
+            f"samples ({load['samples_per_s']:.0f} samples/s); run wall "
+            f"{run['wall']:.2f} s, {member_epoch_s(run['rec']):.3f} s per "
+            f"member-epoch; launches {run['launches']}; {smi}")
+
+    def check_data(name, root):
+        text = io.StringIO()
+        code = 0
+        with contextlib.redirect_stdout(text):
+            try:
+                cli.main(["check-data", name, "--data-root", str(root)])
+            except SystemExit as e:
+                code = e.code
+        return code, json.loads(text.getvalue())
+
+    pipelines.load_real_data = timed_load
+    robot.RobotAssembler.epoch_materialize = timed_resample
+    try:
+        t0 = time.perf_counter()
+        trees = {"ren_mme": REAL_ROOT / "ren_mme", "ren": REAL_ROOT / "ren"}
+        rng = np.random.default_rng(REAL_SEED)
+        write_ren_mme_tree(trees["ren_mme"], configs.get("ren_mme").model, rng)
+        write_ren_tree(trees["ren"], rng, configs.get("robot_demo").model.l_dim)
+        write_robot_tree(trees["ren"], configs.get("robot_demo").model, rng)
+        sizes = {k: tree_bytes(v) for k, v in trees.items()}
+        out["trees"] = {"bytes": sizes, "write_s": time.perf_counter() - t0}
+        log(f"[real_data] trees written in {out['trees']['write_s']:.1f} s: "
+            f"Ren-MME {sizes['ren_mme'] / 1e6:.1f} MB (160 utterances, video "
+            f"{REAL_MISSING_VIDEO} missing), the shared Ren-CECps + robot tree "
+            f"{sizes['ren'] / 1e6:.1f} MB (cet_1..cet_1487, "
+            f"{REAL_ROBOT_CLIPS} clips)")
+        try:
+            import h5py
+        except ImportError as e:
+            h5py = None
+            out["mosei"] = f"not run: h5py does not import ({e})"
+            log("[real_data] the MOSEI .csd path was not run on the card: "
+                f"h5py does not import here ({e}); mosei_trans' kernels run "
+                "on synthetic samples in phase experiment, and its .csd "
+                "readers are held against the JAX package's on the CPU "
+                "(tests/test_torch_real_data.py)")
+
+        # ren_mme: dropout trains through scored_fwd and the scored_bwd pair,
+        # the eval passes and the summed ensemble through fused_block
+        run = train("ren_mme", "pallas_fused", trees["ren_mme"], via_cli=True,
+                    spread=True)
+        ref = train("ren_mme", "xla", trees["ren_mme"], via_cli=False,
+                    spread=True)
+        exp = configs.get("ren_mme")
+        pairs = exp.train.batch_size
+        steps = -(-64 // pairs)
+        expected = {k.name: 0 for k in kernels}
+        expected.update(scored_fwd=18 * REAL_FOLDS * steps,
+                        scored_bwd_dq=18 * REAL_FOLDS * steps,
+                        scored_bwd_dkv=18 * REAL_FOLDS * steps,
+                        fused_block=18 * (REAL_FOLDS * steps
+                                          + REAL_FOLDS * -(-32 // pairs)))
+        log_run("ren_mme", run, "pallas_fused")
+        if run["launches"] != expected or any(ref["launches"].values()):
+            raise AssertionError(f"ren_mme launches {run['launches']} "
+                                 f"(expected {expected}), xla "
+                                 f"{ref['launches']}")
+        entry = hold("ren_mme", run, ref, decisions=True)
+        joint, jx = run["res"].sweep["joint"], ref["res"].sweep["joint"]
+        same = joint["thresholds"] == jx["thresholds"]
+        if not same and abs(joint["objective"] - jx["objective"]) \
+                > FAM_OBJECTIVE_TOL:
+            raise AssertionError("ren_mme joint grids disagree")
+        # the store's members at both impls on the tree's test split
+        store = CheckpointStore(str(run["store"]))
+        members, losses = pipelines._restore_members("ren_mme", exp, store,
+                                                     "cuda")
+        test = load_real_data(exp, str(trees["ren_mme"]))[1]
+        loader = Batcher(test, pairs, shuffle=False)
+        logits = {i: pipelines._make_ensemble(
+                      "ren_mme", members, losses, impl=i).predict_all(loader)
+                  for i in ("pallas_fused", "xla")}
+        eval_err = normalised_err(logits["pallas_fused"], logits["xla"])
+        eval_equal = bool(np.array_equal(logits["pallas_fused"],
+                                         run["res"].logits))
+        del members
+        # predict --split all: the train rows, then the 32 test rows
+        reset_counts(kernels)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            table = cli.main(["predict", "ren_mme", "--split", "all",
+                              "--data-root", str(trees["ren_mme"]),
+                              "--checkpoint-dir", str(run["store"]), "-o",
+                              str(stores / "ren_mme_all.npz"), "--impl",
+                              "pallas_fused", "--quiet"])
+        predict_launches = read_counts(kernels)
+        n_test = run["res"].logits.shape[0]
+        predict_equal = bool(np.array_equal(table["logits"][-n_test:],
+                                            run["res"].logits))
+        want_predict = {k.name: 0 for k in kernels}
+        want_predict["fused_block"] = 18 * REAL_FOLDS * -(-160 // pairs)
+        entry.update(launches=run["launches"], expected_launches=expected,
+                     wall_s=run["wall"], wall_s_ref=ref["wall"],
+                     load_real_data=run["loads"], fits=run["rec"]["fits"],
+                     s_per_member_epoch=member_epoch_s(run["rec"]),
+                     joint=joint, joint_ref=jx, eval_err_vs_xla=eval_err,
+                     eval_bit_equal=eval_equal, predict_rows=table["rows"],
+                     predict_launches=predict_launches,
+                     predict_bit_equal=predict_equal)
+        syn = report.get("experiment_families", {}).get("ren_mme")
+        syn_s = (sum(f["fit_wall_s"] for f in syn["fits"])
+                 / sum(f["epochs"] for f in syn["fits"]) if syn else None)
+        entry["synthetic_s_per_member_epoch"] = syn_s
+        log(f"[real_data] ren_mme: joint grid {joint['thresholds']} (the "
+            f"reference's {'the same' if same else jx['thresholds']}); "
+            f"restored members pallas_fused vs xla {eval_err:.2e} (bound "
+            f"{EXP_LOGIT_TOL:g}), bit-equal to the run's eval logits "
+            f"{eval_equal}; cli predict --split all: {table['rows']} rows, "
+            f"the last {n_test} bit-equal to the eval logits {predict_equal},"
+            f" launches {predict_launches}; "
+            f"{entry['s_per_member_epoch']:.3f} s per member-epoch on the tree"
+            f" against " + (f"{syn_s:.3f} s" if syn_s is not None
+                            else "not measured (phase experiment_families "
+                                 "did not run)")
+            + f" on synthetic samples at the same fold sizes "
+            f"(experiment_families); {smi}")
+        if eval_err > EXP_LOGIT_TOL or not eval_equal:
+            raise AssertionError("ren_mme: restored members disagree")
+        if not predict_equal or table["rows"] != 160 \
+                or predict_launches != want_predict:
+            raise AssertionError(f"ren_mme predict: {table['rows']} rows, "
+                                 f"launches {predict_launches}")
+        for k in total:
+            total[k] += run["launches"][k] + predict_launches[k]
+        out["ren_mme"] = entry
+
+        # robot_demo: the scored kernels, texts substituted anew each epoch
+        run = train("robot_demo", "pallas", trees["ren"], via_cli=True,
+                    gates=True)
+        ref = train("robot_demo", "xla", trees["ren"], via_cli=False,
+                    gates=True)
+        log_run("robot_demo", run, "pallas")
+        epochs = REAL_EPOCHS["robot_demo"]
+        expected = {k.name: 0 for k in kernels}
+        expected.update(scored_fwd=18 * REAL_FOLDS * epochs * 2,
+                        scored_bwd_dq=18 * REAL_FOLDS * epochs,
+                        scored_bwd_dkv=18 * REAL_FOLDS * epochs)
+        if run["launches"] != expected or any(ref["launches"].values()):
+            raise AssertionError(f"robot_demo launches {run['launches']} "
+                                 f"(expected {expected}), xla "
+                                 f"{ref['launches']}")
+        entry = hold("robot_demo", run, ref, decisions=False)
+        rs = run["resamples"]
+        log(f"[real_data] robot_demo: resample walls (text .npy re-read each"
+            f" epoch; video and audio cached) "
+            + ", ".join(f"epoch {r['epoch']} seed {r['seed']} {r['clips']} "
+                        f"clips {r['wall_s'] * 1e3:.1f} ms" for r in rs)
+            + f"; {smi}")
+        if sorted((r["seed"], r["epoch"]) for r in rs) != sorted(
+                (1000 * configs.get("robot_demo").train.seed + f, e)
+                for f in range(REAL_FOLDS) for e in range(epochs)):
+            raise AssertionError(f"robot_demo resamples {rs}")
+        # the synthetic figure at the same fold sizes and checkpoints, for
+        # the wall beside it
+        with experiment_hooks(torch, spread=False, gates=True) as srec:
+            pipelines.run_experiment(
+                "robot_demo", n_train=REAL_ROBOT_CLIPS, n_test=0,
+                epochs=epochs, impl="pallas", quiet=True, device="cuda",
+                checkpoint_dir=str(stores / "robot_demo_synthetic"),
+                overrides={"train": {"n_folds": REAL_FOLDS}})
+            torch.cuda.synchronize()
+        entry.update(launches=run["launches"], expected_launches=expected,
+                     wall_s=run["wall"], wall_s_ref=ref["wall"],
+                     load_real_data=run["loads"], resamples=rs,
+                     fits=run["rec"]["fits"],
+                     s_per_member_epoch=member_epoch_s(run["rec"]),
+                     synthetic_s_per_member_epoch=member_epoch_s(srec))
+        log(f"[real_data] robot_demo: {entry['s_per_member_epoch']:.3f} s per"
+            f" member-epoch on the tree against "
+            f"{entry['synthetic_s_per_member_epoch']:.3f} s on synthetic "
+            f"samples at the same fold sizes; {smi}")
+        for k in total:
+            total[k] += run["launches"][k]
+        out["robot_demo"] = entry
+
+        # rencecps: no kernel; the card's run against the CPU's
+        init = engine.init_state
+
+        def card_start(cfg, tcfg, seed, *, device=None):
+            state = init(cfg, tcfg, seed, device=device)
+            if str(device) == "cpu":
+                card = init(cfg, tcfg, seed, device="cuda")
+                state.model.load_state_dict(
+                    {k: v.cpu() for k, v in card.model.state_dict().items()})
+            return state
+
+        run = train("rencecps", "xla", trees["ren"], via_cli=True)
+        engine.init_state = card_start
+        try:
+            ref = train("rencecps", "xla", trees["ren"], via_cli=False,
+                        device="cpu")
+        finally:
+            engine.init_state = init
+        log_run("rencecps", run, "xla")
+        if any(run["launches"].values()):
+            raise AssertionError(f"rencecps launched {run['launches']}")
+        entry = hold("rencecps", run, ref, decisions=True)
+        entry.update(wall_s=run["wall"], wall_s_cpu=ref["wall"],
+                     load_real_data=run["loads"],
+                     s_per_member_epoch=member_epoch_s(run["rec"]))
+        out["rencecps"] = entry
+
+        # check-data: every tree, then Ren-MME without its label table and
+        # the robot tree without its labels
+        checks = {}
+        for name, root in (("ren_mme", trees["ren_mme"]),
+                           ("rencecps", trees["ren"]),
+                           ("robot_demo", trees["ren"])):
+            code, rep = check_data(name, root)
+            checks[name] = {"exit": code, "ok": rep["ok"]}
+            if code != 0 or not rep["ok"]:
+                raise AssertionError(f"check-data {name}: {rep['problems']}")
+        for name, path in (
+                ("ren_mme", trees["ren_mme"] / "data" / "zero_one_adjust.csv"),
+                ("robot_demo", trees["ren"] / "labels.txt")):
+            aside = path.with_name(path.name + ".aside")
+            path.rename(aside)
+            try:
+                code, rep = check_data(name, path.parents[1] if name ==
+                                       "ren_mme" else path.parent)
+            finally:
+                aside.rename(path)
+            named = any(path.name in p for p in rep["problems"])
+            checks[f"{name} without {path.name}"] = {
+                "exit": code, "problems": rep["problems"]}
+            if code != 1 or not named:
+                raise AssertionError(f"check-data {name} without "
+                                     f"{path.name}: exit {code}, "
+                                     f"{rep['problems']}")
+        out["check_data"] = checks
+        log(f"[real_data] check-data: {checks}")
+
+        if h5py is not None:
+            root = REAL_ROOT / "mosei"
+            write_mosei_tree(root, configs.get("mosei_trans").model, rng, h5py)
+            code, rep = check_data("mosei_trans", root)
+            if code != 0 or not rep["ok"]:
+                raise AssertionError(f"check-data mosei_trans: "
+                                     f"{rep['problems']}")
+            run = train("mosei_trans", "pallas_fused", root, via_cli=True,
+                        spread=True)
+            ref = train("mosei_trans", "xla", root, via_cli=False,
+                        spread=True)
+            log_run("mosei_trans", run, "pallas_fused")
+            if not run["launches"]["fused_block"] \
+                    or any(ref["launches"].values()):
+                raise AssertionError(f"mosei_trans launches "
+                                     f"{run['launches']}, xla "
+                                     f"{ref['launches']}")
+            entry = hold("mosei_trans", run, ref, decisions=True)
+            entry.update(launches=run["launches"], wall_s=run["wall"],
+                         wall_s_ref=ref["wall"], load_real_data=run["loads"])
+            for k in total:
+                total[k] += run["launches"][k]
+            out["mosei"] = entry
+
+        out["launches"] = total
+        log(f"[real_data] launches on the trees' main paths {total}; {smi}")
+        report["real_data"] = out
+        return total
+    finally:
+        pipelines.load_real_data = load_real_data
+        robot.RobotAssembler.epoch_materialize = epoch_materialize
+        for d in (REAL_ROOT, stores):
+            shutil.rmtree(d, ignore_errors=True)
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
@@ -3733,7 +4359,8 @@ def main() -> int:
                       ("train_robot", phase_train_robot),
                       ("train_rencecps", phase_train_rencecps),
                       ("experiment", phase_experiment),
-                      ("experiment_families", phase_experiment_families)):
+                      ("experiment_families", phase_experiment_families),
+                      ("real_data", phase_real_data)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -3753,7 +4380,7 @@ def main() -> int:
         return 1
     def experiment_paths(name):
         return {p: launches[p][name]
-                for p in ("experiment", "experiment_families")}
+                for p in ("experiment", "experiment_families", "real_data")}
 
     def tc_count(library, kernel):
         return sum(n for fn, n in report["tensor_core_instructions"].get(

@@ -1,18 +1,23 @@
 """Command line of the PyTorch port.
 
   train <config>  k-fold bagged training and ensemble evaluation of one
-        reference script on synthetic data (pipelines.run_experiment):
+        reference script on synthetic data, or on the corpus tree at
+        --data-root R (pipelines.run_experiment):
         [--checkpoint-dir D] [--log-dir L] [--resume] [--sweep-thresholds]
         [--seeds-per-fold S] [--epochs E] [--n-train N] [--n-test M]
         [--impl xla|flash|pallas|pallas_fused] [--set K=V] [--device cpu];
         prints one JSON line per member epoch, then the report and any
         swept thresholds as JSON lines.
   eval <config> --checkpoint-dir D   the same evaluation of the store's
-        best members, training nothing (epochs 0).
+        best members, training nothing (epochs 0); [--data-root R].
   predict <config> -o OUT.npz|.csv|.jsonl  [--checkpoint-dir D |
-        --init-random] [--split test|train|all] [--thresholds T1,...]
-        [--calibration]: every sample's ensemble logits, calibrated
-        probabilities and decisions to a file (pipelines.run_predict).
+        --init-random] [--split test|train|all] [--data-root R]
+        [--thresholds T1,...] [--calibration]: every sample's ensemble
+        logits, calibrated probabilities and decisions to a file
+        (pipelines.run_predict).
+  check-data <config> --data-root R   what the corpus tree lacks for the
+        config, as one JSON document (data/validate.py); exit 1 on any
+        problem.
   checkpoints <dir> [--prefix P]  the store's members, losses, best
         epochs, resume points and bytes.
   configs   the registered configs.
@@ -75,6 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--epochs", type=int, default=None,
                         help="epochs (default: the config's, with its "
                              "early stop)")
+        sp.add_argument("--data-root", default=None,
+                        help="real corpus root (docs/REAL_DATA.md); omit "
+                             "for synthetic data")
         sp.add_argument("--n-train", type=int, default=256)
         sp.add_argument("--n-test", type=int, default=64)
         sp.add_argument("--log-dir", default=None,
@@ -98,10 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     common(sub.add_parser(
         "train", help="k-fold bagged training and ensemble evaluation",
-        description="Carve the config's k folds from synthetic samples, "
-                    "train one member per fold (best checkpoints and "
-                    "per-epoch resume points with --checkpoint-dir), then "
-                    "evaluate the members' ensemble on held-out samples."))
+        description="Carve the config's k folds from synthetic samples "
+                    "or the corpus at --data-root, train one member per "
+                    "fold (best checkpoints and per-epoch resume points "
+                    "with --checkpoint-dir), then evaluate the members' "
+                    "ensemble on held-out samples."))
     common(sub.add_parser("eval", help="ensemble evaluation of a "
                                        "checkpoint store's members"))
 
@@ -116,6 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
     pd.add_argument("--init-random", action="store_true",
                     help="smoke mode: one fresh member instead of trained "
                          "checkpoints")
+    pd.add_argument("--data-root", default=None,
+                    help="real corpus root (default: synthetic samples)")
     pd.add_argument("--n-test", type=int, default=64,
                     help="synthetic test-split size")
     pd.add_argument("--n-train", type=int, default=None,
@@ -141,6 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="only members whose name starts with this")
 
     sub.add_parser("configs", help="list the configs")
+
+    cd = sub.add_parser(
+        "check-data",
+        help="validate a real corpus tree for a config before training: "
+             "every file and directory it reads, the corpus counts and the "
+             "feature coverage as one JSON document (exit 1 on problems)")
+    cd.add_argument("config")
+    cd.add_argument("--data-root", required=True)
 
     sv = sub.add_parser("serve", help="ensemble serving on synthetic requests")
     sv.add_argument("config", nargs="?", default="robot_demo")
@@ -172,7 +191,8 @@ def cmd_train(args, eval_only: bool = False):
             "eval requires --checkpoint-dir (otherwise there are no trained "
             "members to ensemble; run `train` first)")
     result = run_experiment(
-        args.config, n_train=args.n_train, n_test=args.n_test,
+        args.config, synthetic_data=args.data_root is None,
+        data_root=args.data_root, n_train=args.n_train, n_test=args.n_test,
         epochs=0 if eval_only else args.epochs, log_dir=args.log_dir,
         checkpoint_dir=args.checkpoint_dir, impl=args.impl,
         sweep_thresholds=args.sweep_thresholds, quiet=args.quiet,
@@ -201,7 +221,9 @@ def cmd_predict(args):
                          "or --init-random (an untrained smoke run)")
     table = run_predict(
         args.config, checkpoint_dir=args.checkpoint_dir,
-        init_random=args.init_random, n_test=args.n_test,
+        init_random=args.init_random,
+        synthetic_data=args.data_root is None, data_root=args.data_root,
+        n_test=args.n_test,
         n_train=args.n_train, impl=args.impl,
         overrides=parse_overrides(args.set),
         thresholds=([float(t) for t in args.thresholds.split(",")]
@@ -257,6 +279,16 @@ def cmd_checkpoints(args):
            "run_meta": meta if os.path.isfile(meta) else None}
     print(json.dumps(out, indent=2))
     return out
+
+
+def cmd_check_data(args):
+    from .data.validate import validate_tree
+
+    report = validate_tree(args.config, args.data_root)
+    print(json.dumps(report, indent=2))
+    if not report["ok"]:
+        raise SystemExit(1)
+    return report
 
 
 def cmd_configs():
@@ -405,6 +437,8 @@ def main(argv=None):
         return cmd_checkpoints(args)
     if args.cmd == "configs":
         return cmd_configs()
+    if args.cmd == "check-data":
+        return cmd_check_data(args)
     if args.cmd == "serve":
         return cmd_serve(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

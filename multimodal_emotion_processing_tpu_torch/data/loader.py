@@ -9,17 +9,20 @@ package).
     Ren-MME/run.py:143-146) each sample appears twice, in adjacent rows;
   * `prefetch_to_device` assembles batches in a background thread, stages
     them in pinned host memory and copies them to the GPU with non-blocking
-    copies on a side stream, one or two batches ahead of the consumer.
+    copies on a side stream, one or two batches ahead of the consumer;
+  * `resample(epoch)` rebuilds the sample list at the start of every epoch
+    (the robot demo's per-epoch text substitution), and a list whose
+    entries do not stack (ragged shapes) is gathered row by row.
 
 Not ported yet: the wire-compression dtypes (`cast_for_transfer`),
-per-epoch resampling, `pad_final=False` and `drop_remainder`.
+`pad_final=False` and `drop_remainder`.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,22 +33,58 @@ class Batcher:
     dicts, shuffled by a generator seeded once at construction (so epochs
     differ and runs repeat).  With `duplicate`, a batch holds
     2 × `batch_size` rows, each sample in two adjacent ones, and padding
-    rows are zero with `sample_weight` 0."""
+    rows are zero with `sample_weight` 0.  A batch carries the keys of the
+    first sample the Batcher was built with."""
 
     def __init__(self, samples: Sequence[Dict[str, np.ndarray]],
                  batch_size: int, *, shuffle: bool = True,
-                 duplicate: bool = False, seed: int = 0):
+                 duplicate: bool = False, seed: int = 0,
+                 resample: Optional[Callable[[int], Sequence[Dict]]] = None):
+        """`resample(epoch) -> samples` replaces the sample list at the
+        start of each epoch, epoch 0 included: the robot demo's per-epoch
+        label-matched text substitution (the reference rebuilds its
+        replace_dict in every data_loader call, robot_demo.py:256-258)."""
         self.samples = list(samples)
         if not self.samples:
             raise ValueError("empty sample list")
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.duplicate = duplicate
+        self.resample = resample
+        self._epoch = 0
         self._rng = np.random.default_rng(seed)
-        self._stacked = {k: np.stack([s[k] for s in self.samples])
-                         for k in self.samples[0]}
+        self._keys = list(self.samples[0])
+        self._stacked = None  # struct-of-arrays copy, built lazily
+        self._ragged = False  # the list did not stack: gather row by row
+
+    def _stack(self) -> bool:
+        """One contiguous (N, ...) array per key, so a batch is one gather
+        per key; False when the samples' shapes do not stack."""
+        try:
+            self._stacked = {k: np.stack([s[k] for s in self.samples])
+                             for k in self._keys}
+        except ValueError:
+            return False
+        return True
+
+    def _gather(self, idx, k):
+        if self._stacked is not None:
+            return self._stacked[k][idx]
+        # the row-by-row fallback: the first row's shape and dtype
+        first = np.asarray(self.samples[idx[0]][k])
+        buf = np.zeros((len(idx),) + first.shape, dtype=first.dtype)
+        for row, i in enumerate(idx):
+            buf[row] = self.samples[i][k]
+        return buf
 
     def __call__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.resample is not None:
+            self.samples = list(self.resample(self._epoch))
+            self._epoch += 1
+            self._stacked = None
+            self._ragged = False
+        if self._stacked is None and not self._ragged and not self._stack():
+            self._ragged = True  # tried once per sample list, not per epoch
         order = np.arange(len(self.samples))
         if self.shuffle:
             self._rng.shuffle(order)
@@ -56,8 +95,8 @@ class Batcher:
             idx = order[start:start + bs]
             actual = len(idx)
             batch = {}
-            for k, stacked in self._stacked.items():
-                g = stacked[idx]
+            for k in self._keys:
+                g = self._gather(idx, k)
                 if actual < bs:
                     buf = np.zeros((bs,) + g.shape[1:], dtype=g.dtype)
                     buf[:actual] = g

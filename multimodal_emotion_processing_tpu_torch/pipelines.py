@@ -5,11 +5,15 @@ ensemble inference, the threshold decision and the metric report
 (`run_experiment`); and offline batch prediction from a checkpoint store
 to a file (`run_predict`).
 
-Both run on synthetic samples shaped as the real corpora are (the corpora
-are not distributable) and on the card unless `device="cpu"` is given.
+Both run in two data modes, on the card unless `device="cpu"` is given:
+  * synthetic samples shaped as the real corpora are (the default; the
+    corpora are not distributable);
+  * a real corpus tree at `data_root` (`load_real_data`: data/mosei.py,
+    rencecps.py, ren_mme.py and robot.py over the reference's layouts,
+    docs/REAL_DATA.md), with `synthetic_data=False`.
 The k-fold members train one after another.
 
-Not ported yet: real-data loading (`data_root`), the vmapped,
+Not ported yet: the vmapped,
 device-resident and one-dispatch k-fold drivers, scan-chained steps,
 gradient accumulation, data- and tensor-parallel meshes, the
 wire-compression dtypes, asynchronous checkpoints, the profile option and
@@ -18,6 +22,7 @@ the stacked grid.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -30,8 +35,10 @@ import numpy as np
 import torch
 
 from . import configs
-from .data import synthetic
+from .data import mosei, ren_mme, rencecps, robot, synthetic
 from .data.loader import Batcher
+from .data.mosei_folds import standard_test_fold
+from .data.sources import CsdSource, NpyDirSource
 from .eval.ensemble import (Ensemble, group_average, joint_threshold_grid,
                             realformer_threshold_grid, ren_mme_joint_grids,
                             robot_threshold_grid, threshold_sweep)
@@ -65,6 +72,99 @@ def _synthetic_data(exp, n_train: int, n_test: int, seed: int = 0):
     train = synthetic.synthetic_dataset(exp.name, exp.model, n_train, seed)
     test = synthetic.synthetic_dataset(exp.name, exp.model, n_test, seed + 1)
     return train, test
+
+
+def load_real_data(exp, data_root: str):
+    """Train and test sample lists from a real corpus tree, laid out as the
+    reference's scripts read it (docs/REAL_DATA.md).  Returns (train, test,
+    ctx): `mosei_trans`' train list holds pair units (lists of one or two
+    crop samples; its folds count pairs) and its test samples carry crop
+    `group` ids; robot_demo has no test split, its samples carry
+    `name_idx`, and ctx holds the assembler, the label table and the clip
+    names for the per-epoch text substitution; ctx is None otherwise."""
+    name = configs.family(exp.name)  # scaled presets read their family's corpus
+    m = exp.model
+    if name in ("mosei_trans", "mosei_realformer"):
+        with contextlib.ExitStack() as stack:  # the HDF5 files close on return
+            l_src = stack.enter_context(
+                CsdSource(os.path.join(data_root, "glove_vectors.csd")))
+            v_src = stack.enter_context(
+                CsdSource(os.path.join(data_root, "FACET 4.2.csd")))
+            a_src = stack.enter_context(
+                CsdSource(os.path.join(data_root, "COAVAREP.csd")))
+            test_fold = standard_test_fold(data_root)
+            if name == "mosei_trans":
+                train_pairs, test_pairs, labels = mosei.parse_labels(
+                    os.path.join(data_root, "labels.txt"),
+                    test_videos=test_fold)
+                asm = mosei.PairSampleAssembler(m, l_src, v_src, a_src, labels)
+                return (asm.materialize_units(train_pairs),
+                        asm.materialize(test_pairs), None)
+            label_src = stack.enter_context(
+                CsdSource(os.path.join(data_root, "All Labels.csd")))
+            videos = sorted({n.split("[")[0] for n in v_src.names()})
+            train_v = [v for v in videos if v not in test_fold]
+            test_v = [v for v in videos if v in test_fold]
+            present = set(v_src.names())
+            asm = mosei.ParagraphSampleAssembler(m, l_src, v_src, a_src,
+                                                 label_src)
+            return (asm.materialize(
+                        mosei.paragraph_windows(train_v, present, m.p_len)),
+                    asm.materialize(
+                        mosei.paragraph_windows(test_v, present, m.p_len)),
+                    None)
+    if name == "rencecps":
+        txt = os.path.join(data_root, "1487_txt_hier_sents_202002")
+        xml = os.path.join(data_root, "1487_xml_doc_segmented_utf8")
+        feat = NpyDirSource(os.path.join(data_root, "ren_text_feat"))
+        asm = rencecps.RenCecpsAssembler(feat, dim=m.l_dim)
+        return (asm.materialize(rencecps.pair_list(
+                    rencecps.load_split(txt, xml, "train"))),
+                asm.materialize(rencecps.pair_list(
+                    rencecps.load_split(txt, xml, "test"))),
+                None)
+    if name == "ren_mme":
+        train, test = ren_mme.load_label_table(
+            os.path.join(data_root, "data", "zero_one_adjust.csv"))
+        asm = ren_mme.RenMmeAssembler(
+            m,
+            NpyDirSource(os.path.join(data_root, "text_feat")),
+            NpyDirSource(os.path.join(data_root, "video_feat")),
+            NpyDirSource(os.path.join(data_root, "audio_feat"), transpose=True),
+        )
+        return asm.materialize(train), asm.materialize(test), None
+    if name == "robot_demo":
+        video_dir = os.path.join(data_root, "Feature(0)-360")
+        # os.listdir order, as the reference's: it decides the folds
+        names = [f.split(".pk")[0] for f in os.listdir(video_dir)
+                 if f.endswith(".pk")]
+        label_dict = {}
+        name_set = set(names)
+        with open(os.path.join(data_root, "labels.txt")) as f:
+            for line in f.readlines()[1:]:
+                key = line.split(",")[0]
+                if key in name_set:
+                    label_dict[key] = line.strip().split(",")[3:]
+        table = robot.ren_label_name_dict(
+            os.path.join(data_root, "1487_txt_hier_sents_202002"),
+            os.path.join(data_root, "1487_xml_doc_segmented_utf8"))
+        asm = robot.RobotAssembler(
+            m, video_dir,
+            NpyDirSource(os.path.join(data_root, "WAV_feature")),
+            NpyDirSource(os.path.join(data_root, "ren_text_feat")),
+            label_dict, robot.SubstitutionSampler(table))
+        samples = asm.materialize(names)
+        # each sample's clip index rides along, so a fold's loader can
+        # substitute its texts anew each epoch (robot_demo.py:256-258)
+        for i, s in enumerate(samples):
+            s["name_idx"] = np.asarray(i, np.int32)
+        ctx = {"assembler": asm, "table": table, "names": names}
+        return samples, [], ctx
+    raise ValueError(name)
+
+
+def _count_samples(units) -> int:
+    return sum(len(u) if isinstance(u, list) else 1 for u in units)
 
 
 def _write_run_meta(dirs, *, config_name, overrides, exp, drivers, data,
@@ -226,6 +326,8 @@ def _choose_thresholds(config_name, exp, logits, labels, sweep_thresholds,
 def run_experiment(
     config_name: str,
     *,
+    synthetic_data: bool = True,
+    data_root: Optional[str] = None,
     n_train: int = 256,
     n_test: int = 64,
     epochs: Optional[int] = None,
@@ -239,10 +341,14 @@ def run_experiment(
     seeds_per_fold: int = 1,
     device=None,
 ) -> PipelineResult:
-    """One reference script on synthetic data: n_train samples carved into
-    the config's k folds, one member trained per fold (and per extra seed,
+    """One reference script: the train samples carved into the config's k
+    folds, one member trained per fold (and per extra seed,
     `seeds_per_fold`: member i trains fold i % k from seed tcfg.seed + i),
-    then the members' ensemble scored on n_test held-out samples.
+    then the members' ensemble scored on the held-out samples.  The
+    samples are n_train and n_test synthetic ones, or with
+    `synthetic_data=False` the corpus at `data_root` (`load_real_data`):
+    `mosei_trans`' pair units are carved whole and flattened per fold, and
+    robot_demo's folds substitute their texts anew each epoch.
 
     With `checkpoint_dir` each member's best epoch and an every-epoch
     resume point are saved, the ensemble reloads the best members, and
@@ -253,9 +359,17 @@ def run_experiment(
     exp = configs.with_overrides(configs.get(config_name), overrides)
     impl = impl or exp.model.attn_impl
     device = resolve_device(device)
-    train_samples, test_samples = _synthetic_data(exp, n_train, n_test)
-    _log(f"[{config_name}] {len(train_samples)} train / {len(test_samples)} "
-         f"test samples; device={device}, impl={impl}", quiet)
+    loader_ctx = None
+    if synthetic_data:
+        train_samples, test_samples = _synthetic_data(exp, n_train, n_test)
+    else:
+        if data_root is None:
+            raise ValueError("data_root required when synthetic_data=False")
+        train_samples, test_samples, loader_ctx = load_real_data(exp,
+                                                                 data_root)
+    _log(f"[{config_name}] {_count_samples(train_samples)} train / "
+         f"{_count_samples(test_samples)} test samples; device={device}, "
+         f"impl={impl}", quiet)
     if resume and not checkpoint_dir:
         raise ValueError("resume=True requires checkpoint_dir")
     store = CheckpointStore(checkpoint_dir) if checkpoint_dir else None
@@ -269,7 +383,8 @@ def run_experiment(
         drivers={"epochs": epochs, "impl": impl,
                  "seeds_per_fold": seeds_per_fold, "resume": resume,
                  "sweep_thresholds": sweep_thresholds},
-        data={"synthetic": True, "n_train": n_train, "n_test": n_test},
+        data={"synthetic": synthetic_data, "data_root": data_root,
+              "n_train": n_train, "n_test": n_test},
         device=device)
 
     def log_cb(name, epoch, stats):
@@ -283,9 +398,31 @@ def run_experiment(
 
     duplicate = exp.train.rdrop_kl  # Ren-MME's R-Drop duplicates each sample
 
+    def robot_resample(subset, fold_idx):
+        """Fold `fold_idx`'s samples with their texts substituted anew for
+        each epoch, from a per-fold seed; the clip indices ride along."""
+        idxs = [int(s["name_idx"]) for s in subset]
+        fold_names = [loader_ctx["names"][i] for i in idxs]
+        seed = exp.train.seed * 1000 + fold_idx
+
+        def resample(epoch):
+            fresh = loader_ctx["assembler"].epoch_materialize(
+                fold_names, loader_ctx["table"], epoch, seed=seed)
+            for s, i in zip(fresh, idxs):
+                s["name_idx"] = np.asarray(i, np.int32)
+            return fresh
+
+        return resample
+
+    fold_counter = {"i": 0}
+
     def make_loaders(train, valid):
+        resample = None
+        if loader_ctx is not None:
+            resample = robot_resample(train, fold_counter["i"])
+            fold_counter["i"] += 1
         return (Batcher(_flatten_units(train), exp.train.batch_size,
-                        duplicate=duplicate, seed=1),
+                        duplicate=duplicate, seed=1, resample=resample),
                 Batcher(_flatten_units(valid), exp.train.batch_size,
                         duplicate=duplicate, shuffle=False))
 
@@ -325,6 +462,8 @@ def run_predict(
     *,
     checkpoint_dir: Optional[str] = None,
     init_random: bool = False,
+    synthetic_data: bool = True,
+    data_root: Optional[str] = None,
     n_test: int = 64,
     n_train: Optional[int] = None,
     impl: Optional[str] = None,
@@ -340,7 +479,11 @@ def run_predict(
     between `eval` (metrics only) and `serve` (one sample at a time).
 
     Samples: the synthetic test split (n_test, seed 1), the train split
-    (n_train, default n_test, seed 0) or both (`split="all"`).  Members:
+    (n_train, default n_test, seed 0) or both (`split="all"`); or with
+    `synthetic_data=False` the same splits of the corpus at `data_root`,
+    where a corpus with no held-out split (robot_demo's) predicts over
+    all its samples, and with `split="all"` the test split's crop groups
+    are numbered above the train split's.  Members:
     the store's best checkpoints with the config's combination, or one
     fresh member from the config's seed with `init_random=True` (a smoke
     run).  Decisions use `thresholds`, else the store's tuned ones, else
@@ -355,14 +498,40 @@ def run_predict(
         raise ValueError(f"split must be test/train/all, got {split!r}")
     n_tr = n_train if n_train is not None else n_test
 
-    def _train():
-        return synthetic.synthetic_dataset(exp.name, exp.model, n_tr, 0)
+    if synthetic_data:
+        def _train():
+            return synthetic.synthetic_dataset(exp.name, exp.model, n_tr, 0)
 
-    def _test():
-        return synthetic.synthetic_dataset(exp.name, exp.model, n_test, 1)
+        def _test():
+            return synthetic.synthetic_dataset(exp.name, exp.model, n_test, 1)
 
-    samples = {"train": _train, "test": _test,
-               "all": lambda: _train() + _test()}[split]()
+        samples = {"train": _train, "test": _test,
+                   "all": lambda: _train() + _test()}[split]()
+    else:
+        if data_root is None:
+            raise ValueError("data_root required when synthetic_data=False")
+        train_units, test_samples, _ = load_real_data(exp, data_root)
+        train_samples = _flatten_units(train_units, with_groups=True)
+        if split == "train":
+            samples = train_samples
+        elif split == "test":
+            samples = test_samples
+            if not samples:
+                samples = train_samples
+                _log(f"[{config_name}] corpus has no held-out split; "
+                     f"predicting over all {len(samples)} samples", quiet)
+        else:
+            if test_samples and "group" in test_samples[0]:
+                # group ids count within a split: the test split's go above
+                # the train split's, so no crop average spans both
+                off = (1 + max(int(s["group"]) for s in train_samples)
+                       if train_samples and "group" in train_samples[0]
+                       else 0)
+                test_samples = [
+                    {**s, "group": np.asarray(int(s["group"]) + off,
+                                              np.int32)}
+                    for s in test_samples]
+            samples = train_samples + test_samples
     if not samples:
         raise ValueError("no samples to predict on")
     if checkpoint_dir:

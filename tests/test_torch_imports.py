@@ -38,7 +38,9 @@ def test_the_training_slice_is_covered():
     the tests below import and scan."""
     mods = set(_port_modules())
     for m in ("ops.loss", "ops.flash_attention", "data.loader",
-              "train.engine", "train.schedule"):
+              "train.engine", "train.schedule", "data.sources",
+              "data.mosei_folds", "data.mosei", "data.rencecps",
+              "data.ren_mme", "data.robot", "data.validate"):
         assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
     names = {p.name for p in _sources()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"} <= names
@@ -117,6 +119,30 @@ def test_every_port_module_imports_without_jax():
         "leaked = sorted(m for m, mod in sys.modules.items() if mod is not None"
         " and m.split('.')[0] in ('jax', 'multimodal_emotion_processing_tpu'))\n"
         "assert not leaked, leaked\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_every_port_module_imports_without_h5py():
+    """The card's machine has no h5py: every port module imports without
+    it (and without JAX), and only a `.csd` reader asks for it, by name."""
+    code = (
+        "import importlib, sys\n"
+        "for blocked in ('jax', 'multimodal_emotion_processing_tpu', 'h5py'):\n"
+        "    sys.modules[blocked] = None\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "from multimodal_emotion_processing_tpu_torch.data.sources import CsdSource\n"
+        "try:\n"
+        "    CsdSource('glove_vectors.csd')\n"
+        "except ImportError as e:\n"
+        "    assert 'h5py' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('CsdSource built without h5py')\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
