@@ -129,7 +129,29 @@ Phases, each reported on its own lines:
      `cli predict --split all --data-root` bit-equal to the eval logits;
      `check-data` on every tree, and exit 1 naming a removed file.  The
      MOSEI `.csd` tree (mosei_trans at pallas_fused against xla, held as
-     ren_mme is) runs only where h5py imports (a line says so).
+     ren_mme is) runs only where h5py imports (a line says so);
+ 16. serve_io: every serving path as the captured CUDA-graph programs it
+     runs as (serve/graphs.py: one graph per input shape; each replay adds
+     the launches it recorded to the kernels' counts, so phases 4, 5, 7 and
+     9 count as before): for mosei_trans_s1024 (flash, bf16), robot_demo
+     (pallas, gates set) and ren_mme (pallas_fused), 4 seeded members each,
+     the bucket-8 ensemble forward and the batch-1 packed predict bit-equal
+     to the eager path, each replayed call traced (one graph launch, no
+     host kernel launch, and each hand-written kernel's device events a
+     call equal to what the graphs' ledgers credit, the server's and the
+     paragraph step's too), bucket-8 wall and idle share and batch-1 p50
+     graphed and eager, and BatchingServer's host-to-device copies a batch
+     (one); the paragraph step of 5 mosei_realformer members the same way
+     (clip p50); the HTTP front end over robot_demo (binary wire bit-equal
+     and JSON float32-exact to in-process predicts, 400s, req/s of 16
+     concurrent clients on each wire and of direct submits); `cli export
+     ren_mme --batch 8` on the card against ensemble_serve_fn(impl="xla"),
+     its size and call time; run_predict of mosei_trans at the float16,
+     bfloat16 and int8 wires against f32, the H2D bytes of a batch, and
+     `cli train --transfer-dtype float16` on f16-grid features against f32.
+     Phase 13's resume check runs its cut and resumed runs through the
+     asynchronous store (--async-checkpoint) and reports the time each
+     save holds the fit, synchronous and asynchronous.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -330,6 +352,22 @@ REAL_FOLDS = 2
 REAL_EPOCHS = {"ren_mme": 1, "robot_demo": 2, "rencecps": 1,
                "mosei_trans": 1}
 REAL_MISSING_VIDEO = "1_1_3"
+# serve_io: p50s over this many calls; the HTTP front end with HTTP_CLIENTS
+# concurrent clients sending HTTP_ROUNDS requests each on each wire, after
+# HTTP_SEQUENTIAL sequential ones (one bucket-1 program, as in-process
+# predict); the export against impl="xla" at EXPORT_RTOL relative (max
+# error over max |ref|); the wire: run_predict over WIRE_N_TEST samples
+# from one seeded member against f32 (float16 ~1e-3 relative rounding,
+# bfloat16 ~1e-2, int8 at most half a step of its row's max / 127 a
+# feature), and `cli train` at WIRE_FOLDS folds of WIRE_N_TRAIN pairs,
+# WIRE_EPOCHS epochs, on features on the float16 grid, whose losses the
+# float16 wire leaves within WIRE_TRAIN_RTOL (tests/test_transfer.py:142-160)
+SERVE_IO_P50_CALLS, SERVE_IO_TRACE_REPS = 9, 3
+HTTP_CLIENTS, HTTP_ROUNDS, HTTP_SEQUENTIAL = 16, 2, 4
+EXPORT_RTOL = 1e-6
+WIRE_N_TEST, WIRE_N_TRAIN, WIRE_FOLDS, WIRE_EPOCHS = 128, 256, 2, 2
+WIRE_TRAIN_RTOL = 1e-6
+WIRE_PREDICT_BOUNDS = {"float16": 1e-2, "bfloat16": 5e-2, "int8": 2e-1}
 # training: configs.SCALE_POINTS["s1024"] batch 64; 256 / 64 synthetic
 # samples and 2 epochs give 8 optimizer steps and 2 eval passes
 TRAIN_BATCH, N_TRAIN, N_VALID, TRAIN_EPOCHS = 64, 256, 64, 2
@@ -3042,11 +3080,11 @@ def experiment_hooks(torch, *, spread: bool, gates: bool = False):
 
         return wrapper
 
-    def counted_predict_all(self, loader):
+    def counted_predict_all(self, loader, **kw):
         before = read_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = predict_all(self, loader)
+        out = predict_all(self, loader, **kw)
         wall = time.perf_counter() - t0
         after = read_counts(kernels)
         rec["predict_all"].append({
@@ -3354,11 +3392,14 @@ def phase_experiment(torch, report):
             raise AssertionError(f"served logits {serve_err:.3e} off")
         del members, ens
 
-        # resume on the card: 2 folds, unshuffled, cut in member 1's epoch 2
+        # resume on the card: 2 folds, unshuffled, cut in member 1's epoch 2;
+        # the uninterrupted run saves synchronously, the cut and resumed runs
+        # through the asynchronous store (--async-checkpoint)
         samples = synthetic_dataset(exp.name, m, EXP_RESUME_N, seed=3)
         rtcfg = dataclasses.replace(tcfg, n_folds=2)
+        stores = {}
 
-        def resume_run(sub, *, crash=None, resume=False):
+        def resume_run(sub, *, crash=None, resume=False, use_async=False):
             losses = {}
 
             def log_cb(name, epoch, stats):
@@ -3371,27 +3412,43 @@ def phase_experiment(torch, report):
                 return (Batcher(train, MT_BATCH, shuffle=False),
                         Batcher(valid, MT_BATCH, shuffle=False))
 
+            stores[sub] = CheckpointStore(str(root / sub), use_async=use_async)
             results = run_kfold(
-                samples, make_loaders, exp, rtcfg,
-                store=CheckpointStore(str(root / sub)), name_prefix="m",
-                epochs=EXP_RESUME_EPOCHS, impl="pallas_fused", log_cb=log_cb,
-                resume=resume, device="cuda")
+                samples, make_loaders, exp, rtcfg, store=stores[sub],
+                name_prefix="m", epochs=EXP_RESUME_EPOCHS, impl="pallas_fused",
+                log_cb=log_cb, resume=resume, device="cuda")
+            stores[sub].wait()
             return results, losses
 
-        with experiment_hooks(torch, spread=True) as rrec:
+        with experiment_hooks(torch, spread=True) as srec:
             full, full_losses = resume_run("full")
+        with experiment_hooks(torch, spread=True) as rrec:
             try:
-                resume_run("cut", crash=("m_1", 2))
+                resume_run("cut", crash=("m_1", 2), use_async=True)
                 raise AssertionError("the cut did not happen")
             except Preempted:
-                pass
-            resumed, res_losses = resume_run("cut", resume=True)
+                # a process that exits joins the write in flight (the
+                # interpreter joins the store's worker thread at exit)
+                stores["cut"].wait()
+            resumed, res_losses = resume_run("cut", resume=True,
+                                             use_async=True)
+        holds = {mode: {k: rec[k] for k in ("save_best_ms", "save_last_ms")}
+                 for mode, rec in (("sync", srec), ("async", rrec))}
+        log("[experiment] the time a save holds the fit (resume check, 2 "
+            "members): "
+            + "; ".join(f"{mode} save_best median "
+                        f"{statistics.median(h['save_best_ms']):.1f} ms "
+                        f"({len(h['save_best_ms'])}), save_last median "
+                        f"{statistics.median(h['save_last_ms']):.1f} ms "
+                        f"({len(h['save_last_ms'])})"
+                        for mode, h in holds.items()))
         equal = all(torch.equal(a, b) for (s, _), (t, _) in zip(full, resumed)
                     for a, b in zip(s.model.state_dict().values(),
                                     t.model.state_dict().values()))
         log(f"[experiment] resume: member 1 ran epochs "
             f"{len(full_losses['m_1']) - len(res_losses['m_1'])}-"
-            f"{EXP_RESUME_EPOCHS - 1} after the cut, member 2 "
+            f"{EXP_RESUME_EPOCHS - 1} after the cut (asynchronous store), "
+            f"member 2 "
             f"{len(res_losses['m_2'])} epochs; losses bit-equal "
             f"{res_losses['m_1'] == full_losses['m_1'][2:]} / "
             f"{res_losses['m_2'] == full_losses['m_2']}; final parameters "
@@ -3408,7 +3465,7 @@ def phase_experiment(torch, report):
             fits=fits, fits_xla=fits_x,
             save_best_ms=saves["save_best_ms"],
             save_last_ms=saves["save_last_ms"],
-            restore_last_ms=rrec["restore_last_ms"],
+            restore_last_ms=rrec["restore_last_ms"], save_holds_ms=holds,
             save_parts={"state_dict_ms": sd_ms, "file_ms": save_ms,
                         "tensors": n_tensors, "bytes": nbytes},
             launches=launches, expected_launches=expected,
@@ -4215,10 +4272,553 @@ def phase_real_data(torch, report):
             shutil.rmtree(d, ignore_errors=True)
 
 
+def trace_call(torch, fn, reps: int = 3, traced=None):
+    """One call of fn under torch.profiler, `reps` times after one call
+    untraced (then `traced()`, if given, marks the traced window's start):
+    wall, device busy and idle share, device ops, and per call the host's
+    CUDA graph launches, kernel launches (cudaLaunchKernel*,
+    cuLaunchKernel*) and copies (cudaMemcpyAsync), the device's
+    host-to-device copy events (the profiler has been seen to drop one of
+    three; the host's count is the one checked) and the device's events of
+    each hand-written kernel, by name (`kernels_per_call`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    if traced is not None:
+        traced()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    busy = ops = graphs = kernel_launches = copies = h2d = 0
+    ours = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+            ops += 1
+            h2d += "HtoD" in e.name
+            cat = _kernel_category(e.name)
+            if cat in KERNEL_NAMES:
+                ours[cat] = ours.get(cat, 0) + 1
+        elif e.name == "cudaGraphLaunch":
+            graphs += 1
+        elif "LaunchKernel" in e.name:
+            kernel_launches += 1
+        elif e.name == "cudaMemcpyAsync":
+            copies += 1
+    out = {"wall_ms": wall_ms, "graph_launches_per_call": graphs / reps,
+           "host_kernel_launches_per_call": kernel_launches / reps,
+           "host_copies_per_call": copies / reps,
+           "h2d_copies_per_call": h2d / reps,
+           "kernels_per_call": {k: n / reps for k, n in sorted(ours.items())}}
+    if busy <= 0.0:
+        out["device"] = "not measured: the profiler recorded no device time"
+        return out
+    out.update(device_busy_ms=busy / reps,
+               device_idle_share=max(0.0, 1 - busy / reps / wall_ms),
+               device_ops_per_call=ops / reps)
+    return out
+
+
+def _fmt_trace(t):
+    return (f"wall {t['wall_ms']:.2f} ms, busy "
+            f"{t.get('device_busy_ms', float('nan')):.2f} ms, idle "
+            f"{t.get('device_idle_share', float('nan')):.3f}, "
+            f"{t.get('device_ops_per_call', float('nan')):.0f} device ops, "
+            f"{t['graph_launches_per_call']:g} graph / "
+            f"{t['host_kernel_launches_per_call']:g} kernel launches, "
+            f"{t['host_copies_per_call']:g} copies ({t['h2d_copies_per_call']:g}"
+            " H2D seen on the device) a call")
+
+
+def p50_ms(torch, fn, n: int = SERVE_IO_P50_CALLS):
+    """Median wall of n calls of fn (each ends with its copy to the host)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def eager_packed(torch, prog, samples):
+    """The packed program's work without its graph: the same pinned buffer,
+    one copy up, the eager forward, one copy down."""
+    prog.pack(samples)
+    out = prog.fn.fn(prog.host.to(prog.device, non_blocking=True))
+    return out.cpu().numpy()
+
+
+def graphs_case(torch, tag, exp, members, samples, *, impl, dtype):
+    """One served config through its captured programs against eager on the
+    same members and inputs: the bucket-8 ensemble forward and the batch-1
+    predict bit-equal; the replayed calls' traces (one graph launch, no
+    host kernel launch); bucket-8 wall and idle, batch-1 p50, graphed and
+    eager; BatchingServer's H2D copies per batch."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch.serve import (
+        BatchingServer, StreamingPredictor, ensemble_serve_fn)
+
+    fn = ensemble_serve_fn(members, exp.thresholds, impl=impl, dtype=dtype)
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples[:SERVE_BUCKET]]))
+             .cuda() for k in samples[0] if k != "label"}
+    first = [t.clone() for t in fn(batch)]          # warm-up: eager, capture
+    replay = [t.clone() for t in fn(batch)]
+    eager = fn.fn(batch)
+    bucket_equal = all(torch.equal(a, b) for a, b in zip(replay, eager)) and \
+        all(torch.equal(a, b) for a, b in zip(first, eager))
+    sp = StreamingPredictor(members, exp.thresholds, impl=impl, dtype=dtype)
+    sp.warmup(samples[0])
+    prog = sp.packed_program(samples[0])
+    b1_equal = all(np.array_equal(np.concatenate(sp.predict(s)),
+                                  eager_packed(torch, prog, [s])[0])
+                   for s in samples[:2])
+    out = {"bucket8_bit_equal": bucket_equal, "batch1_bit_equal": b1_equal,
+           "bucket8_graphed": trace_call(torch, lambda: fn(batch)),
+           "bucket8_eager": trace_call(torch, lambda: fn.fn(batch)),
+           "batch1_graphed": trace_call(torch, lambda: sp.predict(samples[0])),
+           "batch1_p50_ms": p50_ms(torch, lambda: sp.predict(samples[0])),
+           "batch1_eager_p50_ms": p50_ms(
+               torch, lambda: eager_packed(torch, prog, [samples[0]])),
+           "graph_stats": [fn.stats(), prog.fn.stats()]}
+    with BatchingServer(members, exp.thresholds, impl=impl, max_delay_ms=3.0,
+                        dtype=dtype) as srv:
+        srv.warmup(samples[0])
+
+        def burst():
+            for f in [srv.submit(s) for s in samples[:SERVE_BUCKET]]:
+                f.result(timeout=600)
+
+        mark = {}
+
+        def traced():
+            mark["batches"] = srv.stats()["batches"]
+            mark["replays"] = {b: p.fn.replays
+                               for b, p in srv._programs.items()}
+
+        out["server_burst"] = trace_call(
+            torch, burst, reps=SERVE_IO_TRACE_REPS, traced=traced)
+        batches = srv.stats()["batches"] - mark["batches"]
+        server_ledger = {}   # over the traced window, then a call
+        for b, p in srv._programs.items():
+            n = p.fn.replays - mark["replays"].get(b, 0)
+            for k, c in p.fn.launches_per_replay().items():
+                server_ledger[k] = server_ledger.get(k, 0) + c * n
+        server_ledger = {k: n / SERVE_IO_TRACE_REPS
+                         for k, n in server_ledger.items()}
+        out["server_batches_traced"] = batches
+        per_batch = SERVE_IO_TRACE_REPS / batches
+        out["server_copies_per_batch"] = (
+            out["server_burst"]["host_copies_per_call"] * per_batch)
+        out["server_device_h2d_per_batch"] = (
+            out["server_burst"]["h2d_copies_per_call"] * per_batch)
+    for key in ("bucket8_graphed", "batch1_graphed"):
+        log(f"[serve_io] {tag} {key}: {_fmt_trace(out[key])}")
+    log(f"[serve_io] {tag} bucket8_eager: {_fmt_trace(out['bucket8_eager'])}")
+    log(f"[serve_io] {tag}: replay bit-equal to eager: bucket 8 "
+        f"{bucket_equal}, batch 1 {b1_equal}; batch-1 p50 "
+        f"{out['batch1_p50_ms']:.2f} ms graphed, "
+        f"{out['batch1_eager_p50_ms']:.2f} ms eager; the server made "
+        f"{out['server_copies_per_batch']:g} copies a batch (one up, one "
+        f"down; {out['server_device_h2d_per_batch']:g} H2D seen on the "
+        f"device) over {batches} traced batches; first calls (eager call "
+        f"and capture) {fn.capture_ms[0]:.1f} ms bucket 8, "
+        f"{prog.fn.capture_ms[0]:.1f} ms packed batch 1")
+    out["ledger_per_replay"] = {
+        "bucket8_graphed": dict(fn.launches_per_replay()),
+        "batch1_graphed": dict(prog.fn.launches_per_replay()),
+        "server_burst": server_ledger}
+    check_ledger(tag, out, out["ledger_per_replay"])
+    g = [out["bucket8_graphed"], out["batch1_graphed"]]
+    if not (bucket_equal and b1_equal):
+        raise AssertionError(f"{tag}: a replay differs from the eager path")
+    if any(t["graph_launches_per_call"] != 1
+           or t["host_kernel_launches_per_call"] != 0 for t in g):
+        raise AssertionError(f"{tag}: a replayed call is not one graph launch "
+                             f"without host kernel launches: {g}")
+    if out["server_copies_per_batch"] != 2 or \
+            out["server_device_h2d_per_batch"] > 1:
+        raise AssertionError(f"{tag}: the server made "
+                             f"{out['server_copies_per_batch']} copies a batch")
+    return out
+
+
+def check_ledger(tag, traces, ledgers):
+    """Each traced graphed case ran on the device, kernel by kernel, the
+    launches that its graphs' ledgers credit per call, and at least one."""
+    for case, ledger in ledgers.items():
+        seen = traces[case]["kernels_per_call"]
+        log(f"[serve_io] {tag} {case}: hand-written kernels a call on the "
+            f"device {seen}, credited by the ledger {ledger}")
+        if not ledger or seen != {k: float(n) for k, n in sorted(
+                ledger.items())}:
+            raise AssertionError(f"{tag} {case}: the device ran {seen} "
+                                 f"kernels a call, the ledger credits {ledger}")
+
+
+def serve_io_graphs(torch, report):
+    """The graphs part of serve_io: the three served configs and the
+    paragraph step.  Returns the kernels' launches in it."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.serve import ParagraphStreamingPredictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = all_kernels()
+    reset_counts(kernels)
+    out = {}
+    for name, impl in (("mosei_trans_s1024", "flash"), ("robot_demo", "pallas"),
+                       ("ren_mme", "pallas_fused")):
+        exp = configs.get(name)
+        members = [build_model(exp, device="cuda", seed=i)
+                   for i in range(N_MEMBERS)]
+        if name == "robot_demo":
+            set_gates(torch, members)
+        samples = synthetic_dataset(exp.name, exp.model, SERVE_BUCKET, seed=7)
+        out[name] = graphs_case(torch, name, exp, members, samples, impl=impl,
+                                dtype=exp.train.compute_dtype)
+        del members
+    exp = configs.get("mosei_realformer")
+    members = [build_model(exp, device="cuda", seed=i) for i in range(RF_MEMBERS)]
+    set_gates(torch, members, seed=4321)
+    sample = synthetic_dataset(exp.name, exp.model, 1, seed=7)[0]
+    sp = ParagraphStreamingPredictor(members, RF_OFFSETS, impl="pallas")
+    keys = sp._CLIP_KEYS
+    clips = [{k: sample[k][t] for k in keys} for t in range(RF_P)]
+    sp.warmup(clips[0])
+    sp.reset()
+    graphed = [np.concatenate(sp.push(c)) for c in clips]
+    sp.reset()
+    dev = [{k: torch.from_numpy(np.asarray(c[k])[None]).cuda() for k in keys}
+           for c in clips]
+    eager = [sp.step.fn(d).cpu().numpy() for d in dev]
+    equal = all(np.array_equal(a, b) for a, b in zip(graphed, eager))
+
+    def clip_ms(push):
+        sp.reset()
+        times = []
+        for c in clips:
+            t0 = time.perf_counter()
+            push(c)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    para = {"bit_equal": equal,
+            "clip_graphed": trace_call(torch, lambda: sp.push(clips[0])),
+            "clip_p50_ms": clip_ms(sp.push),
+            "clip_eager_p50_ms": clip_ms(lambda c: sp.step.fn(
+                {k: torch.from_numpy(np.asarray(c[k])[None]).cuda()
+                 for k in keys}).cpu()),
+            "graph_stats": sp.step.stats()}
+    para["ledger_per_replay"] = {"clip_graphed": dict(
+        sp.step.launches_per_replay())}
+    out["mosei_realformer_paragraph"] = para
+    log(f"[serve_io] paragraph step clip_graphed: {_fmt_trace(para['clip_graphed'])}")
+    log(f"[serve_io] paragraph: {RF_P} clips through the captured step "
+        f"bit-equal to eager {equal}; clip p50 {para['clip_p50_ms']:.2f} ms "
+        f"graphed, {para['clip_eager_p50_ms']:.2f} ms eager; first call "
+        f"(eager call and capture) {sp.step.capture_ms[0]:.1f} ms")
+    check_ledger("paragraph step", para, para["ledger_per_replay"])
+    if not equal:
+        raise AssertionError("the paragraph step's replay differs from eager")
+    t = para["clip_graphed"]
+    if t["graph_launches_per_call"] != 1 or t["host_kernel_launches_per_call"]:
+        raise AssertionError(f"a replayed clip is not one graph launch: {t}")
+    report["serve_io"]["graphs"] = out
+    return read_counts(kernels)
+
+
+def serve_io_http(torch, report):
+    """robot_demo at full width, N_MEMBERS gate-set members, behind
+    HttpFrontend on an ephemeral port: sequential requests on the binary
+    wire bit-equal to in-process BatchingServer.predict and JSON
+    float32-exact; a wrong shape a 400; HTTP_CLIENTS concurrent clients on
+    each wire and on direct submits, req/s."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.serve import (
+        BatchingServer, HttpFrontend)
+
+    exp = configs.get("robot_demo")
+    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
+    set_gates(torch, members)
+    samples = synthetic_dataset(exp.name, exp.model, HTTP_CLIENTS, seed=7)
+    spec = {k: v.shape for k, v in samples[0].items() if k != "label"}
+    names = exp.emotion_names[: len(exp.thresholds)]
+
+    def call(port, path, body=None, ctype="application/json"):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=body,
+            method="POST" if body is not None else "GET",
+            headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, _json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, _json.loads(e.read())
+
+    with BatchingServer(members, exp.thresholds, impl="pallas",
+                        max_delay_ms=3.0) as srv:
+        srv.warmup(samples[0])
+        with HttpFrontend(srv, spec, names, port=0) as fe:
+            order = fe.binary_order()
+            binary = [b"".join(np.asarray(s[k], "<f4").tobytes() for k in order)
+                      for s in samples]
+            js = [_json.dumps({k: np.asarray(s[k]).tolist() for k in spec})
+                  .encode() for s in samples]
+            bin_equal = json_exact = True
+            for i in range(HTTP_SEQUENTIAL):
+                logits, probs = srv.predict(samples[i])
+                _, b = call(fe.port, "/predict", binary[i],
+                            "application/octet-stream")
+                _, j = call(fe.port, "/predict", js[i])
+                bin_equal &= (np.array_equal(np.asarray(b["logits"], np.float32), logits)
+                              and np.array_equal(np.asarray(b["probs"], np.float32), probs))
+                json_exact &= (j["logits"] == logits.tolist()
+                               and j["probs"] == probs.tolist())
+            bad = dict(_json.loads(js[0]))
+            bad["l"] = bad["l"][:-1]
+            bad_code, _ = call(fe.port, "/predict", _json.dumps(bad).encode())
+            short_code, _ = call(fe.port, "/predict", binary[0][:-4],
+                                 "application/octet-stream")
+            refs = [srv.predict(s) for s in samples]
+
+            def rate(one):
+                with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+                    t0 = time.perf_counter()
+                    got = list(pool.map(one, range(HTTP_CLIENTS * HTTP_ROUNDS)))
+                    return got, HTTP_CLIENTS * HTTP_ROUNDS / (time.perf_counter() - t0)
+
+            def ok(got, pick):
+                return max(normalised_err(np.asarray(pick(g)[0], np.float32),
+                                          refs[i % HTTP_CLIENTS][0])
+                           for i, g in enumerate(got))
+
+            b0 = srv.stats()["batches"]
+            got_b, rate_b = rate(lambda i: call(
+                fe.port, "/predict", binary[i % HTTP_CLIENTS],
+                "application/octet-stream")[1])
+            got_j, rate_j = rate(lambda i: call(fe.port, "/predict",
+                                                js[i % HTTP_CLIENTS])[1])
+            got_d, rate_d = rate(lambda i: srv.predict(samples[i % HTTP_CLIENTS]))
+            err = max(ok(got_b, lambda g: (g["logits"],)),
+                      ok(got_j, lambda g: (g["logits"],)),
+                      ok(got_d, lambda g: g))
+            stats = srv.stats()
+            health = call(fe.port, "/healthz")[1]
+    out = {"members": N_MEMBERS, "clients": HTTP_CLIENTS,
+           "requests_per_wire": HTTP_CLIENTS * HTTP_ROUNDS,
+           "binary_bytes": len(binary[0]), "json_bytes": len(js[0]),
+           "binary_bit_equal": bool(bin_equal),
+           "json_float32_exact": bool(json_exact),
+           "wrong_shape_status": bad_code, "short_body_status": short_code,
+           "req_per_s": {"binary": rate_b, "json": rate_j, "direct": rate_d},
+           "concurrent_max_err": err, "batches": stats["batches"] - b0,
+           "by_bucket": stats["by_bucket"], "healthz_members": health["members"]}
+    report["serve_io"]["http"] = out
+    log(f"[serve_io] http robot_demo, {N_MEMBERS} members: binary bit-equal "
+        f"{bin_equal}, JSON float32-exact {json_exact} over {HTTP_SEQUENTIAL} "
+        f"sequential requests; wrong shape -> {bad_code}, short body -> "
+        f"{short_code}; {HTTP_CLIENTS} clients x {HTTP_ROUNDS}: binary "
+        f"{rate_b:.1f} req/s ({len(binary[0])} bytes a request), JSON "
+        f"{rate_j:.1f} req/s ({len(js[0])} bytes), direct submits "
+        f"{rate_d:.1f} req/s; concurrent results within {err:.2e} of "
+        f"in-process; {out['batches']} batches {stats['by_bucket']}")
+    if not (bin_equal and json_exact) or (bad_code, short_code) != (400, 400):
+        raise AssertionError("the HTTP wires disagree with in-process predicts "
+                             "or a bad request was not a 400")
+    if err > ROBOT_TOL or health["members"] != N_MEMBERS:
+        raise AssertionError(f"concurrent HTTP results {err:.3e} off")
+
+
+def serve_io_export(torch, report):
+    """`cli export ren_mme --batch 8` on the card, loaded and run against
+    ensemble_serve_fn(impl="xla") on the same seeded members (the CLI's
+    store-less members), within EXPORT_RTOL; its size and call time beside
+    the captured programs'."""
+    import io
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import cli, configs
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.serve import (
+        ensemble_serve_fn, load_predictor)
+
+    exp = configs.get("ren_mme")
+    path = STORES / "ren_mme_b8.pt2"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text), contextlib.redirect_stderr(io.StringIO()):
+        cli.main(["export", "ren_mme", "--batch", str(SERVE_BUCKET),
+                  "--out", str(path)])
+    export_s = time.perf_counter() - t0
+    blob = path.read_bytes()
+    path.unlink()
+    fn = load_predictor(blob)
+    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
+    samples = synthetic_dataset(exp.name, exp.model, SERVE_BUCKET, seed=7)
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])).cuda()
+             for k in samples[0] if k != "label"}
+    pred, probs = fn(batch)
+    xla = ensemble_serve_fn(members, exp.thresholds, impl="xla")
+    fused = ensemble_serve_fn(members, exp.thresholds, impl="pallas_fused")
+    ref_pred, ref_probs = xla.fn(batch)
+    rel = max(float((pred - ref_pred).abs().max() / ref_pred.abs().max()),
+              float((probs - ref_probs).abs().max() / ref_probs.abs().max()))
+
+    def timed(f):
+        def call():
+            out = f(batch)
+            torch.cuda.synchronize()
+            return out
+        call()
+        return p50_ms(torch, call)
+
+    out = {"artifact_bytes": len(blob), "export_s": export_s,
+           "device": str(pred.device), "max_rel_err_vs_xla": rel,
+           "shapes": [list(pred.shape), list(probs.shape)],
+           "call_p50_ms": timed(fn), "captured_xla_p50_ms": timed(xla),
+           "captured_pallas_fused_p50_ms": timed(fused),
+           "cli_output": text.getvalue().strip()}
+    report["serve_io"]["export"] = out
+    log(f"[serve_io] export ren_mme batch {SERVE_BUCKET}: {len(blob)} bytes in "
+        f"{export_s:.1f} s on {pred.device}; against ensemble_serve_fn(xla) "
+        f"{rel:.2e} relative (bound {EXPORT_RTOL:g}); call p50 "
+        f"{out['call_p50_ms']:.2f} ms, the captured program "
+        f"{out['captured_xla_p50_ms']:.2f} ms at xla, "
+        f"{out['captured_pallas_fused_p50_ms']:.2f} ms at pallas_fused")
+    if rel > EXPORT_RTOL or pred.device.type != "cuda" or list(pred.shape) != [
+            SERVE_BUCKET, exp.model.n_emotions]:
+        raise AssertionError(f"the exported predictor is {rel:.3e} off")
+
+
+def serve_io_wire(torch, report):
+    """run_predict of mosei_trans at each wire against f32; `cli train
+    --transfer-dtype float16` on features on the float16 grid against f32;
+    the H2D bytes of a batch at each wire."""
+    import io
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import cli, configs, pipelines
+    from multimodal_emotion_processing_tpu_torch.data.loader import (
+        Batcher, cast_for_transfer, resolve_transfer_dtype)
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+
+    exp = configs.get("mosei_trans")
+    wires = (None, "float16", "bfloat16", "int8")
+    logits = {w: pipelines.run_predict(
+        exp.name, init_random=True, n_test=WIRE_N_TEST, impl="pallas_fused",
+        quiet=True, device="cuda", transfer_dtype=w)["logits"] for w in wires}
+    batch = next(iter(Batcher(synthetic_dataset(exp.name, exp.model,
+                                                MT_BATCH, seed=1),
+                              MT_BATCH, shuffle=False)()))
+
+    def nbytes(b):
+        return sum(v.numel() * v.element_size() if torch.is_tensor(v)
+                   else v.nbytes for v in b.values())
+
+    h2d = {str(w): nbytes(cast_for_transfer(batch, resolve_transfer_dtype(w)))
+           for w in wires}
+    errs = {w: normalised_err(logits[w], logits[None]) for w in wires[1:]}
+
+    def rounded(exp_, n_train, n_test, seed=0):
+        train, test = synthetic(exp_, n_train, n_test, seed)
+        grid = [[{k: (v.astype(np.float16).astype(np.float32)
+                      if v.dtype == np.float32 else v) for k, v in s.items()}
+                 for s in part] for part in (train, test)]
+        return grid[0], grid[1]
+
+    synthetic = pipelines._synthetic_data
+    pipelines._synthetic_data = rounded
+    kernels = all_kernels()
+    runs = {}
+    try:
+        for w in (None, "float16"):
+            reset_counts(kernels)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                res = cli.main(
+                    ["train", exp.name, "--impl", "pallas_fused", "--epochs",
+                     str(WIRE_EPOCHS), "--n-train", str(WIRE_N_TRAIN),
+                     "--n-test", str(WIRE_N_TEST), "--quiet", "--set",
+                     f"train.n_folds={WIRE_FOLDS}"]
+                    + (["--transfer-dtype", w] if w else []))
+            runs[w] = (res, read_counts(kernels))
+    finally:
+        pipelines._synthetic_data = synthetic
+    losses = {w: [x for h in r.fold_histories for e in h
+                  for x in (*e.step_losses, e.valid_loss)]
+              for w, (r, _) in runs.items()}
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(losses["float16"], losses[None]))
+    logit_rel = normalised_err(runs["float16"][0].logits, runs[None][0].logits)
+    out = {"run_predict_err_vs_f32": errs, "h2d_bytes_per_batch": h2d,
+           "batch": MT_BATCH, "train_loss_max_rel_err_f16_vs_f32": loss_rel,
+           "train_losses": len(losses[None]),
+           "train_logit_err_f16_vs_f32": logit_rel,
+           "train_launches": {str(w): c for w, (_, c) in runs.items()}}
+    report["serve_io"]["wire"] = out
+    log(f"[serve_io] wire: run_predict mosei_trans ({WIRE_N_TEST} samples, "
+        "pallas_fused) against f32: "
+        + ", ".join(f"{w} {e:.2e}" for w, e in errs.items())
+        + "; H2D bytes a batch of " + str(MT_BATCH) + ": "
+        + ", ".join(f"{w} {b}" for w, b in h2d.items())
+        + f"; cli train --transfer-dtype float16 on f16-grid features: "
+        f"{len(losses[None])} losses within {loss_rel:.2e} of f32 (bound "
+        f"{WIRE_TRAIN_RTOL:g}), ensemble logits {logit_rel:.2e}")
+    if loss_rel > WIRE_TRAIN_RTOL or len(losses[None]) != len(losses["float16"]):
+        raise AssertionError(f"the float16 wire moved the fit: {loss_rel:.3e}")
+    if runs[None][1] != runs["float16"][1]:
+        raise AssertionError(f"the wires launched differently: {out['train_launches']}")
+    for w, bound in WIRE_PREDICT_BOUNDS.items():
+        if errs[w] > bound:
+            raise AssertionError(f"run_predict at {w}: {errs[w]:.3e} > {bound}")
+
+
+def phase_serve_io(torch, report):
+    """Phase serve_io: the captured programs of every served path against
+    eager, the HTTP front end, the export and the wire formats (the
+    asynchronous store is checked in phase experiment's resume).  Returns
+    the kernels' launches in the graphs part."""
+    report["serve_io"] = {}
+    t0 = time.perf_counter()
+    launches = serve_io_graphs(torch, report)
+    for part in (serve_io_http, serve_io_export, serve_io_wire):
+        part(torch, report)
+    report["serve_io"]["wall_s"] = time.perf_counter() - t0
+    log(f"[serve_io] phase wall {report['serve_io']['wall_s']:.1f} s; "
+        f"launches in its graphs part {launches}")
+    return launches
+
+
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
+                "scored_bwd_dq", "scored_bwd_dkv", "fused_block")
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
-                   "scored_bwd_dq", "scored_bwd_dkv", "fused_block"):
+    for kernel in KERNEL_NAMES:
         if kernel in low:
             return kernel
     if "memcpy" in low or "memset" in low:
@@ -4360,7 +4960,8 @@ def main() -> int:
                       ("train_rencecps", phase_train_rencecps),
                       ("experiment", phase_experiment),
                       ("experiment_families", phase_experiment_families),
-                      ("real_data", phase_real_data)):
+                      ("real_data", phase_real_data),
+                      ("serve_io", phase_serve_io)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -4397,6 +4998,7 @@ def main() -> int:
         by_path = {"train": launches["train"][name]}
         if name == "flash_fwd":
             by_path["serve"] = launches["serve"]
+            by_path["serve_io"] = launches["serve_io"][name]
         by_path.update(experiment_paths(name))
         kernels.append({
             "name": name, "route": "cuda",
@@ -4425,6 +5027,7 @@ def main() -> int:
                "serve_paragraph": launches["serve_paragraph"],
                "train_ren_mme": launches["train_ren_mme"]["scored_fwd"],
                "train_robot": launches["train_robot"]["scored_fwd"],
+               "serve_io": launches["serve_io"]["scored_fwd"],
                **experiment_paths("scored_fwd")}
     kernels.append({
         "name": "scored_fwd", "route": "cuda",
@@ -4486,6 +5089,7 @@ def main() -> int:
                    launches["train_fused"]["chained"]["fused_block"],
                "serve_ren_mme": launches["serve_ren_mme"],
                "train_ren_mme": launches["train_ren_mme"]["fused_block"],
+               "serve_io": launches["serve_io"]["fused_block"],
                **experiment_paths("fused_block")}
     train = summ["train"]
     kernels.append({

@@ -5,16 +5,17 @@
         --data-root R (pipelines.run_experiment):
         [--checkpoint-dir D] [--log-dir L] [--resume] [--sweep-thresholds]
         [--seeds-per-fold S] [--epochs E] [--n-train N] [--n-test M]
-        [--impl xla|flash|pallas|pallas_fused] [--set K=V] [--device cpu];
+        [--impl xla|flash|pallas|pallas_fused] [--set K=V] [--device cpu]
+        [--transfer-dtype float16|bfloat16|int8] [--async-checkpoint];
         prints one JSON line per member epoch, then the report and any
         swept thresholds as JSON lines.
   eval <config> --checkpoint-dir D   the same evaluation of the store's
         best members, training nothing (epochs 0); [--data-root R].
   predict <config> -o OUT.npz|.csv|.jsonl  [--checkpoint-dir D |
         --init-random] [--split test|train|all] [--data-root R]
-        [--thresholds T1,...] [--calibration]: every sample's ensemble
-        logits, calibrated probabilities and decisions to a file
-        (pipelines.run_predict).
+        [--thresholds T1,...] [--calibration] [--transfer-dtype W]: every
+        sample's ensemble logits, calibrated probabilities and decisions
+        to a file (pipelines.run_predict).
   check-data <config> --data-root R   what the corpus tree lacks for the
         config, as one JSON document (data/validate.py); exit 1 on any
         problem.
@@ -31,7 +32,14 @@
         state_transfer) streams one synthetic paragraph clip by clip with
         its recurrence state on the device.  The calibration offsets are
         --thresholds, else the store's tuned thresholds.json, else the
-        config's; `mosei_realformer` has none of its own.
+        config's; `mosei_realformer` has none of its own.  With
+        --http-port P [--http-host H] the micro-batching server answers
+        HTTP (GET /healthz, GET /spec, POST /predict as JSON or raw
+        float32; serve/http_api.py) until Ctrl-C.
+  export [<config>] [--checkpoint-dir D] [--set K=V] [--out F]
+        [--batch B] [--device cpu]   the ensemble's serving computation at
+        impl=xla, weights included, as one torch.export artifact
+        (serve/export.py) for one device and one batch size.
 
 Every command runs on the GPU unless `--device cpu` is given.
 """
@@ -70,6 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=None,
                         help="'cuda' (default) or 'cpu'")
 
+    def transfer(sp):
+        sp.add_argument("--transfer-dtype",
+                        choices=["float16", "bfloat16", "int8"], default=None,
+                        help="wire format of the batches' copies to the "
+                             "device, restored to f32 there before any "
+                             "math: float16/bfloat16 halve the bytes (~1e-3 "
+                             "feature rounding), int8 quantizes features 4x "
+                             "(masks, labels and weights stay exact); "
+                             "default f32")
+
     def overrides(sp):
         sp.add_argument("--set", action="append", default=[], metavar="K=V",
                         help="config override, model.K=V or train.K=V "
@@ -101,6 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--seeds-per-fold", type=int, default=1,
                         help="train N members from different seeds per fold "
                              "and ensemble all k*N")
+        transfer(sp)
+        sp.add_argument("--async-checkpoint", action="store_true",
+                        help="write checkpoint files on a worker thread: the "
+                             "copy to the host is inline, torch.save "
+                             "overlaps the next epoch; restores join any "
+                             "save in flight")
         overrides(sp)
         device(sp)
 
@@ -143,6 +167,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="add the per-emotion calibration report (ECE and "
                          "reliability bins) to the printed summary")
     pd.add_argument("--quiet", action="store_true")
+    transfer(pd)
     overrides(pd)
     device(pd)
 
@@ -178,8 +203,32 @@ def build_parser() -> argparse.ArgumentParser:
                          "store's tuned ones and the config's (needed by "
                          "configs without any, such as mosei_realformer); "
                          "use --thresholds=-0.3,... for negative values")
+    sv.add_argument("--http-port", type=int, default=None, metavar="PORT",
+                    help="serve the ensemble over HTTP: GET /healthz, GET "
+                         "/spec (feature shapes, emotion names, the binary "
+                         "wire's order), POST /predict (one JSON sample, or "
+                         "raw float32 as application/octet-stream); "
+                         "concurrent requests micro-batch; blocks until "
+                         "Ctrl-C")
+    sv.add_argument("--http-host", default="127.0.0.1")
     overrides(sv)
     device(sv)
+
+    ex = sub.add_parser(
+        "export", help="export the serving computation (ensemble and "
+                       "calibrated sigmoid, weights included) as one "
+                       "torch.export artifact")
+    ex.add_argument("config", nargs="?", default="robot_demo")
+    ex.add_argument("--checkpoint-dir", default=None,
+                    help="export the store's best members (default: four "
+                         "seeded random members)")
+    ex.add_argument("--out", default="predictor.pt2")
+    ex.add_argument("--batch", type=int, default=1,
+                    help="static batch size of the artifact: 1 = the live "
+                         "batch-1 predictor, >1 = a micro-batching bucket "
+                         "program (one artifact per bucket size)")
+    overrides(ex)
+    device(ex)
     return p
 
 
@@ -197,7 +246,9 @@ def cmd_train(args, eval_only: bool = False):
         checkpoint_dir=args.checkpoint_dir, impl=args.impl,
         sweep_thresholds=args.sweep_thresholds, quiet=args.quiet,
         overrides=parse_overrides(args.set), resume=args.resume,
-        seeds_per_fold=args.seeds_per_fold, device=args.device)
+        seeds_per_fold=args.seeds_per_fold, device=args.device,
+        transfer_dtype=args.transfer_dtype,
+        async_checkpoint=args.async_checkpoint)
     for i, hist in enumerate(result.fold_histories):
         for epoch, stats in enumerate(hist):
             print(json.dumps({
@@ -229,7 +280,7 @@ def cmd_predict(args):
         thresholds=([float(t) for t in args.thresholds.split(",")]
                     if args.thresholds else None),
         split=args.split, output=args.output, quiet=args.quiet,
-        device=args.device)
+        device=args.device, transfer_dtype=args.transfer_dtype)
     summary = {
         "config": args.config, "output": args.output,
         "rows": table["rows"], "members": table["members"],
@@ -329,7 +380,7 @@ def resolve_offsets(args, exp):
     """Calibration offsets: `--thresholds` wins over the tuned thresholds a
     swept eval saved in the store (pipelines.save_tuned_thresholds), which
     win over the config's table."""
-    if args.thresholds:
+    if getattr(args, "thresholds", None):
         return tuple(float(t) for t in args.thresholds.split(","))
     if args.checkpoint_dir:
         from .pipelines import load_tuned_thresholds
@@ -360,6 +411,8 @@ def cmd_serve(args):
 
     if exp.model.head == "state_transfer":
         return _serve_paragraph(args, exp, members, offsets, impl)
+    if args.http_port is not None:
+        return _serve_http(args, exp, members, offsets, impl, names)
     if args.concurrent > 0:
         samples = synthetic_dataset(args.config, exp.model, args.concurrent,
                                     seed=7)
@@ -398,15 +451,63 @@ def cmd_serve(args):
     return emotions
 
 
+def _serve_http(args, exp, members, offsets, impl, names):
+    """The micro-batching server over HTTP until Ctrl-C (JAX
+    cli.py:579-602); its buckets are captured before the port opens."""
+    from .data.synthetic import synthetic_dataset
+    from .serve import BatchingServer, HttpFrontend
+
+    sample = synthetic_dataset(args.config, exp.model, 1, seed=7)[0]
+    spec = {k: v.shape for k, v in sample.items() if k != "label"}
+    with BatchingServer(members, offsets, impl=impl,
+                        max_delay_ms=args.max_delay_ms,
+                        dtype=exp.train.compute_dtype) as srv:
+        srv.warmup(sample)
+        fe = HttpFrontend(srv, spec, names, host=args.http_host,
+                          port=args.http_port)
+        print(f"serving {args.config} ({len(members)}-member ensemble) on "
+              f"http://{fe.host}:{fe.port}; GET /spec for the feature "
+              "contract; Ctrl-C stops", file=sys.stderr, flush=True)
+        try:
+            fe.serve_forever()
+        finally:
+            fe.close()
+    return fe
+
+
+def cmd_export(args):
+    """Write the serving computation of the store's best members (or four
+    seeded ones) as one torch.export artifact (JAX cli.py:651-671)."""
+    from . import configs
+    from .data.synthetic import synthetic_dataset
+    from .serve import export_predictor
+    from .utils.device import resolve_device
+
+    exp = configs.with_overrides(configs.get(args.config),
+                                 parse_overrides(args.set))
+    device = resolve_device(args.device)
+    members = load_members(args, exp, device)
+    sample = synthetic_dataset(args.config, exp.model, 1, seed=0)[0]
+    blob = export_predictor(members, resolve_offsets(args, exp), sample,
+                            batch_size=args.batch,
+                            dtype=exp.train.compute_dtype, device=device)
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    print(f"wrote {args.out} ({len(blob)} bytes, device={device}, "
+          f"batch={args.batch}, {len(members)}-member ensemble, impl=xla)")
+    return blob
+
+
 def _serve_paragraph(args, exp, members, offsets, impl):
     """Stream one synthetic paragraph clip by clip (JAX cli.py:544-577)."""
     from .data.synthetic import synthetic_dataset
     from .serve import ParagraphStreamingPredictor
 
-    if args.concurrent > 0:
+    if args.concurrent > 0 or args.http_port is not None:
         raise SystemExit(
             "state_transfer configs stream clip-by-clip with carried "
-            "recurrence state; --concurrent serves stateless per-sample heads")
+            "recurrence state; --http-port/--concurrent serve stateless "
+            "per-sample heads")
     sp = ParagraphStreamingPredictor(members, offsets, impl=impl,
                                      dtype=exp.train.compute_dtype)
     sample = synthetic_dataset(args.config, exp.model, 1, seed=7)[0]
@@ -441,4 +542,6 @@ def main(argv=None):
         return cmd_check_data(args)
     if args.cmd == "serve":
         return cmd_serve(args)
+    if args.cmd == "export":
+        return cmd_export(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

@@ -12,10 +12,12 @@ package).
     copies on a side stream, one or two batches ahead of the consumer;
   * `resample(epoch)` rebuilds the sample list at the start of every epoch
     (the robot demo's per-epoch text substitution), and a list whose
-    entries do not stack (ragged shapes) is gathered row by row.
+    entries do not stack (ragged shapes) is gathered row by row;
+  * `cast_for_transfer` shrinks a batch to a wire format (float16,
+    bfloat16, or int8 with per-row scales) for the copy to the device;
+    the steps restore f32 before any math (train/engine.upcast_wire).
 
-Not ported yet: the wire-compression dtypes (`cast_for_transfer`),
-`pad_final=False` and `drop_remainder`.
+Not ported yet: `pad_final=False` and `drop_remainder`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,94 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+#: wire formats for `cast_for_transfer`: "float16" (exact for the 0/1
+#: mask, label and weight vectors, ~1e-3 relative rounding of features,
+#: saturates at ±65504), "bfloat16" (the f32 range, a coarser mantissa) and
+#: "int8" (per-row symmetric quantization of FEATURE keys, ~4x fewer bytes;
+#: mask, weight and label keys travel as exact float16).  numpy has no
+#: bfloat16, so that wire's leaves are torch tensors (cast by torch, round
+#: to nearest even, the bits ml_dtypes gives).
+WIRE_DTYPES = {"float16": np.float16, "bfloat16": torch.bfloat16,
+               "int8": "int8"}
+
+#: f32 keys whose name contains one of these stay on the EXACT f16 path
+#: under the "int8" wire (their values are 0/1 flags whose meaning, such as
+#: the -1e8 additive attention mask, must not pick up quantization noise)
+EXACT_KEY_SUBSTRINGS = ("mask", "weight", "label")
+
+#: reserved suffix of the int8 wire's per-row scales (consumed and dropped
+#: by train/engine.upcast_wire)
+WIRE_SCALE_SUFFIX = "__wire_scale"
+
+
+def resolve_transfer_dtype(dtype):
+    """None | "float16" | "bfloat16" | "int8" | a numpy dtype -> a numpy
+    dtype, torch.bfloat16, the "int8" sentinel, or None."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, str):
+        if dtype not in WIRE_DTYPES:
+            raise ValueError(f"transfer_dtype must be one of "
+                             f"{sorted(WIRE_DTYPES)}, got {dtype!r}")
+        return WIRE_DTYPES[dtype]
+    if dtype is torch.bfloat16:
+        return dtype
+    return np.dtype(dtype)
+
+
+def quantize_rows(v: np.ndarray):
+    """Per-leading-axis-row symmetric int8 quantization: returns (q int8
+    like v, scales float32 (n,)) with q = clip(round(v / s), ±127) and
+    s = max(row absmax / 127, 1e-12), rounding half to even."""
+    n = v.shape[0] if v.ndim else 1
+    flat = np.abs(v).reshape(n, -1) if v.ndim > 1 else np.abs(v)[:, None]
+    scales = np.maximum(flat.max(axis=1) / 127.0, 1e-12).astype(np.float32)
+    bshape = (-1,) + (1,) * (v.ndim - 1)
+    q = np.clip(np.round(v / scales.reshape(bshape)),
+                -127, 127).astype(np.int8)
+    return q, scales
+
+
+def cast_for_transfer(batch: Dict[str, np.ndarray], dtype) -> Dict:
+    """Shrink the host-to-device bytes of a numpy batch; the steps restore
+    float32 on the device (train/engine.upcast_wire) before any math, so
+    these are TRANSFER formats, never compute dtypes.  `dtype` as
+    `resolve_transfer_dtype` gives it; None returns the batch.
+
+      * float16 / bfloat16 (half the bytes): every float32 leaf is cast;
+        ~1e-3 relative rounding of features (f16 saturates at ±65504; bf16
+        keeps the range), exact on 0/1 masks, labels and weights.  The
+        bfloat16 leaves are torch tensors.
+      * "int8" (a quarter of the feature bytes): float32 FEATURE keys are
+        quantized per leading-axis row (`quantize_rows`), their scales
+        shipped as '<key>__wire_scale' f32 vectors (error at most s/2 per
+        element); keys whose name contains mask, weight or label take the
+        exact float16 path."""
+    if dtype is None:
+        return batch
+    if dtype is torch.bfloat16:
+        return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
+                    if v.dtype == np.float32 else v)
+                for k, v in batch.items()}
+    if not isinstance(dtype, str):  # the float16 wire
+        return {k: (v.astype(dtype) if v.dtype == np.float32 else v)
+                for k, v in batch.items()}
+    if dtype != "int8":
+        raise ValueError(f"unknown wire {dtype!r}")
+    out = {}
+    for k, v in batch.items():
+        if k.endswith(WIRE_SCALE_SUFFIX) or v.dtype != np.float32:
+            out[k] = v  # scales of an already-cast batch, or not f32
+        elif any(t in k for t in EXACT_KEY_SUBSTRINGS):
+            out[k] = v.astype(np.float16)  # 0/1 values: exact
+        else:
+            out[k], out[k + WIRE_SCALE_SUFFIX] = quantize_rows(v)
+    return out
+
+
+def _host_tensor(v) -> torch.Tensor:
+    return v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
 
 
 class Batcher:
@@ -113,22 +203,26 @@ class Batcher:
         return -(-len(self.samples) // self.batch_size)
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch as tensors on `device`, synchronously."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays (or host tensors) as tensors on `device`,
+    synchronously."""
+    return {k: _host_tensor(v).to(device) for k, v in batch.items()}
 
 
 def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
-                       device, size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                       device, size: int = 2,
+                       transfer_dtype=None) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of `iterator` as tensors on the CUDA `device`, assembled and
     copied up to `size` batches ahead in a background thread.  Each batch is
-    staged in pinned host memory and copied with non-blocking copies on a
-    side stream; the consumer's stream waits on the copy's event, and every
-    tensor is recorded on that stream, so its memory is not reused while
-    the consumer may still read it.  An exception in the thread is raised
-    to the consumer; closing the generator early releases the thread."""
+    cast to the wire `transfer_dtype` in the thread (`cast_for_transfer`;
+    None keeps f32), staged in pinned host memory and copied with
+    non-blocking copies on a side stream; the consumer's stream waits on
+    the copy's event, and every tensor is recorded on that stream, so its
+    memory is not reused while the consumer may still read it.  An
+    exception in the thread is raised to the consumer; closing the
+    generator early releases the thread."""
     device = torch.device(device)
+    wire = resolve_transfer_dtype(transfer_dtype)
     if device.type != "cuda":
         raise ValueError(f"prefetch_to_device feeds a CUDA device, got {device}")
     copy_stream = torch.cuda.Stream(device)
@@ -151,10 +245,10 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
                 for batch in iterator:
                     if stop.is_set():
                         return
-                    pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                              for k, v in batch.items()}
-                    out = {k: t.to(device, non_blocking=True)
-                           for k, t in pinned.items()}
+                    host = {k: _host_tensor(v) for k, v in
+                            cast_for_transfer(batch, wire).items()}
+                    out = {k: t.pin_memory().to(device, non_blocking=True)
+                           for k, t in host.items()}
                     ready = torch.cuda.Event()
                     ready.record(copy_stream)
                     if not offer((out, ready)):

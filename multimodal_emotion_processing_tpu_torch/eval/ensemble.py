@@ -8,11 +8,13 @@ the logits are computed once and every threshold is scored from them.
 
 `Ensemble` runs its k members one after another in a Python loop, as
 serving does (serve/stream.py): each forward launches the CUDA kernels
-through ctypes, which `torch.func.vmap` cannot trace through.
+through ctypes, which `torch.func.vmap` cannot trace through.  On a CUDA
+device the combination of one batch is one captured CUDA graph per batch
+shape (serve/graphs.py), as JAX jits it once; `predict_all`'s loader pads
+the final batch, so a pass replays one program.
 
-Not ported yet: the device-resident driver `predict_all_staged`, sharded
-inference over several cards (`mesh=`) and the wire-compression dtypes
-(`transfer_dtype`).
+Not ported yet: the device-resident driver `predict_all_staged` and
+sharded inference over several cards (`mesh=`).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..serve.graphs import GraphedFunction
 from ..train import metrics
-from ..train.engine import infer_cast, infer_upcast
+from ..train.engine import infer_cast, infer_upcast, upcast_wire
 
 
 class Ensemble:
@@ -63,32 +66,33 @@ class Ensemble:
         else:
             w = [1.0] * self.k
         self.weights = torch.tensor(w, dtype=torch.float32, device=self.device)
-
-    @torch.inference_mode()
-    def _combine(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        _, batch = infer_cast(None, batch, self.dtype)
-        per = torch.stack([infer_upcast(m(batch, impl=self.impl))
-                           for m in self.members])          # (k, B, ...)
-        w = self.weights.reshape((self.k,) + (1,) * (per.ndim - 1))
-        return (per * w).sum(dim=0)
+        self.program = GraphedFunction(
+            _combination(self.members, self.weights, impl, dtype), self.device,
+            name=f"Ensemble.logits[{impl}]")
 
     def logits(self, batch) -> torch.Tensor:
         """The weighted combination of the members' logits for one batch
-        (numpy arrays or tensors), on the members' device: (B, E), or
-        (B, P, E) for the paragraph model."""
-        return self._combine({
+        (numpy arrays or tensors, on the host or the members' device), on
+        the members' device: (B, E), or (B, P, E) for the paragraph model.
+        One replay of the batch shape's program on a CUDA device."""
+        return self.program({
             k: (v if torch.is_tensor(v)
-                else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
-            for k, v in batch.items()})
+                else torch.from_numpy(np.ascontiguousarray(v)))
+            for k, v in batch.items()}).clone()
 
-    def predict_all(self, loader) -> np.ndarray:
+    def predict_all(self, loader, *, transfer_dtype=None) -> np.ndarray:
         """The combined logits over a loader (a zero-arg callable such as a
         `data.loader.Batcher`, or an iterable of numpy batches), the rows
         whose `sample_weight` is 0 (padding) dropped.  On a CUDA device the
-        batches are copied ahead by `prefetch_to_device` and the logits
-        stay on the card until one copy back at the end."""
-        from ..data.loader import prefetch_to_device, to_device
+        batches are copied ahead by `prefetch_to_device`, and the logits
+        stay on the card until one copy back at the end.
+        `transfer_dtype` ("float16", "bfloat16" or "int8"): the batches
+        travel in that wire format (data/loader.cast_for_transfer) and are
+        restored to f32 on the device before any math."""
+        from ..data.loader import (cast_for_transfer, prefetch_to_device,
+                                   resolve_transfer_dtype, to_device)
 
+        wire = resolve_transfer_dtype(transfer_dtype)
         keeps = []
 
         def keeping(it):
@@ -99,10 +103,12 @@ class Ensemble:
 
         it = keeping(iter(loader() if callable(loader) else loader))
         if self.device.type == "cuda":
-            it = prefetch_to_device(it, device=self.device, size=2)
+            it = prefetch_to_device(it, device=self.device, size=2,
+                                    transfer_dtype=wire)
         else:
-            it = (to_device(b, self.device) for b in it)
-        outs = [self._combine(b) for b in it]
+            it = (to_device(cast_for_transfer(b, wire), self.device)
+                  for b in it)
+        outs = [self.program(b).clone() for b in it]
         if not outs:
             raise ValueError("predict_all: the loader gave no batch")
         lg = torch.cat(outs).cpu().numpy()
@@ -111,6 +117,23 @@ class Ensemble:
         keep = np.concatenate([np.ones(len(o), bool) if k is None else k
                                for k, o in zip(keeps, outs)])
         return lg[keep]
+
+
+def _combination(members, weights, impl: str, dtype: str):
+    """The weighted combination of one batch, as a closure that holds no
+    reference to its Ensemble, so that its graphs die with the Ensemble."""
+
+    @torch.inference_mode()
+    def combine(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        # a batch may arrive in a wire format (data/loader.cast_for_transfer):
+        # f32 is restored before any math
+        _, batch = infer_cast(None, upcast_wire(batch), dtype)
+        per = torch.stack([infer_upcast(m(batch, impl=impl))
+                           for m in members])              # (k, B, ...)
+        w = weights.reshape((len(members),) + (1,) * (per.ndim - 1))
+        return (per * w).sum(dim=0)
+
+    return combine
 
 
 def group_average(logits: np.ndarray, group_ids: Sequence[int],

@@ -9,8 +9,10 @@ launched).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -65,10 +67,38 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# the capture ledger of this thread, while a CUDA graph is being captured
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capture_ledger():
+    """While the block runs, a kernel launched from this thread adds to the
+    yielded Counter instead of to its counts: a launch recorded into a CUDA
+    graph runs nothing until the graph is replayed.  `credit(ledger)` adds
+    one replay's launches to the counts."""
+    ledger: Counter = Counter()
+    outer = getattr(_capture, "ledger", None)
+    _capture.ledger = ledger
+    try:
+        yield ledger
+    finally:
+        _capture.ledger = outer
+
+
+def credit(ledger: Counter, times: int = 1) -> None:
+    """Add `times` replays of a captured graph's launches to the counts."""
+    for (kernel, counter, key), n in ledger.items():
+        kernel._add(counter, key, n * times)
+
+
 class Kernel:
     """ctypes binding of one kernel of csrc/<library>.cu.  `launches`
-    counts the launches this wrapper made; nothing else changes it except
-    `reset()`."""
+    counts the launches of this kernel that ran on the device: one for each
+    eager launch through this wrapper, and for a launch recorded into a
+    CUDA graph (serve/graphs.py) none at capture and one at every replay of
+    that graph (`capture_ledger`, `credit`).  Nothing else changes it
+    except `reset()`; a subclass's own counters follow the same rule."""
 
     name = ""
     library = ""
@@ -82,6 +112,22 @@ class Kernel:
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+
+    def _add(self, counter: str, key, n: int) -> None:
+        with self._lock:
+            if key is None:
+                setattr(self, counter, getattr(self, counter) + n)
+            else:
+                getattr(self, counter)[key] += n
+
+    def _count(self, counter: str = "launches", key=None) -> None:
+        """One launch on `counter` (`getattr(self, counter)[key]` where a
+        key is given), or into the capture ledger of this thread."""
+        ledger = getattr(_capture, "ledger", None)
+        if ledger is not None:
+            ledger[(self, counter, key)] += 1
+        else:
+            self._add(counter, key, 1)
 
     def _bind(self):
         if self._fn is None:
@@ -111,8 +157,7 @@ class Kernel:
                 rc = fn(*pointers, *dims, int(is_bf16), stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {rc}")
-        with self._lock:
-            self.launches += 1
+        self._count()
 
 
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)

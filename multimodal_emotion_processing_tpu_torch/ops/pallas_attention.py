@@ -136,8 +136,7 @@ class _VariantKernel(Kernel):
         """Launch on the tensors' pointers (the first is q) and count."""
         self._launch(tensors[0].device, [ptr(t) for t in tensors], dims,
                      tensors[0].dtype == torch.bfloat16, stream)
-        with self._lock:
-            self.variant_launches[variant] += 1
+        self._count("variant_launches", variant)
 
 
 class ScoredForwardKernel(_VariantKernel):

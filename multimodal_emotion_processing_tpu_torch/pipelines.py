@@ -13,11 +13,13 @@ Both run in two data modes, on the card unless `device="cpu"` is given:
     docs/REAL_DATA.md), with `synthetic_data=False`.
 The k-fold members train one after another.
 
-Not ported yet: the vmapped,
-device-resident and one-dispatch k-fold drivers, scan-chained steps,
-gradient accumulation, data- and tensor-parallel meshes, the
-wire-compression dtypes, asynchronous checkpoints, the profile option and
-the stacked grid.
+Both take a wire format for the batches' copies to the card
+(`transfer_dtype`: float16, bfloat16 or int8, data/loader.cast_for_transfer),
+and `run_experiment` an asynchronous checkpoint store (`async_checkpoint`).
+
+Not ported yet: the vmapped, device-resident and one-dispatch k-fold
+drivers, scan-chained steps, gradient accumulation, data- and
+tensor-parallel meshes, the profile option and the stacked grid.
 """
 
 from __future__ import annotations
@@ -340,6 +342,8 @@ def run_experiment(
     resume: bool = False,
     seeds_per_fold: int = 1,
     device=None,
+    transfer_dtype: Optional[str] = None,
+    async_checkpoint: bool = False,
 ) -> PipelineResult:
     """One reference script: the train samples carved into the config's k
     folds, one member trained per fold (and per extra seed,
@@ -355,7 +359,12 @@ def run_experiment(
     `resume=True` continues an interrupted run.  `epochs=0` evaluates the
     store's members without training (the `eval` command).  Without a
     store the ensemble is the members' final states.  `log_dir` keeps one
-    CSV of epoch losses per member."""
+    CSV of epoch losses per member.  `transfer_dtype` ("float16",
+    "bfloat16" or "int8") ships every train, valid and test batch in that
+    wire format, restored to f32 on the device before any math;
+    `async_checkpoint` writes the store's files on a worker thread
+    (`CheckpointStore(use_async=True)`), and the run joins the last one
+    before it returns."""
     exp = configs.with_overrides(configs.get(config_name), overrides)
     impl = impl or exp.model.attn_impl
     device = resolve_device(device)
@@ -372,7 +381,8 @@ def run_experiment(
          f"impl={impl}", quiet)
     if resume and not checkpoint_dir:
         raise ValueError("resume=True requires checkpoint_dir")
-    store = CheckpointStore(checkpoint_dir) if checkpoint_dir else None
+    store = (CheckpointStore(checkpoint_dir, use_async=async_checkpoint)
+             if checkpoint_dir else None)
     loggers: Dict[str, RunLogger] = {}
     # provenance written before training, so a crashed run has it too; an
     # eval-only pass must not overwrite the training run's
@@ -381,7 +391,9 @@ def run_experiment(
         [d for d in (log_dir, checkpoint_dir) if d] if trains else [],
         config_name=config_name, overrides=overrides, exp=exp,
         drivers={"epochs": epochs, "impl": impl,
-                 "seeds_per_fold": seeds_per_fold, "resume": resume,
+                 "seeds_per_fold": seeds_per_fold,
+                 "transfer_dtype": transfer_dtype,
+                 "async_checkpoint": async_checkpoint, "resume": resume,
                  "sweep_thresholds": sweep_thresholds},
         data={"synthetic": synthetic_data, "data_root": data_root,
               "n_train": n_train, "n_test": n_test},
@@ -430,7 +442,8 @@ def run_experiment(
                         store=store, name_prefix=config_name, epochs=epochs,
                         impl=impl, log_cb=log_cb,
                         fold_size=exp.train.fold_size, resume=resume,
-                        seeds_per_fold=seeds_per_fold, device=device)
+                        seeds_per_fold=seeds_per_fold, device=device,
+                        transfer_dtype=transfer_dtype)
 
     report = sweep = logits = labels = None
     if test_samples:
@@ -444,8 +457,9 @@ def run_experiment(
                              dtype=exp.train.compute_dtype)
         # eval batches: no shuffle, no R-Drop duplicates (Ren-MME/run.py:427-449)
         test_loader = Batcher(test_samples, exp.train.batch_size, shuffle=False)
-        logits, labels = _collapse_test_outputs(ens.predict_all(test_loader),
-                                                test_samples)
+        logits, labels = _collapse_test_outputs(
+            ens.predict_all(test_loader, transfer_dtype=transfer_dtype),
+            test_samples)
         thresholds, sweep = _choose_thresholds(
             config_name, exp, logits, labels, sweep_thresholds, checkpoint_dir)
         report = evaluate(logits, labels, thresholds, exp.emotion_index,
@@ -453,6 +467,8 @@ def run_experiment(
         _log(format_report(report, title=config_name), quiet)
     for lg in loggers.values():
         lg.close()
+    if store is not None:
+        store.wait()
     return PipelineResult(config_name, [h for _, h in results], report, sweep,
                           store, logits, labels)
 
@@ -473,6 +489,7 @@ def run_predict(
     quiet: bool = False,
     split: str = "test",
     device=None,
+    transfer_dtype: Optional[str] = None,
 ) -> Dict:
     """Offline batch inference: the trained ensemble over a split once,
     every sample's outputs kept (eval/predictions.py): the artifact
@@ -487,8 +504,10 @@ def run_predict(
     the store's best checkpoints with the config's combination, or one
     fresh member from the config's seed with `init_random=True` (a smoke
     run).  Decisions use `thresholds`, else the store's tuned ones, else
-    the config's, else zeros.  `output` writes .npz/.csv/.jsonl.  Returns
-    the prediction table with "rows" and "members" counts."""
+    the config's, else zeros.  `output` writes .npz/.csv/.jsonl.
+    `transfer_dtype` ships the batches in that wire format
+    (`Ensemble.predict_all`).  Returns the prediction table with "rows"
+    and "members" counts."""
     from .eval.predictions import prediction_table, write_predictions
 
     exp = configs.with_overrides(configs.get(config_name), overrides)
@@ -547,7 +566,8 @@ def run_predict(
     ens = _make_ensemble(config_name, members, member_losses, impl=impl,
                          dtype=exp.train.compute_dtype)
     loader = Batcher(samples, exp.train.batch_size, shuffle=False)
-    logits, labels = _collapse_test_outputs(ens.predict_all(loader), samples)
+    logits, labels = _collapse_test_outputs(
+        ens.predict_all(loader, transfer_dtype=transfer_dtype), samples)
     if thresholds is None and checkpoint_dir:
         thresholds = load_tuned_thresholds(checkpoint_dir, config_name, exp)
         if thresholds is not None:

@@ -5,9 +5,14 @@ and clip-by-clip streaming of the recurrent paragraph head
 
 The members run one after another in a Python loop: each forward launches
 the CUDA kernels through ctypes, which `torch.func.vmap` cannot trace
-through.  `predict` packs the sample into one pinned host buffer, ships it
-in one host-to-device copy, unpacks it on the device, and brings
-(logits ++ probabilities) back in one copy.
+through.  On a CUDA device every serving computation is one captured CUDA
+graph per input shape (serve/graphs.py), the counterpart of JAX's one
+compiled program per shape: `ensemble_serve_fn`, the packed predict
+program of `StreamingPredictor` (and of each `BatchingServer` bucket), and
+the paragraph step.  `predict` packs the sample into one pinned host
+buffer, replays one program that copies it to the device, unpacks it, runs
+the ensemble and writes (logits ++ probabilities) into one static output,
+and brings that back in one copy.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from ..models.heads import StateTransfer, state_transfer_recurrence
 from ..train.engine import infer_cast, infer_upcast
-
+from .graphs import GraphedFunction
 
 def _device_of(members) -> torch.device:
     devices = {next(m.parameters()).device for m in members}
@@ -30,11 +35,14 @@ def _device_of(members) -> torch.device:
 
 def ensemble_serve_fn(members: Sequence[torch.nn.Module],
                       offsets: Sequence[float], *, impl: str = "xla",
-                      dtype: str = "float32"):
-    """THE serving computation: batch (B, ...) of device tensors ->
-    (logits (B, E), probs (B, E')) as the mean of the members' f32-upcast
-    logits and sigmoid(logits[:, :E'] − offsets).  `dtype="bfloat16"` runs
-    the forwards in bf16 on bf16 copies of the members (`infer_cast`)."""
+                      dtype: str = "float32") -> GraphedFunction:
+    """THE serving computation: batch (B, ...) of tensors -> (logits (B, E),
+    probs (B, E')) as the mean of the members' f32-upcast logits and
+    sigmoid(logits[:, :E'] − offsets).  `dtype="bfloat16"` runs the
+    forwards in bf16 on bf16 copies of the members (`infer_cast`), made
+    once here and held by the program.  Returned as a `GraphedFunction`: on
+    a CUDA device one captured graph per batch shape, whose outputs the
+    caller copies out before the next call; `.fn` is the eager path."""
     if len(offsets) == 0:
         raise ValueError(
             "serving needs calibrated per-emotion offsets; this config has "
@@ -57,12 +65,84 @@ def ensemble_serve_fn(members: Sequence[torch.nn.Module],
         probs = torch.sigmoid(pred[:, : off.shape[0]] - off)
         return pred, probs
 
-    return run
+    return GraphedFunction(run, device, name=f"ensemble_serve_fn[{impl}]")
+
+
+class PackedProgram:
+    """The serving computation for `batch` samples of one layout, fed from
+    one pinned float32 host buffer: a call packs the samples'
+    keys (in `keys` order, each (batch, *shape) block in turn), replays
+    one graph (the copy to the device, the unpack, `serve`, and
+    pred ++ probs into one (batch, E + E') output) and brings the output
+    back in one device-to-host copy.  The host buffers are reused by the
+    next call: one caller at a time."""
+
+    def __init__(self, serve, keys, shapes, batch: int, device, *,
+                 name: str = ""):
+        self.keys, self.shapes, self.batch = tuple(keys), tuple(shapes), batch
+        self.sizes = tuple(batch * int(np.prod(s)) for s in self.shapes)
+        self.device = device
+        pinned = device.type == "cuda"
+        self.host = torch.empty(sum(self.sizes), dtype=torch.float32,
+                                pin_memory=pinned)
+        self._host_np = self.host.numpy()
+        self._out = None
+        layout = tuple(zip(self.keys, self.shapes, self.sizes))
+
+        def packed_run(buf):   # no reference to self: see _paragraph_step
+            unpacked, ofs = {}, 0
+            for k, shp, n in layout:
+                unpacked[k] = buf[ofs: ofs + n].reshape((batch,) + shp)
+                ofs += n
+            pred, probs = serve(unpacked)
+            return torch.cat([pred, probs], dim=1)
+
+        self.fn = GraphedFunction(packed_run, device,
+                                  name=name or f"packed predict, batch {batch}")
+
+    def pack(self, samples: Sequence[Dict[str, np.ndarray]]) -> None:
+        if len(samples) != self.batch:
+            raise ValueError(f"{len(samples)} samples for a program of "
+                             f"batch {self.batch}")
+        ofs = 0
+        for k, shp, n in zip(self.keys, self.shapes, self.sizes):
+            view = self._host_np[ofs: ofs + n].reshape((self.batch,) + shp)
+            for i, s in enumerate(samples):
+                x = np.asarray(s[k])
+                if x.shape != shp:
+                    # the layout is fixed by the first sample; a different
+                    # shape would unpack garbage
+                    raise ValueError(
+                        f"packed predict: sample[{k!r}] shape {x.shape} != "
+                        f"{shp} from the first sample; use a predictor per "
+                        "config/shape or predict_unpacked()")
+                view[i] = x
+            ofs += n
+
+    def __call__(self, samples) -> np.ndarray:
+        """(batch, E + E') float32: each sample's logits ++ probabilities."""
+        self.pack(samples)
+        out = self.fn(self.host)
+        if self.device.type != "cuda":
+            return out.numpy().copy()
+        if self._out is None:
+            self._out = torch.empty(out.shape, dtype=out.dtype,
+                                    pin_memory=True)
+        self._out.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._out.numpy().copy()
+
+
+def packed_layout(sample: Dict[str, np.ndarray]):
+    """(keys, shapes) of a sample's packed layout: every key but the label,
+    in the sample's order."""
+    keys = tuple(k for k in sample if k != "label")
+    return keys, tuple(tuple(np.asarray(sample[k]).shape) for k in keys)
 
 
 class StreamingPredictor:
     """Batch-1 ensemble predictor.  One caller at a time: `predict` reuses
-    one pinned staging buffer."""
+    one pinned staging buffer and one captured program."""
 
     def __init__(self, members: Sequence[torch.nn.Module],
                  offsets: Sequence[float], *, impl: str = "xla",
@@ -70,11 +150,10 @@ class StreamingPredictor:
         self.n_off = len(offsets)
         self.device = _device_of(members)
         self._run = ensemble_serve_fn(members, offsets, impl=impl, dtype=dtype)
-        self._pack_keys: tuple = ()
-        self._pack_shapes: tuple = ()
-        self._host = None
+        self._packed = None
 
     def warmup(self, sample: Dict[str, np.ndarray]) -> None:
+        """Capture both programs (unpacked and packed) for this layout."""
         self.predict_unpacked(sample)
         self.predict(sample)
 
@@ -82,45 +161,19 @@ class StreamingPredictor:
         return {k: torch.as_tensor(np.asarray(v)[None]).to(self.device)
                 for k, v in sample.items() if k != "label"}
 
-    def _build_packed(self, sample: Dict[str, np.ndarray]) -> None:
-        if self._host is not None:
-            return
-        keys = tuple(k for k in sample if k != "label")
-        shapes = tuple(tuple(np.asarray(sample[k]).shape) for k in keys)
-        total = sum(int(np.prod(s)) for s in shapes)
-        self._pack_keys, self._pack_shapes = keys, shapes
-        self._host = torch.empty(total, dtype=torch.float32,
-                                 pin_memory=self.device.type == "cuda")
-
-    def _pack(self, sample: Dict[str, np.ndarray]) -> torch.Tensor:
-        self._build_packed(sample)
-        host = self._host.numpy()
-        ofs = 0
-        for k, shp in zip(self._pack_keys, self._pack_shapes):
-            x = np.asarray(sample[k])
-            if x.shape != shp:
-                # the layout is fixed by the first sample; a different shape
-                # would unpack garbage
-                raise ValueError(
-                    f"packed predict: sample[{k!r}] shape {x.shape} != {shp} "
-                    "from the first sample; use a predictor per config/shape "
-                    "or predict_unpacked()")
-            n = x.size
-            host[ofs: ofs + n] = x.ravel()
-            ofs += n
-        return self._host.to(self.device, non_blocking=True)
+    def packed_program(self, sample: Dict[str, np.ndarray]) -> PackedProgram:
+        """The packed program, its layout fixed by the first sample."""
+        if self._packed is None:
+            keys, shapes = packed_layout(sample)
+            self._packed = PackedProgram(self._run.fn, keys, shapes, 1,
+                                         self.device,
+                                         name="packed predict, batch 1")
+        return self._packed
 
     def predict(self, sample: Dict[str, np.ndarray]):
         """Returns (raw ensemble logits (E,), calibrated probabilities (E',))
-        through the packed path: one copy up, one copy down."""
-        buf = self._pack(sample)
-        batch, ofs = {}, 0
-        for k, shp in zip(self._pack_keys, self._pack_shapes):
-            n = int(np.prod(shp))
-            batch[k] = buf[ofs: ofs + n].reshape((1,) + shp)
-            ofs += n
-        pred, probs = self._run(batch)
-        out = torch.cat([pred[0], probs[0]]).cpu().numpy()
+        through the packed path: one copy up, one program, one copy down."""
+        out = self.packed_program(sample)([sample])[0]
         return out[: out.shape[0] - self.n_off], out[out.shape[0] - self.n_off:]
 
     def predict_unpacked(self, sample: Dict[str, np.ndarray]):
@@ -134,6 +187,36 @@ class StreamingPredictor:
         return {n: round(float(p), 2) for n, p in zip(names, probs)}
 
 
+def _paragraph_step(members, trans, weights, off, state, *, impl: str,
+                    dtype: str):
+    """The paragraph step: one clip batch (1, ...) -> blended logits ++
+    probabilities (E + E',) on the device, the recurrence `state` (out,
+    feats, started) advanced in place.  A closure that holds no reference
+    to its predictor, so that its graph dies with the predictor."""
+    keys = ParagraphStreamingPredictor._CLIP_KEYS
+    n_off = off.shape[0]
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        _, batch = infer_cast(None, batch, dtype)
+        outs = [m.clip(*(batch[k] for k in keys), impl=impl) for m in members]
+        out_t1 = torch.stack([infer_upcast(o) for o, _ in outs])   # (k, 1, E)
+        feats = torch.stack([infer_upcast(f) for _, f in outs])
+        prev_out, prev_feats, started = state
+        rec = state_transfer_recurrence(trans, prev_out, prev_feats, out_t1,
+                                        feats)
+        # first clip of a paragraph: out = out_t1 (the reference's t = 0)
+        out = torch.where(started, rec, out_t1)
+        pred = torch.einsum("k,kbe->be", weights, out)[0]           # (E,)
+        probs = torch.sigmoid(pred[:n_off] - off)
+        prev_out.copy_(out)
+        prev_feats.copy_(feats)
+        started.fill_(True)
+        return torch.cat([pred, probs])
+
+    return step
+
+
 class ParagraphStreamingPredictor:
     """Stateful per-clip streaming for the recurrent `state_transfer` head
     (JAX serve/stream.py `ParagraphStreamingPredictor`).
@@ -141,13 +224,15 @@ class ParagraphStreamingPredictor:
     The reference's paragraph model (others/realformer.py:266-286) scores
     only complete p_len-clip windows.  Here each member's recurrence carry
     (out, feats) and the paragraph's `started` flag stay on the device
-    between calls, so a clip costs one grid forward per member plus the
-    O(E²) gated recurrence, and clip t streamed equals column t of the
-    whole-window logits.  `reset()` starts a new paragraph (the first
-    clip's output is its own out_t1).  `weights`: the per-member logit
-    blend, uniform by default (the reference blends two of five members at
-    0.6/0.4, others/realformer.py:420).  The members run in a Python loop,
-    as in `ensemble_serve_fn`.  One caller at a time."""
+    between calls, in static tensors that the step (one captured graph on a
+    CUDA device) reads and then overwrites in place; so a clip costs one
+    grid forward per member plus the O(E²) gated recurrence, and clip t
+    streamed equals column t of the whole-window logits.  `reset()` starts
+    a new paragraph (the first clip's output is its own out_t1) by zeroing
+    the state in place: the graph reads the tensors it captured, so they
+    are never rebound.  `weights`: the per-member logit blend, uniform by
+    default (the reference blends two of five members at 0.6/0.4,
+    others/realformer.py:420).  One caller at a time."""
 
     _CLIP_KEYS = ("l", "v", "a", "l_mask", "v_mask", "a_mask")
 
@@ -182,48 +267,38 @@ class ParagraphStreamingPredictor:
         e = members[0].n_emotions
         self.trans = torch.stack([m.trans.detach().float()
                                   for m in members])          # (k, E, E)
-        self._zero = (torch.zeros(self.k, 1, e, device=self.device),
+        # the recurrence state: (out, feats, started), updated in place
+        self.state = (torch.zeros(self.k, 1, e, device=self.device),
                       torch.zeros(self.k, 1, e, device=self.device),
                       torch.zeros((), dtype=torch.bool, device=self.device))
-        self.reset()
+        self.step = GraphedFunction(
+            _paragraph_step(self.members, self.trans, self.weights, self.off,
+                            self.state, impl=impl, dtype=dtype),
+            self.device, name=f"paragraph step[{impl}]")
 
     def reset(self) -> None:
         """Start a new paragraph: the next clip is t = 0 (no carry)."""
-        self._state = self._zero
+        for t in self.state:
+            t.zero_()
 
     def _clip1(self, clip: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(clip[k])[None]).to(self.device)
+        return {k: torch.as_tensor(np.asarray(clip[k])[None])
                 for k in self._CLIP_KEYS}
 
-    @torch.inference_mode()
-    def _step(self, state, clip: Dict[str, np.ndarray]):
-        """(blended logits ++ probabilities on the device, the new state)."""
-        _, batch = infer_cast(None, self._clip1(clip), self.dtype)
-        outs = [m.clip(*(batch[k] for k in self._CLIP_KEYS), impl=self.impl)
-                for m in self.members]
-        out_t1 = torch.stack([infer_upcast(o) for o, _ in outs])   # (k, 1, E)
-        feats = torch.stack([infer_upcast(f) for _, f in outs])
-        prev_out, prev_feats, started = state
-        rec = state_transfer_recurrence(self.trans, prev_out, prev_feats,
-                                        out_t1, feats)
-        # first clip of a paragraph: out = out_t1 (the reference's t = 0)
-        out = torch.where(started, rec, out_t1)
-        pred = torch.einsum("k,kbe->be", self.weights, out)[0]      # (E,)
-        probs = torch.sigmoid(pred[: self.n_off] - self.off)
-        new_state = (out, feats, torch.ones_like(started))
-        return torch.cat([pred, probs]), new_state
-
     def warmup(self, clip: Dict[str, np.ndarray]) -> None:
-        """One clip through every member from a fresh paragraph; the state
-        is left as it was."""
-        self._step(self._zero, clip)[0].cpu()
+        """Capture the step: one clip through every member from a fresh
+        paragraph; the state is left as it was."""
+        saved = [t.clone() for t in self.state]
+        self.reset()
+        self.step(self._clip1(clip))
+        for t, s in zip(self.state, saved):
+            t.copy_(s)
 
     def push(self, clip: Dict[str, np.ndarray]):
         """Feed the next clip; returns (raw blended logits (E,), calibrated
         probabilities (E',)) in one copy from the device.  The state
         advances: call reset() between paragraphs."""
-        out, self._state = self._step(self._state, clip)
-        out = out.cpu().numpy()
+        out = self.step(self._clip1(clip)).cpu().numpy()
         return out[: out.shape[0] - self.n_off], out[out.shape[0] - self.n_off:]
 
     def emotions(self, clip, names: Sequence[str]) -> Dict[str, float]:

@@ -11,9 +11,13 @@ epochs.  Dropout draws its masks from the `TrainState`'s own
 `torch.Generator` (JAX's `k_rng`), seeded from the state's seed; the eval
 step draws none.
 
+A batch may arrive in a wire format (`Trainer(transfer_dtype=)`,
+data/loader.cast_for_transfer); every step restores f32 (`upcast_wire`),
+or under bf16 compute goes straight to bf16 (`wire_to_bf16`), before any
+math.
+
 Not ported yet: the device mesh, scan-chained steps, gradient accumulation
-(and with it R-Drop under accumulation), the profile option and the
-wire-compression dtypes.
+(and with it R-Drop under accumulation) and the profile option.
 """
 
 from __future__ import annotations
@@ -68,6 +72,59 @@ def infer_cast(model, batch, dtype: str):
 
 def infer_upcast(logits: torch.Tensor) -> torch.Tensor:
     return logits.float() if logits.dtype == torch.bfloat16 else logits
+
+
+def _dequantized(batch, k, v):
+    """v as f32, times its '<k>__wire_scale' rows where the int8 wire
+    gave it some, else None."""
+    from ..data.loader import WIRE_SCALE_SUFFIX
+
+    s = batch.get(k + WIRE_SCALE_SUFFIX)
+    if s is None:
+        return None
+    return v.float() * s.reshape(tuple(s.shape) + (1,) * (v.ndim - s.ndim))
+
+
+def upcast_wire(batch):
+    """Undo the loader's wire format (data/loader.cast_for_transfer): the
+    half-precision leaves were a transfer format, never a compute dtype, so
+    they return to float32 before any math; int8 leaves dequantize against
+    their '<key>__wire_scale' rows (the scale keys are consumed and
+    dropped).  A float32 batch comes back as it went in."""
+    from ..data.loader import WIRE_SCALE_SUFFIX
+
+    out = {}
+    for k, v in batch.items():
+        if k.endswith(WIRE_SCALE_SUFFIX):
+            continue
+        x = _dequantized(batch, k, v)
+        if x is not None:
+            out[k] = x
+        elif v.dtype in (torch.float16, torch.bfloat16):
+            out[k] = v.float()
+        else:
+            out[k] = v
+    return out
+
+
+def wire_to_bf16(batch):
+    """`upcast_wire` fused with the bf16 compute cast: every floating wire
+    leaf lands in bf16 directly (the same value as through f32: one
+    rounding either way; the int8 dequantizing product stays f32), and the
+    keep-set vectors in f32, as `cast_batch` leaves them."""
+    from ..data.loader import WIRE_SCALE_SUFFIX
+
+    out = {}
+    for k, v in batch.items():
+        if k.endswith(WIRE_SCALE_SUFFIX):
+            continue
+        x = _dequantized(batch, k, v)
+        if x is None and not v.is_floating_point():
+            out[k] = v
+            continue
+        x = v if x is None else x
+        out[k] = x.to(torch.float32 if k in _KEEP_F32 else torch.bfloat16)
+    return out
 
 
 class Optimizer:
@@ -173,9 +230,12 @@ def batch_loss(model, tcfg, batch, *, impl: str = "xla",
     Under `compute_dtype="bfloat16"` the f32 parameters are cast to bf16
     inside the graph (`functional_call` with `p.to(bfloat16)`), so their
     gradients land in the f32 masters; batch floats go to bf16 except the
-    keep-set, and the logits are upcast before the loss."""
+    keep-set, and the logits are upcast before the loss.  A batch in a wire
+    format is restored first (`upcast_wire`, or `wire_to_bf16` under bf16
+    compute)."""
     dtype = getattr(tcfg, "compute_dtype", "float32")
-    batch = cast_batch(batch, dtype)
+    _check_dtype(dtype)
+    batch = wire_to_bf16(batch) if dtype == "bfloat16" else upcast_wire(batch)
     kwargs = {"impl": impl}
     if generator is not None:
         kwargs["generator"] = generator
@@ -299,15 +359,24 @@ class Trainer:
     from; `train_loader` / `valid_loader` of `fit` are zero-arg callables
     returning an iterable of numpy batch dicts (a `data.loader.Batcher`).
     On a CUDA device the batches are fed by `prefetch_to_device`, PREFETCH
-    batches ahead; on the CPU they are converted in the loop."""
+    batches ahead; on the CPU they are converted in the loop.
+
+    `transfer_dtype` ("float16", "bfloat16" or "int8"): the batches travel
+    in that wire format (data/loader.cast_for_transfer, in the prefetch
+    thread) and every step restores f32 before any math: half the bytes
+    of a batch, or a quarter of its features', at ~1e-3 relative rounding
+    of the features (f16), or ~0.4 % of each row's largest value (int8);
+    masks, labels and weights stay exact.  None (the default) ships f32."""
 
     PREFETCH = 2
 
     def __init__(self, cfg, tcfg, *, impl: str = "xla", device=None,
                  checkpoint_cb: Optional[Callable] = None,
-                 log_cb: Optional[Callable] = None):
+                 log_cb: Optional[Callable] = None, transfer_dtype=None):
+        from ..data.loader import resolve_transfer_dtype
         from ..utils.device import resolve_device
 
+        self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
         self.cfg = getattr(cfg, "model", cfg)
         self.tcfg = tcfg
         self.impl = impl
@@ -324,7 +393,8 @@ class Trainer:
     def _iter(self, loader, counter: Optional[dict] = None):
         """Batches of one epoch on the device; `counter["n"]` counts the
         real samples from the numpy sample_weight, before the copy."""
-        from ..data.loader import prefetch_to_device, to_device
+        from ..data.loader import (cast_for_transfer, prefetch_to_device,
+                                   to_device)
 
         def counting(it):
             for b in it:
@@ -336,8 +406,10 @@ class Trainer:
 
         it = counting(iter(loader()))
         if self.device.type == "cuda":
-            return prefetch_to_device(it, device=self.device, size=self.PREFETCH)
-        return (to_device(b, self.device) for b in it)
+            return prefetch_to_device(it, device=self.device, size=self.PREFETCH,
+                                      transfer_dtype=self.transfer_dtype)
+        return (to_device(cast_for_transfer(b, self.transfer_dtype), self.device)
+                for b in it)
 
     def fit(self, train_loader, valid_loader, *,
             state: Optional[TrainState] = None, epochs: Optional[int] = None,

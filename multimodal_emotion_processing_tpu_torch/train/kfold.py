@@ -54,6 +54,7 @@ def run_kfold(
     resume: bool = False,
     seeds_per_fold: int = 1,
     device=None,
+    transfer_dtype=None,
 ):
     """Train tcfg.n_folds * seeds_per_fold members of ModelConfig `cfg` (or
     an ExperimentConfig) on `device` ("cuda" unless "cpu" is asked for).
@@ -73,7 +74,8 @@ def run_kfold(
     last finished epoch with parameters, optimizer, dropout generator, LR
     and counters restored.  The loaders' epoch order restarts from their
     own seed, so with shuffling off the resumed run equals the
-    uninterrupted one bit for bit."""
+    uninterrupted one bit for bit.  `transfer_dtype` is the Trainer's wire
+    format (engine.Trainer)."""
     if seeds_per_fold < 1:
         raise ValueError(f"seeds_per_fold must be >= 1, got {seeds_per_fold}")
     samples = list(samples)
@@ -87,7 +89,7 @@ def run_kfold(
         })
 
     trainer = engine.Trainer(
-        cfg, tcfg, impl=impl, device=device,
+        cfg, tcfg, impl=impl, device=device, transfer_dtype=transfer_dtype,
         checkpoint_cb=(lambda state, epoch, vl:
                        store.save_best(current["name"], state, epoch, vl))
         if store is not None else None,

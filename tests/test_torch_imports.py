@@ -109,6 +109,18 @@ def test_the_experiment_slice_is_covered():
         assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
 
 
+def test_the_serving_io_slice_is_covered():
+    """The modules of the serving and I/O slice (the captured programs, the
+    HTTP front end, the export, the wire formats and the asynchronous
+    store) are among those the tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("serve.graphs", "serve.stream", "serve.server",
+              "serve.http_api", "serve.export", "eval.ensemble",
+              "data.loader", "train.engine", "train.kfold",
+              "train.checkpoint", "pipelines", "ops.cuda_binding", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
