@@ -6,16 +6,24 @@
         [--checkpoint-dir D] [--log-dir L] [--resume] [--sweep-thresholds]
         [--seeds-per-fold S] [--epochs E] [--n-train N] [--n-test M]
         [--impl xla|flash|pallas|pallas_fused] [--set K=V] [--device cpu]
-        [--transfer-dtype float16|bfloat16|int8] [--async-checkpoint];
-        prints one JSON line per member epoch, then the report and any
-        swept thresholds as JSON lines.
+        [--transfer-dtype float16|bfloat16|int8] [--async-checkpoint]
+        [--scan-steps N] [--device-resident] [--one-dispatch]
+        [--accum-steps N]; prints one JSON line per member epoch, then the
+        report and any swept thresholds as JSON lines.
+  sweep <config> --lrs L1,L2,... [--wds W1,...] [--seeds-per-lr S]
+        [--epochs E] [--n-train N] [--data-root R] [--checkpoint-dir D]
+        [--transfer-dtype float16|bfloat16] [--impl ...] [--set K=V]: every
+        (lr x wd x seed) candidate trained together on fold 0's split,
+        ranked by best valid loss, printed as one JSON document; with
+        --checkpoint-dir the winner is saved as '<config>_sweep_winner'
+        (pipelines.run_lr_sweep_experiment).
   eval <config> --checkpoint-dir D   the same evaluation of the store's
         best members, training nothing (epochs 0); [--data-root R].
   predict <config> -o OUT.npz|.csv|.jsonl  [--checkpoint-dir D |
         --init-random] [--split test|train|all] [--data-root R]
-        [--thresholds T1,...] [--calibration] [--transfer-dtype W]: every
-        sample's ensemble logits, calibrated probabilities and decisions
-        to a file (pipelines.run_predict).
+        [--thresholds T1,...] [--calibration] [--transfer-dtype W]
+        [--device-resident]: every sample's ensemble logits, calibrated
+        probabilities and decisions to a file (pipelines.run_predict).
   check-data <config> --data-root R   what the corpus tree lacks for the
         config, as one JSON document (data/validate.py); exit 1 on any
         problem.
@@ -125,6 +133,25 @@ def build_parser() -> argparse.ArgumentParser:
                              "copy to the host is inline, torch.save "
                              "overlaps the next epoch; restores join any "
                              "save in flight")
+        sp.add_argument("--scan-steps", type=int, default=1,
+                        help="copy N host-fed batches to the device together "
+                             "and launch their N captured steps back to back "
+                             "(the same math as 1)")
+        sp.add_argument("--device-resident", action="store_true",
+                        help="stage the samples on the device once and "
+                             "gather every batch there; every step is one "
+                             "replay of the members' captured step (needs "
+                             "the corpus to fit device memory)")
+        sp.add_argument("--one-dispatch", action="store_true",
+                        help="the whole k-fold run (all folds x all epochs, "
+                             "plateau LR and early stop on the device) "
+                             "launched without a host round trip between "
+                             "epochs (the same memory needs)")
+        sp.add_argument("--accum-steps", type=int, default=1,
+                        help="gradient accumulation: each batch split into "
+                             "this many micro-batches (the exact full-batch "
+                             "gradient, ~N-fold less activation memory; the "
+                             "sequential k-fold driver)")
         overrides(sp)
         device(sp)
 
@@ -137,6 +164,38 @@ def build_parser() -> argparse.ArgumentParser:
                     "ensemble on held-out samples."))
     common(sub.add_parser("eval", help="ensemble evaluation of a "
                                        "checkpoint store's members"))
+
+    sw = sub.add_parser(
+        "sweep", help="learning-rate sweep: every (lr x seed) candidate "
+                      "trained together on the fold-0 split and ranked by "
+                      "best valid loss")
+    sw.add_argument("config")
+    sw.add_argument("--lrs", required=True,
+                    help="comma-separated learning-rate candidates, e.g. "
+                         "1e-3,3e-4,1e-4")
+    sw.add_argument("--wds", default=None,
+                    help="comma-separated AdamW weight-decay candidates: "
+                         "the grid becomes lr x wd x seed, still one run")
+    sw.add_argument("--seeds-per-lr", type=int, default=1,
+                    help="init seeds per candidate; candidates share seeds "
+                         "and batch orders, so trajectory differences are "
+                         "the hyperparameter's alone")
+    sw.add_argument("--data-root", default=None,
+                    help="real corpus root (default: synthetic data)")
+    sw.add_argument("--epochs", type=int, default=None)
+    sw.add_argument("--n-train", type=int, default=256)
+    sw.add_argument("--n-test", type=int, default=64)
+    sw.add_argument("--impl", choices=IMPLS, default=None)
+    sw.add_argument("--checkpoint-dir", default=None,
+                    help="save the winner's best parameters as "
+                         "'<config>_sweep_winner'")
+    sw.add_argument("--transfer-dtype", choices=["float16", "bfloat16"],
+                    default=None,
+                    help="stage the sweep's datasets half-width on the "
+                         "device (restored to f32 before any math)")
+    sw.add_argument("--quiet", action="store_true")
+    overrides(sw)
+    device(sw)
 
     pd = sub.add_parser(
         "predict", help="per-sample ensemble logits, calibrated "
@@ -167,6 +226,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="add the per-emotion calibration report (ECE and "
                          "reliability bins) to the printed summary")
     pd.add_argument("--quiet", action="store_true")
+    pd.add_argument("--device-resident", action="store_true",
+                    help="stage the split on the device once and replay one "
+                         "captured program per batch (the same logits as "
+                         "the per-batch path)")
     transfer(pd)
     overrides(pd)
     device(pd)
@@ -248,7 +311,13 @@ def cmd_train(args, eval_only: bool = False):
         overrides=parse_overrides(args.set), resume=args.resume,
         seeds_per_fold=args.seeds_per_fold, device=args.device,
         transfer_dtype=args.transfer_dtype,
-        async_checkpoint=args.async_checkpoint)
+        async_checkpoint=args.async_checkpoint, scan_steps=args.scan_steps,
+        # the members' lockstep where a flag needs it (JAX's CLI always
+        # takes it; the port's run_experiment defaults to the sequential
+        # driver, as fast on the card)
+        vmap_folds=args.device_resident or args.one_dispatch,
+        device_resident=args.device_resident, one_dispatch=args.one_dispatch,
+        accum_steps=args.accum_steps)
     for i, hist in enumerate(result.fold_histories):
         for epoch, stats in enumerate(hist):
             print(json.dumps({
@@ -280,7 +349,8 @@ def cmd_predict(args):
         thresholds=([float(t) for t in args.thresholds.split(",")]
                     if args.thresholds else None),
         split=args.split, output=args.output, quiet=args.quiet,
-        device=args.device, transfer_dtype=args.transfer_dtype)
+        device=args.device, transfer_dtype=args.transfer_dtype,
+        device_resident=args.device_resident)
     summary = {
         "config": args.config, "output": args.output,
         "rows": table["rows"], "members": table["members"],
@@ -294,6 +364,32 @@ def cmd_predict(args):
         summary["calibration"] = calibration_report(table)
     print(json.dumps(summary, indent=2))
     return table
+
+
+def cmd_sweep(args):
+    from .pipelines import run_lr_sweep_experiment
+
+    def floats(flag, raw):
+        try:
+            return [float(x) for x in raw.split(",") if x.strip()]
+        except ValueError:
+            raise SystemExit(f"{flag} expects comma-separated floats, got "
+                             f"{raw!r}")
+
+    lrs = floats("--lrs", args.lrs)
+    if not lrs:
+        raise SystemExit("--lrs expects at least one learning rate")
+    wds = floats("--wds", args.wds) if args.wds else None
+    out = run_lr_sweep_experiment(
+        args.config, lrs=lrs, wds=wds, seeds_per_lr=args.seeds_per_lr,
+        synthetic_data=args.data_root is None, data_root=args.data_root,
+        n_train=args.n_train, n_test=args.n_test, epochs=args.epochs,
+        impl=args.impl, quiet=args.quiet,
+        overrides=parse_overrides(args.set),
+        checkpoint_dir=args.checkpoint_dir,
+        transfer_dtype=args.transfer_dtype, device=args.device)
+    print(json.dumps(out, indent=2))
+    return out
 
 
 def cmd_checkpoints(args):
@@ -532,6 +628,8 @@ def main(argv=None):
         return cmd_train(args)
     if args.cmd == "eval":
         return cmd_train(args, eval_only=True)
+    if args.cmd == "sweep":
+        return cmd_sweep(args)
     if args.cmd == "predict":
         return cmd_predict(args)
     if args.cmd == "checkpoints":

@@ -13,8 +13,11 @@ device the combination of one batch is one captured CUDA graph per batch
 shape (serve/graphs.py), as JAX jits it once; `predict_all`'s loader pads
 the final batch, so a pass replays one program.
 
-Not ported yet: the device-resident driver `predict_all_staged` and
-sharded inference over several cards (`mesh=`).
+`predict_all_staged` stages the whole split on the card once and replays
+one captured program per batch, each reading its rows through a
+device-side batch index: no per-batch gather, pinning or copy.
+
+Not ported yet: sharded inference over several cards (`mesh=`).
 """
 
 from __future__ import annotations
@@ -117,6 +120,39 @@ class Ensemble:
         keep = np.concatenate([np.ones(len(o), bool) if k is None else k
                                for k, o in zip(keeps, outs)])
         return lg[keep]
+
+
+    def predict_all_staged(self, samples: Sequence, batch_size: int, *,
+                           transfer_dtype=None) -> np.ndarray:
+        """The combined logits over `samples`, staged on the members' device
+        once (train/device_epochs.stage_dataset, padded to a multiple of
+        `batch_size`, in `transfer_dtype`'s wire format), then one replay
+        of one captured program per batch, the batch's rows read through a
+        device-side index; padding rows dropped, one copy back at the end.
+        The same batches and math as `predict_all` over a
+        Batcher(samples, batch_size, shuffle=False): the same logits."""
+        from ..train.device_epochs import stage_dataset
+
+        data, _ = stage_dataset(list(samples), pad_to_multiple=batch_size,
+                                transfer_dtype=transfer_dtype,
+                                device=self.device)
+        n_ev = int(data["sample_weight"].shape[0]) // batch_size
+        j = torch.zeros((), dtype=torch.int64, device=self.device)
+        rows = torch.arange(batch_size, device=self.device)
+        combine = _combination(self.members, self.weights, self.impl,
+                               self.dtype)
+
+        def batch_logits():
+            idx = j * batch_size + rows
+            batch = {k: v.index_select(0, idx) for k, v in data.items()}
+            j.add_(1)
+            return combine(batch)
+
+        program = GraphedFunction(batch_logits, self.device,
+                                  name=f"Ensemble.predict_all_staged[{self.impl}]")
+        outs = [program().clone() for _ in range(n_ev)]
+        lg = torch.cat(outs).cpu().numpy()
+        return lg[data["sample_weight"].float().cpu().numpy() > 0]
 
 
 def _combination(members, weights, impl: str, dtype: str):

@@ -67,23 +67,38 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-# the capture ledger of this thread, while a CUDA graph is being captured
-_capture = threading.local()
+# the capture ledgers, keyed by the raw handle of the stream being
+# captured: a kernel launched on that stream from any thread (autograd runs
+# a captured backward on its own device thread, on the forward's stream)
+# adds to that capture's ledger
+_ledgers: dict = {}
+_ledgers_lock = threading.Lock()
+
+
+def _handle(stream) -> int:
+    return stream if isinstance(stream, int) else stream.cuda_stream
 
 
 @contextlib.contextmanager
-def capture_ledger():
-    """While the block runs, a kernel launched from this thread adds to the
-    yielded Counter instead of to its counts: a launch recorded into a CUDA
-    graph runs nothing until the graph is replayed.  `credit(ledger)` adds
-    one replay's launches to the counts."""
+def capture_ledger(stream):
+    """While the block runs, a kernel launched on `stream` (a
+    `torch.cuda.Stream` or its raw handle), from whichever thread, adds to
+    the yielded Counter instead of to its counts: a launch recorded into a
+    CUDA graph runs nothing until the graph is replayed.  `credit(ledger)`
+    adds one replay's launches to the counts."""
+    handle = _handle(stream)
     ledger: Counter = Counter()
-    outer = getattr(_capture, "ledger", None)
-    _capture.ledger = ledger
+    with _ledgers_lock:
+        outer = _ledgers.get(handle)
+        _ledgers[handle] = ledger
     try:
         yield ledger
     finally:
-        _capture.ledger = outer
+        with _ledgers_lock:
+            if outer is None:
+                del _ledgers[handle]
+            else:
+                _ledgers[handle] = outer
 
 
 def credit(ledger: Counter, times: int = 1) -> None:
@@ -120,12 +135,19 @@ class Kernel:
             else:
                 getattr(self, counter)[key] += n
 
-    def _count(self, counter: str = "launches", key=None) -> None:
+    def _count(self, counter: str = "launches", key=None,
+               stream: Optional[int] = None) -> None:
         """One launch on `counter` (`getattr(self, counter)[key]` where a
-        key is given), or into the capture ledger of this thread."""
-        ledger = getattr(_capture, "ledger", None)
+        key is given), or into the ledger of the capture that `stream` (the
+        launch stream; by default this thread's current one) belongs to."""
+        ledger = None
+        if _ledgers:
+            if stream is None:
+                stream = launch_stream(torch.device("cuda"))
+            ledger = _ledgers.get(stream)
         if ledger is not None:
-            ledger[(self, counter, key)] += 1
+            with _ledgers_lock:
+                ledger[(self, counter, key)] += 1
         else:
             self._add(counter, key, 1)
 
@@ -157,7 +179,7 @@ class Kernel:
                 rc = fn(*pointers, *dims, int(is_bf16), stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {rc}")
-        self._count()
+        self._count(stream=stream)
 
 
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)

@@ -136,7 +136,7 @@ class _VariantKernel(Kernel):
         """Launch on the tensors' pointers (the first is q) and count."""
         self._launch(tensors[0].device, [ptr(t) for t in tensors], dims,
                      tensors[0].dtype == torch.bfloat16, stream)
-        self._count("variant_launches", variant)
+        self._count("variant_launches", variant, stream)
 
 
 class ScoredForwardKernel(_VariantKernel):

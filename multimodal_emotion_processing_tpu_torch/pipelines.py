@@ -11,15 +11,23 @@ Both run in two data modes, on the card unless `device="cpu"` is given:
   * a real corpus tree at `data_root` (`load_real_data`: data/mosei.py,
     rencecps.py, ren_mme.py and robot.py over the reference's layouts,
     docs/REAL_DATA.md), with `synthetic_data=False`.
-The k-fold members train one after another.
 
 Both take a wire format for the batches' copies to the card
 (`transfer_dtype`: float16, bfloat16 or int8, data/loader.cast_for_transfer),
 and `run_experiment` an asynchronous checkpoint store (`async_checkpoint`).
 
-Not ported yet: the vmapped, device-resident and one-dispatch k-fold
-drivers, scan-chained steps, gradient accumulation, data- and
-tensor-parallel meshes, the profile option and the stacked grid.
+`run_experiment` picks its k-fold driver by JAX's rules: the members one
+after another (train/kfold.py, with `scan_steps` and `accum_steps`; the
+default, where JAX's is the lockstep), or with `vmap_folds` in lockstep
+(train/vmap_kfold.py; host-fed, or with `device_resident` over data
+staged on the card, or with `one_dispatch` every epoch launched without
+a host round trip).
+`run_lr_sweep_experiment` trains learning-rate candidates together on
+fold 0's split (train/sweep.py); `run_predict(device_resident=True)`
+scores a split staged on the card (`Ensemble.predict_all_staged`).
+
+Not ported yet: data- and tensor-parallel meshes, the profile option and
+the stacked grid.
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ from .eval.ensemble import (Ensemble, group_average, joint_threshold_grid,
 from .eval.report import evaluate, format_report
 from .models import build_model
 from .train.checkpoint import CheckpointStore
-from .train.kfold import run_kfold
+from .train.kfold import contiguous_folds, run_kfold
+from .train.sweep import run_lr_sweep
+from .train.vmap_kfold import run_kfold_fully_compiled, run_kfold_vmapped
 from .utils.device import resolve_device
 from .utils.logging import RunLogger
 
@@ -68,6 +78,9 @@ class PipelineResult:
     # paragraph clips flattened
     logits: Optional[np.ndarray] = None
     labels: Optional[np.ndarray] = None
+    # what a lockstep driver measured: the staging's seconds and bytes,
+    # and for one-dispatch the epochs launched and the masked ones
+    driver_stats: Dict = dataclasses.field(default_factory=dict)
 
 
 def _synthetic_data(exp, n_train: int, n_test: int, seed: int = 0):
@@ -243,6 +256,13 @@ def _restore_members(config_name, exp, store, device):
     return members, member_losses
 
 
+def _member(exp, state_dict, device):
+    """A model of `exp` on `device` holding `state_dict`."""
+    model = build_model(exp, device=device)
+    model.load_state_dict(state_dict)
+    return model
+
+
 def _make_ensemble(config_name, members, member_losses, *,
                    impl: str = "xla", dtype: str = "float32"):
     """The config's combination: Ren-MME sums the members' logits
@@ -344,6 +364,11 @@ def run_experiment(
     device=None,
     transfer_dtype: Optional[str] = None,
     async_checkpoint: bool = False,
+    vmap_folds: bool = False,
+    scan_steps: int = 1,
+    device_resident: bool = False,
+    one_dispatch: bool = False,
+    accum_steps: int = 1,
 ) -> PipelineResult:
     """One reference script: the train samples carved into the config's k
     folds, one member trained per fold (and per extra seed,
@@ -364,7 +389,20 @@ def run_experiment(
     wire format, restored to f32 on the device before any math;
     `async_checkpoint` writes the store's files on a worker thread
     (`CheckpointStore(use_async=True)`), and the run joins the last one
-    before it returns."""
+    before it returns.
+
+    The drivers (JAX's keywords and fallbacks, each fallback logged):
+    `vmap_folds` trains the members in lockstep (train/vmap_kfold.py; off
+    by default, where JAX's is on: on the card the sequential driver's
+    captured steps are as fast a member-epoch, PERF.md);
+    `device_resident` stages the samples on the card once and gathers
+    every batch there; `one_dispatch` also runs the controllers on the card
+    and launches every epoch without a host round trip (no resume);
+    `scan_steps` copies that many host-fed batches together and launches
+    their steps back to back; `accum_steps` accumulates the gradient over
+    micro-batches (the sequential driver).  Pair-level units, robot_demo's
+    per-epoch resampling, unequal folds and a host-fed int8 wire fall back
+    as JAX's do.  The drivers are recorded in run_meta.json."""
     exp = configs.with_overrides(configs.get(config_name), overrides)
     impl = impl or exp.model.attn_impl
     device = resolve_device(device)
@@ -384,13 +422,78 @@ def run_experiment(
     store = (CheckpointStore(checkpoint_dir, use_async=async_checkpoint)
              if checkpoint_dir else None)
     loggers: Dict[str, RunLogger] = {}
+    duplicate = exp.train.rdrop_kl  # Ren-MME's R-Drop duplicates each sample
+    n_epochs = exp.train.epochs if epochs is None else epochs
+
+    # JAX's driver rules, each fallback logged in JAX's words
+    # nested units (mosei pairs -> 1-2 crop samples) are carved at the unit
+    # level and flattened per fold; per-fold sample counts then differ,
+    # which the lockstep's aligned step counts cannot represent
+    nested_units = bool(train_samples) and isinstance(train_samples[0], list)
+    if accum_steps > 1 and vmap_folds:
+        _log(f"[{config_name}] accum_steps > 1 uses the sequential k-fold "
+             "driver; disabling vmap_folds", quiet)
+        vmap_folds = False
+    if nested_units and vmap_folds:
+        _log(f"[{config_name}] pair-level folds require the sequential "
+             "k-fold driver; disabling vmap_folds", quiet)
+        vmap_folds = False
+    if vmap_folds and exp.train.n_folds > 1:
+        widths = {sl.stop - sl.start for sl, _ in contiguous_folds(
+            len(train_samples), exp.train.n_folds, exp.train.fold_size)}
+        if len(widths) > 1:
+            _log(f"[{config_name}] unequal contiguous folds ({sorted(widths)});"
+                 " using the sequential k-fold driver", quiet)
+            vmap_folds = False
+    if one_dispatch:
+        if resume:
+            _log(f"[{config_name}] one_dispatch has no epoch boundaries to "
+                 "resume at; disabling one_dispatch", quiet)
+            one_dispatch = False
+        else:
+            device_resident = True  # inherits the staging gates below
+    if device_resident and n_epochs == 0:
+        _log(f"[{config_name}] device_resident is a no-op with epochs=0; "
+             "skipping dataset staging", quiet)
+        device_resident = False
+    if device_resident and (not vmap_folds or exp.train.n_folds <= 1
+                            or loader_ctx is not None):
+        _log(f"[{config_name}] device_resident requires the vmapped driver "
+             "and a static sample set; falling back to host loaders", quiet)
+        device_resident = False
+    if device_resident:
+        n = len(train_samples)
+        fs, kf = exp.train.fold_size, exp.train.n_folds
+        fold = fs if fs is not None and fs * kf <= n else n // kf
+        if (n - fold) < exp.train.batch_size:
+            _log(f"[{config_name}] device_resident needs >= batch_size "
+                 f"({exp.train.batch_size}) train samples per fold, have "
+                 f"{n - fold}; falling back to host loaders", quiet)
+            device_resident = False
+        elif scan_steps > 1:
+            _log(f"[{config_name}] device_resident subsumes scan_steps "
+                 "(each epoch is already one dispatch); ignoring "
+                 f"scan_steps={scan_steps}", quiet)
+    if one_dispatch and not device_resident:
+        _log(f"[{config_name}] one_dispatch disabled by the fallback above; "
+             "training runs with host-controlled epochs "
+             "(single-model whole-run API: train/device_epochs."
+             "fit_fully_compiled)", quiet)
+        one_dispatch = False
+    if transfer_dtype == "int8" and vmap_folds and not device_resident:
+        _log(f"[{config_name}] host-fed int8 wire uses the sequential "
+             "k-fold driver; disabling vmap_folds", quiet)
+        vmap_folds = False
+
     # provenance written before training, so a crashed run has it too; an
     # eval-only pass must not overwrite the training run's
-    trains = (epochs if epochs is not None else exp.train.epochs) != 0
     _write_run_meta(
-        [d for d in (log_dir, checkpoint_dir) if d] if trains else [],
+        [d for d in (log_dir, checkpoint_dir) if d] if n_epochs != 0 else [],
         config_name=config_name, overrides=overrides, exp=exp,
         drivers={"epochs": epochs, "impl": impl,
+                 "vmap_folds": vmap_folds, "scan_steps": scan_steps,
+                 "device_resident": device_resident,
+                 "one_dispatch": one_dispatch, "accum_steps": accum_steps,
                  "seeds_per_fold": seeds_per_fold,
                  "transfer_dtype": transfer_dtype,
                  "async_checkpoint": async_checkpoint, "resume": resume,
@@ -407,8 +510,6 @@ def run_experiment(
         _log(f"[{name}] epoch {epoch + 1}: train {stats.train_loss:.4f} "
              f"valid {stats.valid_loss:.4f} ({stats.samples_per_sec:.0f} "
              "samples/s)", quiet)
-
-    duplicate = exp.train.rdrop_kl  # Ren-MME's R-Drop duplicates each sample
 
     def robot_resample(subset, fold_idx):
         """Fold `fold_idx`'s samples with their texts substituted anew for
@@ -438,12 +539,36 @@ def run_experiment(
                 Batcher(_flatten_units(valid), exp.train.batch_size,
                         duplicate=duplicate, shuffle=False))
 
-    results = run_kfold(train_samples, make_loaders, exp, exp.train,
-                        store=store, name_prefix=config_name, epochs=epochs,
-                        impl=impl, log_cb=log_cb,
-                        fold_size=exp.train.fold_size, resume=resume,
-                        seeds_per_fold=seeds_per_fold, device=device,
-                        transfer_dtype=transfer_dtype)
+    best_members = best_losses = None
+    driver_stats: Dict = {}
+    if vmap_folds and exp.train.n_folds > 1:
+        common = dict(store=store, name_prefix=config_name, epochs=epochs,
+                      impl=impl, log_cb=log_cb,
+                      fold_size=exp.train.fold_size, duplicate=duplicate,
+                      seeds_per_fold=seeds_per_fold,
+                      transfer_dtype=transfer_dtype, device=device,
+                      info=driver_stats)
+        if one_dispatch:
+            _, hists, best_members, best_losses = run_kfold_fully_compiled(
+                train_samples, exp, exp.train, **common)
+            _log(f"[{config_name}] one dispatch: "
+                 f"{driver_stats['epochs_launched']} epochs launched, "
+                 f"{driver_stats['masked_epochs']} of them after every "
+                 "member had stopped (masked)", quiet)
+        else:
+            _, hists, best_members, best_losses = run_kfold_vmapped(
+                train_samples, make_loaders, exp, exp.train,
+                scan_steps=scan_steps, device_resident=device_resident,
+                resume=resume, **common)
+        results = [(None, h) for h in hists]
+    else:
+        results = run_kfold(train_samples, make_loaders, exp, exp.train,
+                            store=store, name_prefix=config_name,
+                            epochs=epochs, impl=impl, log_cb=log_cb,
+                            fold_size=exp.train.fold_size, resume=resume,
+                            seeds_per_fold=seeds_per_fold, device=device,
+                            transfer_dtype=transfer_dtype,
+                            scan_steps=scan_steps, accum_steps=accum_steps)
 
     report = sweep = logits = labels = None
     if test_samples:
@@ -451,6 +576,10 @@ def run_experiment(
         if store is not None:
             members, member_losses = _restore_members(config_name, exp,
                                                       store, device)
+        elif best_members is not None:
+            # the lockstep drivers' best parameters, kept without a store
+            members = [_member(exp, sd, device) for sd in best_members]
+            member_losses = best_losses
         else:
             members = [state.model for state, _ in results]
         ens = _make_ensemble(config_name, members, member_losses, impl=impl,
@@ -470,7 +599,89 @@ def run_experiment(
     if store is not None:
         store.wait()
     return PipelineResult(config_name, [h for _, h in results], report, sweep,
-                          store, logits, labels)
+                          store, logits, labels, driver_stats)
+
+
+def run_lr_sweep_experiment(
+    config_name: str,
+    *,
+    lrs,
+    wds=None,
+    seeds_per_lr: int = 1,
+    synthetic_data: bool = True,
+    data_root: Optional[str] = None,
+    n_train: int = 256,
+    n_test: int = 64,
+    epochs: Optional[int] = None,
+    impl: Optional[str] = None,
+    quiet: bool = False,
+    overrides: Optional[Dict] = None,
+    checkpoint_dir: Optional[str] = None,
+    transfer_dtype: Optional[str] = None,
+    device=None,
+) -> Dict:
+    """The config-named sweep (train/sweep.run_lr_sweep): every (lr x wd x
+    seed) candidate trains together on fold 0's train and valid split (the
+    k-fold drivers' shuffle and contiguous carving, so the sweep tunes on
+    the data fold 1 of a later `run_experiment` validates on).  Returns
+    {"table": rows best-first, "winner": {...}, "seconds": s}; with
+    `checkpoint_dir` the winner's best parameters are saved as
+    '{config_name}_sweep_winner', which `eval`, `predict` and `serve`
+    pick up from a store with no k-fold members."""
+    import random
+
+    exp = configs.with_overrides(configs.get(config_name), overrides)
+    impl = impl or exp.model.attn_impl
+    device = resolve_device(device)
+    if synthetic_data:
+        train_units, _ = _synthetic_data(exp, n_train, n_test)
+    else:
+        if data_root is None:
+            raise ValueError("data_root required when synthetic_data=False")
+        train_units, _, loader_ctx = load_real_data(exp, data_root)
+        if loader_ctx is not None:
+            raise ValueError(
+                "the robot per-epoch text substitution re-materializes "
+                "samples each epoch; the staged sweep cannot represent that "
+                "— sweep robot_demo on synthetic data or freeze an epoch's "
+                "materialization")
+    train_units = list(train_units)
+    random.Random(0).shuffle(train_units)  # the k-fold drivers' carving
+    va_slice, tr_ranges = contiguous_folds(
+        len(train_units), exp.train.n_folds, exp.train.fold_size)[0]
+    valid_samples = _flatten_units(train_units[va_slice])
+    train_samples = _flatten_units(
+        [train_units[j] for r in tr_ranges for j in r])
+    n_members = len(lrs) * (len(wds) if wds else 1) * seeds_per_lr
+    _log(f"[{config_name}] sweep: {len(lrs)} lrs x "
+         f"{len(wds) if wds else 1} wds x {seeds_per_lr} seeds = "
+         f"{n_members} members, {len(train_samples)} train / "
+         f"{len(valid_samples)} valid samples (fold-0 split)", quiet)
+
+    def log_cb(name, epoch, stats):
+        _log(f"[{name}] epoch {epoch + 1}: train {stats.train_loss:.4f} "
+             f"valid {stats.valid_loss:.4f}", quiet)
+
+    result = run_lr_sweep(
+        train_samples, valid_samples, exp, exp.train, lrs=lrs, wds=wds,
+        seeds_per_lr=seeds_per_lr, epochs=epochs, impl=impl,
+        duplicate=exp.train.rdrop_kl, log_cb=None if quiet else log_cb,
+        transfer_dtype=transfer_dtype, device=device)
+    win = result.members[result.winner]
+    if checkpoint_dir:
+        store = CheckpointStore(checkpoint_dir)
+        store.save_params(f"{config_name}_sweep_winner", win.best_params,
+                          valid_loss=win.best_valid_loss,
+                          epoch=max(win.best_epoch, 0), imported=False)
+    out = {"table": result.table(),
+           "winner": {"lr": win.lr, "wd": win.wd, "seed": win.seed,
+                      "best_valid_loss": win.best_valid_loss,
+                      "best_epoch": win.best_epoch},
+           "seconds": result.seconds}
+    _log(f"[{config_name}] sweep winner: lr={win.lr:g} wd={win.wd:g} "
+         f"seed={win.seed} best_valid_loss={win.best_valid_loss:.4f} "
+         f"({result.seconds:.1f}s total)", quiet)
+    return out
 
 
 def run_predict(
@@ -490,6 +701,7 @@ def run_predict(
     split: str = "test",
     device=None,
     transfer_dtype: Optional[str] = None,
+    device_resident: bool = False,
 ) -> Dict:
     """Offline batch inference: the trained ensemble over a split once,
     every sample's outputs kept (eval/predictions.py): the artifact
@@ -506,8 +718,11 @@ def run_predict(
     run).  Decisions use `thresholds`, else the store's tuned ones, else
     the config's, else zeros.  `output` writes .npz/.csv/.jsonl.
     `transfer_dtype` ships the batches in that wire format
-    (`Ensemble.predict_all`).  Returns the prediction table with "rows"
-    and "members" counts."""
+    (`Ensemble.predict_all`).  `device_resident` stages the whole split on
+    the card once and replays one program per batch
+    (`Ensemble.predict_all_staged`): the same logits, without a per-batch
+    copy.  Returns the prediction table with "rows" and "members"
+    counts."""
     from .eval.predictions import prediction_table, write_predictions
 
     exp = configs.with_overrides(configs.get(config_name), overrides)
@@ -565,9 +780,14 @@ def run_predict(
                          "an untrained smoke run)")
     ens = _make_ensemble(config_name, members, member_losses, impl=impl,
                          dtype=exp.train.compute_dtype)
-    loader = Batcher(samples, exp.train.batch_size, shuffle=False)
-    logits, labels = _collapse_test_outputs(
-        ens.predict_all(loader, transfer_dtype=transfer_dtype), samples)
+    if device_resident:
+        raw = ens.predict_all_staged(samples, exp.train.batch_size,
+                                     transfer_dtype=transfer_dtype)
+    else:
+        raw = ens.predict_all(Batcher(samples, exp.train.batch_size,
+                                      shuffle=False),
+                              transfer_dtype=transfer_dtype)
+    logits, labels = _collapse_test_outputs(raw, samples)
     if thresholds is None and checkpoint_dir:
         thresholds = load_tuned_thresholds(checkpoint_dir, config_name, exp)
         if thresholds is not None:

@@ -1,5 +1,7 @@
 """One captured CUDA-graph program per input shape: the port's counterpart
-of `jax.jit` for the forward-only serving and ensemble computations.
+of `jax.jit` for the serving and ensemble computations and for the train
+and eval steps of the whole-run drivers (train/device_epochs.py,
+train/vmap_kfold.py, train/sweep.py).
 
 `GraphedFunction(fn, device)` is called like `fn`, with a pytree (tuple,
 list, dict) of tensors.  On a CUDA device each new key (the pytree's
@@ -22,7 +24,19 @@ another graph (one held in a reference cycle) makes a CUDA call that a
 capture forbids and invalidates it (`tools/graph_capture_probe.py`
 turns each guard off and counts the failed captures).
 Kernel launches recorded during a capture run nothing and are not counted
-(`ops.cuda_binding.capture_ledger`); every replay adds them to the counts.
+(`ops.cuda_binding.capture_ledger`, keyed by the capture stream, so that a
+backward kernel that autograd launches from its own device thread lands
+there too); every replay adds them to the counts.
+
+A step that draws dropout masks names its `torch.Generator`s
+(`generators=`): each is registered with every graph the function
+captures, so that a replay draws from the generator's offset at that
+moment and advances it by what the eager call would have drawn (this
+needs `torch.cuda.CUDAGraph.register_generator_state`, which PyTorch
+2.11.0+cu128 has; an older PyTorch fails the capture).  State
+that a step updates (parameters, moments, counters) is updated in place by
+the captured kernels; a function that takes no arguments reads its inputs
+from buffers its caller keeps.
 
 On the CPU, which only the tests ask for, a call is a plain call of `fn`.
 """
@@ -32,7 +46,7 @@ from __future__ import annotations
 import gc
 import time
 from collections import Counter
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
@@ -62,8 +76,10 @@ class GraphedFunction:
     `capture_ms` the host time of each key's first call (the eager call
     and the capture)."""
 
-    def __init__(self, fn: Callable, device, *, name: str = ""):
+    def __init__(self, fn: Callable, device, *, name: str = "",
+                 generators: Sequence[torch.Generator] = ()):
         self.fn = fn
+        self.generators = tuple(generators)
         self.device = torch.device(device)
         self.name = name or getattr(fn, "__qualname__", "fn")
         self.captures = 0
@@ -127,12 +143,14 @@ class GraphedFunction:
         # empties the allocators' caches, which the streams' ordering makes
         # unneeded here and which later allocations pay for again
         graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
         capture = torch.cuda.Stream(self.device)
         capture.wait_stream(current)
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with capture_ledger() as ledger, torch.cuda.stream(capture):
+            with capture_ledger(capture) as ledger, torch.cuda.stream(capture):
                 graph.capture_begin(pool=self._pool,
                                     capture_error_mode="thread_local")
                 try:

@@ -207,21 +207,31 @@ class CheckpointStore:
         self._commit("last", [(path, state.state_dict())],
                      self._on_cpu(state.model), entry)
 
-    def restore_last(self, name: str, state_like):
+    def restore_last(self, name: str, state_like, epoch: Optional[int] = None):
         """(state_like with the newest complete resume point loaded into it,
         that point's manifest entry), or None where the member has none.
         Falls back to the previous epoch's slot when the newest save was
         cut short; a file that exists but does not fit `state_like` (a
-        changed model config) raises instead of silently retraining."""
+        changed model config) raises instead of silently retraining.  With
+        `epoch`, the complete point of that epoch, or None (a lockstep
+        driver resumes all its members from one epoch)."""
         self.wait()
         member = self.manifest.get(name, {})
         for key in ("last", "last_prev"):
             entry = member.get(key)
             if not entry or not os.path.isfile(entry["path"]):
                 continue
+            if epoch is not None and entry["epoch"] != epoch:
+                continue
             sd = self._load(entry["path"])
             return state_like.load_state_dict(sd), entry
         return None
+
+    def last_epochs(self, name: str) -> List[int]:
+        """The epochs of the member's complete resume points, newest first."""
+        member = self.manifest.get(name, {})
+        return [e["epoch"] for e in (member.get("last"), member.get("last_prev"))
+                if e and os.path.isfile(e["path"])]
 
     def mark_done(self, name: str) -> None:
         """Record the member as finished, once its saves have landed."""

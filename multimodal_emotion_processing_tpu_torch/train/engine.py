@@ -2,22 +2,33 @@
 the optimizer, the train and eval steps, the epoch driver, and the
 compute-dtype casts of the inference path.
 
-PyTorch runs eagerly, so a step is a plain function: forward, ZLPR loss
-(+ the R-Drop KL under `rdrop_kl`), backward, global-norm clip, Adam(W)
-update, with no host round trip; the per-step losses stay on the device
-until the epoch ends.  The learning rate is an attribute of the optimizer
-that the host-side plateau controller (schedule.py) changes between
-epochs.  Dropout draws its masks from the `TrainState`'s own
-`torch.Generator` (JAX's `k_rng`), seeded from the state's seed; the eval
-step draws none.
+A step is a plain function: forward, ZLPR loss (+ the R-Drop KL under
+`rdrop_kl`), backward, global-norm clip, Adam(W) update, with no host
+round trip; the per-step losses stay on the device until the epoch ends.
+The learning rate is a 0-d tensor of the optimizer that the host-side
+plateau controller (schedule.py) sets in place between epochs (or, in
+the one-dispatch drivers, the controller on the device). Dropout draws
+its masks from the `TrainState`'s own `torch.Generator` (JAX's `k_rng`),
+seeded from the state's seed; the eval step draws none.
 
 A batch may arrive in a wire format (`Trainer(transfer_dtype=)`,
 data/loader.cast_for_transfer); every step restores f32 (`upcast_wire`),
 or under bf16 compute goes straight to bf16 (`wire_to_bf16`), before any
 math.
 
-Not ported yet: the device mesh, scan-chained steps, gradient accumulation
-(and with it R-Drop under accumulation) and the profile option.
+A step is `member_step`: the whole step with no host-side bookkeeping, so
+that `Trainer` and the drivers capture it into a CUDA graph
+(serve/graphs.GraphedFunction): the optimizer keeps its step count,
+learning rate and β factors as 0-d tensors on the device, and an eager
+step does the same arithmetic as a replay.  `train_step(accum_steps=)`
+and `Trainer(accum_steps=)` accumulate the gradient over micro-batches
+(`accum_value_and_grad`, R-Drop included); `Trainer` replays captured
+steps over static device buffers (`StepBuffer`), `scan_steps` of them
+back to back.  The whole-run drivers
+(train/device_epochs.py, vmap_kfold.py, sweep.py) build on the same
+pieces.
+
+Not ported yet: the device mesh and the profile option.
 """
 
 from __future__ import annotations
@@ -133,14 +144,27 @@ class Optimizer:
     arithmetic: g·min(1, clip/‖g‖) with the global L2 norm over every
     parameter (not `clip_grad_norm_`, which divides by ‖g‖ + 1e-6); then
     Adam with β 0.9 / 0.999, eps 1e-8 outside the square root and bias
-    correction; AdamW adds the decoupled decay wd·p to the update, for every
+    correction 1 − β^count computed in f32 on the device, as optax does;
+    AdamW adds the decoupled decay wd·p to the update, for every
     parameter, before the −lr scale.  A parameter without a gradient
     (the terminal blocks' gate c) counts as a zero gradient, as JAX gives
     it.  The update runs as PyTorch multi-tensor (`_foreach`) ops over the
     per-parameter list, whatever `TrainConfig.fused_optimizer` says: JAX's
     flat vector saves kernel launches there, the foreach ops save them
     here without copying the parameters in and out of one vector, and the
-    math is the same either way."""
+    math is the same either way.
+
+    Everything a step reads lives on the parameters' device: the step
+    count `count_t` (int32) and the learning rate `lr_t` (f32) are 0-d
+    tensors advanced or set in place, the β factors and the weight decay
+    `wd_t` are 0-d tensors too, so a step captured into a CUDA graph
+    reads them at every replay, and an eager step does the same
+    arithmetic (a replay is bit-equal to it).  `lr` and `count` read and
+    set them from the host (`lr` keeps the host's float; `count` reads the
+    device).  `step(active=)` masks the step of a member that has stopped
+    in a lockstep driver: with `active` False its parameters, moments and
+    count stay as they were; with it True the step is the unmasked one, bit
+    for bit."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -148,43 +172,95 @@ class Optimizer:
         if tcfg.optimizer not in ("adamw", "adam"):
             raise ValueError(f"optimizer {tcfg.optimizer!r}: expected adamw or adam")
         self.params = list(params)
-        self.lr = float(tcfg.lr)
+        self.decoupled = tcfg.optimizer == "adamw"
         self.weight_decay = (float(getattr(tcfg, "weight_decay", 0.01))
-                             if tcfg.optimizer == "adamw" else 0.0)
+                             if self.decoupled else 0.0)
         self.grad_clip = float(tcfg.grad_clip)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        dev = self.params[0].device
+
+        def scalar(value):
+            return torch.full((), value, dtype=torch.float32, device=dev)
+
+        self._lr = float(tcfg.lr)
+        self.lr_t = scalar(self._lr)
+        self.wd_t = scalar(self.weight_decay)
+        self.count_t = torch.zeros((), dtype=torch.int32, device=dev)
+        self._b1, self._c1 = scalar(self.B1), scalar(1.0 - self.B1)
+        self._b2, self._c2 = scalar(self.B2), scalar(1.0 - self.B2)
+        self._one, self._zero = scalar(1.0), scalar(0.0)
+
+    @property
+    def lr(self) -> float:
+        """The learning rate as the host last set it."""
+        return self._lr
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self._lr = float(value)
+        self.lr_t.fill_(self._lr)
+
+    @property
+    def count(self) -> int:
+        """The step count (read from the device)."""
+        return int(self.count_t)
+
+    def set_weight_decay(self, wd: float) -> None:
+        """AdamW's decay rate (the sweep's wd axis); Adam ignores it."""
+        if self.decoupled:
+            self.weight_decay = float(wd)
+            self.wd_t.fill_(self.weight_decay)
 
     @torch.no_grad()
-    def step(self) -> None:
-        """Update the parameters from their `.grad` and clear it."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+    def step(self, grads=None, *, active: Optional[torch.Tensor] = None) -> None:
+        """Update the parameters from `grads` (one per parameter, None for
+        none), by default from their `.grad`, which is cleared.  `active`
+        (a 0-d bool tensor on the device) masks the step, as above."""
+        if grads is None:
+            grads = [p.grad for p in self.params]
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, self.params)]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         grads = torch._foreach_mul(grads, scale)
-        self.count += 1
-        torch._foreach_mul_(self.mu, self.B1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.B1)
-        torch._foreach_mul_(self.nu, self.B2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.B2)
-        mu_hat = torch._foreach_div(self.mu, 1.0 - self.B1 ** self.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(
-            self.nu, 1.0 - self.B2 ** self.count))
+        b1, c1, b2, c2, lr = self._b1, self._c1, self._b2, self._c2, self.lr_t
+        if active is None:
+            self.count_t.add_(1)
+        else:
+            b1 = torch.where(active, b1, self._one)
+            c1 = torch.where(active, c1, self._zero)
+            b2 = torch.where(active, b2, self._one)
+            c2 = torch.where(active, c2, self._zero)
+            lr = torch.where(active, lr, self._zero)
+            self.count_t.add_(active.to(torch.int32))
+        # optax's bias corrections: 1 - beta**count in f32 (a member masked
+        # before its first step keeps count 0; its update is scaled by 0)
+        count = self.count_t.clamp(min=1).to(torch.float32)
+        bc1 = 1.0 - torch.pow(self._b1, count)
+        bc2 = 1.0 - torch.pow(self._b2, count)
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, c1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), c2))
+        mu_hat = torch._foreach_div(self.mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(denom, self.EPS)
         update = torch._foreach_div(mu_hat, denom)
-        if self.weight_decay:
-            torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-self.lr)
+        if self.decoupled:
+            torch._foreach_add_(update, torch._foreach_mul(self.params,
+                                                           self.wd_t))
+        torch._foreach_add_(self.params, torch._foreach_mul(update,
+                                                            torch.neg(lr)))
         for p in self.params:
             p.grad = None
 
     def state_dict(self) -> dict:
         """The moments `mu` and `nu` (one tensor per parameter, in the
         order of `params`; references, as `nn.Module.state_dict` gives),
-        the step `count` and the learning rate `lr`."""
+        the step `count` (an int) and the learning rate `lr` (a float)."""
         return {"mu": list(self.mu), "nu": list(self.nu),
                 "count": self.count, "lr": self.lr}
 
@@ -203,7 +279,7 @@ class Optimizer:
                                      f"{tuple(src.shape)} for a parameter of "
                                      f"shape {tuple(dst.shape)}")
                 dst.copy_(src)
-        self.count = int(sd["count"])
+        self.count_t.fill_(int(sd["count"]))
         self.lr = float(sd["lr"])
 
 
@@ -313,28 +389,152 @@ def init_state(cfg, tcfg, seed: int, *, device=None) -> TrainState:
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
-    state.optimizer.lr = float(lr)
+    """Set the state's learning rate in place on its device (the host-side
+    plateau controller, between epochs)."""
+    state.optimizer.lr = lr
     return state
 
 
-def train_step(state: TrainState, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
-    """One optimizer step on `batch` (a dict of tensors on the model's
-    device), dropout drawn from the state's generator; returns the loss,
-    detached, on the device."""
-    state.model.train()
-    loss = batch_loss(state.model, tcfg, batch, impl=impl,
-                      generator=state.generator)
-    loss.backward()
-    state.optimizer.step()
-    state.step += 1
+def accum_value_and_grad(model, tcfg, batch, *, impl: str = "xla",
+                         accum_steps: int,
+                         generator: Optional[torch.Generator] = None):
+    """Gradient accumulation (JAX `engine._accum_value_and_grad`): the
+    batch split into `accum_steps` micro-batches taken in turn, recombined
+    exactly to the full-batch loss and gradient.  `batch_loss` is a
+    weighted mean whose denominators are all proportional to the
+    micro-batch's sample-weight total d_i (a plain mean: d_i = rows; a
+    padded one: Σw times a constant; the R-Drop KL's pair denominator is
+    d_i / 2), so each micro-batch's loss and gradient weighted by d_i and
+    divided by Σ d_i give the full-batch value, zero-weight padding rows
+    included.  Dropout draws the one stream of `generator` in micro-batch
+    order.  Returns (loss, gradients, one per parameter, None where a
+    parameter has none)."""
+    batch = upcast_wire(batch)  # the d_i sums in f32, whatever the wire
+    rows = batch["label"].shape[0]
+    if rows % accum_steps:
+        raise ValueError(f"accum_steps={accum_steps} must divide the batch "
+                         f"rows ({rows})")
+    micro_rows = rows // accum_steps
+    if tcfg.rdrop_kl and micro_rows % 2:
+        raise ValueError("R-Drop needs even micro-batches (adjacent "
+                         f"duplicate pairs); rows/accum_steps = {micro_rows}")
+    params = list(model.parameters())
+    lsum = gsum = dsum = None
+    for i in range(accum_steps):
+        mb = {k: v[i * micro_rows:(i + 1) * micro_rows]
+              for k, v in batch.items()}
+        w = mb.get("sample_weight")
+        d = (w.sum() if w is not None
+             else torch.tensor(float(micro_rows), device=mb["label"].device))
+        loss_i = batch_loss(model, tcfg, mb, impl=impl, generator=generator)
+        g_i = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(loss_i, params, allow_unused=True), params)]
+        g_i = torch._foreach_mul(g_i, d)
+        if gsum is None:
+            lsum, gsum, dsum = d * loss_i.detach(), g_i, d
+        else:
+            lsum = lsum + d * loss_i.detach()
+            torch._foreach_add_(gsum, g_i)
+            dsum = dsum + d
+    denom = torch.clamp(dsum, min=1.0)  # an all-padding batch: 0 loss, 0 grads
+    return lsum / denom, torch._foreach_div(gsum, denom)
+
+
+def member_step(state: TrainState, tcfg, batch, *, impl: str = "xla",
+                accum_steps: int = 1,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The body of one optimizer step, with no host-side bookkeeping (so
+    that it can be captured into a CUDA graph): forward with dropout from
+    the state's generator, the loss, the gradients (over `accum_steps`
+    micro-batches when > 1), the optimizer update (masked by `active`,
+    Optimizer.step).  Returns the loss, detached, on the device."""
+    model = state.model
+    model.train()
+    if accum_steps > 1:
+        loss, grads = accum_value_and_grad(model, tcfg, batch, impl=impl,
+                                           accum_steps=accum_steps,
+                                           generator=state.generator)
+    else:
+        loss = batch_loss(model, tcfg, batch, impl=impl,
+                          generator=state.generator)
+        grads = torch.autograd.grad(loss, state.optimizer.params,
+                                    allow_unused=True)
+    state.optimizer.step(grads, active=active)
     return loss.detach()
 
 
-@torch.no_grad()
+def train_step(state: TrainState, tcfg, batch, *, impl: str = "xla",
+               accum_steps: int = 1) -> torch.Tensor:
+    """One optimizer step on `batch` (a dict of tensors on the model's
+    device), dropout drawn from the state's generator, the gradient
+    accumulated over `accum_steps` micro-batches when > 1
+    (`accum_value_and_grad`); returns the loss, detached, on the device."""
+    loss = member_step(state, tcfg, batch, impl=impl, accum_steps=accum_steps)
+    state.step += 1
+    return loss
+
+
+def eval_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+    """The eval-mode loss without autograd: the body of `eval_step`, with
+    no host-side work, so that it can be captured."""
+    with torch.no_grad():
+        model.eval()
+        return batch_loss(model, tcfg, batch, impl=impl)
+
+
+class StepBuffer:
+    """Static device buffers for `slots` steps of `groups` batches each
+    (one group per fold in a lockstep driver, 1 in the sequential one) and
+    a device slot index that a captured step advances, so that a replay
+    reads its batches with no input from the host.  `load` copies host-fed
+    batches in (device to device) and zeroes the index; `read`, inside the
+    step, gives a dict of (groups, rows, ...) tensors and advances the
+    index."""
+
+    def __init__(self, like: dict, slots: int, groups: int, device):
+        self.slots, self.groups = slots, groups
+        self.keys = list(like)
+        self.bufs = {k: torch.empty((slots, groups) + tuple(v.shape),
+                                    dtype=v.dtype, device=device)
+                     for k, v in like.items()}
+        self.slot = torch.zeros((), dtype=torch.int64, device=device)
+
+    def load(self, steps) -> None:
+        """`steps`: a list of at most `slots` lists of `groups` batch dicts
+        on the device, with this buffer's keys and shapes."""
+        if len(steps) > self.slots:
+            raise ValueError(f"{len(steps)} steps for {self.slots} slots")
+        for j, group in enumerate(steps):
+            for f, batch in enumerate(group):
+                if sorted(batch) != sorted(self.keys):
+                    raise ValueError(f"batch keys {sorted(batch)}; the "
+                                     f"captured step reads {sorted(self.keys)}")
+                for k in self.keys:
+                    dst = self.bufs[k][j, f]
+                    if dst.shape != batch[k].shape or dst.dtype != batch[k].dtype:
+                        raise ValueError(
+                            f"batch {k!r} is {tuple(batch[k].shape)} "
+                            f"{batch[k].dtype}; the captured step reads "
+                            f"{tuple(dst.shape)} {dst.dtype}")
+                    dst.copy_(batch[k], non_blocking=True)
+        self.slot.zero_()
+
+    def read(self) -> dict:
+        if self.slots == 1:
+            out = {k: v[0] for k, v in self.bufs.items()}
+        else:
+            # modulo the slots: a replay past the last one rereads a slot
+            # rather than reading out of bounds
+            j = torch.remainder(self.slot, self.slots).view(1)
+            out = {k: v.index_select(0, j).squeeze(0)
+                   for k, v in self.bufs.items()}
+            self.slot.add_(1)
+        return out
+
+
 def eval_step(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
     """The loss in eval mode: no dropout mask drawn, no R-Drop KL."""
-    model.eval()
-    return batch_loss(model, tcfg, batch, impl=impl)
+    return eval_loss(model, tcfg, batch, impl=impl)
 
 
 @dataclasses.dataclass
@@ -349,6 +549,18 @@ class EpochStats:
     @property
     def samples_per_sec(self) -> float:
         return self.samples / max(self.seconds, 1e-9)
+
+
+def chunks(it, size: int):
+    """Lists of `size` consecutive items of `it`; the last may be shorter."""
+    buf = []
+    for x in it:
+        buf.append(x)
+        if len(buf) == size:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
 
 
 class Trainer:
@@ -366,16 +578,36 @@ class Trainer:
     thread) and every step restores f32 before any math: half the bytes
     of a batch, or a quarter of its features', at ~1e-3 relative rounding
     of the features (f16), or ~0.4 % of each row's largest value (int8);
-    masks, labels and weights stay exact.  None (the default) ships f32."""
+    masks, labels and weights stay exact.  None (the default) ships f32.
+
+    `accum_steps`: gradient accumulation, each batch split into this many
+    micro-batches with the exact full-batch loss and gradient
+    (`accum_value_and_grad`): a memory knob.
+
+    On a CUDA device each train step and each eval step is one replay of
+    a captured CUDA graph (serve/graphs.GraphedFunction, one per fit, the
+    dropout generator registered), as JAX jits them, that reads its batch
+    from static device buffers (`StepBuffer`); on the CPU the same steps
+    are plain calls.  `scan_steps` > 1 (JAX's `lax.scan` of that many
+    steps): the loader's batches are taken that many at a time, copied
+    into the buffers together, and that many replays are launched back to
+    back; the math and the dropout order are those of `scan_steps=1`."""
 
     PREFETCH = 2
 
     def __init__(self, cfg, tcfg, *, impl: str = "xla", device=None,
                  checkpoint_cb: Optional[Callable] = None,
-                 log_cb: Optional[Callable] = None, transfer_dtype=None):
+                 log_cb: Optional[Callable] = None, transfer_dtype=None,
+                 accum_steps: int = 1, scan_steps: int = 1):
         from ..data.loader import resolve_transfer_dtype
         from ..utils.device import resolve_device
 
+        if accum_steps < 1 or scan_steps < 1:
+            raise ValueError(f"accum_steps ({accum_steps}) and scan_steps "
+                             f"({scan_steps}) must be >= 1")
+        if scan_steps > 1 and accum_steps > 1:
+            raise ValueError("accum_steps > 1 does not compose with "
+                             "scan_steps > 1 (pick one dispatch-shape knob)")
         self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
         self.cfg = getattr(cfg, "model", cfg)
         self.tcfg = tcfg
@@ -383,12 +615,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.checkpoint_cb = checkpoint_cb
         self.log_cb = log_cb
-
-    def train_step(self, state: TrainState, batch) -> torch.Tensor:
-        return train_step(state, self.tcfg, batch, impl=self.impl)
-
-    def eval_step(self, state: TrainState, batch) -> torch.Tensor:
-        return eval_step(state.model, self.tcfg, batch, impl=self.impl)
+        self.accum_steps = accum_steps
+        self.scan_steps = scan_steps
 
     def _iter(self, loader, counter: Optional[dict] = None):
         """Batches of one epoch on the device; `counter["n"]` counts the
@@ -410,6 +638,47 @@ class Trainer:
                                       transfer_dtype=self.transfer_dtype)
         return (to_device(cast_for_transfer(b, self.transfer_dtype), self.device)
                 for b in it)
+
+    def _programs(self, state: TrainState):
+        """(train, eval): functions of one epoch's device batches returning
+        their losses, each step one replay of its captured program."""
+        from ..serve.graphs import GraphedFunction
+
+        tcfg, impl, dev = self.tcfg, self.impl, self.device
+        progs = {}
+        self.programs = {}   # kind -> the captured program
+
+        def run(kind, batches):
+            out = []
+            for group in chunks(batches, self.scan_steps):
+                if kind not in progs:
+                    buf = StepBuffer(group[0], self.scan_steps, 1, dev)
+                    if kind == "train":
+                        def body(buf=buf):
+                            return member_step(
+                                state, tcfg, {k: v[0] for k, v in
+                                              buf.read().items()},
+                                impl=impl, accum_steps=self.accum_steps)
+                        gens = (state.generator,)
+                    else:
+                        def body(buf=buf):
+                            return eval_loss(state.model, tcfg,
+                                             {k: v[0] for k, v in
+                                              buf.read().items()}, impl=impl)
+                        gens = ()
+                    progs[kind] = (buf, GraphedFunction(
+                        body, dev, name=f"Trainer.{kind}_step[{impl}]",
+                        generators=gens))
+                    self.programs[kind] = progs[kind][1]
+                buf, prog = progs[kind]
+                buf.load([[b] for b in group])
+                for _ in group:
+                    out.append(prog().clone())
+                    if kind == "train":
+                        state.step += 1
+            return out
+
+        return (lambda it: run("train", it)), (lambda it: run("eval", it))
 
     def fit(self, train_loader, valid_loader, *,
             state: Optional[TrainState] = None, epochs: Optional[int] = None,
@@ -437,14 +706,14 @@ class Trainer:
         # and must still train
         if start_epoch > 0 and stopper.bad >= stopper.patience:
             return state, history
+        run_train, run_eval = self._programs(state)
         for epoch in range(start_epoch, tcfg.epochs if epochs is None else epochs):
             t0 = time.perf_counter()
             counter = {"n": 0}
             # losses stay on the device until the epoch ends: fetching per
             # step would make the host wait for the card every step
-            losses = [self.train_step(state, b)
-                      for b in self._iter(train_loader, counter)]
-            va = [self.eval_step(state, b) for b in self._iter(valid_loader)]
+            losses = run_train(self._iter(train_loader, counter))
+            va = run_eval(self._iter(valid_loader))
             step_losses = (tuple(torch.stack(losses).cpu().tolist())
                            if losses else ())
             va_losses = torch.stack(va).cpu().tolist() if va else []

@@ -55,6 +55,8 @@ def run_kfold(
     seeds_per_fold: int = 1,
     device=None,
     transfer_dtype=None,
+    scan_steps: int = 1,
+    accum_steps: int = 1,
 ):
     """Train tcfg.n_folds * seeds_per_fold members of ModelConfig `cfg` (or
     an ExperimentConfig) on `device` ("cuda" unless "cpu" is asked for).
@@ -74,8 +76,9 @@ def run_kfold(
     last finished epoch with parameters, optimizer, dropout generator, LR
     and counters restored.  The loaders' epoch order restarts from their
     own seed, so with shuffling off the resumed run equals the
-    uninterrupted one bit for bit.  `transfer_dtype` is the Trainer's wire
-    format (engine.Trainer)."""
+    uninterrupted one bit for bit.  `transfer_dtype`, `scan_steps` and
+    `accum_steps` are the Trainer's (engine.Trainer): the wire format,
+    steps replayed back to back from one copy, gradient accumulation."""
     if seeds_per_fold < 1:
         raise ValueError(f"seeds_per_fold must be >= 1, got {seeds_per_fold}")
     samples = list(samples)
@@ -90,6 +93,7 @@ def run_kfold(
 
     trainer = engine.Trainer(
         cfg, tcfg, impl=impl, device=device, transfer_dtype=transfer_dtype,
+        scan_steps=scan_steps, accum_steps=accum_steps,
         checkpoint_cb=(lambda state, epoch, vl:
                        store.save_best(current["name"], state, epoch, vl))
         if store is not None else None,

@@ -121,6 +121,18 @@ def test_the_serving_io_slice_is_covered():
         assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
 
 
+def test_the_drivers_slice_is_covered():
+    """The modules of the whole-run drivers slice (device-resident epochs,
+    the lockstep k-fold, the learning-rate sweep and its cost bench, the
+    captured steps' engine and the capture ledger) are among those the
+    tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("train.device_epochs", "train.vmap_kfold", "train.sweep",
+              "bench", "bench.sweep_cost", "train.engine", "serve.graphs",
+              "ops.cuda_binding", "eval.ensemble", "pipelines", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"

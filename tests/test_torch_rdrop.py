@@ -100,6 +100,17 @@ class MaskTape:
         return torch.from_numpy(mask).to(device)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tiny models run op by op: with several test processes on one
+    host, PyTorch's default of one intra-op thread per core oversubscribes
+    it and the tests slow tenfold.  One thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _exp(name, rate):
     exp = configs.get(name)
     return dataclasses.replace(exp, model=dataclasses.replace(

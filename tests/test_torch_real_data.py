@@ -77,6 +77,17 @@ EPOCHS = {"mosei_trans": 1, "robot_demo": 2}
 IMPL = {"mosei_trans": "pallas_fused", "robot_demo": "pallas"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tiny models run op by op: with several test processes on one
+    host, PyTorch's default of one intra-op thread per core oversubscribes
+    it and the tests slow tenfold.  One thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _exp(name):
     return configs.with_overrides(configs.get(name), OVERRIDES[name])
 

@@ -49,6 +49,17 @@ OFFSETS = (0.1, -0.3, -0.5, -0.6, -0.3, -0.5)   # tests/test_train_eval.py:903
 CLIP_KEYS = ("l", "v", "a", "l_mask", "v_mask", "a_mask")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tiny models run op by op: with several test processes on one
+    host, PyTorch's default of one intra-op thread per core oversubscribes
+    it and the tests slow tenfold.  One thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _exp(**train):
     exp = configs.get("mosei_realformer")
     return dataclasses.replace(

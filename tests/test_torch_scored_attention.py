@@ -158,6 +158,39 @@ def test_kernel_takes_cuda_tensors_only():
             tpa.scored_forward_kernel.variant_launches) == before
 
 
+def test_capture_ledger_is_keyed_by_the_capture_stream():
+    """A launch counts into the ledger of the capture its stream belongs to,
+    from whichever thread launches it (autograd runs a captured backward
+    on its own device thread, on the forward's stream): a stub kernel
+    launched on the captured stream from a second thread lands in the
+    ledger and not in its counts; a launch on another stream, or after the
+    capture, counts; crediting the ledger adds its replays' launches."""
+    import threading
+
+    from multimodal_emotion_processing_tpu_torch.ops import cuda_binding
+
+    class Stub(cuda_binding.Kernel):
+        name = "stub"
+
+        def launch(self, stream):
+            self._count(stream=stream)
+
+    stub = Stub()
+    captured, other = 0x7000, 0x7008   # raw stream handles
+    with cuda_binding.capture_ledger(captured) as ledger:
+        worker = threading.Thread(target=lambda: (stub.launch(captured),
+                                                  stub.launch(captured)))
+        worker.start()
+        worker.join()
+        stub.launch(other)
+    assert stub.launches == 1
+    assert ledger == {(stub, "launches", None): 2}
+    stub.launch(captured)
+    assert stub.launches == 2
+    cuda_binding.credit(ledger, times=3)
+    assert stub.launches == 8
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

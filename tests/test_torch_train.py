@@ -34,6 +34,17 @@ TINY = dict(l_len=4, v_len=9, a_len=20, dim=12, n_heads=2, l_dim=7, v_dim=3,
             a_dim=5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tiny models run op by op: with several test processes on one
+    host, PyTorch's default of one intra-op thread per core oversubscribes
+    it and the tests slow tenfold.  One thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _exp(**train):
     exp = configs.get("mosei_trans")
     return dataclasses.replace(
