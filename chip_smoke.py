@@ -185,6 +185,21 @@ Phases, each reported on its own lines:
      on a 1,024-pair split, its member at the config's lr bit-equal to
      fit_fully_compiled.  The phases before it run run_experiment's
      default, the sequential driver.
+ 18. tools: the port's CLI tools at full width: `doctor` (its JSON line;
+     every floor positive, no GEMM share over 105 % of its peak);
+     `summary` of the five families and mosei_trans_s1024 (each total equal
+     to the built model's count and the JAX model's); four seeded ren_mme
+     members through `export-torch` and `import-torch` (bit-equal), then
+     `acceptance ren_mme` over a written Ren-MME tree at pallas_fused, the
+     ensemble's logits held against xla (2e-4) with its decisions; the
+     robot golden demo through `acceptance robot_demo` at pallas from
+     gate-set members over a written robot tree (probabilities within 2e-4
+     of xla); `tune mosei_trans_s1024 --arms scan,remat,impl --steps 4
+     --reps 2` (no arm in error) and remat's step-1 gradients at s1024 the
+     same bits as without it, with each one's peak memory and launches;
+     short `cli train` runs with --tuned (the applied knobs),
+     --profile-dir (the traces name fused_block) and --debug-nans with a
+     NaN in one feature (it must raise, naming the module).
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -5782,6 +5797,407 @@ def phase_drivers(torch, report):
     return launches
 
 
+# the tools phase: the port's CLI tools at full width.  doctor's GEMM
+# shares may not read above TOOLS_SHARE_MAX of their peaks; summary's
+# totals must equal the built models' counts and the JAX models' counts
+# this script already holds (TOOLS_PARAMS); the ren_mme round trip exports
+# TOOLS_MEMBERS seeded members with export-torch, imports them into a
+# fresh store and runs acceptance over a written Ren-MME tree at
+# pallas_fused, the ensemble's logits held against xla at EXP_LOGIT_TOL and
+# its decisions equal but within EXP_MARGIN of a threshold; the robot
+# golden demo at pallas over TOOLS_DEMO_CLIPS from gate-set members, its
+# probabilities within ROBOT_TOL of xla; tune at TOOLS_TUNE_ARGS, no arm in
+# error; remat's step-1 gradients at s1024 (flash, bf16, B TRAIN_BATCH) the
+# same bits as without it, or within REMAT_GRAD_TOL (normalised) where a
+# kernel's reduction order is not fixed; short trains (TOOLS_TRAIN_ARGS)
+# with --tuned, --profile-dir and --debug-nans
+TOOLS_ROOT = ROOT / "chip_smoke_out" / "tools"
+TOOLS_SHARE_MAX = 1.05
+TOOLS_PARAMS = {"mosei_trans": MT_PARAMS, "mosei_realformer": RF_PARAMS,
+                "rencecps": RC_PARAMS, "ren_mme": REN_PARAMS,
+                "robot_demo": ROBOT_PARAMS, "mosei_trans_s1024": S1024_PARAMS}
+TOOLS_MEMBERS = 4
+TOOLS_DEMO_CLIPS = ("clip0[0]", "clip3[0]")
+TOOLS_TUNE_ARGS = ("mosei_trans_s1024", "--arms", "scan,remat,impl",
+                   "--steps", "4", "--reps", "2")
+REMAT_GRAD_TOL = 1e-6
+TOOLS_TRAIN_ARGS = ("--epochs", "2", "--n-train", "256", "--n-test", "32",
+                    "--set", "train.n_folds=2", "--quiet")
+
+
+def run_cli(argv):
+    """cli.main(argv) with its stdout kept: (return value or SystemExit
+    code, the printed text)."""
+    import io
+
+    from multimodal_emotion_processing_tpu_torch import cli
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        try:
+            out = cli.main([str(a) for a in argv])
+        except SystemExit as e:
+            out = e.code
+    return out, text.getvalue()
+
+
+def tools_doctor(torch, report, smi):
+    """`doctor`: its one JSON line; every floor positive, every GEMM share
+    at most TOOLS_SHARE_MAX of its peak."""
+    out, text = run_cli(["doctor", "--json-only"])
+    rec = json.loads(text.strip().splitlines()[-1])
+    report["tools"]["doctor"] = rec
+    log(f"[tools] doctor: {json.dumps(rec)}; {smi}")
+    floors = ("launch_floor_ms", "graph_replay_floor_ms", "h2d_pageable_gb_s",
+              "h2d_pinned_gb_s", "sync_ms", "sync_fetch_ms")
+    bad = [k for k in floors if not (rec.get(k) or 0) > 0]
+    if bad:
+        raise AssertionError(f"doctor: not positive: {bad}")
+    shares = {k: rec[k] for k in rec if k.endswith("_peak_share")}
+    over = {k: v for k, v in shares.items() if v is None or v > TOOLS_SHARE_MAX}
+    if over:
+        raise AssertionError(f"doctor: GEMM shares over {TOOLS_SHARE_MAX}: {over}")
+
+
+def tools_summary(torch, report, smi):
+    """`summary` of the five families and s1024: each total equal to the
+    built model's parameter count and to the JAX model's (TOOLS_PARAMS)."""
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+
+    rows = {}
+    for name, want in TOOLS_PARAMS.items():
+        out, _ = run_cli(["summary", name])
+        built = sum(p.numel() for p in build_model(configs.get(name)).parameters())
+        rows[name] = {"total": out["total"], "built": built, "jax": want,
+                      "flops_per_sample": out["flops_per_sample"]}
+        if not out["total"] == built == want:
+            raise AssertionError(f"summary {name}: {rows[name]}")
+    report["tools"]["summary"] = rows
+    log("[tools] summary totals (= built = JAX): " + ", ".join(
+        f"{n} {r['total']:,} ({r['flops_per_sample']['forward']:.4g} forward "
+        f"FLOPs a sample)" for n, r in rows.items()))
+    torch.cuda.empty_cache()
+
+
+def tools_round_trip(torch, report, smi):
+    """ren_mme: TOOLS_MEMBERS seeded members at the reference width through
+    export-torch and import-torch (bit-equal), then `acceptance` over a
+    written Ren-MME tree at pallas_fused; the same evaluation at
+    pallas_fused and xla from the imported store (logits, decisions, the
+    acceptance's metrics)."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs, pipelines
+    from multimodal_emotion_processing_tpu_torch.eval.acceptance import (
+        REFERENCE_FOLD_LOSSES)
+    from multimodal_emotion_processing_tpu_torch.eval.ensemble import apply_thresholds
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.train.checkpoint import CheckpointStore
+
+    exp = configs.get("ren_mme")
+    src, dst, pts = (TOOLS_ROOT / d for d in ("src", "dst", "pt"))
+    store = CheckpointStore(str(src))
+    members = [build_model(exp, seed=i) for i in range(TOOLS_MEMBERS)]
+    losses = REFERENCE_FOLD_LOSSES["ren_mme"]["losses"]
+    for i, m in enumerate(members):
+        store.save_params(f"ren_mme_{i + 1}", m, valid_loss=losses[i],
+                          imported=False)
+    paths, _ = run_cli(["export-torch", "ren_mme", "--checkpoint-dir", src,
+                        "--out", pts])
+    names, _ = run_cli(["import-torch", "ren_mme", *paths,
+                        "--checkpoint-dir", dst])
+    imported = CheckpointStore(str(dst))
+    for i, (m, name, path) in enumerate(zip(members, names, paths)):
+        want = {k: v.cpu() for k, v in m.state_dict().items()}
+        for got in (imported.restore_params(name), torch.load(path)):
+            if list(got) != list(want) or not all(
+                    torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"{name}: the round trip changed bits")
+        if imported.manifest[name]["valid_loss"] != losses[i] \
+                or not imported.manifest[name].get("imported"):
+            raise AssertionError(f"{name}: manifest {imported.manifest[name]}")
+    tree = TOOLS_ROOT / "ren_mme_tree"
+    write_ren_mme_tree(tree, exp.model, np.random.default_rng(REAL_SEED))
+    kernels = all_kernels()
+    before = read_counts(kernels)
+    accepted = TOOLS_ROOT / "acceptance_ren_mme.json"
+    code, _ = run_cli(["acceptance", "ren_mme", "--data-root", tree,
+                       "--checkpoint-dir", dst, "--impl", "pallas_fused",
+                       "-o", accepted])
+    fused = read_counts(kernels)["fused_block"] - before["fused_block"]
+    rep = json.loads(accepted.read_text())
+    if code != 0 or not rep.get("ok") or fused == 0:
+        raise AssertionError(f"acceptance ren_mme: exit {code}, ok "
+                             f"{rep.get('ok')}, {fused} fused_block launches")
+    runs = {impl: pipelines.run_experiment(
+                "ren_mme", synthetic_data=False, data_root=str(tree),
+                checkpoint_dir=str(dst), epochs=0, impl=impl, quiet=True)
+            for impl in ("pallas_fused", "xla")}
+    got, ref = runs["pallas_fused"], runs["xla"]
+    err = normalised_err(got.logits, ref.logits)
+    th, idx = list(exp.thresholds), exp.emotion_index
+    dec, dec_x = (apply_thresholds(r.logits, th, idx) for r in (got, ref))
+    cols, cols_x = (np.stack([r.logits[:, i] for i in idx], 1)
+                    for r in (got, ref))
+    near = np.minimum(np.abs(cols - np.asarray(th)),
+                      np.abs(cols_x - np.asarray(th))) < EXP_MARGIN
+    unexplained = int(((dec != dec_x) & ~near).sum())
+    same_metrics = rep["metrics"] == json.loads(json.dumps(got.report))
+    report["tools"]["round_trip"] = {
+        "members": names, "files": [str(p) for p in paths],
+        "fused_block_launches": fused, "logit_err": err,
+        "decision_flips": int((dec != dec_x).sum()),
+        "unexplained_flips": unexplained, "decisions": int(dec.size),
+        "metrics_equal": same_metrics, "micro_f1": got.report["micro_f1"]}
+    log(f"[tools] ren_mme export-torch -> import-torch: {len(names)} members "
+        f"bit-equal; acceptance at pallas_fused ok ({fused} fused_block "
+        f"launches, micro F1 {got.report['micro_f1']:.6f}); ensemble logits "
+        f"{err:.2e} from xla (bound {EXP_LOGIT_TOL:g}), "
+        f"{int((dec != dec_x).sum())} of {dec.size} decisions differ, "
+        f"{unexplained} of them {EXP_MARGIN:g} or more from the threshold; "
+        f"{smi}")
+    if err > EXP_LOGIT_TOL or unexplained or not same_metrics:
+        raise AssertionError("ren_mme acceptance against xla: "
+                             f"{report['tools']['round_trip']}")
+
+
+def tools_golden_demo(torch, report, smi):
+    """robot_demo: TOOLS_MEMBERS seeded members with their gates set, saved
+    to a store; `acceptance` over a written robot tree at pallas; the
+    clips' unrounded probabilities at pallas against xla (ROBOT_TOL), and
+    the report's rounded ones equal to the pallas ones rounded."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs, pipelines
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.serve import StreamingPredictor
+    from multimodal_emotion_processing_tpu_torch.train.checkpoint import CheckpointStore
+
+    exp = configs.get("robot_demo")
+    tree, ck = TOOLS_ROOT / "robot_tree", TOOLS_ROOT / "robot_store"
+    rng = np.random.default_rng(REAL_SEED)
+    write_ren_tree(tree, rng, exp.model.l_dim)
+    write_robot_tree(tree, exp.model, rng)
+    members = [build_model(exp, seed=i) for i in range(TOOLS_MEMBERS)]
+    set_gates(torch, members)
+    store = CheckpointStore(str(ck))
+    for i, m in enumerate(members):
+        store.save_params(f"robot_demo_{i + 1}", m, valid_loss=1.3 + i / 100,
+                          imported=False)
+    kernels = all_kernels()
+    before = read_counts(kernels)
+    accepted = TOOLS_ROOT / "acceptance_robot.json"
+    code, _ = run_cli(["acceptance", "robot_demo", "--data-root", tree,
+                       "--checkpoint-dir", ck, "--impl", "pallas",
+                       "--demo-clips", *TOOLS_DEMO_CLIPS, "-o", accepted])
+    scored = read_counts(kernels)["scored_fwd"] - before["scored_fwd"]
+    rep = json.loads(accepted.read_text())
+    if code != 0 or not rep.get("ok") or scored == 0:
+        raise AssertionError(f"acceptance robot_demo: exit {code}, ok "
+                             f"{rep.get('ok')}, {scored} scored_fwd launches")
+    samples, _, ctx = pipelines.load_real_data(exp, str(tree))
+    by_name = {ctx["names"][int(s["name_idx"])]: s for s in samples}
+    probs = {impl: {c: StreamingPredictor(members, exp.thresholds, impl=impl)
+                    .predict(by_name[c])[1] for c in TOOLS_DEMO_CLIPS}
+             for impl in ("pallas", "xla")}
+    err = max(float(np.abs(probs["pallas"][c] - probs["xla"][c]).max())
+              for c in TOOLS_DEMO_CLIPS)
+    rounded = all(rep["golden_demo"]["clips"][c][n] == round(float(p), 2)
+                  for c in TOOLS_DEMO_CLIPS
+                  for n, p in zip(exp.emotion_names, probs["pallas"][c]))
+    report["tools"]["golden_demo"] = {
+        "clips": rep["golden_demo"]["clips"], "max_prob_err": err,
+        "scored_fwd_launches": scored, "rounded_equal": rounded}
+    log(f"[tools] robot_demo acceptance at pallas ({scored} scored_fwd "
+        f"launches): golden demo {rep['golden_demo']['clips']}; "
+        f"probabilities {err:.2e} from xla (bound {ROBOT_TOL:g}); {smi}")
+    if err > ROBOT_TOL or not rounded:
+        raise AssertionError(f"golden demo: {report['tools']['golden_demo']}")
+
+
+def remat_gradients(torch, report, smi):
+    """mosei_trans_s1024 (flash, bf16), one eager step at B TRAIN_BATCH from
+    the same weights and batch with remat off and on: the step-1 gradients,
+    the peak memory the step added and each kernel's launches."""
+    import dataclasses
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    exp = configs.get("mosei_trans_s1024")
+    batch = to_device(next(iter(Batcher(synthetic_dataset(
+        exp.name, exp.model, TRAIN_BATCH, seed=3), TRAIN_BATCH,
+        shuffle=False)())), "cuda")
+    kernels = all_kernels()
+    rows, grads = {}, {}
+    for remat in (False, True):
+        e = dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, remat=remat))
+        model = build_model(e, seed=0).train()
+        params = list(model.parameters())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts(kernels)
+        loss = engine.batch_loss(model, e.train, batch, impl="flash")
+        g = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        after = read_counts(kernels)
+        rows[remat] = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+                       "loss": float(loss.detach()),
+                       "launches": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}}
+        grads[remat] = [None if x is None else x.float().cpu() for x in g]
+        del model, params, loss, g
+        torch.cuda.empty_cache()
+    equal = worst = 0
+    for a, b in zip(grads[True], grads[False]):
+        if a is None and b is None:
+            continue
+        if torch.equal(a, b):
+            equal += 1
+        else:
+            worst = max(worst, float((a - b).abs().max())
+                        / max(1.0, float(b.abs().max())))
+    n = sum(b is not None for b in grads[False])
+    out = {"off": rows[False], "on": rows[True], "tensors": n,
+           "bit_equal_tensors": equal, "max_norm_err": worst,
+           "loss_equal": rows[True]["loss"] == rows[False]["loss"]}
+    report["tools"]["remat"] = out
+    log(f"[tools] remat at mosei_trans_s1024 (flash, bf16, B {TRAIN_BATCH}, "
+        f"one eager step): step-1 gradients {equal} of {n} tensors bit-equal"
+        f", the rest within {worst:.2e} (bound {REMAT_GRAD_TOL:g}), loss "
+        f"equal {out['loss_equal']}; peak memory the step added "
+        f"{rows[False]['peak_bytes'] / 2**30:.3f} GiB off, "
+        f"{rows[True]['peak_bytes'] / 2**30:.3f} GiB on; launches a step "
+        f"off {rows[False]['launches']}, on {rows[True]['launches']}; {smi}")
+    fwd_off = rows[False]["launches"].get("flash_fwd", 0)
+    if (worst > REMAT_GRAD_TOL or not out["loss_equal"]
+            or rows[True]["launches"].get("flash_fwd", 0) != 2 * fwd_off
+            or not fwd_off):
+        raise AssertionError(f"remat: {out}")
+
+
+def tools_tune(torch, report, smi):
+    """`tune` at TOOLS_TUNE_ARGS: the record, no arm in error; then the
+    remat gradient check.  Returns the record's path."""
+    path = TOOLS_ROOT / "tuned_s1024.json"
+    t0 = time.perf_counter()
+    rec, _ = run_cli(["tune", *TOOLS_TUNE_ARGS, "-o", path])
+    wall = time.perf_counter() - t0
+    report["tools"]["tune"] = rec
+    errors = {k: v for k, v in rec["measured"].items()
+              if isinstance(v, dict) and "error" in v}
+    log(f"[tools] tune {' '.join(TOOLS_TUNE_ARGS)} in {wall:.1f} s: "
+        f"measured {json.dumps(rec['measured'])}; winners "
+        f"{rec['winners']}; {rec['device']}, {rec['power_limit']}")
+    if errors:
+        raise AssertionError(f"tune arms in error: {errors}")
+    remat_gradients(torch, report, smi)
+    return path
+
+
+def tools_train(torch, report, smi, tuned):
+    """Short trains through `cli train`: mosei_trans_s1024 with --tuned (the
+    applied knobs logged), mosei_trans at pallas_fused with --profile-dir
+    (the traces exist and name fused_block), and with --debug-nans and a
+    NaN in one training feature (it must raise, naming the module)."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import cli, pipelines
+    from multimodal_emotion_processing_tpu_torch.bench.autotune import apply_tuned
+
+    out = report["tools"]["train"] = {}
+    argv = ["train", "mosei_trans_s1024", "--tuned", tuned, *TOOLS_TRAIN_ARGS]
+    applied = apply_tuned(cli.build_parser().parse_args(
+        [str(a) for a in argv]), str(tuned))
+    t0 = time.perf_counter()
+    res, _ = run_cli(argv)
+    out["tuned"] = {"applied": applied, "wall_s": time.perf_counter() - t0,
+                    "valid_losses": [h[-1].valid_loss
+                                     for h in res.fold_histories]}
+    log(f"[tools] train mosei_trans_s1024 --tuned: applied {applied}; "
+        f"{out['tuned']}")
+    if not all(np.isfinite(out["tuned"]["valid_losses"])):
+        raise AssertionError(f"tuned train: {out['tuned']}")
+
+    prof = TOOLS_ROOT / "profile"
+    run_cli(["train", "mosei_trans", "--impl", "pallas_fused",
+             "--profile-dir", prof, *TOOLS_TRAIN_ARGS])
+    traces = sorted(prof.glob("*.json"))
+    named = [p.name for p in traces if "fused_block" in p.read_text()]
+    out["profile"] = {"traces": [p.name for p in traces],
+                      "bytes": [p.stat().st_size for p in traces],
+                      "naming_fused_block": named}
+    log(f"[tools] train mosei_trans --profile-dir: {len(traces)} traces "
+        f"({out['profile']['bytes']} bytes), {len(named)} naming fused_block")
+    if not traces or len(named) != len(traces):
+        raise AssertionError(f"--profile-dir: {out['profile']}")
+
+    synthetic = pipelines._synthetic_data
+
+    def poisoned(exp, n_train, n_test, seed=0):
+        train, test = synthetic(exp, n_train, n_test, seed)
+        train[0]["l"][1, 3, 7] = np.nan
+        return train, test
+
+    pipelines._synthetic_data = poisoned
+    try:
+        run_cli(["train", "mosei_trans", "--impl", "pallas_fused",
+                 "--debug-nans", *TOOLS_TRAIN_ARGS])
+    except FloatingPointError as e:
+        out["debug_nans"] = str(e)
+    else:
+        raise AssertionError("--debug-nans: a NaN feature trained without "
+                             "an error")
+    finally:
+        pipelines._synthetic_data = synthetic
+    log(f"[tools] train mosei_trans --debug-nans with a NaN feature raised: "
+        f"{out['debug_nans']}")
+    if "unify_dimension.linguistic" not in out["debug_nans"]:
+        raise AssertionError("--debug-nans named another module")
+
+
+def phase_tools(torch, report):
+    """Phase tools: doctor, summary, the export/import round trip and
+    acceptance at ren_mme, the robot golden demo, tune at s1024 with the
+    remat check, and the short trains with --tuned, --profile-dir and
+    --debug-nans.  Every kernel counted over the whole phase; each must
+    have launched.  Returns the counts."""
+    import shutil
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report["tools"] = {}
+    smi = nvidia_smi_line()
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    TOOLS_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    kernels = all_kernels()
+    reset_counts(kernels)
+    tools_doctor(torch, report, smi)
+    tools_summary(torch, report, smi)
+    tools_round_trip(torch, report, smi)
+    tools_golden_demo(torch, report, smi)
+    tuned = tools_tune(torch, report, smi)
+    tools_train(torch, report, smi, tuned)
+    launches = read_counts(kernels)
+    report["tools"]["wall_s"] = time.perf_counter() - t0
+    report["tools"]["launches"] = launches
+    log(f"[tools] phase wall {report['tools']['wall_s']:.1f} s; launches "
+        f"{launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels of the tools' paths never launched: "
+                             f"{missing}")
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    return launches
+
+
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
                 "scored_bwd_dq", "scored_bwd_dkv", "fused_block")
 
@@ -5932,7 +6348,8 @@ def main() -> int:
                       ("experiment_families", phase_experiment_families),
                       ("real_data", phase_real_data),
                       ("serve_io", phase_serve_io),
-                      ("drivers", phase_drivers)):
+                      ("drivers", phase_drivers),
+                      ("tools", phase_tools)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -5953,7 +6370,7 @@ def main() -> int:
     def experiment_paths(name):
         return {p: launches[p][name]
                 for p in ("experiment", "experiment_families", "real_data",
-                          "drivers")}
+                          "drivers", "tools")}
 
     def tc_count(library, kernel):
         return sum(n for fn, n in report["tensor_core_instructions"].get(

@@ -48,8 +48,40 @@
         [--batch B] [--device cpu]   the ensemble's serving computation at
         impl=xla, weights included, as one torch.export artifact
         (serve/export.py) for one device and one batch size.
+  import-torch <config> A.pt B.pt ... --checkpoint-dir D [--force]
+        [--set K=V]   reference `.pt` state dicts (cmu-mosei/run.py:446-453) into the
+        store as members <config>_1, _2, ... with the valid loss their
+        file names carry; then `eval`, `serve`, `predict` and `export`
+        use them.
+  export-torch <config> --checkpoint-dir D [--out DIR] [--set K=V]   each
+        best member written as a reference `.pt` state dict,
+        `<name>_<loss>.pt`.
+  acceptance <config> --data-root R --checkpoint-dir D [--torch-ckpts
+        ...] [--train-from-scratch] [--impl ...] [--device cpu] [-o F]
+        the real-corpus acceptance flow (eval/acceptance.py): check-data,
+        import, the reference's evaluation or the robot golden demo.
+  summary <config> [--set K=V] [--depth N]   per-module parameter counts,
+        the total and the analytic FLOPs a sample (bench/flops.py).
+  doctor [--json-only]   the card's launch floor, host-to-device
+        bandwidth, matmul rates and sync honesty (bench/doctor.py).
+  tune <config> [-o F] [--arms scan,stacked,transfer,remat,impl]
+        [--allow-lossy] [--steps N] [--reps R]   this card's winners of
+        the performance knobs (bench/autotune.py), which train, eval,
+        predict and serve apply with --tuned F.
 
-Every command runs on the GPU unless `--device cpu` is given.
+Every command's positional config may also be a `.json` file: overrides
+({"config": name, "model": {...}, "train": {...}}) or a run's
+run_meta.json, replayed field for field (configs.load_config_file);
+explicit --set pairs win over the file.  `train` and `eval` take
+--profile-dir DIR (a torch.profiler trace of the first epoch after the
+captures) and --debug-nans (fail on the first non-finite value, naming
+the module; the steps then run eagerly).
+
+Every command runs on the GPU unless `--device cpu` is given; import-torch
+and export-torch convert files on the host.  JAX's `bench` command (its
+bench.py) has no counterpart yet, and its --compile-cache has none: the
+port compiles no programs, and its kernels are cached in `_build/` by the
+hash of their sources.
 """
 
 from __future__ import annotations
@@ -101,8 +133,18 @@ def build_parser() -> argparse.ArgumentParser:
                         help="config override, model.K=V or train.K=V "
                              "(values parsed as JSON)")
 
+    def config(sp, **kw):
+        sp.add_argument("config", help="config name (see `configs`), or a "
+                        ".json file ({'config': name, 'model'/'train': "
+                        "overrides}, or a run's run_meta.json)", **kw)
+
+    def tuned(sp):
+        sp.add_argument("--tuned", default=None, metavar="TUNED_JSON",
+                        help="apply the winners a `tune` run measured; "
+                             "explicit flags win over the file")
+
     def common(sp):
-        sp.add_argument("config")
+        config(sp)
         sp.add_argument("--epochs", type=int, default=None,
                         help="epochs (default: the config's, with its "
                              "early stop)")
@@ -152,6 +194,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "this many micro-batches (the exact full-batch "
                              "gradient, ~N-fold less activation memory; the "
                              "sequential k-fold driver)")
+        sp.add_argument("--profile-dir", default=None, metavar="DIR",
+                        help="write a torch.profiler trace (Chrome/Perfetto) "
+                             "of the first epoch after the captures into DIR "
+                             "(one-dispatch runs trace their whole run)")
+        sp.add_argument("--debug-nans", action="store_true",
+                        help="fail on the first NaN or inf, naming the module "
+                             "(forward) or the autograd function (backward); "
+                             "the steps then run eagerly")
+        tuned(sp)
         overrides(sp)
         device(sp)
 
@@ -169,7 +220,7 @@ def build_parser() -> argparse.ArgumentParser:
         "sweep", help="learning-rate sweep: every (lr x seed) candidate "
                       "trained together on the fold-0 split and ranked by "
                       "best valid loss")
-    sw.add_argument("config")
+    config(sw)
     sw.add_argument("--lrs", required=True,
                     help="comma-separated learning-rate candidates, e.g. "
                          "1e-3,3e-4,1e-4")
@@ -200,7 +251,7 @@ def build_parser() -> argparse.ArgumentParser:
     pd = sub.add_parser(
         "predict", help="per-sample ensemble logits, calibrated "
                         "probabilities and decisions to .npz/.csv/.jsonl")
-    pd.add_argument("config")
+    config(pd)
     pd.add_argument("--output", "-o", required=True,
                     help="output path; the format by extension: "
                          ".npz/.csv/.jsonl")
@@ -231,6 +282,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "captured program per batch (the same logits as "
                          "the per-batch path)")
     transfer(pd)
+    tuned(pd)
     overrides(pd)
     device(pd)
 
@@ -246,11 +298,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="validate a real corpus tree for a config before training: "
              "every file and directory it reads, the corpus counts and the "
              "feature coverage as one JSON document (exit 1 on problems)")
-    cd.add_argument("config")
+    config(cd)
     cd.add_argument("--data-root", required=True)
 
     sv = sub.add_parser("serve", help="ensemble serving on synthetic requests")
-    sv.add_argument("config", nargs="?", default="robot_demo")
+    config(sv, nargs="?", default="robot_demo")
     sv.add_argument("--checkpoint-dir", default=None,
                     help="serve the store's best members (default: four "
                          "seeded random members)")
@@ -274,6 +326,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "concurrent requests micro-batch; blocks until "
                          "Ctrl-C")
     sv.add_argument("--http-host", default="127.0.0.1")
+    tuned(sv)
     overrides(sv)
     device(sv)
 
@@ -281,7 +334,7 @@ def build_parser() -> argparse.ArgumentParser:
         "export", help="export the serving computation (ensemble and "
                        "calibrated sigmoid, weights included) as one "
                        "torch.export artifact")
-    ex.add_argument("config", nargs="?", default="robot_demo")
+    config(ex, nargs="?", default="robot_demo")
     ex.add_argument("--checkpoint-dir", default=None,
                     help="export the store's best members (default: four "
                          "seeded random members)")
@@ -292,7 +345,103 @@ def build_parser() -> argparse.ArgumentParser:
                          "program (one artifact per bucket size)")
     overrides(ex)
     device(ex)
+
+    it = sub.add_parser(
+        "import-torch",
+        help="reference .pt checkpoints (torch state dicts, the files "
+             "cmu-mosei/run.py:446-453 reloads by name) into the checkpoint "
+             "store; then eval/serve/predict/export use them")
+    config(it)
+    it.add_argument("pt", nargs="+", help=".pt files, one ensemble member "
+                    "each (member order = argument order)")
+    it.add_argument("--checkpoint-dir", required=True)
+    it.add_argument("--force", action="store_true",
+                    help="overwrite members that already exist in the store")
+    overrides(it)
+
+    et = sub.add_parser(
+        "export-torch",
+        help="write each best member as a reference-format torch state dict "
+             "(.pt) that the reference's scripts load")
+    config(et)
+    et.add_argument("--checkpoint-dir", required=True)
+    et.add_argument("--out", default=".", help="output directory")
+    overrides(et)
+
+    ac = sub.add_parser(
+        "acceptance",
+        help="real-corpus acceptance flow: validate the tree, optionally "
+             "import reference .pt checkpoints, then the reference's "
+             "evaluation or the golden demo (docs/REAL_DATA.md)",
+        add_help=False)
+    ac.add_argument("rest", nargs=argparse.REMAINDER)
+
+    sm = sub.add_parser(
+        "summary", help="per-module parameter counts, the total and the "
+                        "analytic FLOPs a sample")
+    config(sm)
+    overrides(sm)
+    sm.add_argument("--depth", type=int, default=2,
+                    help="dotted name depth to group parameters by")
+    device(sm)
+
+    dr = sub.add_parser(
+        "doctor", help="environment diagnostics: launch floor, H2D "
+                       "bandwidth, matmul rates, sync honesty (one JSON "
+                       "line on stdout)")
+    dr.add_argument("--json-only", action="store_true")
+    dr.add_argument("--scan-k", type=int, default=64)
+    device(dr)
+
+    tn = sub.add_parser(
+        "tune", help="measure this card's winners for the selectable "
+                     "performance knobs and write a record that train, "
+                     "eval, predict and serve apply with --tuned")
+    config(tn)
+    tn.add_argument("-o", "--out", default=None,
+                    help="write the tuned record here (also printed)")
+    tn.add_argument("--allow-lossy", action="store_true",
+                    help="also tune knobs that change numerics (the int8 "
+                         "and float16 wires)")
+    tn.add_argument("--arms", default=None, metavar="A,B,...",
+                    help="subset of scan,stacked,transfer,remat,impl")
+    tn.add_argument("--steps", type=int, default=20)
+    tn.add_argument("--reps", type=int, default=4)
+    device(tn)
     return p
+
+
+def apply_config_file(args) -> None:
+    """If the positional `config` is a `.json` file, resolve it
+    (configs.load_config_file): the registered name replaces args.config
+    and the file's model/train overrides go before args.set, so explicit
+    --set pairs still win (parse_overrides applies them last).  `train
+    run_meta.json` reproduces a recorded run's config (JAX cli.py:373-406)."""
+    name = getattr(args, "config", None)
+    if not (isinstance(name, str) and name.endswith(".json")):
+        return
+    if not os.path.exists(name):
+        raise SystemExit(f"config file {name!r} does not exist")
+    from . import configs
+
+    try:
+        cfg_name, file_overrides = configs.load_config_file(name)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if cfg_name is None:
+        raise SystemExit(
+            f"{name} names no base config; add a top-level "
+            "\"config\": \"<registry name>\" key")
+    pairs = [f"{sec}.{k}={json.dumps(v)}"
+             for sec in ("model", "train")
+             for k, v in file_overrides.get(sec, {}).items()]
+    if pairs and not hasattr(args, "set"):
+        raise SystemExit(
+            f"`{args.cmd}` takes no config overrides; {name} carries "
+            f"{len(pairs)}: pass the bare config name instead")
+    args.config = cfg_name
+    if hasattr(args, "set"):
+        args.set = pairs + list(args.set)
 
 
 def cmd_train(args, eval_only: bool = False):
@@ -302,6 +451,18 @@ def cmd_train(args, eval_only: bool = False):
         raise SystemExit(
             "eval requires --checkpoint-dir (otherwise there are no trained "
             "members to ensemble; run `train` first)")
+    if args.debug_nans:
+        from .utils.logging import enable_nan_debugging
+
+        enable_nan_debugging(True)
+        try:
+            return _train(args, eval_only, run_experiment)
+        finally:
+            enable_nan_debugging(False)
+    return _train(args, eval_only, run_experiment)
+
+
+def _train(args, eval_only, run_experiment):
     result = run_experiment(
         args.config, synthetic_data=args.data_root is None,
         data_root=args.data_root, n_train=args.n_train, n_test=args.n_test,
@@ -317,7 +478,7 @@ def cmd_train(args, eval_only: bool = False):
         # driver, as fast on the card)
         vmap_folds=args.device_resident or args.one_dispatch,
         device_resident=args.device_resident, one_dispatch=args.one_dispatch,
-        accum_steps=args.accum_steps)
+        accum_steps=args.accum_steps, profile_dir=args.profile_dir)
     for i, hist in enumerate(result.fold_histories):
         for epoch, stats in enumerate(hist):
             print(json.dumps({
@@ -594,6 +755,96 @@ def cmd_export(args):
     return blob
 
 
+def cmd_import_torch(args):
+    """The reference user's migration path: their loss-tagged .pt files
+    (cmu-mosei/run.py:446-453) become store members that eval, serve,
+    predict and export use, with no retraining."""
+    from .eval.acceptance import import_torch_members
+
+    try:
+        names = import_torch_members(args.config, args.pt,
+                                     args.checkpoint_dir, force=args.force,
+                                     overrides=parse_overrides(args.set))
+    except ValueError as e:
+        raise SystemExit(str(e))
+    from .train.checkpoint import CheckpointStore
+
+    manifest = CheckpointStore(args.checkpoint_dir).manifest
+    for path, name in zip(args.pt, names):
+        print(f"imported {path} -> {name} "
+              f"(valid_loss={manifest[name]['valid_loss']})")
+    print(f"{len(names)} member(s) in {args.checkpoint_dir}; use them via "
+          f"`eval|serve|predict|export {args.config} --checkpoint-dir "
+          f"{args.checkpoint_dir}`")
+    return names
+
+
+def cmd_export_torch(args):
+    """Each best member as a reference `.pt` state dict named by the
+    reference's convention, `{name}_{str(valid_loss)[:4]}.pt`
+    (cmu-mosei/run.py:415)."""
+    import torch
+
+    from . import configs
+    from .interop.torch_compat import to_reference_state_dict
+    from .models import build_model
+    from .train.checkpoint import CheckpointStore
+
+    exp = configs.with_overrides(configs.get(args.config),
+                                 parse_overrides(args.set))
+    store = CheckpointStore(args.checkpoint_dir)
+    names = store.best_members(args.config)
+    if not names:
+        raise SystemExit(f"no '{args.config}*' members in {args.checkpoint_dir}")
+    os.makedirs(args.out, exist_ok=True)
+    paths = []
+    for name in names:
+        model = store.restore_params(name, build_model(exp, device="cpu"))
+        sd = to_reference_state_dict(model)
+        loss = store.manifest[name].get("valid_loss", 0.0)
+        path = os.path.join(args.out, f"{name}_{str(loss)[:4]}.pt")
+        torch.save(sd, path)
+        print(f"wrote {path} ({len(sd)} tensors)")
+        paths.append(path)
+    return paths
+
+
+def cmd_summary(args):
+    from . import configs
+    from .bench import flops
+    from .models import build_model
+    from .utils import parameter_breakdown, parameter_count
+
+    exp = configs.with_overrides(configs.get(args.config),
+                                 parse_overrides(args.set))
+    model = build_model(exp, device=args.device)
+    out = {
+        "config": args.config,
+        "parameters": parameter_breakdown(model, depth=args.depth),
+        "total": parameter_count(model)["Total"],
+        "flops_per_sample": {
+            "forward": flops.forward_flops_per_sample(exp.model),
+            "train_step": flops.train_flops_per_sample(exp.model),
+        },
+    }
+    print(json.dumps(out, indent=2))
+    return out
+
+
+def cmd_tune(args):
+    from .bench.autotune import tune
+
+    rec = tune(args.config, arms=args.arms.split(",") if args.arms else None,
+               allow_lossy=args.allow_lossy, steps=args.steps, reps=args.reps,
+               device=args.device, quiet=False)
+    line = json.dumps(rec)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return rec
+
+
 def _serve_paragraph(args, exp, members, offsets, impl):
     """Stream one synthetic paragraph clip by clip (JAX cli.py:544-577)."""
     from .data.synthetic import synthetic_dataset
@@ -624,6 +875,13 @@ def _serve_paragraph(args, exp, members, offsets, impl):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    apply_config_file(args)
+    if getattr(args, "tuned", None):
+        from .bench.autotune import apply_tuned
+
+        applied = apply_tuned(args, args.tuned)
+        if applied and not getattr(args, "quiet", False):
+            print(f"(tuned knobs applied: {applied})", file=sys.stderr)
     if args.cmd == "train":
         return cmd_train(args)
     if args.cmd == "eval":
@@ -642,4 +900,25 @@ def main(argv=None):
         return cmd_serve(args)
     if args.cmd == "export":
         return cmd_export(args)
+    if args.cmd == "import-torch":
+        return cmd_import_torch(args)
+    if args.cmd == "export-torch":
+        return cmd_export_torch(args)
+    if args.cmd == "acceptance":
+        from .eval.acceptance import main as acceptance_main
+
+        raise SystemExit(acceptance_main(args.rest))
+    if args.cmd == "summary":
+        return cmd_summary(args)
+    if args.cmd == "doctor":
+        from .bench.doctor import main as doctor_main
+
+        argv = ["--scan-k", str(args.scan_k)]
+        if args.json_only:
+            argv.append("--json-only")
+        if args.device:
+            argv += ["--device", args.device]
+        return doctor_main(argv)
+    if args.cmd == "tune":
+        return cmd_tune(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

@@ -275,3 +275,40 @@ def with_overrides(exp: ExperimentConfig, overrides) -> ExperimentConfig:
             exp.model, **coerce(exp.model, overrides.get("model", {}))),
         train=dataclasses.replace(
             exp.train, **coerce(exp.train, overrides.get("train", {}))))
+
+
+def load_config_file(path: str):
+    """A JSON config file as `(config name or None, overrides)` in
+    `with_overrides`' shape (JAX configs.load_config_file).
+
+    Two shapes are accepted:
+    1. an override document: an optional "config" naming the registered
+       base, and "model" / "train" sections of field overrides, e.g.
+       {"config": "mosei_trans", "train": {"batch_size": 32}};
+    2. a run's `run_meta.json` (pipelines._write_run_meta): its
+       "resolved_config" is replayed field for field, so `train
+       <dir>/run_meta.json` reproduces that run's hyperparameters even if
+       the registered defaults have moved since.
+
+    The thresholds and emotion tables always come from the named
+    registered config (a tool's --thresholds overrides the thresholds)."""
+    import json
+
+    with open(path) as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict):
+        raise ValueError(f"{path}: expected a JSON object")
+    if "resolved_config" in doc:
+        resolved = doc["resolved_config"]
+        return doc.get("config") or resolved.get("name"), {
+            "model": dict(resolved.get("model", {})),
+            "train": dict(resolved.get("train", {})),
+        }
+    unknown = set(doc) - {"config", "model", "train"}
+    if unknown:
+        raise ValueError(
+            f"{path}: unknown top-level key(s) {sorted(unknown)}; expected "
+            "{'config': name?, 'model': {...}?, 'train': {...}?} or a "
+            "run_meta.json")
+    return doc.get("config"), {k: dict(doc[k])
+                               for k in ("model", "train") if k in doc}

@@ -1,1 +1,2 @@
-from .torch_compat import from_jax_params  # noqa: F401
+from .torch_compat import (from_jax_params, load_reference_checkpoint,  # noqa: F401
+                           to_reference_state_dict)

@@ -13,6 +13,13 @@ unify's shared `norm1`, the blocks' `norm2`, the top `norm3`),
 blocks, multi-resolution conv unify, position embeddings) and
 `state_transfer` (RealFormer blocks, the bias-free conv unify, position
 embeddings, the feature head).
+
+The reference's own `.pt` files (`torch.save(model.state_dict())`,
+cmu-mosei/run.py:415, 446-453) carry the same key names, so they load
+into a port model as they are (`load_reference_checkpoint`), and a port
+member writes back out as one (`to_reference_state_dict`): JAX
+interop/torch_compat.py:137-192 and 247-292, whose layout conversions
+the port does not need.
 """
 
 from __future__ import annotations
@@ -24,7 +31,16 @@ import torch
 
 from ..models.grid import STREAMS
 from ..models.layers import minus_norm_names
-from ..models.registry import is_ported
+from ..models.registry import build_model, is_ported
+
+# keys of a reference state dict that no port module holds: robot_demo.py's
+# Multi_class defines fully_connected and normalization but never calls
+# them (its FC path is commented out, robot_demo.py:440), and the JAX
+# converter reads neither
+UNUSED_REFERENCE_KEYS = {
+    "grid_only": ("fully_connected.weight", "fully_connected.bias",
+                  "normalization.weight", "normalization.bias"),
+}
 
 
 def _t(w) -> np.ndarray:
@@ -144,3 +160,26 @@ def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
         _ln(params["norm"], minus_norm_names(cfg)[1], out)
         _linear(params["out"], "out", out)
     return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def load_reference_checkpoint(path: str, cfg) -> torch.nn.Module:
+    """A reference `.pt` state dict loaded, strictly, into a CPU model of
+    `cfg` (a ModelConfig or an ExperimentConfig), which is returned.  The
+    file is read with `weights_only=True`; a key the model lacks or a
+    missing one raises, except the reference's unused
+    `UNUSED_REFERENCE_KEYS`, which are dropped."""
+    mcfg = getattr(cfg, "model", cfg)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in UNUSED_REFERENCE_KEYS.get(mcfg.head, ()):
+        sd.pop(key, None)
+    model = build_model(mcfg, device="cpu")
+    model.load_state_dict(sd)
+    return model
+
+
+def to_reference_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A member's parameters as a reference-keyed state dict of contiguous
+    CPU copies: `torch.save` of it is a `.pt` file the reference's scripts
+    load (`export-torch`)."""
+    return {k: v.detach().to("cpu", copy=True).contiguous()
+            for k, v in model.state_dict().items()}

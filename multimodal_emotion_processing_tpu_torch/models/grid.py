@@ -27,18 +27,32 @@ In training with dropout > 0 the dropout masks come from the one
 `torch.Generator` passed to `forward`, drawn in `apply_grid`'s order: the
 unify's sites, then each stream's blocks in `STREAMS` order, layer by
 layer, then the feature head's.
+
+`ModelConfig.remat` (JAX grid.py:404-423, `jax.checkpoint` of each block
+call): while gradients are recorded, each block runs under
+`torch.utils.checkpoint` (non-reentrant), so that only its inputs and
+outputs are kept for the backward and its insides (the attention's
+saved tensors, the epilogue's activations) are recomputed there; its
+kernels then launch a second time in the backward.  The recompute must
+see what the forward saw: the block's keep masks are drawn before the
+checkpointed region, in the block's own order, and handed in
+(`layers.DrawnMasks`), which an explicit generator would not give it,
+and its parameters go in as inputs (`rematerialized_block`).  The values
+and gradients are those of the run without remat.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.pooling import mean_max_pool
 from ..utils import initializers as init
-from .layers import (MinusBlock, PositionEmbedding, RealformerBlock,
-                     UnifyConv, UnifyConvMultires, UnifyLinear, active_rate,
-                     dropout, minus_norm_names)
+from .layers import (DrawnMasks, MinusBlock, PositionEmbedding,
+                     RealformerBlock, UnifyConv, UnifyConvMultires,
+                     UnifyLinear, active_rate, block_keep_masks, dropout,
+                     minus_norm_names)
 
 # (stream key, query modality, key/value modality) — reference order.
 STREAMS = (
@@ -56,6 +70,29 @@ POSITIONS = (("l", "linguistic_position"), ("v", "visual_position"),
              ("a", "acoustic_position"))
 
 
+def rematerialized_block(block, q, kv, mask, scores, *, impl: str,
+                         emit_scores: bool, generator):
+    """`block(q, kv, kv, mask, scores)` under `torch.utils.checkpoint`, its
+    keep masks drawn here, outside the checkpointed region.  The block's
+    parameters as the forward sees them go in as inputs and the block runs
+    on them (`torch.func.functional_call`): under bf16 compute the forward
+    sees bf16 copies (engine.batch_loss), which are gone from the module by
+    the time the backward recomputes.  No default generator's state is
+    saved (`preserve_rng_state=False`): no mask comes from one, and reading
+    it is not allowed inside a CUDA-graph capture."""
+    keeps = block_keep_masks(block, q, generator)
+    params = dict(block.named_parameters())
+
+    def call(q, kv, mask, scores, params, *keeps):
+        return torch.func.functional_call(
+            block, params, (q, kv, kv, mask, scores),
+            {"impl": impl, "emit_scores": emit_scores,
+             "generator": DrawnMasks(keeps)})
+
+    return checkpoint(call, q, kv, mask, scores, params, *keeps,
+                      use_reentrant=False, preserve_rng_state=False)
+
+
 class Grid(nn.Module):
     """Unify projection (+ position embeddings), 9 * n_layers blocks and the
     head `out`; block `n_layers * s + i` is layer i of stream s.  The config
@@ -67,6 +104,7 @@ class Grid(nn.Module):
         self.out = out
         self.n_layers = cfg.n_layers
         self.dropout = cfg.dropout
+        self.remat = cfg.remat
         if cfg.unify in ("linear", "linear_ln"):
             self.unify_dimension = UnifyLinear(
                 cfg.l_dim, cfg.v_dim, cfg.a_dim, cfg.dim,
@@ -134,14 +172,22 @@ class Grid(nn.Module):
         # every layer's output feeds the classifiers; only each stream's
         # last one feeds the feature head (apply_grid's collect="final")
         per_layer = self.out != "feature"
+        remat = self.remat and torch.is_grad_enabled()
         collected = {"l": [], "v": [], "a": []}
         for s, (name, qm, kvm) in enumerate(STREAMS):
             q, scores = src[qm], None
             for i in range(self.n_layers):
+                block = self.multimodal_blocks[self.n_layers * s + i]
                 # the stream's last block has no consumer for its scores
-                q, scores = self.multimodal_blocks[self.n_layers * s + i](
-                    q, src[kvm], src[kvm], masks[kvm], scores, impl=impl,
-                    emit_scores=i < self.n_layers - 1, generator=generator)
+                emit = i < self.n_layers - 1
+                if remat:
+                    q, scores = rematerialized_block(
+                        block, q, src[kvm], masks[kvm], scores, impl=impl,
+                        emit_scores=emit, generator=generator)
+                else:
+                    q, scores = block(q, src[kvm], src[kvm], masks[kvm],
+                                      scores, impl=impl, emit_scores=emit,
+                                      generator=generator)
                 if per_layer or i == self.n_layers - 1:
                     collected[TARGET[name]].append(q)
         lc = torch.cat(collected["l"], dim=2)

@@ -47,23 +47,68 @@ def keep_mask(shape, keep: float, generator: torch.Generator,
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
-def dropout(x, rate: float, generator: torch.Generator | None):
+class DrawnMasks:
+    """Keep masks drawn ahead (by `keep_mask`, in the order of the sites
+    that take them), handed to those sites in that order in place of a
+    generator: a block under rematerialisation reads the same masks in its
+    forward and in its recompute, where an explicit `torch.Generator`
+    would have moved on (`torch.utils.checkpoint` restores only the
+    default generators)."""
+
+    def __init__(self, masks):
+        self._masks = list(masks)
+        self._next = 0
+
+    def take(self, shape) -> torch.Tensor:
+        if self._next >= len(self._masks):
+            raise ValueError(f"{len(self._masks)} keep masks were drawn "
+                             "ahead and a further dropout site asked for one")
+        mask = self._masks[self._next]
+        if mask.shape != shape:
+            raise ValueError(f"keep mask {tuple(mask.shape)} drawn ahead for "
+                             f"a dropout site of shape {tuple(shape)}")
+        self._next += 1
+        return mask
+
+
+def _generator(rate: float, generator):
+    if generator is None:
+        raise ValueError(
+            f"dropout {rate} is active (training mode) and no torch.Generator "
+            "was passed: the port draws every dropout mask from one")
+    return generator
+
+
+def dropout(x, rate: float, generator):
     """JAX's dropout (`layers.dropout`): where a Bernoulli(1 − rate) keep
     mask is set, x / keep, else 0; x itself at rate 0.  The division is by
     keep as a tensor of x's dtype, so it is a true division on the card too
     (a Python-scalar divisor becomes a product with 1 / keep there, one
     rounding away from JAX's x / keep).  Callers pass rate 0 outside
-    training; an active site without a generator raises."""
+    training; an active site without a generator raises.  `generator` is
+    a `torch.Generator` or the `DrawnMasks` of a rematerialised block."""
     if rate <= 0.0:
         return x
-    if generator is None:
-        raise ValueError(
-            f"dropout {rate} is active (training mode) and no torch.Generator "
-            "was passed: the port draws every dropout mask from one")
     keep = 1.0 - rate
-    mask = keep_mask(x.shape, keep, generator, x.device)
+    if isinstance(generator, DrawnMasks):
+        mask = generator.take(x.shape)
+    else:
+        mask = keep_mask(x.shape, keep, _generator(rate, generator), x.device)
     return torch.where(
         mask, x / torch.full((), keep, dtype=x.dtype, device=x.device), 0.0)
+
+
+def block_keep_masks(block: nn.Module, q, generator) -> tuple:
+    """The keep masks of a minus or RealFormer block's two dropout sites
+    (after `proj`, then after the LayerNorm or the FFN; each of q's shape),
+    drawn from `generator` in the order the block's forward draws them;
+    none where its dropout is inactive."""
+    rate = active_rate(block)
+    if rate <= 0.0:
+        return ()
+    gen = _generator(rate, generator)
+    return tuple(keep_mask(q.shape, 1.0 - rate, gen, q.device)
+                 for _ in range(2))
 
 
 def active_rate(module: nn.Module) -> float:

@@ -26,8 +26,7 @@ a host round trip).
 fold 0's split (train/sweep.py); `run_predict(device_resident=True)`
 scores a split staged on the card (`Ensemble.predict_all_staged`).
 
-Not ported yet: data- and tensor-parallel meshes, the profile option and
-the stacked grid.
+Not ported yet: data- and tensor-parallel meshes and the stacked grid.
 """
 
 from __future__ import annotations
@@ -369,6 +368,7 @@ def run_experiment(
     device_resident: bool = False,
     one_dispatch: bool = False,
     accum_steps: int = 1,
+    profile_dir: Optional[str] = None,
 ) -> PipelineResult:
     """One reference script: the train samples carved into the config's k
     folds, one member trained per fold (and per extra seed,
@@ -402,7 +402,12 @@ def run_experiment(
     their steps back to back; `accum_steps` accumulates the gradient over
     micro-batches (the sequential driver).  Pair-level units, robot_demo's
     per-epoch resampling, unequal folds and a host-fed int8 wire fall back
-    as JAX's do.  The drivers are recorded in run_meta.json."""
+    as JAX's do.  The drivers are recorded in run_meta.json.
+
+    `profile_dir`: torch.profiler traces (utils/logging.profile_trace) into
+    this directory: each sequential member's first epoch after its
+    captures, the lockstep's first such epoch, or one-dispatch's whole
+    run."""
     exp = configs.with_overrides(configs.get(config_name), overrides)
     impl = impl or exp.model.attn_impl
     device = resolve_device(device)
@@ -547,7 +552,7 @@ def run_experiment(
                       fold_size=exp.train.fold_size, duplicate=duplicate,
                       seeds_per_fold=seeds_per_fold,
                       transfer_dtype=transfer_dtype, device=device,
-                      info=driver_stats)
+                      info=driver_stats, profile_dir=profile_dir)
         if one_dispatch:
             _, hists, best_members, best_losses = run_kfold_fully_compiled(
                 train_samples, exp, exp.train, **common)
@@ -568,7 +573,8 @@ def run_experiment(
                             fold_size=exp.train.fold_size, resume=resume,
                             seeds_per_fold=seeds_per_fold, device=device,
                             transfer_dtype=transfer_dtype,
-                            scan_steps=scan_steps, accum_steps=accum_steps)
+                            scan_steps=scan_steps, accum_steps=accum_steps,
+                            profile_dir=profile_dir)
 
     report = sweep = logits = labels = None
     if test_samples:

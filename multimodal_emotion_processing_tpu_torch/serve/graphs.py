@@ -38,7 +38,10 @@ that a step updates (parameters, moments, counters) is updated in place by
 the captured kernels; a function that takes no arguments reads its inputs
 from buffers its caller keeps.
 
-On the CPU, which only the tests ask for, a call is a plain call of `fn`.
+On the CPU, which only the tests ask for, a call is a plain call of `fn`;
+so is every call while NaN debugging is on
+(utils/logging.enable_nan_debugging, `--debug-nans`): autograd's anomaly
+mode cannot run inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..ops.cuda_binding import capture_ledger, credit
+from ..utils.logging import nan_debugging_enabled
 
 
 class _Program:
@@ -107,7 +111,7 @@ class GraphedFunction:
         return out
 
     def __call__(self, *args):
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or nan_debugging_enabled():
             return self.fn(*args)
         leaves, spec = pytree.tree_flatten(args)
         if not all(torch.is_tensor(t) for t in leaves):

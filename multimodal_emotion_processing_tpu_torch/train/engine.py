@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops.loss import symmetric_sigmoid_kl, zlpr_loss
+from ..utils.logging import profile_trace
 from . import schedule
 
 # loss-side weight vectors stay f32 under bf16 compute: a bf16 sum of the
@@ -591,14 +592,20 @@ class Trainer:
     are plain calls.  `scan_steps` > 1 (JAX's `lax.scan` of that many
     steps): the loader's batches are taken that many at a time, copied
     into the buffers together, and that many replays are launched back to
-    back; the math and the dropout order are those of `scan_steps=1`."""
+    back; the math and the dropout order are those of `scan_steps=1`.
+
+    `profile_dir`: a torch.profiler trace (utils/logging.profile_trace) of
+    the first epoch after the captures, counted from the fit's start
+    epoch (a fit of one epoch traces that one, captures included), into
+    this directory, one file a fit."""
 
     PREFETCH = 2
 
     def __init__(self, cfg, tcfg, *, impl: str = "xla", device=None,
                  checkpoint_cb: Optional[Callable] = None,
                  log_cb: Optional[Callable] = None, transfer_dtype=None,
-                 accum_steps: int = 1, scan_steps: int = 1):
+                 accum_steps: int = 1, scan_steps: int = 1,
+                 profile_dir: Optional[str] = None):
         from ..data.loader import resolve_transfer_dtype
         from ..utils.device import resolve_device
 
@@ -617,6 +624,7 @@ class Trainer:
         self.log_cb = log_cb
         self.accum_steps = accum_steps
         self.scan_steps = scan_steps
+        self.profile_dir = profile_dir
 
     def _iter(self, loader, counter: Optional[dict] = None):
         """Batches of one epoch on the device; `counter["n"]` counts the
@@ -707,16 +715,21 @@ class Trainer:
         if start_epoch > 0 and stopper.bad >= stopper.patience:
             return state, history
         run_train, run_eval = self._programs(state)
-        for epoch in range(start_epoch, tcfg.epochs if epochs is None else epochs):
-            t0 = time.perf_counter()
-            counter = {"n": 0}
-            # losses stay on the device until the epoch ends: fetching per
-            # step would make the host wait for the card every step
-            losses = run_train(self._iter(train_loader, counter))
-            va = run_eval(self._iter(valid_loader))
-            step_losses = (tuple(torch.stack(losses).cpu().tolist())
-                           if losses else ())
-            va_losses = torch.stack(va).cpu().tolist() if va else []
+        n_epochs = tcfg.epochs if epochs is None else epochs
+        profile_epoch = (start_epoch + 1 if n_epochs - start_epoch > 1
+                         else start_epoch)
+        for epoch in range(start_epoch, n_epochs):
+            with profile_trace(self.profile_dir if epoch == profile_epoch
+                               else None, name="trainer"):
+                t0 = time.perf_counter()
+                counter = {"n": 0}
+                # losses stay on the device until the epoch ends: fetching
+                # per step would make the host wait for the card every step
+                losses = run_train(self._iter(train_loader, counter))
+                va = run_eval(self._iter(valid_loader))
+                step_losses = (tuple(torch.stack(losses).cpu().tolist())
+                               if losses else ())
+                va_losses = torch.stack(va).cpu().tolist() if va else []
             stats = EpochStats(
                 train_loss=sum(step_losses) / max(len(step_losses), 1),
                 valid_loss=sum(va_losses) / max(len(va_losses), 1),

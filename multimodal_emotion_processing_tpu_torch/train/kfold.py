@@ -57,6 +57,7 @@ def run_kfold(
     transfer_dtype=None,
     scan_steps: int = 1,
     accum_steps: int = 1,
+    profile_dir: Optional[str] = None,
 ):
     """Train tcfg.n_folds * seeds_per_fold members of ModelConfig `cfg` (or
     an ExperimentConfig) on `device` ("cuda" unless "cpu" is asked for).
@@ -78,7 +79,9 @@ def run_kfold(
     own seed, so with shuffling off the resumed run equals the
     uninterrupted one bit for bit.  `transfer_dtype`, `scan_steps` and
     `accum_steps` are the Trainer's (engine.Trainer): the wire format,
-    steps replayed back to back from one copy, gradient accumulation."""
+    steps replayed back to back from one copy, gradient accumulation;
+    so is `profile_dir` (each member's fit traces its first epoch after
+    the captures)."""
     if seeds_per_fold < 1:
         raise ValueError(f"seeds_per_fold must be >= 1, got {seeds_per_fold}")
     samples = list(samples)
@@ -94,6 +97,7 @@ def run_kfold(
     trainer = engine.Trainer(
         cfg, tcfg, impl=impl, device=device, transfer_dtype=transfer_dtype,
         scan_steps=scan_steps, accum_steps=accum_steps,
+        profile_dir=profile_dir,
         checkpoint_cb=(lambda state, epoch, vl:
                        store.save_best(current["name"], state, epoch, vl))
         if store is not None else None,

@@ -39,6 +39,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.logging import profile_trace
 from . import engine, schedule
 from .checkpoint import CheckpointStore
 from .device_epochs import (DeviceControl, EpochLauncher, Lockstep,
@@ -148,6 +149,7 @@ def run_kfold_vmapped(
     transfer_dtype=None,
     device=None,
     info: Optional[dict] = None,
+    profile_dir: Optional[str] = None,
     mesh=None,
     tp: bool = False,
 ):
@@ -191,7 +193,11 @@ def run_kfold_vmapped(
     per-fold scales; the sequential driver carries it).
 
     `info`, where given, receives the staging's seconds and bytes
-    ("staging_s", "staged_bytes"; device-resident only)."""
+    ("staging_s", "staged_bytes"; device-resident only).
+
+    `profile_dir`: a torch.profiler trace (utils/logging.profile_trace) of
+    every member's train and eval steps in the first epoch after the
+    captures, counted from the run's start epoch (Trainer.fit's rule)."""
     from ..data.loader import resolve_transfer_dtype
     from ..utils.device import resolve_device
 
@@ -329,9 +335,9 @@ def run_kfold_vmapped(
                 "members": m})
             gen.set_state(current)
 
-    for epoch in range(start_epoch, n_epochs):
-        if all(stopped):
-            break
+    def run_epoch(epoch):
+        """Launch one epoch of every member's train and eval steps; their
+        per-member means, sample counts, step losses and the wall."""
         t0 = time.perf_counter()
         if device_resident:
             perms = epoch_permutation(shuffle_seed + 20903, epoch, n_tr, dev,
@@ -363,7 +369,16 @@ def run_kfold_vmapped(
             # per-batch losses
             tr_m = [sum(r) / max(len(r), 1) for r in step_losses]
             va_m = [sum(r) / max(len(r), 1) for r in va_rows]
-        dt = time.perf_counter() - t0
+        return tr_m, va_m, counts, step_losses, time.perf_counter() - t0
+
+    profile_epoch = (start_epoch + 1 if n_epochs - start_epoch > 1
+                     else start_epoch)
+    for epoch in range(start_epoch, n_epochs):
+        if all(stopped):
+            break
+        with profile_trace(profile_dir if epoch == profile_epoch else None,
+                           name="lockstep"):
+            tr_m, va_m, counts, step_losses, dt = run_epoch(epoch)
         ls.sync_steps()
         for i in range(m):
             if stopped[i]:
@@ -419,6 +434,7 @@ def run_kfold_fully_compiled(
     transfer_dtype=None,
     device=None,
     info: Optional[dict] = None,
+    profile_dir: Optional[str] = None,
     mesh=None,
     tp: bool = False,
 ):
@@ -437,7 +453,9 @@ def run_kfold_fully_compiled(
     given, receives the staging's seconds and bytes, the epochs launched
     and the masked ones, which ran after every member had stopped and
     changed nothing ("staging_s", "staged_bytes", "epochs_launched",
-    "masked_epochs")."""
+    "masked_epochs").  `profile_dir`: one torch.profiler trace of the
+    whole run, from the first launch to the controllers' final read (the
+    run has no epoch boundary to pick one at)."""
     from ..utils.device import resolve_device
 
     _check_mesh(mesh, tp)
@@ -472,17 +490,18 @@ def run_kfold_fully_compiled(
     control = DeviceControl(ls, tcfg, [tcfg.lr] * m, n_epochs)
     launcher = EpochLauncher(control, n_epochs)
     t0 = time.perf_counter()
-    for epoch in range(n_epochs):
-        if not launcher.go(epoch):
-            break
-        perms = epoch_permutation(shuffle_seed + 20903, epoch, n_tr, dev,
-                                  members=m)
-        shuffle_rows(rowids, train_idx, perms, duplicate)
-        ls.train(n_steps)
-        ls.evaluate(n_ev)
-        control.step(epoch)
-        launcher.record(epoch)
-    res = control.finish()
+    with profile_trace(profile_dir, name="one_dispatch"):
+        for epoch in range(n_epochs):
+            if not launcher.go(epoch):
+                break
+            perms = epoch_permutation(shuffle_seed + 20903, epoch, n_tr, dev,
+                                      members=m)
+            shuffle_rows(rowids, train_idx, perms, duplicate)
+            ls.train(n_steps)
+            ls.evaluate(n_ev)
+            control.step(epoch)
+            launcher.record(epoch)
+        res = control.finish()
     dt = time.perf_counter() - t0
     control.freeze_generators(res, launcher.generators)
     launcher.report(info)

@@ -133,6 +133,20 @@ def test_the_drivers_slice_is_covered():
         assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
 
 
+def test_the_tools_slice_is_covered():
+    """The modules of the CLI and tools slice (reference `.pt` files in and
+    out, acceptance, parameter counts and FLOPs, doctor, tune, config files,
+    profiling and NaN debugging, per-block remat) are among those the tests
+    below import and scan."""
+    mods = set(_port_modules())
+    for m in ("interop.torch_compat", "eval.acceptance", "utils",
+              "utils.logging", "bench.flops", "bench.doctor", "bench.autotune",
+              "configs", "models.grid", "models.layers", "serve.graphs",
+              "train.engine", "train.kfold", "train.vmap_kfold", "pipelines",
+              "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
