@@ -200,6 +200,28 @@ Phases, each reported on its own lines:
      short `cli train` runs with --tuned (the applied knobs),
      --profile-dir (the traces name fused_block) and --debug-nans with a
      NaN in one feature (it must raise, naming the module).
+ 19. parallel: the multi-device layer (parallel/, ops/context_parallel.py)
+     on the one card.  (a) In this process, NCCL at world size 1:
+     mosei_trans_s1024 (flash, bf16, B 64) through
+     Trainer(mesh=make_mesh(n_data=1)), 8 captured steps, bit-equal to the
+     mesh-free Trainer (step-1 gradients, losses, valid losses, final
+     parameters), a replayed step of each timed, and the device events the
+     mesh step's replay runs beyond the mesh-free one's (its all-reduce
+     inside the graph) with the flat buffer's bytes; run_predict(dp=1)
+     bit-equal to run_predict(); impl="cp", psum and ring, on mosei_trans
+     at dim 96 with JAX's long-audio test lengths against xla (2e-4).
+     (b) Ranks spawned on the card over gloo (CUDA tensors, each
+     collective staged through the host), each held against one process
+     on the same global batches, f32 with TF32 off: dp=2 mosei_trans at
+     pallas_fused (8 steps; losses 1e-5, step-1 gradients 2e-4), tp=2
+     mosei_realformer at pallas with its gates set and its ReLU and
+     max-pool routing pinned to the one process's (the step-1 loss 1e-5
+     and gradients 2e-4; the 8 steps' losses PERF.md's f32 train bound
+     1e-3, since Adam moves entries that round apart), dp=2 x tp=2
+     mosei_trans_s1024 at flash in bf16 (5e-2), psum and ring CP at 2
+     ranks (forward and two chained blocks' gradients, 2e-4) and
+     Ensemble(mesh=) at dp=2 (2e-4).  Every kernel must launch under a
+     mesh.  NCCL at world size > 1 needs several cards: not run.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -2083,7 +2105,8 @@ def set_gates(torch, members, seed: int = 1234):
     the next block's mask penalty)."""
     from multimodal_emotion_processing_tpu_torch.models.layers import RealformerBlock
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=next(members[0].parameters()).device
+                        ).manual_seed(seed)
     with torch.no_grad():
         for m in members:
             for blk in m.modules():
@@ -2455,13 +2478,14 @@ def spread_ln(torch, models, seed: int = 99):
     (tests/test_torch_train.py::_spread_ln_biases): in a no_name slot every
     block's output is its LN bias, and at their init of 0 the max pool
     would compare exact ties across blocks."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    device = next(models[0].parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for m in models:
             for name, p in m.named_parameters():
                 if "norm" in name and name.endswith(".bias"):
                     p.add_(0.1 * torch.randn(p.shape, generator=g,
-                                             device="cuda"))
+                                             device=device))
 
 
 def phase_train_fused(torch, report):
@@ -6202,6 +6226,663 @@ KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scored_fwd",
                 "scored_bwd_dq", "scored_bwd_dkv", "fused_block")
 
 
+# parallel: the multi-device layer (parallel/mesh.py, parallel/comm.py,
+# ops/context_parallel.py) on the one card.  (a) in this process, NCCL at
+# world size 1: the mesh Trainer bit-equal to the mesh-free one, its
+# collective inside the captured step; run_predict(dp=1) bit-equal to
+# run_predict(); impl="cp" in both modes against xla.  (b) ranks spawned on
+# the card over gloo (CUDA tensors; gloo's collectives stage through the
+# host), each held against one process on the same global batches, f32 with
+# TF32 off (s1024 in bf16): PAR_CASES below.
+PAR_STEPS, PAR_EPOCHS = 4, 2            # 2 epochs of 4 steps: 8 steps
+PAR_LOSS_RTOL, PAR_GRAD_TOL, PAR_BF16_TOL = 1e-5, 2e-4, 5e-2
+PAR_CP_LENS = {"l_len": 8, "v_len": 16, "a_len": 1600}   # JAX's CP test
+PAR_CP_BATCH = 4
+PAR_SERVE_REQUESTS = 8
+# (config, (n_data, n_model), impl, batch rows, world)
+PAR_CASES = {
+    "dp2_mosei_trans": ("mosei_trans", (2, 1), "pallas_fused", 64, 2),
+    "tp2_mosei_trans": ("mosei_trans", (1, 2), "pallas_fused", 64, 2),
+    "tp2_mosei_realformer": ("mosei_realformer", (1, 2), "pallas", 16, 2),
+    "dp2xtp2_mosei_trans_s1024": ("mosei_trans_s1024", (2, 2), "flash", 16, 4),
+}
+PAR_CP = {"b": 2, "lq": 64, "lkv": 1600, "h": 6, "d": 96}
+PAR_ENSEMBLE = {"members": 4, "n": 128, "batch": 64}
+
+
+def par_exp(name, **train):
+    import dataclasses
+
+    from multimodal_emotion_processing_tpu_torch import configs
+
+    exp = configs.get(name)
+    return dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                              **train))
+
+
+def par_models(torch, engine, exp, seed=0):
+    """The case's starting weights: seeded, LayerNorm biases spread (no
+    exact max-pool ties across blocks), RealFormer gates set non-zero."""
+    state = engine.init_state(exp.model, exp.train, seed=seed, device="cuda")
+    spread_ln(torch, [state.model])
+    set_gates(torch, [state.model])
+    return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+
+def par_state(torch, engine, pm, exp, init, mesh):
+    state = engine.init_state(exp.model, exp.train, seed=0, device="cuda")
+    state.model.load_state_dict(init)
+    if mesh is not None:
+        pm.place_state(state, mesh, tp=mesh.shape["model"] > 1)
+    return state
+
+
+def par_gradients(torch, engine, pm, exp, init, batch, impl, mesh,
+                  routing=None):
+    """(loss, {name: whole gradient}) of one batch_loss at `init`: on the
+    mesh from this rank's rows, summed over 'data', gathered over
+    'model'.  With `routing` ({"pool": [], "relu": []}, as
+    pinned_step_gradients keeps it), an empty one records every max-pool
+    argmax and ReLU mask of this forward, a filled one pins them (a
+    tensor-parallel rank takes its chunk of each ReLU mask's features)
+    and counts the inputs this forward would route otherwise
+    (`routing["flips"]`)."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import to_device
+    from multimodal_emotion_processing_tpu_torch.models import grid as grid_mod
+
+    state = par_state(torch, engine, pm, exp, init, mesh)
+    state.model.train()
+    rows = (pm.put_global_batch(batch, mesh) if mesh is not None
+            else to_device(batch, "cuda"))
+    hooks, original = [], grid_mod.mean_max_pool
+    if routing is not None:
+        pin = bool(routing["relu"] or routing["pool"])
+        tp = (mesh.shape["model"], mesh.index("model")) if (
+            mesh is not None) else (1, 0)
+        calls = {"pool": 0, "relu": 0}
+        routing["flips"] = {"pool": 0, "relu": 0}
+        routing.setdefault("sizes", {"pool": 0, "relu": 0})
+
+        def routed(kind, chosen, features=False):
+            i = calls[kind]
+            calls[kind] += 1
+            if not pin:
+                routing[kind].append(chosen)
+                routing["sizes"][kind] += chosen.numel()
+                return chosen
+            want = routing[kind][i]
+            if features:
+                want = want.chunk(tp[0], -1)[tp[1]]
+            routing["flips"][kind] += int((chosen != want).sum())
+            return want
+
+        def pool(x):
+            idx = routed("pool", torch.max(x, dim=1).indices)
+            return torch.cat([x.mean(dim=1),
+                              x.gather(1, idx[:, None, :])[:, 0]], dim=1)
+
+        def relu_hook(module, args, out):
+            x = args[0]
+            return x * routed("relu", x > 0, features=True)
+
+        grid_mod.mean_max_pool = pool
+        hooks = [m.register_forward_hook(relu_hook)
+                 for m in state.model.modules()
+                 if isinstance(m, torch.nn.ReLU)]
+    try:
+        loss = engine.batch_loss(state.model, exp.train, rows, impl=impl,
+                                 parallel=state.parallel)
+        names = [n for n, _ in state.model.named_parameters()]
+        params = [p for _, p in state.model.named_parameters()]
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(loss, params, allow_unused=True), params)]
+    finally:
+        grid_mod.mean_max_pool = original
+        for h in hooks:
+            h.remove()
+    if state.parallel is not None:
+        loss, grads = state.parallel.reduce(loss, grads)
+        grads = [pm.gather_tensor(g, state.spec[n], state.parallel.model_group)
+                 for g, n in zip(grads, names)]
+    return float(loss.detach()), dict(zip(names, (g.detach() for g in grads)))
+
+
+def par_fit(torch, engine, pm, exp, init, train, valid, impl, rows, mesh):
+    """The 8 step losses and 2 valid losses of Trainer.fit."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+
+    state = par_state(torch, engine, pm, exp, init, mesh)
+    tr = engine.Trainer(exp.model, exp.train, impl=impl, device="cuda",
+                        mesh=mesh)
+    _, hist = tr.fit(Batcher(train, rows, seed=1),
+                     Batcher(valid, rows, shuffle=False), state=state,
+                     epochs=PAR_EPOCHS)
+    return ([x for h in hist for x in h.step_losses],
+            [h.valid_loss for h in hist])
+
+
+def par_case(torch, key, rank):
+    """One PAR_CASES case on this rank: the mesh's step-1 gradients and fit
+    (counted, timed), then on rank 0 one process's from the same start."""
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    name, shape, impl, rows, _ = PAR_CASES[key]
+    exp = par_exp(name, batch_size=rows)
+    init = par_models(torch, engine, exp)
+    train = ensure_no_name(synthetic_dataset(name, exp.model,
+                                             rows * PAR_STEPS, seed=0))
+    valid = ensure_no_name(synthetic_dataset(name, exp.model, rows, seed=1))
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+
+    first = next(iter(Batcher(train, rows, seed=1)()))
+    mesh = pm.make_mesh(*shape, device="cuda")
+    # the paragraph model's ReLUs and max pools route a gradient by the
+    # sign or the argmax of values that tp rounds otherwise: every rank
+    # records the one process's routing and pins the mesh run's to it, as
+    # phase train_realformer pins impls (the flips are counted)
+    routing = {"pool": [], "relu": []} if name == "mosei_realformer" else None
+    if routing is not None:
+        ref_loss, ref = par_gradients(torch, engine, pm, exp, init, first,
+                                      impl, None, routing)
+    kernels = all_kernels()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = par_gradients(torch, engine, pm, exp, init, first, impl,
+                                mesh, routing)
+    losses, valid_losses = par_fit(torch, engine, pm, exp, init, train, valid,
+                                   impl, rows, mesh)
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0, "launches": read_counts(kernels),
+           "loss": loss, "step_losses": losses, "valid_losses": valid_losses,
+           "rows": rows, "mesh": shape, "impl": impl,
+           "dtype": exp.train.compute_dtype}
+    if routing is not None:
+        out["routing_flips"] = routing["flips"]
+        out["routing_sizes"] = routing["sizes"]
+    if rank == 0:
+        if routing is None:
+            ref_loss, ref = par_gradients(torch, engine, pm, exp, init, first,
+                                          impl, None)
+        out["ref_loss"] = ref_loss
+        out["ref_step_losses"], out["ref_valid_losses"] = par_fit(
+            torch, engine, pm, exp, init, train, valid, impl, rows, None)
+        err = gradient_errors(grads, ref)
+        out["grad_rel_l2"] = max(e["rel_l2"] for e in err.values())
+        out["grad_max_abs"] = max(e["max_abs"] for e in err.values())
+        out["grad_tensors"] = len(err)
+        out["grad_worst"] = {n: e["rel_l2"] for n, e in sorted(
+            err.items(), key=lambda kv: -kv[1]["rel_l2"])[:3]}
+    del grads
+    return out
+
+
+def par_cp(torch, rank, world):
+    """psum and ring CP over every rank against the plain attention on this
+    card: the forward, and the gradients of two chained blocks."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch.ops import context_parallel as cp
+    from multimodal_emotion_processing_tpu_torch.ops.attention import scored_attention
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+
+    c = PAR_CP
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    q, k, v = t(c["b"], c["lq"], c["d"]), t(c["b"], c["lkv"], c["d"]), \
+        t(c["b"], c["lkv"], c["d"])
+    mask = torch.tensor((rng.random((c["b"], c["lkv"])) > 0.3),
+                        dtype=torch.float32, device="cuda")
+    mask[:, 0] = 1.0
+    prev = t(c["b"], c["h"], c["lq"], c["lkv"])
+    gate = torch.tensor([0.37], device="cuda")
+    mesh = pm.world_mesh((world,), ("context",), "cuda")
+
+    def chained(fn, **kw):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, gate)]
+        qq, kk, vv, cc = leaves
+        ctx1, s1 = fn(qq, kk, vv, mask, None, cc, n_heads=c["h"], **kw)
+        ctx2, _ = fn(ctx1, kk, vv, mask, s1, cc, n_heads=c["h"], **kw)
+        loss = (ctx2 ** 2).sum() + 0.1 * (ctx1 ** 2).sum()
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    ref_ctx, ref_s = scored_attention(q, k, v, mask, prev, gate, n_heads=c["h"])
+    ref_loss, ref_g = chained(scored_attention)
+    out = {}
+    for mode, fn in (("psum", cp.scored_attention_cp),
+                     ("ring", cp.ring_scored_attention)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx, s = fn(q, k, v, mask, prev, gate, n_heads=c["h"], mesh=mesh)
+        loss, g = chained(fn, mesh=mesh)
+        torch.cuda.synchronize()
+        live = ref_s > -1e7      # masked entries sit near -1e8
+        out[mode] = {
+            "wall_s": time.perf_counter() - t0,
+            "ctx_err": normalised_err(ctx.cpu().numpy(), ref_ctx.cpu().numpy()),
+            "scores_err": normalised_err(s[live].cpu().numpy(),
+                                         ref_s[live].cpu().numpy()),
+            "loss_rel_err": abs(float(loss - ref_loss)) / abs(float(ref_loss)),
+            "grad_err": max(normalised_err(a.cpu().numpy(), b.cpu().numpy())
+                            for a, b in zip(g, ref_g))}
+    return out
+
+
+def par_ensemble(torch, world):
+    """Ensemble(mesh=) at dp over every rank against one rank's Ensemble:
+    seeded mosei_trans members at pallas_fused."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.eval.ensemble import Ensemble
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+
+    exp = par_exp("mosei_trans")
+    members = [build_model(exp, device="cuda", seed=s)
+               for s in range(PAR_ENSEMBLE["members"])]
+    spread_ln(torch, members)
+    samples = synthetic_dataset("mosei_trans", exp.model, PAR_ENSEMBLE["n"], 3)
+    loader = Batcher(samples, PAR_ENSEMBLE["batch"], shuffle=False)
+    kernels = all_kernels()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    got = Ensemble(members, impl="pallas_fused",
+                   mesh=pm.make_mesh(device="cuda")).predict_all(loader)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    ref = Ensemble(members, impl="pallas_fused").predict_all(loader)
+    return {"wall_s": wall, "launches": launches, "rows": int(got.shape[0]),
+            "err": normalised_err(got, ref)}
+
+
+def parallel_rank(rank, world, port, path):
+    """One spawned rank of phase parallel (b): gloo over CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pm.initialize_multihost(backend="gloo", device="cuda",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = {key: par_case(torch, key, rank)
+               for key, case in PAR_CASES.items() if case[4] == world}
+        if world == 2:
+            out["cp"] = par_cp(torch, rank, world)
+            out["ensemble"] = par_ensemble(torch, world)
+        torch.save(out, Path(path) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def device_events(torch, fn):
+    """One call of fn under torch.profiler (after one untraced): the
+    device's events by name and the host's graph launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events, graphs = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            events[e.name] = events.get(e.name, 0) + 1
+        elif e.name == "cudaGraphLaunch":
+            graphs += 1
+    return {"events": events, "graph_launches": graphs}
+
+
+@contextlib.contextmanager
+def recorded_all_reduces(torch):
+    """Every torch.distributed.all_reduce issued inside the block, as
+    (bytes, whether this thread's current stream was capturing a CUDA
+    graph): a collective issued while capturing is part of the graph, and
+    its replays issue none from the host."""
+    import torch.distributed as dist
+
+    calls, original = [], dist.all_reduce
+
+    def recording(tensor, *args, **kw):
+        calls.append((tensor.numel() * tensor.element_size(),
+                      tensor.is_cuda
+                      and torch.cuda.is_current_stream_capturing()))
+        return original(tensor, *args, **kw)
+
+    dist.all_reduce = recording
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = original
+
+
+def parallel_nccl_trainer(torch, out, smi):
+    """mosei_trans_s1024 (flash, bf16, B 64) through Trainer(mesh=make_mesh(
+    n_data=1)) on NCCL, 8 captured steps, against the mesh-free Trainer from
+    the same state and batches: step-1 gradients, step and valid losses and
+    the final parameters the same bits; the captured step traced."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    exp = par_exp("mosei_trans_s1024")
+    tcfg = exp.train
+    train = ensure_no_name(synthetic_dataset(exp.name, exp.model, N_TRAIN, seed=0))
+    valid = ensure_no_name(synthetic_dataset(exp.name, exp.model, N_VALID, seed=1))
+    init = par_models(torch, engine, exp)
+    mesh = pm.make_mesh(n_data=1, device="cuda")
+    first = next(iter(Batcher(train, TRAIN_BATCH, seed=1)()))
+    g_mesh = par_gradients(torch, engine, pm, exp, init, first, "flash", mesh)
+    g_plain = par_gradients(torch, engine, pm, exp, init, first, "flash", None)
+    grads_equal = (g_mesh[0] == g_plain[0] and all(
+        torch.equal(g_mesh[1][n], g) for n, g in g_plain[1].items()))
+    del g_mesh, g_plain
+    runs = {}
+    kernels = all_kernels()
+    for key, m in (("mesh", mesh), ("plain", None)):
+        state = par_state(torch, engine, pm, exp, init, m)
+        tr = engine.Trainer(exp.model, tcfg, impl="flash", device="cuda",
+                            mesh=m)
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_all_reduces(torch) as reduces:
+            _, hist = tr.fit(Batcher(train, TRAIN_BATCH, seed=1),
+                             Batcher(valid, TRAIN_BATCH, shuffle=False),
+                             state=state, epochs=TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        runs[key] = {"wall_s": time.perf_counter() - t0, "reduces": reduces,
+                     "launches": read_counts(kernels),
+                     "losses": [x for h in hist for x in h.step_losses],
+                     "valid": [h.valid_loss for h in hist],
+                     "params": {n: p.detach().clone() for n, p in
+                                state.model.named_parameters()},
+                     "captured": tr.captured, "trainer": tr, "state": state}
+    same = (runs["mesh"]["losses"] == runs["plain"]["losses"]
+            and runs["mesh"]["valid"] == runs["plain"]["valid"]
+            and all(torch.equal(runs["mesh"]["params"][n], p)
+                    for n, p in runs["plain"]["params"].items()))
+    # the all-reduce inside the captured step: the flat buffer's all-reduce
+    # is issued twice in the whole fit, once by the step's first, eager call
+    # (the warm-up) and once while the step is captured; every other step
+    # is a replay that issues none from the host.  At one rank NCCL may run
+    # no kernel for it, so the trace only reports what the replay ran.
+    flat = runs["mesh"]["state"].parallel.flat_bytes
+    flat_reduces = [capturing for size, capturing in runs["mesh"]["reduces"]
+                    if size == flat]
+    inside = {"eager": flat_reduces.count(False),
+              "captured": flat_reduces.count(True),
+              "mesh_free_reduces": len(runs["plain"]["reduces"])}
+    replay = device_events(torch, runs["mesh"]["trainer"].programs["train"])
+    trace = {"graph_launches": replay["graph_launches"],
+             "nccl_kernels": {n: c for n, c in replay["events"].items()
+                              if "nccl" in n.lower()}}
+    # a replay of each captured step, CUDA events over 10 (after the checks:
+    # they step the states on)
+    step_ms = {k: time_ms(torch, r["trainer"].programs["train"], reps=10)
+               for k, r in runs.items()}
+    rec = out["nccl_trainer"] = {
+        "config": exp.name, "batch": TRAIN_BATCH, "dtype": tcfg.compute_dtype,
+        "steps": len(runs["mesh"]["losses"]), "grads_bit_equal": grads_equal,
+        "run_bit_equal": same, "captured": runs["mesh"]["captured"],
+        "flat_buffer_bytes": flat, "flat_all_reduces": inside,
+        "trace": trace, "smi": smi,
+        "step_ms": step_ms,
+        **{f"{k}_wall_s": r["wall_s"] for k, r in runs.items()},
+        "launches": runs["mesh"]["launches"]}
+    log(f"[parallel] (a) NCCL world 1: Trainer(mesh=make_mesh(n_data=1)) "
+        f"{exp.name} flash bf16 B {TRAIN_BATCH}, {rec['steps']} captured "
+        f"steps: step-1 gradients bit-equal {grads_equal}, losses, valid "
+        f"losses and final parameters bit-equal to the mesh-free Trainer "
+        f"{same}; wall {rec['mesh_wall_s']:.2f} s (mesh-free "
+        f"{rec['plain_wall_s']:.2f} s, captures included); a replayed step "
+        f"{step_ms['mesh']:.3f} ms against "
+        f"{step_ms['plain']:.3f} mesh-free (CUDA events "
+        f"over 10); the flat all-reduce ({flat} bytes) issued "
+        f"{inside['eager']} time eagerly (the warm-up) and {inside['captured']}"
+        f" time while the step was captured over {rec['steps']} steps "
+        f"(mesh-free fit: {inside['mesh_free_reduces']} all-reduces); one "
+        f"replay of the captured step: {trace['graph_launches']} graph "
+        f"launch, NCCL kernels {trace['nccl_kernels']}; launches "
+        f"{rec['launches']} ({smi})")
+    if not (grads_equal and same and runs["mesh"]["captured"]):
+        raise AssertionError(f"NCCL world-1 Trainer: {rec}")
+    if (inside["eager"] != 1 or inside["captured"] != 1
+            or trace["graph_launches"] != 1 or rec["steps"] < 3):
+        raise AssertionError(f"the all-reduce inside the captured mesh step: "
+                             f"{inside}, {trace}")
+    return rec["launches"]
+
+
+def parallel_nccl_predict(torch, out):
+    """run_predict(dp=1) against run_predict(), mosei_trans at
+    pallas_fused, one seeded member: the same bits."""
+    from multimodal_emotion_processing_tpu_torch.pipelines import run_predict
+
+    kernels = all_kernels()
+    kw = dict(init_random=True, n_test=128, impl="pallas_fused",
+              device="cuda", quiet=True)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    got = run_predict("mosei_trans", dp=1, **kw)["logits"]
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    ref = run_predict("mosei_trans", **kw)["logits"]
+    equal = bool((got == ref).all())
+    out["nccl_predict"] = {"rows": int(got.shape[0]), "bit_equal": equal,
+                           "wall_s": wall, "launches": launches}
+    log(f"[parallel] (a) run_predict(dp=1) mosei_trans pallas_fused, "
+        f"{got.shape[0]} rows: bit-equal to run_predict() {equal}; wall "
+        f"{wall:.2f} s; launches {launches}")
+    if not equal:
+        raise AssertionError("run_predict(dp=1) differs from run_predict()")
+    return launches
+
+
+def parallel_nccl_cp(torch, out):
+    """impl="cp" in psum and ring mode over the world-1 NCCL group,
+    mosei_trans at dim 96 with JAX's long-audio test lengths, against
+    impl="xla" (2e-4)."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops import context_parallel as cp
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+
+    exp = par_exp("mosei_trans")
+    exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model,
+                                                             **PAR_CP_LENS))
+    model = build_model(exp, device="cuda", seed=0).eval()
+    spread_ln(torch, [model])
+    samples = synthetic_dataset("mosei_trans", exp.model, PAR_CP_BATCH, 2)
+    batch = to_device(next(iter(Batcher(samples, PAR_CP_BATCH,
+                                        shuffle=False)())), "cuda")
+    mesh = pm.world_mesh((1,), ("context",), "cuda")
+    with torch.no_grad():
+        ref = model(batch, impl="xla").cpu().numpy()
+        rec = {}
+        for mode in ("psum", "ring"):
+            with cp.cp_context(mesh, mode=mode):
+                t0 = time.perf_counter()
+                got = model(batch, impl="cp").cpu().numpy()
+                rec[mode] = {"err": normalised_err(got, ref),
+                             "wall_s": time.perf_counter() - t0}
+    # `cli serve --impl cp`: the micro-batching server's captured buckets
+    # with the CP collectives inside, against `--impl xla` on the same
+    # seeded members and requests
+    argv = ["serve", "mosei_trans", "--concurrent", PAR_SERVE_REQUESTS,
+            "--device", "cuda"] + [
+        a for k, v in PAR_CP_LENS.items() for a in ("--set", f"model.{k}={v}")]
+    t0 = time.perf_counter()
+    served, _ = run_cli(argv + ["--impl", "cp"])
+    serve_wall = time.perf_counter() - t0
+    plain, _ = run_cli(argv + ["--impl", "xla"])
+    rec["cli_serve"] = {
+        "requests": len(served), "wall_s": serve_wall,
+        "err": max(float(np.abs(np.asarray(a[1]) - np.asarray(b[1])).max())
+                   for a, b in zip(served, plain))}
+    out["nccl_cp"] = {"lens": PAR_CP_LENS, "dim": exp.model.dim,
+                      "batch": PAR_CP_BATCH, **rec}
+    log(f"[parallel] (a) impl=cp at world 1, mosei_trans dim "
+        f"{exp.model.dim}, lens {PAR_CP_LENS}, B {PAR_CP_BATCH}: against xla "
+        + ", ".join(f"{m} {r['err']:.2e} ({r['wall_s']:.2f} s)"
+                    for m, r in rec.items()) + " (bound 2e-4); `cli serve "
+        f"--impl cp` {rec['cli_serve']['requests']} concurrent requests' "
+        "probabilities against `--impl xla` (4 seeded members)")
+    if max(r["err"] for r in rec.values()) > 2e-4:
+        raise AssertionError(f"impl=cp against xla: {rec}")
+
+
+def parallel_spawned(torch, out, smi):
+    """(b): PAR_CASES, CP and Ensemble(mesh=) on ranks spawned on the card
+    over gloo; every result against its bound.  Returns the launches summed
+    over the ranks' mesh runs."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    root = ROOT / "chip_smoke_out" / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = {}
+    failures = []
+    for world in (2, 4):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        t0 = time.perf_counter()
+        mp.spawn(parallel_rank, args=(world, port, str(root)),
+                 nprocs=world, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        log(f"[parallel] (b) {world} gloo ranks on the card: wall {wall:.1f} "
+            "s, spawn included")
+        for key in ranks[0]:
+            for r in ranks:
+                for k, n in r[key].get("launches", {}).items():
+                    launches[k] = launches.get(k, 0) + n
+        for key, case in PAR_CASES.items():
+            if case[4] != world:
+                continue
+            r0 = ranks[0][key]
+            bf16 = r0["dtype"] == "bfloat16"
+            tol = PAR_BF16_TOL if bf16 else PAR_LOSS_RTOL
+            grad_tol = PAR_BF16_TOL if bf16 else PAR_GRAD_TOL
+            first_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                r0["step_losses"] + r0["valid_losses"],
+                r0["ref_step_losses"] + r0["ref_valid_losses"]))
+            agree = all(r[key]["step_losses"] == r0["step_losses"]
+                        for r in ranks)
+            flips = r0.get("routing_flips", {"pool": 0, "relu": 0})
+            sizes = r0.get("routing_sizes", {"relu": 1})
+            routed_ok = (flips["pool"] == 0 and flips["relu"]
+                         <= RF_RELU_FLIP_SHARE * max(sizes["relu"], 1))
+            ok = (first_err <= tol and loss_err <= tol
+                  and r0["grad_rel_l2"] <= grad_tol and agree and routed_ok)
+            out[key] = {**{k: v for k, v in r0.items()},
+                        "first_loss_rel_err": first_err,
+                        "loss_rel_err": loss_err, "ranks_agree": agree,
+                        "ok": ok, "world": world}
+            log(f"[parallel] (b) {key}: {case[0]} mesh {case[1]} at "
+                f"{case[2]}, {r0['dtype']}, B {r0['rows']}: step-1 loss rel "
+                f"err {first_err:.2e} (bound {tol:g}), "
+                f"{len(r0['step_losses'])} steps' and 2 valid losses rel err "
+                f"{loss_err:.2e} (bound {tol:g}), "
+                f"step-1 gradients rel_l2 {r0['grad_rel_l2']:.2e} (bound "
+                f"{grad_tol:g}; max_abs {r0['grad_max_abs']:.2e}) over "
+                f"{r0['grad_tensors']} tensors (worst {r0['grad_worst']})"
+                + (f" (routing pinned to the one process's: max-pool "
+                   f"argmaxes {flips['pool']} of {sizes['pool']} and ReLU "
+                   f"inputs {flips['relu']} of {sizes['relu']} rank 0's "
+                   "forward would route otherwise)"
+                   if "routing_flips" in r0 else "")
+                + f", every rank the same losses "
+                f"{agree}; wall {r0['wall_s']:.1f} s; rank-0 launches "
+                f"{r0['launches']}")
+            if not ok:
+                failures.append(key)
+        if world == 2:
+            for mode, rec in ranks[0]["cp"].items():
+                ok = max(rec["ctx_err"], rec["scores_err"], rec["grad_err"],
+                         rec["loss_rel_err"]) <= PAR_GRAD_TOL
+                out[f"cp_{mode}"] = {**rec, "ok": ok, "shape": PAR_CP}
+                log(f"[parallel] (b) {mode} CP on 2 ranks, {PAR_CP}: ctx "
+                    f"{rec['ctx_err']:.2e}, scores {rec['scores_err']:.2e}, "
+                    f"two chained blocks' loss {rec['loss_rel_err']:.2e} and "
+                    f"gradients {rec['grad_err']:.2e} (bound 2e-4); wall "
+                    f"{rec['wall_s']:.2f} s")
+                if not ok:
+                    failures.append(f"cp_{mode}")
+            ens = ranks[0]["ensemble"]
+            ok = ens["err"] <= PAR_GRAD_TOL
+            out["ensemble_dp2"] = {**ens, "ok": ok}
+            log(f"[parallel] (b) Ensemble(mesh=) dp=2, "
+                f"{PAR_ENSEMBLE['members']} mosei_trans members at "
+                f"pallas_fused, {ens['rows']} rows: logits err "
+                f"{ens['err']:.2e} normalised (bound 2e-4); wall "
+                f"{ens['wall_s']:.2f} s; rank-0 launches {ens['launches']}")
+            if not ok:
+                failures.append("ensemble_dp2")
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"phase parallel (b) out of bounds: {failures}")
+    return launches
+
+
+def phase_parallel(torch, report):
+    """Phase parallel: (a) NCCL at world size 1 in this process, (b) gloo
+    ranks spawned on the card.  Every kernel counted over the mesh runs;
+    each must have launched.  Returns the counts."""
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = report["parallel"] = {}
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with pm.world("cuda"):
+        add(parallel_nccl_trainer(torch, out, smi))
+        add(parallel_nccl_predict(torch, out))
+        parallel_nccl_cp(torch, out)
+    torch.cuda.empty_cache()
+    add(parallel_spawned(torch, out, smi))
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    log(f"[parallel] phase wall {out['wall_s']:.1f} s; launches under a mesh "
+        f"{launches}; no multi-card figure: NCCL at world size > 1 waits for "
+        f"a machine with several cards ({smi})")
+    missing = [k for k in KERNEL_NAMES if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched under a mesh: {missing}")
+    return launches
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in KERNEL_NAMES:
@@ -6349,7 +7030,8 @@ def main() -> int:
                       ("real_data", phase_real_data),
                       ("serve_io", phase_serve_io),
                       ("drivers", phase_drivers),
-                      ("tools", phase_tools)):
+                      ("tools", phase_tools),
+                      ("parallel", phase_parallel)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -6370,7 +7052,7 @@ def main() -> int:
     def experiment_paths(name):
         return {p: launches[p][name]
                 for p in ("experiment", "experiment_families", "real_data",
-                          "drivers", "tools")}
+                          "drivers", "tools", "parallel")}
 
     def tc_count(library, kernel):
         return sum(n for fn, n in report["tensor_core_instructions"].get(

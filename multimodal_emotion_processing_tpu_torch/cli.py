@@ -5,7 +5,7 @@
         --data-root R (pipelines.run_experiment):
         [--checkpoint-dir D] [--log-dir L] [--resume] [--sweep-thresholds]
         [--seeds-per-fold S] [--epochs E] [--n-train N] [--n-test M]
-        [--impl xla|flash|pallas|pallas_fused] [--set K=V] [--device cpu]
+        [--impl xla|flash|pallas|pallas_fused|cp] [--set K=V] [--device cpu]
         [--transfer-dtype float16|bfloat16|int8] [--async-checkpoint]
         [--scan-steps N] [--device-resident] [--one-dispatch]
         [--accum-steps N]; prints one JSON line per member epoch, then the
@@ -77,6 +77,14 @@ explicit --set pairs win over the file.  `train` and `eval` take
 captures) and --debug-nans (fail on the first non-finite value, naming
 the module; the steps then run eagerly).
 
+Several devices: `train` and `eval` take --dp N and --tp M, `predict`
+--dp N, one process per device under `torchrun --nproc-per-node N*M -m
+multimodal_emotion_processing_tpu_torch ...` (parallel/mesh.py; a
+--dp x --tp that is not the world's rank count fails with that line);
+rank 0 alone prints and writes.  `--impl cp` (train, eval, sweep, predict,
+serve) shards the attention's sequence over every rank
+(ops/context_parallel.py; one rank without torchrun).
+
 Every command runs on the GPU unless `--device cpu` is given; import-torch
 and export-torch convert files on the host.  JAX's `bench` command (its
 bench.py) has no counterpart yet, and its --compile-cache has none: the
@@ -93,7 +101,8 @@ import sys
 import time
 
 N_MEMBERS = 4
-IMPLS = ["xla", "flash", "pallas", "pallas_fused"]
+IMPLS = ["xla", "flash", "pallas", "pallas_fused", "cp"]
+TORCHRUN = "torchrun --nproc-per-node {n} -m multimodal_emotion_processing_tpu_torch"
 
 
 def parse_overrides(pairs):
@@ -202,6 +211,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="fail on the first NaN or inf, naming the module "
                              "(forward) or the autograd function (backward); "
                              "the steps then run eagerly")
+        sp.add_argument("--dp", type=int, default=None,
+                        help="data-parallel over N mesh devices: batches "
+                             "sharded on the 'data' axis, gradients "
+                             "all-reduced (identical math to single-device); "
+                             "one process per device, under " +
+                             TORCHRUN.format(n="N"))
+        sp.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel width on the 'model' mesh axis "
+                             "(head-sharded attention; demonstrative at "
+                             "these model sizes)")
         tuned(sp)
         overrides(sp)
         device(sp)
@@ -281,6 +300,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stage the split on the device once and replay one "
                          "captured program per batch (the same logits as "
                          "the per-batch path)")
+    pd.add_argument("--dp", type=int, default=None, metavar="N",
+                    help="shard batch inference over N devices on a mesh "
+                         "'data' axis (members replicate; logits identical "
+                         "to single-device)")
     transfer(pd)
     tuned(pd)
     overrides(pd)
@@ -444,9 +467,32 @@ def apply_config_file(args) -> None:
         args.set = pairs + list(args.set)
 
 
+def check_world(args) -> None:
+    """--dp x --tp must be the world's rank count (torchrun's WORLD_SIZE,
+    1 without it): anything else fails here, with the launch line."""
+    dp, tp = getattr(args, "dp", None), getattr(args, "tp", 1)
+    if dp is None and tp == 1:
+        return
+    if (dp is not None and dp < 1) or tp < 1:
+        raise SystemExit(f"--dp ({dp}) and --tp ({tp}) must be >= 1")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    n = (dp if dp is not None else world // tp) * tp
+    if n != world or n == 0:
+        raise SystemExit(
+            f"--dp {dp} x --tp {tp} needs {max(n, tp)} ranks, but this world "
+            f"has {world}: launch it as `{TORCHRUN.format(n=max(n, tp))} "
+            f"{args.cmd} ...` (one process per device)")
+
+
+def writes() -> bool:
+    """Only rank 0 (torchrun's RANK) prints reports and results."""
+    return int(os.environ.get("RANK", 0)) == 0
+
+
 def cmd_train(args, eval_only: bool = False):
     from .pipelines import run_experiment
 
+    check_world(args)
     if eval_only and not args.checkpoint_dir:
         raise SystemExit(
             "eval requires --checkpoint-dir (otherwise there are no trained "
@@ -478,7 +524,10 @@ def _train(args, eval_only, run_experiment):
         # driver, as fast on the card)
         vmap_folds=args.device_resident or args.one_dispatch,
         device_resident=args.device_resident, one_dispatch=args.one_dispatch,
-        accum_steps=args.accum_steps, profile_dir=args.profile_dir)
+        accum_steps=args.accum_steps, profile_dir=args.profile_dir,
+        dp=args.dp, tp=args.tp)
+    if not writes():
+        return result
     for i, hist in enumerate(result.fold_histories):
         for epoch, stats in enumerate(hist):
             print(json.dumps({
@@ -500,6 +549,7 @@ def cmd_predict(args):
     if not args.checkpoint_dir and not args.init_random:
         raise SystemExit("predict requires --checkpoint-dir (trained members) "
                          "or --init-random (an untrained smoke run)")
+    check_world(args)
     table = run_predict(
         args.config, checkpoint_dir=args.checkpoint_dir,
         init_random=args.init_random,
@@ -511,7 +561,9 @@ def cmd_predict(args):
                     if args.thresholds else None),
         split=args.split, output=args.output, quiet=args.quiet,
         device=args.device, transfer_dtype=args.transfer_dtype,
-        device_resident=args.device_resident)
+        device_resident=args.device_resident, dp=args.dp)
+    if not writes():
+        return table
     summary = {
         "config": args.config, "output": args.output,
         "rows": table["rows"], "members": table["members"],
@@ -549,7 +601,8 @@ def cmd_sweep(args):
         overrides=parse_overrides(args.set),
         checkpoint_dir=args.checkpoint_dir,
         transfer_dtype=args.transfer_dtype, device=args.device)
-    print(json.dumps(out, indent=2))
+    if writes():
+        print(json.dumps(out, indent=2))
     return out
 
 
@@ -651,6 +704,14 @@ def resolve_offsets(args, exp):
 
 
 def cmd_serve(args):
+    from .ops.context_parallel import ensure_cp
+
+    # --impl cp: a psum-mode context over every rank (one without torchrun)
+    with ensure_cp(args.impl or "xla", device=args.device):
+        return _serve(args)
+
+
+def _serve(args):
     from . import configs
     from .data.synthetic import synthetic_dataset
     from .serve import BatchingServer, StreamingPredictor

@@ -9,7 +9,10 @@ package).
     Ren-MME/run.py:143-146) each sample appears twice, in adjacent rows;
   * `prefetch_to_device` assembles batches in a background thread, stages
     them in pinned host memory and copies them to the GPU with non-blocking
-    copies on a side stream, one or two batches ahead of the consumer;
+    copies on a side stream, one or two batches ahead of the consumer; on
+    a data-parallel mesh every rank's Batcher gives the same seeded global
+    batches and each rank copies only its own rows
+    (parallel/mesh.put_global_batch);
   * `resample(epoch)` rebuilds the sample list at the start of every epoch
     (the robot demo's per-epoch text substitution), and a list whose
     entries do not stack (ragged shapes) is gathered row by row;
@@ -210,8 +213,8 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
-                       device, size: int = 2,
-                       transfer_dtype=None) -> Iterator[Dict[str, torch.Tensor]]:
+                       device, size: int = 2, transfer_dtype=None,
+                       mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of `iterator` as tensors on the CUDA `device`, assembled and
     copied up to `size` batches ahead in a background thread.  Each batch is
     cast to the wire `transfer_dtype` in the thread (`cast_for_transfer`;
@@ -220,7 +223,12 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
     the copy's event, and every tensor is recorded on that stream, so its
     memory is not reused while the consumer may still read it.  An
     exception in the thread is raised to the consumer; closing the
-    generator early releases the thread."""
+    generator early releases the thread.  With `mesh`
+    (parallel/mesh.Mesh), every rank's iterator gives the same global
+    batches and the thread copies only this rank's rows of the data axis
+    (`parallel.mesh.local_rows`, as `put_global_batch` does)."""
+    from ..parallel.mesh import local_rows
+
     device = torch.device(device)
     wire = resolve_transfer_dtype(transfer_dtype)
     if device.type != "cuda":
@@ -245,6 +253,8 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
                 for batch in iterator:
                     if stop.is_set():
                         return
+                    if mesh is not None:
+                        batch = local_rows(batch, mesh)
                     host = {k: _host_tensor(v) for k, v in
                             cast_for_transfer(batch, wire).items()}
                     out = {k: t.pin_memory().to(device, non_blocking=True)

@@ -17,7 +17,10 @@ the final batch, so a pass replays one program.
 one captured program per batch, each reading its rows through a
 device-side batch index: no per-batch gather, pinning or copy.
 
-Not ported yet: sharded inference over several cards (`mesh=`).
+`Ensemble(mesh=)` shards batch inference over the mesh's 'data' axis:
+the members are replicated, each rank replays its captured program on
+its own rows of every batch, and the logits are all-gathered, the same
+as one device's (no model family mixes samples).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import comm
 from ..serve.graphs import GraphedFunction
 from ..train import metrics
 from ..train.engine import infer_cast, infer_upcast, upcast_wire
@@ -42,12 +46,17 @@ class Ensemble:
     batches cast per call; each member's logits are upcast to f32 before
     they are combined, so the threshold and score math stays f32.  The
     members run in eval mode (no dropout) on the device of their
-    parameters."""
+    parameters.
+
+    `mesh` (parallel/mesh.make_mesh): every rank holds the same members
+    and the same global batches; each runs its rows of the 'data' axis
+    (a batch that does not divide the axis raises, as JAX's does) and the
+    logits are all-gathered over it, outside the captured program."""
 
     def __init__(self, members: Sequence[torch.nn.Module],
                  weights: Optional[Sequence[float]] = None, *,
                  combine: str = "mean", impl: str = "xla",
-                 dtype: str = "float32"):
+                 dtype: str = "float32", mesh=None):
         if not members:
             raise ValueError("an ensemble needs at least one member")
         if combine not in ("mean", "sum"):
@@ -58,6 +67,7 @@ class Ensemble:
         self.device = devices.pop()
         self.k = len(members)
         self.impl = impl
+        self.mesh = mesh
         self.dtype = dtype
         self.members = [infer_cast(m, None, dtype)[0].eval() for m in members]
         if weights is not None:
@@ -78,10 +88,30 @@ class Ensemble:
         (numpy arrays or tensors, on the host or the members' device), on
         the members' device: (B, E), or (B, P, E) for the paragraph model.
         One replay of the batch shape's program on a CUDA device."""
-        return self.program({
+        if self.mesh is not None:
+            from ..parallel.mesh import local_rows
+
+            self._check_rows(batch)
+            batch = local_rows(batch, self.mesh)
+        return self._gathered(self.program({
             k: (v if torch.is_tensor(v)
                 else torch.from_numpy(np.ascontiguousarray(v)))
-            for k, v in batch.items()}).clone()
+            for k, v in batch.items()}).clone())
+
+    def _check_rows(self, batch) -> None:
+        n_data = self.mesh.shape["data"]
+        b = next(iter(batch.values())).shape[0]
+        if b % n_data:
+            raise ValueError(
+                f"batch size {b} must divide the mesh 'data' axis "
+                f"({n_data}) for sharded inference — pick a batch_size "
+                f"divisible by dp")
+
+    def _gathered(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's rows' logits, or on a mesh every rank's, in order."""
+        if self.mesh is None:
+            return logits
+        return comm.all_gather(logits, self.mesh.group("data"), 0)
 
     def predict_all(self, loader, *, transfer_dtype=None) -> np.ndarray:
         """The combined logits over a loader (a zero-arg callable such as a
@@ -100,6 +130,8 @@ class Ensemble:
 
         def keeping(it):
             for b in it:
+                if self.mesh is not None:
+                    self._check_rows(b)
                 w = b.get("sample_weight")
                 keeps.append(None if w is None else np.asarray(w) > 0)
                 yield b
@@ -107,11 +139,15 @@ class Ensemble:
         it = keeping(iter(loader() if callable(loader) else loader))
         if self.device.type == "cuda":
             it = prefetch_to_device(it, device=self.device, size=2,
-                                    transfer_dtype=wire)
+                                    transfer_dtype=wire, mesh=self.mesh)
         else:
+            if self.mesh is not None:
+                from ..parallel.mesh import local_rows
+
+                it = (local_rows(b, self.mesh) for b in it)
             it = (to_device(cast_for_transfer(b, wire), self.device)
                   for b in it)
-        outs = [self.program(b).clone() for b in it]
+        outs = [self._gathered(self.program(b).clone()) for b in it]
         if not outs:
             raise ValueError("predict_all: the loader gave no batch")
         lg = torch.cat(outs).cpu().numpy()
@@ -130,7 +166,12 @@ class Ensemble:
         of one captured program per batch, the batch's rows read through a
         device-side index; padding rows dropped, one copy back at the end.
         The same batches and math as `predict_all` over a
-        Batcher(samples, batch_size, shuffle=False): the same logits."""
+        Batcher(samples, batch_size, shuffle=False): the same logits.  A
+        mesh raises, as in JAX."""
+        if self.mesh is not None:
+            raise ValueError(
+                "staged prediction does not compose with mesh= sharding — "
+                "use the per-batch path (predict_all) on a mesh")
         from ..train.device_epochs import stage_dataset
 
         data, _ = stage_dataset(list(samples), pad_to_multiple=batch_size,

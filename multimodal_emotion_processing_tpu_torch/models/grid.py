@@ -48,11 +48,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.pooling import mean_max_pool
+from ..parallel import comm
 from ..utils import initializers as init
 from .layers import (DrawnMasks, MinusBlock, PositionEmbedding,
                      RealformerBlock, UnifyConv, UnifyConvMultires,
                      UnifyLinear, active_rate, block_keep_masks, dropout,
-                     minus_norm_names)
+                     minus_norm_names, row_parallel)
 
 # (stream key, query modality, key/value modality) — reference order.
 STREAMS = (
@@ -97,7 +98,11 @@ class Grid(nn.Module):
     """Unify projection (+ position embeddings), 9 * n_layers blocks and the
     head `out`; block `n_layers * s + i` is layer i of stream s.  The config
     picks the unify (`linear`, `linear_ln`, `conv` or `conv_multires`) and
-    the block (`minus` or `realformer`)."""
+    the block (`minus` or `realformer`).  Under tensor parallelism (`tp`,
+    parallel/mesh.shard_params) the classifier is row-parallel over the
+    pooled features (its input axis sharded, as in JAX)."""
+
+    tp = None
 
     def __init__(self, cfg, *, out: str = "classifier"):
         super().__init__()
@@ -196,6 +201,10 @@ class Grid(nn.Module):
         # reference sequence-concat order is [l, a, v] (cmu-mosei/run.py:317)
         pooled = mean_max_pool(torch.cat([lc, ac, vc], dim=1))
         if per_layer:
+            if self.tp is not None:
+                return row_parallel(comm.split_to(pooled, self.tp.group, -1),
+                                    self.classifier.weight,
+                                    self.classifier.bias, self.tp)
             return self.classifier(pooled)
         # Drop(ReLU(LN(FC(x)))) (others/realformer.py:263)
         x = torch.relu(init.layer_norm(self.fully_connected(pooled),

@@ -33,9 +33,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import comm
 from ..utils import initializers as init
 from .grid import Grid
-from .layers import minus_norm_names
+from .layers import minus_norm_names, row_parallel
 
 
 def bilinear_transition(trans, last_feat, this_feat):
@@ -157,7 +158,11 @@ def state_transfer_recurrence(trans, prev_out, prev_feats, out_t1, feats):
 
 class StateTransfer(nn.Module):
     """`state_transfer`: the `feature` grid, `classifier` (dim → 2E, with
-    bias) and the transition matrix `trans` (E, E) of the recurrence."""
+    bias) and the transition matrix `trans` (E, E) of the recurrence.
+    Under tensor parallelism (`tp`, parallel/mesh.shard_params) the
+    classifier is row-parallel (its input axis sharded, as in JAX)."""
+
+    tp = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -178,8 +183,14 @@ class StateTransfer(nn.Module):
         """The per-clip half (`state_transfer_clip`): grid → feature →
         classifier, split into (out_t1, feats), each (N, E), for
         clip-flattened inputs (N, len, dm) and masks (N, len)."""
-        cls = self.classifier(self.feature(l, v, a, l_mask, v_mask, a_mask,
-                                           impl=impl, generator=generator))
+        feat = self.feature(l, v, a, l_mask, v_mask, a_mask, impl=impl,
+                            generator=generator)
+        if self.tp is not None:
+            cls = row_parallel(comm.split_to(feat, self.tp.group, -1),
+                               self.classifier.weight, self.classifier.bias,
+                               self.tp)
+        else:
+            cls = self.classifier(feat)
         return cls[..., :self.n_emotions], cls[..., self.n_emotions:]
 
     def forward(self, batch, *, impl: str = "xla", generator=None):

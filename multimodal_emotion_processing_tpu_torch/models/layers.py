@@ -30,21 +30,66 @@ draws its keep mask from the `torch.Generator` the caller passes down.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import scored_attention
 from ..ops.fused_block import fused_minus_block
+from ..parallel import comm
 from ..utils import initializers as init
+
+# (n_data, data index) while a step runs on a data-parallel mesh
+_ROWS: list = []
+
+
+@contextlib.contextmanager
+def batch_rows(n_data: int, index: int):
+    """Dropout on a data-parallel mesh: while the block runs, every keep
+    mask is drawn for the global batch (n_data times the rank's rows) and
+    the rank keeps its own rows, so the masks, and the generator's
+    position after them, are the single device's."""
+    _ROWS.append((n_data, index))
+    try:
+        yield
+    finally:
+        _ROWS.pop()
 
 
 def keep_mask(shape, keep: float, generator: torch.Generator,
               device) -> torch.Tensor:
     """A bool mask of `shape` on `device`, each entry True with probability
     `keep`: the one place the port draws dropout bits, from `generator`
-    alone (never the global generator)."""
-    return torch.rand(shape, generator=generator, device=device) < keep
+    alone (never the global generator).  Under `batch_rows`, the mask of
+    the global batch's rows cut to this rank's (dim 0 is batch-major at
+    every site)."""
+    if not _ROWS:
+        return torch.rand(shape, generator=generator, device=device) < keep
+    n, i = _ROWS[-1]
+    rows = shape[0]
+    whole = (rows * n,) + tuple(shape[1:])
+    full = torch.rand(whole, generator=generator, device=device) < keep
+    return full[i * rows:(i + 1) * rows]
+
+
+def row_parallel(x, weight, bias, tp):
+    """A row-parallel Linear: x's features of this rank's chunk (a
+    column-parallel output, or `comm.split_to` of a replicated tensor)
+    times its (out, in / tp) weight shard, summed over the model axis (its
+    backward the identity, `comm.reduce_from`), then the replicated
+    bias."""
+    y = comm.reduce_from(F.linear(x, weight), tp.group)
+    return y if bias is None else y + bias
+
+
+def column_parallel(x, weight, bias, tp):
+    """A column-parallel Linear: the replicated x (its cotangent summed
+    over the model axis, `comm.copy_to`) times this rank's (out / tp, in)
+    weight shard, plus the rank's chunk of the replicated bias."""
+    y = F.linear(comm.copy_to(x, tp.group), weight)
+    return y if bias is None else y + comm.split_to(bias, tp.group, 0)
 
 
 class DrawnMasks:
@@ -239,7 +284,23 @@ class MinusBlock(nn.Module):
     `norm1`, or `norm2` under Ren-MME's names (`norm=`).  While dropout is
     active (training, rate > 0), `impl="pallas_fused"` runs the attention
     kernel with this epilogue, as in JAX: the whole-block kernel has no
-    dropout."""
+    dropout.
+
+    Under tensor parallelism (`tp`, set by parallel/mesh.shard_params) the
+    attention is replicated (a minus block has no Q/K/V products), `proj`
+    is column-parallel and `minus` row-parallel over [q ; x] (JAX
+    `tp_param_spec`).  `pallas_fused` fuses attention, `proj`, the combine
+    and the LayerNorm in one kernel, which cannot take shards: `proj` and
+    `minus` are gathered whole (their backward keeps the rank's chunk of
+    the replicated gradient) and the kernel runs on every rank.  That is
+    XLA's SPMD fallback for a custom call it has no partitioning rule for,
+    as JAX's Mosaic kernel is on a TPU: its operands replicated.  (JAX's
+    tp forward lowered on 8 CPU devices does not show it: there the
+    `pallas_call` is interpreted, and GSPMD partitions the interpreted
+    body like any code, 210 all-gathers, 21 all-reduces and 1548
+    collective-permutes in a tiny `mosei_trans` forward.)"""
+
+    tp = None
 
     def __init__(self, dim: int, n_heads: int, *, dropout: float = 0.0,
                  norm: str = "norm1"):
@@ -268,16 +329,30 @@ class MinusBlock(nn.Module):
                 emit_scores: bool = True, generator=None):
         """q, k, v (B, L, dim), k and v used raw; returns (q', scores')."""
         rate = active_rate(self)
+        tp = self.tp
         if impl == "pallas_fused":
             if rate <= 0.0 and (mask is None or mask.ndim == 2):
+                w_proj, w_minus = self.proj.weight, self.minus.weight
+                if tp is not None:
+                    w_proj = comm.gather_from(w_proj, tp.group, 0)
+                    w_minus = comm.gather_from(w_minus, tp.group, 1)
                 return fused_minus_block(
-                    q, k, v, mask, scores, self.c, self.proj.weight,
-                    self.minus.weight, self.norm.weight, self.norm.bias,
+                    q, k, v, mask, scores, self.c, w_proj, w_minus,
+                    self.norm.weight, self.norm.bias,
                     n_heads=self.n_heads, emit_scores=emit_scores)
             impl = "pallas"   # the attention kernel with the plain epilogue
         ctx, scores = scored_attention(
             q, k, v, mask, scores, self.c, n_heads=self.n_heads, impl=impl,
             emit_scores=emit_scores)
+        if tp is not None:
+            x = comm.gather_from(column_parallel(ctx, self.proj.weight, None,
+                                                 tp), tp.group, -1)
+            x = dropout(x, rate, generator)
+            pre = row_parallel(
+                comm.split_to(torch.cat([q, x], dim=-1), tp.group, -1),
+                self.minus.weight, None, tp)
+            out = init.layer_norm(pre, self.norm.weight, self.norm.bias)
+            return dropout(out, rate, generator), scores
         x = dropout(self.proj(ctx), rate, generator)
         # Linear(concat[q, x]) as q @ W[:d] + x @ W[d:]: the same function
         # without materializing the (B, L, 2d) concat
@@ -291,7 +366,16 @@ class MinusBlock(nn.Module):
 class RealformerBlock(nn.Module):
     """`apply_block_realformer`: bias-free Q/K/V projections of (q, k, v);
     residual-score attention with gate c; q = LN1(q + a·Drop(proj(ctx)));
-    q = LN2(q + b·Drop(FFN(q))) with a ReLU FFN of width ffn·dim."""
+    q = LN2(q + b·Drop(FFN(q))) with a ReLU FFN of width ffn·dim.
+
+    Under tensor parallelism (`tp`, set by parallel/mesh.shard_params) the
+    Q/K/V and first FFN products are column-parallel, so the attention
+    runs on this rank's H / tp heads (any impl, the scored kernels
+    included) and its scores chain head-sharded to the next block, as
+    GSPMD propagates them; `proj` and the second FFN product are
+    row-parallel (JAX `tp_param_spec`)."""
+
+    tp = None
 
     def __init__(self, dim: int, n_heads: int, ffn_mult: int, *,
                  dropout: float = 0.0):
@@ -326,6 +410,10 @@ class RealformerBlock(nn.Module):
         kernel is the minus block's."""
         if impl == "pallas_fused":
             impl = "pallas"
+        if self.tp is not None:
+            return self._forward_tp(q, k, v, mask, scores, impl=impl,
+                                    emit_scores=emit_scores,
+                                    generator=generator)
         wq, wk, wv = self.w_qkv
         ctx, scores = scored_attention(
             wq(q), wk(k), wv(v), mask, scores, self.c, n_heads=self.n_heads,
@@ -334,5 +422,25 @@ class RealformerBlock(nn.Module):
         x = dropout(self.proj(ctx), rate, generator)
         q = init.layer_norm(q + self.a * x, self.norm1.weight, self.norm1.bias)
         h = dropout(self.ffn(q), rate, generator)
+        q = init.layer_norm(q + self.b * h, self.norm2.weight, self.norm2.bias)
+        return q, scores
+
+    def _forward_tp(self, q, k, v, mask, scores, *, impl, emit_scores,
+                    generator):
+        tp = self.tp
+        wq, wk, wv = (lin.weight for lin in self.w_qkv)
+        ctx, scores = scored_attention(
+            column_parallel(q, wq, None, tp), column_parallel(k, wk, None, tp),
+            column_parallel(v, wv, None, tp), mask, scores,
+            comm.copy_to(self.c, tp.group), n_heads=self.n_heads // tp.size,
+            impl=impl, emit_scores=emit_scores)
+        rate = active_rate(self)
+        x = dropout(row_parallel(ctx, self.proj.weight, None, tp), rate,
+                    generator)
+        q = init.layer_norm(q + self.a * x, self.norm1.weight, self.norm1.bias)
+        h = self.ffn[1](column_parallel(q, self.ffn[0].weight,
+                                        self.ffn[0].bias, tp))
+        h = dropout(row_parallel(h, self.ffn[2].weight, self.ffn[2].bias, tp),
+                    rate, generator)
         q = init.layer_norm(q + self.b * h, self.norm2.weight, self.norm2.bias)
         return q, scores

@@ -13,7 +13,9 @@ its keys, where −inf would give NaN.  `_scored_attention_xla` is the plain
 PyTorch path and the oracle every kernel is held against; `impl="flash"`
 routes terminal blocks to the hand-written CUDA kernel of
 ops/flash_attention.py, and `impl="pallas"` every block to the
-score-materializing CUDA kernel of ops/pallas_attention.py.
+score-materializing CUDA kernel of ops/pallas_attention.py; `impl="cp"`
+shards the sequence over the ranks of the active `cp_context`
+(ops/context_parallel.py, plain products and collectives).
 """
 
 from __future__ import annotations
@@ -67,7 +69,9 @@ def scored_attention(
     kernel for terminal blocks; calls it cannot serve take the plain path) |
     'pallas' (the CUDA kernels of every block, which emit S, with their
     backward kernels when a gradient is needed; `emit_scores=False` skips
-    the S write).
+    the S write) | 'cp' (context parallelism over the active
+    `cp_context`'s ranks, ops/context_parallel.py: psum mode, or the ring,
+    which with `emit_scores=False` builds no S).
     Returns (context (B, Lq, D), scores (B, H, Lq, Lkv) or None)."""
     if impl == "pallas":
         from .pallas_attention import scored_attention_pallas
@@ -82,6 +86,19 @@ def scored_attention(
             return flash_scored_attention(q, k, v, mask, c, n_heads=n_heads)
         return _scored_attention_xla(q, k, v, mask, scores_prev, c,
                                      n_heads=n_heads)
+    if impl == "cp":
+        from .context_parallel import (current_cp, ring_scored_attention,
+                                       scored_attention_cp)
+
+        mesh, axis, mode = current_cp()
+        if mode == "ring":
+            # a terminal block (emit_scores=False) builds no score
+            # accumulator on the ring
+            return ring_scored_attention(q, k, v, mask, scores_prev, c,
+                                         n_heads=n_heads, mesh=mesh, axis=axis,
+                                         emit_scores=emit_scores)
+        return scored_attention_cp(q, k, v, mask, scores_prev, c,
+                                   n_heads=n_heads, mesh=mesh, axis=axis)
     if impl == "pallas_fused":
         raise NotImplementedError(
             "impl 'pallas_fused' runs the whole minus block "
@@ -89,8 +106,7 @@ def scored_attention(
             "'xla', 'flash' or 'pallas'")
     if impl != "xla":
         raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet; use 'xla', 'flash' "
-            "or 'pallas'")
+            f"attention impl {impl!r}: use 'xla', 'flash', 'pallas' or 'cp'")
     return _scored_attention_xla(q, k, v, mask, scores_prev, c, n_heads=n_heads)
 
 

@@ -29,7 +29,9 @@ def zlpr_loss(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
 
 
 def symmetric_sigmoid_kl(logits: torch.Tensor,
-                         pair_weight: torch.Tensor | None = None) -> torch.Tensor:
+                         pair_weight: torch.Tensor | None = None, *,
+                         denominator: torch.Tensor | float | None = None
+                         ) -> torch.Tensor:
     """The Ren-MME R-Drop consistency term (Ren-MME/run.py:332-334) over
     adjacent duplicate rows, a = logits[::2] and b = logits[1::2]:
     (KL(a ‖ b) + KL(b ‖ a)) / 2, each torch's kl_div(logsigmoid(q),
@@ -37,7 +39,10 @@ def symmetric_sigmoid_kl(logits: torch.Tensor,
     element-wise sigmoid "probabilities".  p·log p is 0 where p is 0
     (p·log(max(p, 1e-38)) elsewhere, as JAX guards it).  With
     `pair_weight` (n_pairs,), 1 for a real pair and 0 for padding, the sum
-    is weighted and divided by max(Σ w, 1) instead."""
+    is weighted and divided by max(Σ w, 1) instead.  `denominator`
+    replaces the divisor (n_pairs, or max(Σ w, 1)): on a data-parallel
+    mesh the global batch's, so that the ranks' terms sum to the single
+    device's."""
     a, b = logits[::2], logits[1::2]
 
     def kl(log_q_logits, p_logits):
@@ -46,6 +51,10 @@ def symmetric_sigmoid_kl(logits: torch.Tensor,
         plogp = torch.where(p > 0, p * torch.log(torch.clamp(p, min=1e-38)),
                             0.0)
         elem = plogp - p * log_q
+        if denominator is not None:
+            if pair_weight is not None:
+                elem = elem * pair_weight[:, None]
+            return elem.sum() / denominator
         if pair_weight is None:
             return elem.sum() / log_q_logits.shape[0]
         return ((elem * pair_weight[:, None]).sum()

@@ -26,13 +26,23 @@ a host round trip).
 fold 0's split (train/sweep.py); `run_predict(device_resident=True)`
 scores a split staged on the card (`Ensemble.predict_all_staged`).
 
-Not ported yet: data- and tensor-parallel meshes and the stacked grid.
+`run_experiment(dp=, tp=)` trains on a ('data', 'model') mesh over every
+rank of the world (parallel/mesh.py; one process per card under torchrun,
+or a world of one rank made for the call) with the sequential driver,
+and scores on the same mesh's data axis where the batch divides it;
+`run_predict(dp=)` shards batch inference (`Ensemble(mesh=)`).  Rank 0
+alone writes the store, the run's files, the predictions and the log.
+`impl="cp"` runs under `ensure_cp` (ops/context_parallel.py).  The lockstep
+drivers refuse a mesh (ROADMAP queue 1 item 11).
+
+Not ported yet: the stacked grid.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import platform
@@ -53,6 +63,9 @@ from .eval.ensemble import (Ensemble, group_average, joint_threshold_grid,
                             robot_threshold_grid, threshold_sweep)
 from .eval.report import evaluate, format_report
 from .models import build_model
+from .ops.context_parallel import ensure_cp
+from .parallel.mesh import (WholeState, is_rank0, make_mesh, world,
+                            world_size)
 from .train.checkpoint import CheckpointStore
 from .train.kfold import contiguous_folds, run_kfold
 from .train.sweep import run_lr_sweep
@@ -263,7 +276,7 @@ def _member(exp, state_dict, device):
 
 
 def _make_ensemble(config_name, members, member_losses, *,
-                   impl: str = "xla", dtype: str = "float32"):
+                   impl: str = "xla", dtype: str = "float32", mesh=None):
     """The config's combination: Ren-MME sums the members' logits
     (Ren-MME/run.py:560-575), the realformer keeps its two best folds at
     0.6/0.4 (others/realformer.py:420,482-485), every other config
@@ -276,7 +289,7 @@ def _make_ensemble(config_name, members, member_losses, *,
         members = [members[i] for i in order]
         weights = [0.6, 0.4]
     return Ensemble(members, weights=weights, combine=combine, impl=impl,
-                    dtype=dtype)
+                    dtype=dtype, mesh=mesh)
 
 
 def _flatten_units(units, with_groups: bool = False):
@@ -338,13 +351,13 @@ def _choose_thresholds(config_name, exp, logits, labels, sweep_thresholds,
         sweep = threshold_sweep(logits, labels, grid, exp.emotion_index,
                                 exp.emotion_names)
         thresholds = [sweep[e]["t"] for e in exp.emotion_names]
-    if checkpoint_dir:
+    if checkpoint_dir and is_rank0():
         save_tuned_thresholds(checkpoint_dir, config_name, exp, thresholds,
                               source="sweep")
     return thresholds, sweep
 
 
-def run_experiment(
+def _run_experiment(
     config_name: str,
     *,
     synthetic_data: bool = True,
@@ -369,6 +382,8 @@ def run_experiment(
     one_dispatch: bool = False,
     accum_steps: int = 1,
     profile_dir: Optional[str] = None,
+    dp: Optional[int] = None,
+    tp: int = 1,
 ) -> PipelineResult:
     """One reference script: the train samples carved into the config's k
     folds, one member trained per fold (and per extra seed,
@@ -407,10 +422,18 @@ def run_experiment(
     `profile_dir`: torch.profiler traces (utils/logging.profile_trace) into
     this directory: each sequential member's first epoch after its
     captures, the lockstep's first such epoch, or one-dispatch's whole
-    run."""
+    run.
+
+    `dp` / `tp`: train on a mesh of dp x tp ranks (`make_mesh`; the world
+    must hold exactly that many): batches sharded over `dp` on 'data',
+    with `tp` > 1 tensor-parallel over 'model' (engine.Trainer(mesh=, tp=));
+    the same math as one device.  The batch rows per step (x2 under
+    R-Drop) must divide dp.  The test batches shard over the same data
+    axis where batch_size divides it.  dp=None, tp=1: one device."""
     exp = configs.with_overrides(configs.get(config_name), overrides)
     impl = impl or exp.model.attn_impl
     device = resolve_device(device)
+    quiet = quiet or not is_rank0()
     loader_ctx = None
     if synthetic_data:
         train_samples, test_samples = _synthetic_data(exp, n_train, n_test)
@@ -429,6 +452,24 @@ def run_experiment(
     loggers: Dict[str, RunLogger] = {}
     duplicate = exp.train.rdrop_kl  # Ren-MME's R-Drop duplicates each sample
     n_epochs = exp.train.epochs if epochs is None else epochs
+
+    mesh = None
+    if dp is not None or tp > 1:
+        mesh = make_mesh(n_data=dp, n_model=tp, device=device)
+        device = mesh.device
+        n_data = mesh.shape["data"]
+        rows = exp.train.batch_size * (2 if duplicate else 1)
+        if rows % n_data:
+            raise ValueError(
+                f"batch rows per step ({rows}) must divide the data axis "
+                f"({n_data}) — adjust --dp or train.batch_size")
+        if impl == "cp" and mesh.size > 1:
+            raise ValueError(
+                "impl='cp' shards the sequence over every rank, each on the "
+                "same rows: it does not compose with a dp x tp mesh of "
+                f"{mesh.size} ranks")
+        _log(f"[{config_name}] mesh: dp={n_data} tp={mesh.shape['model']} "
+             f"over {mesh.size} devices", quiet)
 
     # JAX's driver rules, each fallback logged in JAX's words
     # nested units (mosei pairs -> 1-2 crop samples) are carved at the unit
@@ -493,7 +534,8 @@ def run_experiment(
     # provenance written before training, so a crashed run has it too; an
     # eval-only pass must not overwrite the training run's
     _write_run_meta(
-        [d for d in (log_dir, checkpoint_dir) if d] if n_epochs != 0 else [],
+        [d for d in (log_dir, checkpoint_dir) if d]
+        if n_epochs != 0 and is_rank0() else [],
         config_name=config_name, overrides=overrides, exp=exp,
         drivers={"epochs": epochs, "impl": impl,
                  "vmap_folds": vmap_folds, "scan_steps": scan_steps,
@@ -502,7 +544,7 @@ def run_experiment(
                  "seeds_per_fold": seeds_per_fold,
                  "transfer_dtype": transfer_dtype,
                  "async_checkpoint": async_checkpoint, "resume": resume,
-                 "sweep_thresholds": sweep_thresholds},
+                 "sweep_thresholds": sweep_thresholds, "dp": dp, "tp": tp},
         data={"synthetic": synthetic_data, "data_root": data_root,
               "n_train": n_train, "n_test": n_test},
         device=device)
@@ -552,7 +594,8 @@ def run_experiment(
                       fold_size=exp.train.fold_size, duplicate=duplicate,
                       seeds_per_fold=seeds_per_fold,
                       transfer_dtype=transfer_dtype, device=device,
-                      info=driver_stats, profile_dir=profile_dir)
+                      info=driver_stats, profile_dir=profile_dir,
+                      mesh=mesh, tp=tp > 1)
         if one_dispatch:
             _, hists, best_members, best_losses = run_kfold_fully_compiled(
                 train_samples, exp, exp.train, **common)
@@ -574,7 +617,13 @@ def run_experiment(
                             seeds_per_fold=seeds_per_fold, device=device,
                             transfer_dtype=transfer_dtype,
                             scan_steps=scan_steps, accum_steps=accum_steps,
-                            profile_dir=profile_dir)
+                            profile_dir=profile_dir, mesh=mesh, tp=tp > 1)
+    if world_size() > 1 and store is not None:
+        # rank 0 wrote the store: every rank reads it once its saves landed
+        store.wait()
+        torch.distributed.barrier()
+        if not is_rank0():
+            store = CheckpointStore(checkpoint_dir)
 
     report = sweep = logits = labels = None
     if test_samples:
@@ -586,10 +635,19 @@ def run_experiment(
             # the lockstep drivers' best parameters, kept without a store
             members = [_member(exp, sd, device) for sd in best_members]
             member_losses = best_losses
+        elif tp > 1:
+            # the final states' shards gathered whole: the members replicate
+            members = [_member(exp, WholeState(state).state_dict()["model"],
+                               device) for state, _ in results]
         else:
             members = [state.model for state, _ in results]
+        # the eval batches are not R-Drop duplicated: they shard over the
+        # data axis only where batch_size divides it
+        eval_mesh = (mesh if mesh is not None
+                     and exp.train.batch_size % mesh.shape["data"] == 0
+                     else None)
         ens = _make_ensemble(config_name, members, member_losses, impl=impl,
-                             dtype=exp.train.compute_dtype)
+                             dtype=exp.train.compute_dtype, mesh=eval_mesh)
         # eval batches: no shuffle, no R-Drop duplicates (Ren-MME/run.py:427-449)
         test_loader = Batcher(test_samples, exp.train.batch_size, shuffle=False)
         logits, labels = _collapse_test_outputs(
@@ -606,6 +664,29 @@ def run_experiment(
         store.wait()
     return PipelineResult(config_name, [h for _, h in results], report, sweep,
                           store, logits, labels, driver_stats)
+
+
+def _in_world(run, config_name: str, kwargs, meshed: bool):
+    """`run(config_name, **kwargs)` with impl="cp" bound to a psum-mode
+    context over every rank when the caller bound none
+    (ops/context_parallel.ensure_cp), and for a mesh a world of one rank
+    made for the call when no process group exists."""
+    device = kwargs.get("device")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(ensure_cp(kwargs.get("impl") or "xla",
+                                      device=device))
+        if meshed:
+            stack.enter_context(world(device))
+        return run(config_name, **kwargs)
+
+
+@functools.wraps(_run_experiment)
+def run_experiment(config_name: str, **kwargs) -> PipelineResult:
+    return _in_world(_run_experiment, config_name, kwargs,
+                     kwargs.get("dp") is not None or kwargs.get("tp", 1) > 1)
+
+
+run_experiment.__name__ = run_experiment.__qualname__ = "run_experiment"
 
 
 def run_lr_sweep_experiment(
@@ -668,11 +749,12 @@ def run_lr_sweep_experiment(
         _log(f"[{name}] epoch {epoch + 1}: train {stats.train_loss:.4f} "
              f"valid {stats.valid_loss:.4f}", quiet)
 
-    result = run_lr_sweep(
-        train_samples, valid_samples, exp, exp.train, lrs=lrs, wds=wds,
-        seeds_per_lr=seeds_per_lr, epochs=epochs, impl=impl,
-        duplicate=exp.train.rdrop_kl, log_cb=None if quiet else log_cb,
-        transfer_dtype=transfer_dtype, device=device)
+    with ensure_cp(impl, device=device):
+        result = run_lr_sweep(
+            train_samples, valid_samples, exp, exp.train, lrs=lrs, wds=wds,
+            seeds_per_lr=seeds_per_lr, epochs=epochs, impl=impl,
+            duplicate=exp.train.rdrop_kl, log_cb=None if quiet else log_cb,
+            transfer_dtype=transfer_dtype, device=device)
     win = result.members[result.winner]
     if checkpoint_dir:
         store = CheckpointStore(checkpoint_dir)
@@ -690,7 +772,7 @@ def run_lr_sweep_experiment(
     return out
 
 
-def run_predict(
+def _run_predict(
     config_name: str,
     *,
     checkpoint_dir: Optional[str] = None,
@@ -708,6 +790,7 @@ def run_predict(
     device=None,
     transfer_dtype: Optional[str] = None,
     device_resident: bool = False,
+    dp: Optional[int] = None,
 ) -> Dict:
     """Offline batch inference: the trained ensemble over a split once,
     every sample's outputs kept (eval/predictions.py): the artifact
@@ -727,13 +810,30 @@ def run_predict(
     (`Ensemble.predict_all`).  `device_resident` stages the whole split on
     the card once and replays one program per batch
     (`Ensemble.predict_all_staged`): the same logits, without a per-batch
-    copy.  Returns the prediction table with "rows" and "members"
-    counts."""
+    copy.  `dp`: shard the batches over a mesh of dp ranks' 'data' axis
+    (`Ensemble(mesh=)`; the world must hold dp ranks, batch_size must
+    divide dp; not with `device_resident`); the logits are one device's.
+    Rank 0 alone writes `output`.  Returns the prediction table with
+    "rows" and "members" counts."""
     from .eval.predictions import prediction_table, write_predictions
 
     exp = configs.with_overrides(configs.get(config_name), overrides)
     impl = impl or exp.model.attn_impl
     device = resolve_device(device)
+    quiet = quiet or not is_rank0()
+    mesh = None
+    if dp is not None:
+        if device_resident:
+            raise ValueError("device_resident does not compose with dp — "
+                             "pick one (staged scoring vs sharded "
+                             "per-batch inference)")
+        mesh = make_mesh(n_data=dp, n_model=1, device=device)
+        device = mesh.device
+        if exp.train.batch_size % mesh.shape["data"]:
+            raise ValueError(
+                f"batch_size ({exp.train.batch_size}) must be divisible by "
+                f"dp ({mesh.shape['data']}) for sharded inference")
+        _log(f"[{config_name}] predict mesh: dp={mesh.shape['data']}", quiet)
     if split not in ("test", "train", "all"):
         raise ValueError(f"split must be test/train/all, got {split!r}")
     n_tr = n_train if n_train is not None else n_test
@@ -785,7 +885,7 @@ def run_predict(
         raise ValueError("checkpoint_dir required (or init_random=True for "
                          "an untrained smoke run)")
     ens = _make_ensemble(config_name, members, member_losses, impl=impl,
-                         dtype=exp.train.compute_dtype)
+                         dtype=exp.train.compute_dtype, mesh=mesh)
     if device_resident:
         raw = ens.predict_all_staged(samples, exp.train.batch_size,
                                      transfer_dtype=transfer_dtype)
@@ -806,8 +906,17 @@ def run_predict(
                              exp.emotion_names, labels=labels)
     table["rows"] = int(table["pred"].shape[0])
     table["members"] = ens.k
-    if output:
+    if output and is_rank0():
         write_predictions(output, table)
         _log(f"[{config_name}] wrote {table['rows']} predictions "
              f"({ens.k} members) to {output}", quiet)
     return table
+
+
+@functools.wraps(_run_predict)
+def run_predict(config_name: str, **kwargs) -> Dict:
+    return _in_world(_run_predict, config_name, kwargs,
+                     kwargs.get("dp") is not None)
+
+
+run_predict.__name__ = run_predict.__qualname__ = "run_predict"

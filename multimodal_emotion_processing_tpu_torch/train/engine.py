@@ -28,11 +28,17 @@ back to back.  The whole-run drivers
 (train/device_epochs.py, vmap_kfold.py, sweep.py) build on the same
 pieces.
 
-Not ported yet: the device mesh and the profile option.
+On a mesh (parallel/mesh.py, `Trainer(mesh=, tp=)`) every rank runs the
+same step on its own rows: the loss's denominators are global sums over
+'data', the loss and gradients are summed over 'data' in one flat buffer
+(`DataParallel.reduce`), the global-norm clip counts a replicated
+gradient once and sums a shard's squares over 'model', and on NCCL the
+step, collectives included, is still one captured graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import time
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.loss import symmetric_sigmoid_kl, zlpr_loss
+from ..parallel import comm
 from ..utils.logging import profile_trace
 from . import schedule
 
@@ -168,6 +175,10 @@ class Optimizer:
     for bit."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
+    # under tensor parallelism (parallel/mesh.place_state): which params
+    # are shards, and the group their squared norms are summed over
+    sharded = None
+    model_group = None
 
     def __init__(self, params, tcfg):
         if tcfg.optimizer not in ("adamw", "adam"):
@@ -222,7 +233,7 @@ class Optimizer:
             grads = [p.grad for p in self.params]
         grads = [g if g is not None else torch.zeros_like(p)
                  for g, p in zip(grads, self.params)]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self._global_norm(grads)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         grads = torch._foreach_mul(grads, scale)
@@ -258,6 +269,20 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def _global_norm(self, grads) -> torch.Tensor:
+        """‖g‖ over every parameter: a replicated gradient counted once,
+        a shard's squared norm summed over the model axis."""
+        norms = torch._foreach_norm(grads)
+        if not self.sharded or not any(self.sharded):
+            return torch.linalg.vector_norm(torch.stack(norms))
+        rep = [n for n, s in zip(norms, self.sharded) if not s]
+        sq = comm.all_reduce(torch.stack(
+            [n for n, s in zip(norms, self.sharded) if s]).square().sum(),
+            self.model_group)
+        if rep:
+            sq = sq + torch.stack(rep).square().sum()
+        return torch.sqrt(sq)
+
     def state_dict(self) -> dict:
         """The moments `mu` and `nu` (one tensor per parameter, in the
         order of `params`; references, as `nn.Module.state_dict` gives),
@@ -290,7 +315,8 @@ def make_optimizer(tcfg, params) -> Optimizer:
 
 
 def batch_loss(model, tcfg, batch, *, impl: str = "xla",
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               parallel=None) -> torch.Tensor:
     """The reference loss contract: the ZLPR loss, averaged with the
     optional `sample_weight` (1 for real rows, 0 for padding) as
     Σ w·loss / max(Σ w, 1), so a zero-padded batch gives the reference's
@@ -309,33 +335,54 @@ def batch_loss(model, tcfg, batch, *, impl: str = "xla",
     gradients land in the f32 masters; batch floats go to bf16 except the
     keep-set, and the logits are upcast before the loss.  A batch in a wire
     format is restored first (`upcast_wire`, or `wire_to_bf16` under bf16
-    compute)."""
+    compute).
+
+    `parallel` (parallel/mesh.DataParallel): the batch holds this rank's
+    rows of a data-parallel step.  The denominators are the global batch's
+    (Σ w summed over 'data'; the rows times n_data), so each rank's loss is
+    its rows' share of the global mean and their sum is the single
+    device's loss; shards may hold different counts of real rows, where a
+    mean of per-rank means would be wrong.  Dropout draws the global
+    batch's masks and keeps the rank's rows."""
     dtype = getattr(tcfg, "compute_dtype", "float32")
     _check_dtype(dtype)
     batch = wire_to_bf16(batch) if dtype == "bfloat16" else upcast_wire(batch)
     kwargs = {"impl": impl}
     if generator is not None:
         kwargs["generator"] = generator
-    if dtype == "bfloat16":
-        params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
-        logits = torch.func.functional_call(model, params, (batch,), kwargs)
-    else:
-        logits = model(batch, **kwargs)
+    with parallel.rows() if parallel is not None else contextlib.nullcontext():
+        if dtype == "bfloat16":
+            params = {n: p.to(torch.bfloat16)
+                      for n, p in model.named_parameters()}
+            logits = torch.func.functional_call(model, params, (batch,), kwargs)
+        else:
+            logits = model(batch, **kwargs)
     logits = infer_upcast(logits)
     per_sample = zlpr_loss(logits, batch["label"])
     if tcfg.clip_mask_loss:
         per_sample = per_sample * batch["clip_mask"]            # (B, P)
     w = batch.get("sample_weight")
+
+    def total(local):   # a denominator summed over the data axis
+        return local if parallel is None else parallel.total(local)
+
+    n_data = 1 if parallel is None else parallel.n_data
     if w is None:
-        loss = per_sample.mean()
+        loss = (per_sample.mean() if n_data == 1
+                else per_sample.sum() / (per_sample.numel() * n_data))
     elif per_sample.ndim == 2:
         loss = ((per_sample * w[:, None]).sum()
-                / torch.clamp(w.sum() * per_sample.shape[1], min=1.0))
+                / torch.clamp(total(w.sum()) * per_sample.shape[1], min=1.0))
     else:
-        loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+        loss = (per_sample * w).sum() / torch.clamp(total(w.sum()), min=1.0)
     if tcfg.rdrop_kl and model.training:
-        loss = loss + symmetric_sigmoid_kl(
-            logits, pair_weight=None if w is None else w[::2])
+        pw = None if w is None else w[::2]
+        denom = None
+        if parallel is not None:
+            denom = (logits.shape[0] // 2 * n_data if pw is None
+                     else torch.clamp(total(pw.sum()), min=1.0))
+        loss = loss + symmetric_sigmoid_kl(logits, pair_weight=pw,
+                                           denominator=denom)
     return loss
 
 
@@ -345,6 +392,10 @@ class TrainState:
     optimizer: Optimizer
     generator: torch.Generator   # dropout masks, on the model's device
     step: int = 0
+    # on a mesh (parallel/mesh.place_state): the step's DataParallel and
+    # the parameters' placements
+    parallel: Optional[object] = None
+    spec: Optional[dict] = None
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs, as host tensors and numbers: the
@@ -448,7 +499,9 @@ def member_step(state: TrainState, tcfg, batch, *, impl: str = "xla",
     that it can be captured into a CUDA graph): forward with dropout from
     the state's generator, the loss, the gradients (over `accum_steps`
     micro-batches when > 1), the optimizer update (masked by `active`,
-    Optimizer.step).  Returns the loss, detached, on the device."""
+    Optimizer.step).  On a mesh (`state.parallel`) the loss and gradients
+    are summed over 'data' before the update.  Returns the loss, detached,
+    on the device."""
     model = state.model
     model.train()
     if accum_steps > 1:
@@ -457,9 +510,13 @@ def member_step(state: TrainState, tcfg, batch, *, impl: str = "xla",
                                            generator=state.generator)
     else:
         loss = batch_loss(model, tcfg, batch, impl=impl,
-                          generator=state.generator)
+                          generator=state.generator, parallel=state.parallel)
         grads = torch.autograd.grad(loss, state.optimizer.params,
                                     allow_unused=True)
+    if state.parallel is not None:
+        loss, grads = state.parallel.reduce(loss, [
+            torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, state.optimizer.params)])
     state.optimizer.step(grads, active=active)
     return loss.detach()
 
@@ -475,12 +532,17 @@ def train_step(state: TrainState, tcfg, batch, *, impl: str = "xla",
     return loss
 
 
-def eval_loss(model, tcfg, batch, *, impl: str = "xla") -> torch.Tensor:
+def eval_loss(model, tcfg, batch, *, impl: str = "xla",
+              parallel=None) -> torch.Tensor:
     """The eval-mode loss without autograd: the body of `eval_step`, with
-    no host-side work, so that it can be captured."""
+    no host-side work, so that it can be captured; on a mesh the global
+    batch's, summed over 'data'."""
     with torch.no_grad():
         model.eval()
-        return batch_loss(model, tcfg, batch, impl=impl)
+        loss = batch_loss(model, tcfg, batch, impl=impl, parallel=parallel)
+        if parallel is not None:
+            loss = comm.all_reduce(loss, parallel.data_group)
+        return loss
 
 
 class StepBuffer:
@@ -597,7 +659,22 @@ class Trainer:
     `profile_dir`: a torch.profiler trace (utils/logging.profile_trace) of
     the first epoch after the captures, counted from the fit's start
     epoch (a fit of one epoch traces that one, captures included), into
-    this directory, one file a fit."""
+    this directory, one file a fit.
+
+    `mesh` (parallel/mesh.make_mesh, JAX's `Trainer(mesh=)`): each rank
+    feeds its rows of every global batch (`prefetch_to_device(mesh=)`),
+    the state is placed onto the mesh (`place_state`: replicated, or with
+    `tp` sharded by JAX's `tp_param_spec`; a resumed state too), and the
+    step is the single device's (engine `batch_loss(parallel=)`,
+    `member_step`); the batch rows must divide the data axis.  On NCCL
+    each step is still one captured graph, its collectives inside (the
+    first, eager call warms them up); gloo drives its collectives from the
+    host, so on gloo with a CUDA device the steps run eagerly, as the log
+    says.  Checkpoints are gathered whole (`WholeState`), so they reload
+    on one card.
+    `accum_steps > 1` with a mesh raises, as in JAX.  In any world of
+    several ranks (a mesh, or `impl="cp"`) rank 0 alone checkpoints and
+    logs."""
 
     PREFETCH = 2
 
@@ -605,8 +682,14 @@ class Trainer:
                  checkpoint_cb: Optional[Callable] = None,
                  log_cb: Optional[Callable] = None, transfer_dtype=None,
                  accum_steps: int = 1, scan_steps: int = 1,
-                 profile_dir: Optional[str] = None):
+                 profile_dir: Optional[str] = None, mesh=None,
+                 tp: bool = False):
+        import sys
+
+        import torch.distributed as dist
+
         from ..data.loader import resolve_transfer_dtype
+        from ..parallel.mesh import is_rank0
         from ..utils.device import resolve_device
 
         if accum_steps < 1 or scan_steps < 1:
@@ -615,16 +698,49 @@ class Trainer:
         if scan_steps > 1 and accum_steps > 1:
             raise ValueError("accum_steps > 1 does not compose with "
                              "scan_steps > 1 (pick one dispatch-shape knob)")
+        if accum_steps > 1 and mesh is not None:
+            raise ValueError("accum_steps > 1 is single-device only "
+                             "(the mesh's data axis already shrinks the "
+                             "per-device batch)")
+        if tp and mesh is None:
+            raise ValueError("tp=True needs a mesh with a 'model' axis")
         self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
         self.cfg = getattr(cfg, "model", cfg)
         self.tcfg = tcfg
         self.impl = impl
-        self.device = resolve_device(device)
-        self.checkpoint_cb = checkpoint_cb
-        self.log_cb = log_cb
+        self.mesh = mesh
+        self.tp = tp
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.writer = is_rank0()
+        self.checkpoint_cb = self._whole(checkpoint_cb)
+        self.log_cb = log_cb if self.writer else None
         self.accum_steps = accum_steps
         self.scan_steps = scan_steps
         self.profile_dir = profile_dir
+        # gloo's collectives run on the host: no capture around them
+        self.captured = not (mesh is not None and self.device.type == "cuda"
+                             and dist.get_backend() == "gloo")
+        if not self.captured and self.writer:
+            print("[Trainer] gloo mesh on a CUDA device: the steps run "
+                  "eagerly (gloo drives its collectives from the host)",
+                  file=sys.stderr, flush=True)
+
+    def _whole(self, cb):
+        """`cb(state, ...)` as several ranks run it: under tensor
+        parallelism every rank gathers the state whole (a collective),
+        and rank 0 alone calls `cb` (with or without a mesh: `impl="cp"`
+        runs every rank on the same state)."""
+        from ..parallel.mesh import WholeState, world_size
+
+        if cb is None or world_size() == 1:
+            return cb
+
+        def call(state, *args):
+            whole = WholeState(state) if self.tp else state
+            if self.writer:
+                cb(whole, *args)
+
+        return call
 
     def _iter(self, loader, counter: Optional[dict] = None):
         """Batches of one epoch on the device; `counter["n"]` counts the
@@ -643,7 +759,13 @@ class Trainer:
         it = counting(iter(loader()))
         if self.device.type == "cuda":
             return prefetch_to_device(it, device=self.device, size=self.PREFETCH,
-                                      transfer_dtype=self.transfer_dtype)
+                                      transfer_dtype=self.transfer_dtype,
+                                      mesh=self.mesh)
+        if self.mesh is not None:
+            from ..parallel.mesh import put_global_batch
+
+            return (put_global_batch(cast_for_transfer(b, self.transfer_dtype),
+                                     self.mesh) for b in it)
         return (to_device(cast_for_transfer(b, self.transfer_dtype), self.device)
                 for b in it)
 
@@ -672,7 +794,8 @@ class Trainer:
                         def body(buf=buf):
                             return eval_loss(state.model, tcfg,
                                              {k: v[0] for k, v in
-                                              buf.read().items()}, impl=impl)
+                                              buf.read().items()}, impl=impl,
+                                             parallel=state.parallel)
                         gens = ()
                     progs[kind] = (buf, GraphedFunction(
                         body, dev, name=f"Trainer.{kind}_step[{impl}]",
@@ -680,8 +803,9 @@ class Trainer:
                     self.programs[kind] = progs[kind][1]
                 buf, prog = progs[kind]
                 buf.load([[b] for b in group])
+                call = prog if self.captured else prog.fn
                 for _ in group:
-                    out.append(prog().clone())
+                    out.append(call().clone())
                     if kind == "train":
                         state.step += 1
             return out
@@ -702,6 +826,11 @@ class Trainer:
         if state is None:
             state = init_state(self.cfg, tcfg, tcfg.seed if seed is None else seed,
                                device=self.device)
+        if self.mesh is not None and state.parallel is None:
+            from ..parallel.mesh import place_state
+
+            place_state(state, self.mesh, tp=self.tp)
+        last_cb = self._whole(last_cb)
         plateau = plateau or schedule.PlateauState(
             lr=tcfg.lr, factor=tcfg.plateau_factor,
             patience=tcfg.plateau_patience)

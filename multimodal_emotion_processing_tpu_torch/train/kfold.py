@@ -58,6 +58,8 @@ def run_kfold(
     scan_steps: int = 1,
     accum_steps: int = 1,
     profile_dir: Optional[str] = None,
+    mesh=None,
+    tp: bool = False,
 ):
     """Train tcfg.n_folds * seeds_per_fold members of ModelConfig `cfg` (or
     an ExperimentConfig) on `device` ("cuda" unless "cpu" is asked for).
@@ -81,7 +83,9 @@ def run_kfold(
     `accum_steps` are the Trainer's (engine.Trainer): the wire format,
     steps replayed back to back from one copy, gradient accumulation;
     so is `profile_dir` (each member's fit traces its first epoch after
-    the captures)."""
+    the captures), and so are `mesh` and `tp` (parallel/mesh.make_mesh:
+    every rank trains every member on its rows; rank 0 alone writes the
+    store, each checkpoint gathered whole)."""
     if seeds_per_fold < 1:
         raise ValueError(f"seeds_per_fold must be >= 1, got {seeds_per_fold}")
     samples = list(samples)
@@ -97,7 +101,7 @@ def run_kfold(
     trainer = engine.Trainer(
         cfg, tcfg, impl=impl, device=device, transfer_dtype=transfer_dtype,
         scan_steps=scan_steps, accum_steps=accum_steps,
-        profile_dir=profile_dir,
+        profile_dir=profile_dir, mesh=mesh, tp=tp,
         checkpoint_cb=(lambda state, epoch, vl:
                        store.save_best(current["name"], state, epoch, vl))
         if store is not None else None,
@@ -136,7 +140,7 @@ def run_kfold(
             stopper=stopper, last_cb=last_cb if store is not None else None)
         # an eval-only pass (epochs=0) must not mark the member trained: a
         # later resume would skip it and report partial checkpoints as done
-        if store is not None and n_epochs > 0:
+        if store is not None and n_epochs > 0 and trainer.writer:
             store.mark_done(name)
         results.append((state, history))
     return results

@@ -25,7 +25,9 @@ index rows).  `run_kfold_fully_compiled` adds the on-device controllers of
 device_epochs.fit_fully_compiled: every epoch launched without a host
 round trip.
 
-Not ported here: the mesh (`mesh`, `tp`), whose drivers are multi-device.
+These drivers run on one device: a mesh (`mesh`, `tp`) is refused
+(`_check_mesh`); the sequential driver (train/kfold.py) takes one.  The
+lockstep drivers on a mesh are ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -65,7 +67,9 @@ def _mark_done(store, name_prefix: str, m: int, n_epochs: int) -> None:
 def _check_mesh(mesh, tp) -> None:
     if mesh is not None or tp:
         raise ValueError("the lockstep k-fold runs on one device: mesh= and "
-                         "tp= (data and tensor parallelism) are not ported")
+                         "tp= (data and tensor parallelism) are not ported "
+                         "to it (ROADMAP queue 1 item 11); the sequential "
+                         "driver takes a mesh")
 
 
 def _carve(samples, tcfg, fold_size, shuffle_seed, seeds_per_fold):

@@ -147,6 +147,43 @@ def test_the_tools_slice_is_covered():
         assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
 
 
+def test_the_parallel_slice_is_covered():
+    """The modules of the multi-device slice (the mesh and its collectives,
+    context-parallel attention, and their users: the blocks, the Trainer,
+    the k-fold, the ensemble, the pipelines and the CLI) are among those
+    the tests below import and scan."""
+    mods = set(_port_modules())
+    for m in ("parallel", "parallel.mesh", "parallel.comm",
+              "ops.context_parallel", "ops.attention", "ops", "models.layers",
+              "models.grid", "models.heads", "data.loader", "train.engine",
+              "train.kfold", "eval.ensemble", "pipelines", "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+
+
+def test_the_parallel_modules_import_without_jax():
+    """parallel/ and ops/context_parallel.py import, and build their
+    collectives' autograd functions, with JAX and the JAX package blocked."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['multimodal_emotion_processing_tpu'] = None\n"
+        "from multimodal_emotion_processing_tpu_torch.parallel import (\n"
+        "    comm, make_mesh, tp_param_spec)\n"
+        "from multimodal_emotion_processing_tpu_torch.ops.context_parallel "
+        "import cp_context, ensure_cp, ring_scored_attention, "
+        "scored_attention_cp\n"
+        "assert comm.ring_shift and make_mesh and tp_param_spec\n"
+        "leaked = sorted(m for m, mod in sys.modules.items() if mod is not None"
+        " and m.split('.')[0] in ('jax', 'multimodal_emotion_processing_tpu'))\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
