@@ -222,6 +222,32 @@ Phases, each reported on its own lines:
      ranks (forward and two chained blocks' gradients, 2e-4) and
      Ensemble(mesh=) at dp=2 (2e-4).  Every kernel must launch under a
      mesh.  NCCL at world size > 1 needs several cards: not run.
+ 20. models: combinations no reference config has, at full width, gates
+     a, b, c set from seeded generators, LayerNorm biases spread and the
+     ReLU and max-pool routing pinned, each trained MODELS_STEPS steps
+     (one epoch and its eval pass) by the Trainer against impl="xla" from
+     the same weights and batches (step-1 gradients 2e-4, losses 1e-3),
+     every kernel counted: mosei_trans over RealFormer blocks with the
+     conv unify and positions (dim 96, 6 heads, 20/100/200, B 64) at
+     flash (flash_fwd, flash_bwd_dq, flash_bwd_dkv) and at pallas
+     (scored_fwd and the scored_bwd pair); robot_demo over minus blocks
+     (dim 192, 6 heads of dh 32, two chained blocks, dropout 0 so that
+     fused_block carries the training forward too) at pallas_fused,
+     served by 4 seeded members through BatchingServer and
+     StreamingPredictor against xla and trained at B 64 (fused_block and
+     the scored_bwd pair split 9/9 between the chained variants);
+     mosei_realformer over minus blocks (state_transfer, two chained
+     blocks, 6-clip paragraphs, B 64) at pallas_fused.  Then the grid's
+     other paths at xla, f32, with no kernel launched: robot_demo and
+     mosei_realformer's bucket-8 Ensemble forwards with the stacked grid
+     against the unrolled one (2e-4) and each one's wall, the paragraph
+     stream clip by clip both ways (clip p50), `tune --arms stacked` of
+     both; mosei_trans's merged minus grid against the unrolled one over
+     4 captured steps (losses 1e-5, step-1 gradients 2e-4, step ms of
+     each); the split pool against the unrolled pooling (one forward and
+     its gradients).  The kernels phase holds fused_block at robot_demo's
+     minus-block shapes (B 8, dh 32) in its four variants, each timed with
+     its bound, and the scored_bwd pair behind it.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -231,6 +257,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -273,6 +300,9 @@ STREAM_PAIRS = (("l", "l"), ("l", "v"), ("l", "a"), ("v", "v"), ("v", "l"),
 ROBOT_LEN = {"l": 25, "v": 100, "a": 100}
 ROBOT_SHAPES = tuple((ROBOT_LEN[q], ROBOT_LEN[kv]) for q, kv in STREAM_PAIRS)
 ROBOT_HEADS, ROBOT_DH, ROBOT_PARAMS = 6, 32, 5_662_397
+# the (Lq, Lkv) of robot_demo's streams once: the shapes a minus block of
+# that config (phase models) gives fused_block, at dh 32
+ROBOT_MINUS_SHAPES = tuple(sorted(set(ROBOT_SHAPES)))
 # scored_fwd variants (has S_prev, emits S); a stream's block 0 runs the
 # first, its block 1 the second
 MAIN_VARIANTS = ((False, True), (True, False))
@@ -1449,7 +1479,11 @@ def fused_cases(torch, g, report):
     in f32 as the main paths call it (no S_prev, no S; the training forward
     with the ctx residual, serving without), with the backward through
     FusedMinusBlock against autograd through the plain version at the
-    training shapes."""
+    training shapes.  At robot_demo's minus-block shapes (B 8, D 192, 6
+    heads of dh 32, Lq and Lkv in {25, 100}; phase models) every variant
+    is timed, with its bound, and its backward through FusedMinusBlock
+    (both scored_bwd kernels at dh 32, the variant's dS_prev and dc
+    included) held against autograd through the plain version."""
     from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
     from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
 
@@ -1462,7 +1496,12 @@ def fused_cases(torch, g, report):
         cases += [("eval", dtype, (2 * REN_PAIRS, lq, lkv, REN_HEADS, REN_DH,
                                    "zero_row")) for lq, lkv in REN_SHAPES]
         cases += [("edge", dtype, c) for c in FUSED_EDGE_CASES]
+    # last, so that the cases above draw the inputs they always drew
+    cases += [("robot", torch.float32, (SERVE_BUCKET, lq, lkv, ROBOT_HEADS,
+                                        ROBOT_DH, "zero_row"))
+              for lq, lkv in ROBOT_MINUS_SHAPES]
     rows, ok, timed_calls = [], True, {"train": [], "serve": []}
+    robot_calls = {v: [] for v in pa.VARIANTS}
     for path, dtype, (b, lq, lkv, h, dh, mask_kind) in cases:
         dname = str(dtype).removeprefix("torch.")
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
@@ -1512,7 +1551,32 @@ def fused_cases(torch, g, report):
                        stats_m_equal_scored_fwd=m_bits, stats_l_rel_err=l_err,
                        repeat_bits_equal=repeat_bits, tol=tol, ok=good, **geo)
             timing = ""
-            if (path in timed_calls and dtype == torch.float32
+            if path == "robot":
+                call = functools.partial(
+                    fb.fused_block_kernel, q, k, v, mask, sp, c, *ws,
+                    n_heads=h, emit_scores=emit)
+                robot_calls[(has_sprev, emit)].append(call)
+                row["ms"] = time_ms(torch, call)
+                row["plain_ms"] = time_ms(torch, lambda: fb.fused_block_plain(
+                    q, k, v, mask, sp, c, *ws, n_heads=h, emit_scores=emit))
+                row["library_ms"] = time_ms(
+                    torch, fused_library_call(torch, q, k, v, mask, ws, h))
+                row.update(fused_bound(b, h, lq, lkv, dh, dname, has_sprev,
+                                       emit, False))
+                row.update(fused_chain_backward(torch, fb, pa, q, k, v, mask,
+                                                sp, c, ws, h, g, emit))
+                good = (row["bwd_norm_err"] <= MT_GRAD_TOL
+                        and row["bwd_launches_ok"])
+                row["ok"] = row["ok"] and good
+                ok &= good
+                timing = (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+                          f" library_ms={row['library_ms']:.4f} bound_ms="
+                          f"{row['bound_ms']:.5f} ({row['bound_by']})"
+                          f" bwd_ms={row['bwd_ms']:.4f} plain_bwd_ms="
+                          f"{row['plain_bwd_ms']:.4f} bwd_norm_err="
+                          f"{row['bwd_norm_err']:.2e} scored_bwd "
+                          f"launches {row['bwd_launches']}")
+            elif (path in timed_calls and dtype == torch.float32
                     and (has_sprev, emit) == (False, False)):
                 save = path == "train"
                 call = functools.partial(
@@ -1571,6 +1635,37 @@ def fused_cases(torch, g, report):
             traceback.print_exc()
             summ["device_ms"] = None
         out[path] = summ
+    robot = {}
+    for v in pa.VARIANTS:
+        timed = [r for r in rows if r["path"] == "robot"
+                 and (r["has_sprev"], r["emit"]) == v]
+        summ = {k: sum(r[k] for r in timed)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_split_tf32_ms", "bwd_ms", "plain_bwd_ms")}
+        summ.update(bound_by=majority_bound(timed), calls_timed=len(timed),
+                    cluster=sorted({r["cluster"] for r in timed}),
+                    blocks=[r["blocks"] for r in timed],
+                    max_abs_err=max(r["max_abs_err"] for r in timed),
+                    max_bwd_norm_err=max(r["bwd_norm_err"] for r in timed))
+        try:
+            summ["device_ms"] = kernel_device_ms(torch, robot_calls[v],
+                                                 "fused_block")
+        except Exception:   # a measurement only: the checks above stand
+            traceback.print_exc()
+            summ["device_ms"] = None
+        robot[f"sprev={int(v[0])},emit={int(v[1])}"] = summ
+        log(f"[kernels] fused_block at robot_demo's minus shapes (B="
+            f"{SERVE_BUCKET}, D={ROBOT_HEADS * ROBOT_DH}, H={ROBOT_HEADS}, "
+            f"dh={ROBOT_DH}, Lq x Lkv in {ROBOT_MINUS_SHAPES}), f32, "
+            f"sprev={int(v[0])} emit={int(v[1])}, sum over the "
+            f"{len(timed)} shapes: {summ['ms']:.4f} ms as called, "
+            + ("device time not measured" if summ["device_ms"] is None
+               else f"{summ['device_ms']:.4f} ms device time")
+            + f"; bound {summ['bound_ms']:.5f} ({summ['bound_by']}), plain "
+            f"{summ['plain_ms']:.4f}, library composite {summ['library_ms']:.4f}"
+            f" ms; cluster {summ['cluster']}; backward {summ['bwd_ms']:.4f} "
+            f"ms against {summ['plain_bwd_ms']:.4f} through the plain version")
+    out["robot_dh32"] = robot
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     out["max_score_rel_err"] = max(r["score_rel_err"] for r in rows)
     out["scores_equal_scored_fwd"] = all(r["scores_equal_scored_fwd"]
@@ -1624,6 +1719,74 @@ def fused_backward_timing(torch, fb, q, k, v, mask, c, ws, h, g):
         grads[key] = torch.autograd.grad(out, leaves, dout)
     res["bwd_norm_err"] = max(errors(a, b)[1] for a, b in zip(
         grads["bwd_ms"], grads["plain_bwd_ms"]))
+    return res
+
+
+def fused_chain_backward(torch, fb, pa, q, k, v, mask, sprev, c, ws, h, g,
+                         emit):
+    """One minus block's backward at impl="pallas_fused" in the variant
+    (S_prev given or not, S emitted or not), as a chained train step runs
+    it: FusedMinusBlock (fused_block forward with the ctx residual and row
+    stats; the scored_bwd pair and the plain epilogue products backward)
+    against autograd through fused_block_plain (in f32: in f64 a fully
+    masked row's −1e8 + s keeps s, and its softmax is not the uniform one
+    both f32 paths give).  q, k, v and
+    the weights take gradients, and with S_prev S_prev and c; out gets a
+    cotangent, and S when emitted.  Returns the backward ms of each (timed
+    on a graph built once), the gradients' max normalised error and the
+    scored_bwd launches of one backward, by variant, and whether they are
+    one dq and one dkv launch of this variant."""
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    ds = None
+    if emit:
+        b, lq, lkv = q.shape[0], q.shape[1], k.shape[1]
+        ds = torch.randn(b, h, lq, lkv, generator=g, device="cuda")
+
+    def leaves_of():
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v, *ws)]
+        if sprev is not None:
+            xs += [sprev.detach().clone().requires_grad_(True),
+                   c.detach().clone().requires_grad_(True)]
+        return xs
+
+    def graph(fn, xs):
+        sp_, c_ = (xs[7], xs[8]) if sprev is not None else (None, c)
+        out, s = fn(*xs[:3], mask, sp_, c_, *xs[3:7], n_heads=h,
+                    emit_scores=emit)
+        return [out, s] if emit else [out], [dout, ds] if emit else [dout]
+
+    res = {}
+    xs = leaves_of()
+    outs, cots = graph(fb.fused_minus_block, xs)
+    reset_counts(pa.KERNELS)
+    got = torch.autograd.grad(outs, xs, cots, retain_graph=True)
+    torch.cuda.synchronize()
+    launches = {kn.name: dict(kn.variant_launches) for kn in pa.KERNELS[1:]}
+    variant = (sprev is not None, emit)
+    res["bwd_launches"] = {n: {f"sprev={int(a)},emit={int(e)}": x
+                               for (a, e), x in d.items() if x}
+                           for n, d in launches.items()}
+    res["bwd_launches_ok"] = (pa.KERNELS[0].launches == 0 and all(
+        d == {vv: int(vv == variant) for vv in pa.VARIANTS}
+        for d in launches.values()))
+    res["bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        outs, xs, cots, retain_graph=True))
+    xr = leaves_of()
+    outs_r, cots_r = graph(fb.fused_block_plain, xr)
+    ref = torch.autograd.grad(outs_r, xr, cots_r, retain_graph=True)
+    res["plain_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        outs_r, xr, cots_r, retain_graph=True))
+    errs = [errors(a, b)[1] for a, b in zip(got[:8], ref[:8])]
+    if sprev is not None:
+        # dc = Σ dS·S_prev sums terms of ~1e8 (S_prev holds −1e8 where the
+        # mask is 0) that cancel to a far smaller value (a softmax row's dS
+        # sums to 0): held at the scale of those terms, as the scored_bwd
+        # cases hold it; ref[7] = dS_prev = c·dS gives |dS|
+        scale = float((ref[7].abs() * sprev.abs()).sum()) / abs(float(c))
+        errs.append(float((got[8] - ref[8]).abs().max()) / max(1.0, scale))
+    res["bwd_norm_err"] = max(errs)
+    res["bwd_errs"] = dict(zip(("q", "k", "v", "proj", "minus", "ln_w",
+                                "ln_b", "sprev", "c"), errs))
     return res
 
 
@@ -2792,7 +2955,7 @@ def phase_serve_ren_mme(torch, report):
 
 def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
                       n_valid, epochs, kernels, expected, prepare=None,
-                      ref_device="cuda"):
+                      ref_device="cuda", steps=8):
     """One member of `exp` trained by the port's Trainer at `impl` for
     `epochs` with an eval pass after each, `kernels` counted per variant
     over that run (their counts set to 0 just before it) and held against
@@ -2804,7 +2967,8 @@ def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
     reference, and profiles one step of each run on the card.  A CPU
     reference draws other dropout masks, so it serves only models without
     a dropout site.  `prepare` moves the fresh model's weights (gates,
-    LayerNorms) before anything runs.  Returns the launches."""
+    LayerNorms) before anything runs; the run must take `steps` steps.
+    Returns the launches."""
     import dataclasses
 
     import numpy as np
@@ -2954,7 +3118,7 @@ def train_against_xla(torch, report, *, tag, exp, impl, batch, n_train,
         max_grad_rel_l2=max_grad_err, max_grad_rel_l2_unpinned=unpinned,
         routing_flips=flips, routings=routes, max_loss_rel_err=loss_rel,
         valid_loss_rel_err=valid_rel)
-    if not (len(losses) == len(losses_x) == n_steps == 8
+    if not (len(losses) == len(losses_x) == n_steps == steps
             and len(hist) == len(hist_x) == epochs
             and np.isfinite(losses + losses_x).all()
             and np.isfinite([h.valid_loss for h in hist + hist_x]).all()):
@@ -6883,6 +7047,419 @@ def phase_parallel(torch, report):
     return launches
 
 
+MODELS_STEPS = 4              # training steps of each combination
+MODELS_TUNE_STEPS, MODELS_TUNE_REPS = 5, 2
+MODELS_CALLS = 9              # timed calls of each bucket-8 program
+MODELS_MERGED_LOSS_TOL = 1e-5  # merged vs unrolled: one function, reordered
+
+
+def with_model(exp, **fields):
+    import dataclasses
+
+    return dataclasses.replace(exp, model=dataclasses.replace(exp.model,
+                                                              **fields))
+
+
+def minus_gates(torch, models, seed: int = 2468):
+    """c ~ U(0.25, 1.0) in every minus block from one seeded generator: at
+    its initial 0 a chained block ignores S_prev, so the S_prev variants'
+    terms would not reach the logits."""
+    from multimodal_emotion_processing_tpu_torch.models.layers import MinusBlock
+
+    g = torch.Generator(device=next(models[0].parameters()).device
+                        ).manual_seed(seed)
+    with torch.no_grad():
+        for m in models:
+            for blk in m.modules():
+                if isinstance(blk, MinusBlock):
+                    blk.c.uniform_(0.25, 1.0, generator=g)
+
+
+def models_train(torch, report, kernels, *, tag, exp, impl, batch, totals,
+                 split, prepare):
+    """train_against_xla over MODELS_STEPS steps (one epoch and its eval
+    pass) with every kernel counted: `totals(n_steps, n_eval)` names the
+    launches of the kernels this path runs, every other kernel must stay
+    at 0, and the variants split as `split` says."""
+    varied = [k.name for k in kernels if hasattr(k, "variant_launches")]
+
+    def expected(n_steps, n_eval):
+        t = totals(n_steps, n_eval)
+        want = {k.name: t.get(k.name, 0) for k in kernels}
+        by = expected_variants({n: want[n] for n in varied}, split)
+        by.update({k.name: {} for k in kernels if k.name not in varied})
+        return want, by
+
+    return train_against_xla(
+        torch, report, tag=tag, exp=exp, impl=impl, batch=batch,
+        n_train=batch * MODELS_STEPS, n_valid=batch, epochs=1,
+        kernels=kernels, expected=expected, prepare=prepare,
+        steps=MODELS_STEPS)
+
+
+@contextlib.contextmanager
+def grid_switch(name: str, value):
+    """One of models/grid.py's path switches set for a block."""
+    from multimodal_emotion_processing_tpu_torch.models import grid
+
+    old = getattr(grid, name)
+    setattr(grid, name, value)
+    try:
+        yield
+    finally:
+        setattr(grid, name, old)
+
+
+@contextlib.contextmanager
+def counted_path(counts, key, method):
+    """Count the calls of a Grid path method (`_stacked_realformer`,
+    `_merged_minus`) into counts[key]: the run took that path."""
+    from multimodal_emotion_processing_tpu_torch.models import grid
+
+    real = getattr(grid.Grid, method)
+
+    def counted(self, *a, **k):
+        counts[key] = counts.get(key, 0) + 1
+        return real(self, *a, **k)
+
+    setattr(grid.Grid, method, counted)
+    try:
+        yield
+    finally:
+        setattr(grid.Grid, method, real)
+
+
+def models_stacked(torch, report, smi):
+    """robot_demo and mosei_realformer (RealFormer blocks, gates set, f32)
+    at impl="xla": each config's bucket-8 Ensemble forward with the
+    stacked grid against the unrolled one (captured graphs; max normalised
+    error, bound ROBOT_TOL) and each one's wall, the stacked path counted;
+    mosei_realformer's paragraph stream clip by clip both ways, each clip
+    p50; `tune --arms stacked` of both configs."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.bench import autotune
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.eval.ensemble import Ensemble
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.serve import ParagraphStreamingPredictor
+
+    out, ok = {}, True
+    for name, n_members in (("robot_demo", N_MEMBERS),
+                            ("mosei_realformer", RF_MEMBERS)):
+        exp = configs.get(name)
+        members = [build_model(exp, device="cuda", seed=i)
+                   for i in range(n_members)]
+        set_gates(torch, members, seed=97)
+        spread_ln(torch, members, seed=98)
+        samples = synthetic_dataset(name, exp.model, SERVE_BUCKET, seed=7)
+        batch = {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda()
+                 for k in samples[0] if k != "label"}
+        row, logits, calls = {"members": n_members}, {}, {}
+        for flag in (False, True):
+            ens = Ensemble(members, stacked=flag)
+            with counted_path(calls, flag, "_stacked_realformer"):
+                logits[flag] = ens.logits(batch).cpu().numpy()   # captures
+                row[f"bucket{SERVE_BUCKET}_ms_{'stacked' if flag else 'unrolled'}"
+                    ] = p50_ms(torch, lambda: ens.logits(batch).cpu(),
+                               MODELS_CALLS)
+        row["stacked_calls"] = calls.get(True, 0)
+        row["unrolled_stacked_calls"] = calls.get(False, 0)
+        scale = max(1.0, float(np.abs(logits[False]).max()))
+        row["err"] = float(np.abs(logits[True] - logits[False]).max()) / scale
+        good = (row["err"] <= ROBOT_TOL and row["stacked_calls"] > 0
+                and row["unrolled_stacked_calls"] == 0)
+        if name == "mosei_realformer":
+            keys = ParagraphStreamingPredictor._CLIP_KEYS
+            clips = [{k: samples[0][k][t] for k in keys} for t in range(RF_P)]
+            pushed = {}
+            for flag in (False, True):
+                sp = ParagraphStreamingPredictor(members, RF_OFFSETS,
+                                                 stacked_grid=flag)
+                sp.warmup(clips[0])
+                sp.reset()
+                times, pushed[flag] = [], []
+                for clip in clips:
+                    t0 = time.perf_counter()
+                    pushed[flag].append(sp.push(clip)[0])
+                    times.append((time.perf_counter() - t0) * 1e3)
+                row[f"clip_p50_ms_{'stacked' if flag else 'unrolled'}"] = (
+                    statistics.median(times))
+            row["clip_err"] = max(
+                float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                for a, b in zip(pushed[True], pushed[False]))
+            good &= row["clip_err"] <= ROBOT_TOL
+        rec = autotune.tune(name, arms=["stacked"], steps=MODELS_TUNE_STEPS,
+                            reps=MODELS_TUNE_REPS, device="cuda")
+        row["tune"] = {"measured": rec["measured"], "winners": rec["winners"],
+                       "device": rec["device"],
+                       "power_limit": rec["power_limit"]}
+        sps = rec["measured"].get("stacked_infer_sps", {})
+        good &= ("stacked" in rec["winners"] and sps.get("off", 0) > 0
+                 and sps.get("on", 0) > 0)
+        row["ok"] = good
+        ok &= good
+        out[name] = row
+        log(f"[models] {name} stacked grid at xla, {n_members} gate-set "
+            f"members, f32: bucket-{SERVE_BUCKET} Ensemble forward "
+            f"{row[f'bucket{SERVE_BUCKET}_ms_unrolled']:.3f} ms unrolled, "
+            f"{row[f'bucket{SERVE_BUCKET}_ms_stacked']:.3f} ms stacked (p50 "
+            f"of {MODELS_CALLS}, each with its copy back), norm_err "
+            f"{row['err']:.3e} (bound {ROBOT_TOL:g}), stacked path called "
+            f"{row['stacked_calls']} times"
+            + (f"; paragraph clip p50 {row['clip_p50_ms_unrolled']:.3f} ms "
+               f"unrolled, {row['clip_p50_ms_stacked']:.3f} stacked, "
+               f"norm_err {row['clip_err']:.3e}" if "clip_err" in row else "")
+            + f"; tune --arms stacked: {sps} -> winner "
+            f"{rec['winners'].get('stacked')} ({smi})"
+            + ("" if good else " FAIL"))
+        del members
+    report["models_stacked"] = out
+    if not ok:
+        raise AssertionError("the stacked grid disagrees with the unrolled "
+                             "one, or was not taken")
+    return out
+
+
+def models_merged_and_split(torch, report, smi):
+    """mosei_trans (minus blocks, n_layers 1, f32) at impl="xla": the merged
+    minus grid (MERGED_FAST_PATH) against the unrolled one over
+    MODELS_STEPS captured Trainer steps from the same weights and batches
+    (the step losses; the step-1 gradients; each one's step ms), and the
+    split pool (SPLIT_POOL) against the unrolled pooling: one forward and
+    its gradients at B 64."""
+    import numpy as np
+
+    from multimodal_emotion_processing_tpu_torch import configs
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher, to_device
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    exp = configs.get("mosei_trans")
+    m, tcfg = exp.model, exp.train
+    train = synthetic_dataset(exp.name, m, MT_BATCH * MODELS_STEPS, seed=0)
+    valid = synthetic_dataset(exp.name, m, MT_BATCH, seed=1)
+
+    def loaders():
+        return (Batcher(train, MT_BATCH, seed=1),
+                Batcher(valid, MT_BATCH, shuffle=False))
+
+    first = to_device(next(iter(loaders()[0]())), "cuda")
+    state0 = engine.init_state(m, tcfg, seed=0, device="cuda")
+    minus_gates(torch, [state0.model])
+    spread_ln(torch, [state0.model], seed=96)
+    init_weights = {k: v.detach().clone()
+                    for k, v in state0.model.state_dict().items()}
+    out, calls, grads = {}, {}, {}
+    for key, switch in (("unrolled", False), ("merged", True)):
+        with grid_switch("MERGED_FAST_PATH", switch), \
+                counted_path(calls, key, "_merged_minus"):
+            state0.model.load_state_dict(init_weights)
+            grads[key] = step_gradients(engine, state0.model, tcfg, first,
+                                        impls=("xla",))["xla"]
+            state = engine.init_state(m, tcfg, seed=0, device="cuda")
+            state.model.load_state_dict(init_weights)
+            trainer = timed_trainer(torch, engine)(m, tcfg, impl="xla",
+                                                   device="cuda")
+            state, hist = trainer.fit(*loaders(), state=state, epochs=1)
+            step_ms = trainer.step_ms()
+        out[key] = {"step_losses": list(hist[0].step_losses),
+                    "valid_loss": hist[0].valid_loss, "step_ms": step_ms,
+                    "step_ms_median": statistics.median(step_ms[1:]),
+                    "path_calls": calls.get(key, 0)}
+        del trainer, state
+    grad_err = gradient_errors(grads["merged"], grads["unrolled"])
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+        out["merged"]["step_losses"], out["unrolled"]["step_losses"]))
+    out["max_grad_rel_l2"] = max(e["rel_l2"] for e in grad_err.values())
+    out["max_loss_rel_err"] = loss_rel
+    merged_ok = (out["max_grad_rel_l2"] <= MT_GRAD_TOL
+                 and loss_rel <= MODELS_MERGED_LOSS_TOL
+                 and out["merged"]["path_calls"] > 0
+                 and out["unrolled"]["path_calls"] == 0
+                 and len(out["merged"]["step_losses"]) == MODELS_STEPS)
+    log(f"[models] mosei_trans merged minus grid at xla (f32, B {MT_BATCH}, "
+        f"{MODELS_STEPS} captured steps): step ms median "
+        f"{out['unrolled']['step_ms_median']:.3f} unrolled, "
+        f"{out['merged']['step_ms_median']:.3f} merged ({smi}); step losses "
+        f"max rel diff {loss_rel:.2e} (bound {MODELS_MERGED_LOSS_TOL:g}), "
+        f"step-1 gradients rel_l2 {out['max_grad_rel_l2']:.2e} (bound "
+        f"{MT_GRAD_TOL:g}); merged path called {out['merged']['path_calls']}"
+        " times" + ("" if merged_ok else " FAIL"))
+
+    # the split pool: one forward and its gradients
+    model = state0.model
+    model.load_state_dict(init_weights)
+    res = {}
+    for key, switch in (("unrolled", False), ("split", True)):
+        with grid_switch("SPLIT_POOL", switch):
+            model.zero_grad(set_to_none=True)
+            model.train()
+            loss = engine.batch_loss(model, tcfg, first, impl="xla")
+            loss.backward()
+            with torch.no_grad():
+                model.eval()
+                logits = model(first, impl="xla").cpu().numpy()
+            res[key] = (float(loss), logits,
+                        {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None})
+    scale = max(1.0, float(np.abs(res["unrolled"][1]).max()))
+    split = {"logits_err": float(np.abs(res["split"][1]
+                                        - res["unrolled"][1]).max()) / scale,
+             "loss_rel_err": abs(res["split"][0] - res["unrolled"][0])
+             / abs(res["unrolled"][0]),
+             "max_grad_rel_l2": max(e["rel_l2"] for e in gradient_errors(
+                 res["split"][2], res["unrolled"][2]).values())}
+    split_ok = (split["logits_err"] <= ROBOT_TOL
+                and split["loss_rel_err"] <= MODELS_MERGED_LOSS_TOL
+                and split["max_grad_rel_l2"] <= MT_GRAD_TOL)
+    out["split_pool"] = split
+    log(f"[models] mosei_trans split pool at xla (B {MT_BATCH}): logits "
+        f"norm_err {split['logits_err']:.2e}, loss rel {split['loss_rel_err']:.2e}"
+        f", gradients rel_l2 {split['max_grad_rel_l2']:.2e}"
+        + ("" if split_ok else " FAIL"))
+    report["models_merged_split"] = out
+    if not (merged_ok and split_ok):
+        raise AssertionError("the merged grid or the split pool disagrees "
+                             "with the unrolled path")
+    return out
+
+
+def models_serve_robot_minus(torch, report, exp, kernels):
+    """robot_demo over minus blocks: N_MEMBERS seeded members (gates c set,
+    LayerNorms spread) served at impl="pallas_fused" through BatchingServer
+    and StreamingPredictor, fused_block counted per variant (block 0 of a
+    stream emits S, block 1 reads it) and every other kernel at 0, the
+    outputs against impl="xla"."""
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.models import build_model
+    from multimodal_emotion_processing_tpu_torch.ops import fused_block as fb
+    from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as pa
+
+    members = [build_model(exp, device="cuda", seed=i) for i in range(N_MEMBERS)]
+    minus_gates(torch, members)
+    spread_ln(torch, members, seed=95)
+    samples = synthetic_dataset(exp.name, exp.model, N_CONCURRENT, seed=7)
+    reset_counts(kernels)
+    main, served, streamed, _ = run_serving(
+        torch, exp, members, samples, impl="pallas_fused",
+        dtype="float32", kernel=fb.fused_block_kernel, tag="models")
+    launches = read_counts(kernels)
+    by_variant = dict(fb.fused_block_kernel.variant_launches)
+    expected = 18 * N_MEMBERS * main["forwards"]
+    want = {k.name: (expected if k.name == "fused_block" else 0)
+            for k in kernels}
+    want_by_variant = {v: (expected // 2 if v in MAIN_VARIANTS else 0)
+                       for v in pa.VARIANTS}
+    errs, _ = check_against_xla(torch, exp, members, samples, served,
+                                streamed, dtype="float32", tol=ROBOT_TOL,
+                                tag="models")
+    main.update(errs, launches=launches,
+                fused_by_variant={f"sprev={int(a)},emit={int(e)}": n
+                                  for (a, e), n in by_variant.items()})
+    report["models_serve_robot_minus"] = main
+    log(f"[models] robot_demo (minus blocks) served at pallas_fused: "
+        f"fused_block {launches['fused_block']} launches, by variant "
+        f"{main['fused_by_variant']}; expected 18 x {N_MEMBERS} members x "
+        f"{main['forwards']} forwards = {expected}, split 9/9")
+    if launches != want or by_variant != want_by_variant:
+        raise AssertionError(f"launches {launches} {by_variant}, expected "
+                             f"{want} {want_by_variant}")
+    return launches["fused_block"]
+
+
+def phase_models(torch, report):
+    """Combinations no reference config has, at full width, each held
+    against impl="xla" (ROADMAP queue 1 item 12), and the grid's other
+    paths (item 9): see the module docstring, phase 20."""
+    from multimodal_emotion_processing_tpu_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    kernels = all_kernels()
+    t_phase = time.perf_counter()
+    total = {k.name: 0 for k in kernels}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    def gates_and_ln(seed):
+        def prepare(model):
+            set_gates(torch, [model], seed=seed)
+            minus_gates(torch, [model], seed=seed + 1)
+            spread_ln(torch, [model], seed=seed + 2)
+        return prepare
+
+    # 1. mosei_trans over RealFormer blocks, the conv unify, positions
+    mt = with_model(configs.get("mosei_trans"), block="realformer",
+                    unify="conv", use_position_embedding=True)
+    m = mt.model
+    if (m.dim, m.n_heads, m.n_layers, m.l_len, m.v_len, m.a_len) != (
+            96, MT_HEADS, 1, MT_LEN["l"], MT_LEN["v"], MT_LEN["a"]):
+        raise AssertionError(f"unexpected config {mt}")
+    add(models_train(
+        torch, report, kernels, tag="models_mosei_trans_realformer_flash",
+        exp=mt, impl="flash", batch=MT_BATCH,
+        totals=lambda s, e: {"flash_fwd": 18 * (s + e),
+                             "flash_bwd_dq": 18 * s, "flash_bwd_dkv": 18 * s},
+        split={}, prepare=gates_and_ln(11)))
+    add(models_train(
+        torch, report, kernels, tag="models_mosei_trans_realformer_pallas",
+        exp=mt, impl="pallas", batch=MT_BATCH,
+        totals=lambda s, e: {"scored_fwd": 18 * (s + e),
+                             "scored_bwd_dq": 18 * s, "scored_bwd_dkv": 18 * s},
+        split={(False, False): 1}, prepare=gates_and_ln(11)))
+
+    # 2. robot_demo over minus blocks: dropout 0, so that fused_block (which
+    # has no dropout) carries the training forward too
+    robot = with_model(configs.get("robot_demo"), block="minus", dropout=0.0)
+    m = robot.model
+    if (m.dim, m.n_heads, m.n_layers, m.unify, m.head) != (
+            192, ROBOT_HEADS, 2, "conv_multires", "grid_only"):
+        raise AssertionError(f"unexpected config {robot}")
+    add({"fused_block": models_serve_robot_minus(torch, report, robot,
+                                                 kernels)})
+    chained = {v: 0.5 for v in MAIN_VARIANTS}
+    fused_totals = (lambda s, e: {"fused_block": 18 * (s + e),
+                                  "scored_bwd_dq": 18 * s,
+                                  "scored_bwd_dkv": 18 * s})
+    add(models_train(
+        torch, report, kernels, tag="models_robot_minus_pallas_fused",
+        exp=robot, impl="pallas_fused", batch=ROBOT_BATCH,
+        totals=fused_totals, split=chained, prepare=gates_and_ln(21)))
+
+    # 3. mosei_realformer over minus blocks: the state_transfer head, two
+    # chained blocks a stream, 6-clip paragraphs
+    rf = with_model(configs.get("mosei_realformer"), block="minus")
+    m = rf.model
+    if (m.dim, m.n_heads, m.n_layers, m.p_len, m.head) != (
+            96, RF_HEADS, 2, RF_P, "state_transfer"):
+        raise AssertionError(f"unexpected config {rf}")
+    add(models_train(
+        torch, report, kernels, tag="models_mosei_realformer_minus_pallas_fused",
+        exp=rf, impl="pallas_fused", batch=RF_BATCH, totals=fused_totals,
+        split=chained, prepare=gates_and_ln(31)))
+
+    # 4. the grid's other paths, at xla: no kernel may launch
+    reset_counts(kernels)
+    models_stacked(torch, report, smi)
+    models_merged_and_split(torch, report, smi)
+    stray = {n: c for n, c in read_counts(kernels).items() if c}
+    if stray:
+        raise AssertionError(f"kernels launched on the xla paths: {stray}")
+    report["models_launches"] = total
+    report["models_s"] = time.perf_counter() - t_phase
+    log(f"[models] launches {total}; phase {report['models_s']:.1f} s")
+    missing = [n for n, c in total.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase models: "
+                             f"{missing}")
+    return total
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in KERNEL_NAMES:
@@ -7031,13 +7608,20 @@ def main() -> int:
                       ("serve_io", phase_serve_io),
                       ("drivers", phase_drivers),
                       ("tools", phase_tools),
-                      ("parallel", phase_parallel)):
+                      ("parallel", phase_parallel),
+                      ("models", phase_models)):
         try:
             result = fn(torch, report)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
             continue
+        finally:
+            # a phase's captured graphs hold their memory pools until the
+            # reference cycles around them are collected: free them and
+            # return the cache before the next phase captures its own
+            gc.collect()
+            torch.cuda.empty_cache()
         if phase == "kernels":
             summaries = result
         else:
@@ -7052,7 +7636,7 @@ def main() -> int:
     def experiment_paths(name):
         return {p: launches[p][name]
                 for p in ("experiment", "experiment_families", "real_data",
-                          "drivers", "tools", "parallel")}
+                          "drivers", "tools", "parallel", "models")}
 
     def tc_count(library, kernel):
         return sum(n for fn, n in report["tensor_core_instructions"].get(
@@ -7186,6 +7770,7 @@ def main() -> int:
         "repeat_bits_equal": summ["repeat_bits_equal"],
         "blocks": train["blocks"],
         "serve": summ["serve"],
+        "robot_dh32": summ["robot_dh32"],
         "timed_at": (f"sum over the {train['calls_timed']} mosei_trans stream "
                      f"shapes (one grid of a train step's forward), B={MT_BATCH},"
                      " f32, as the train step calls it (no S_prev, no S, the "
@@ -7201,7 +7786,11 @@ def main() -> int:
                      "bound_split_tf32_ms at 495/3 TFLOP/s, the rate of the "
                      "kernel's split-TF32 products; blocks per launch; serve: "
                      f"the same sums over the nine ren_mme shapes at "
-                     f"B={SERVE_BUCKET}, no ctx residual")})
+                     f"B={SERVE_BUCKET}, no ctx residual; robot_dh32: per "
+                     "variant, sums over robot_demo's four minus-block "
+                     f"shapes at B={SERVE_BUCKET}, D 192, dh 32, with the "
+                     "backward through FusedMinusBlock (the scored_bwd "
+                     "pair) against autograd through the plain version")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -92,9 +92,11 @@ def _measure_train(exp, *, impl: str, device, n_batches: int, reps: int,
     return out
 
 
-def _measure_infer(exp, *, impl: str, device, steps: int, reps: int) -> float:
+def _measure_infer(exp, *, impl: str, device, steps: int, reps: int,
+                   stacked=None) -> float:
     """Inference samples/s of the Ensemble's captured forward on one
-    batch already on the device (one member)."""
+    batch already on the device (one member), on the grid path `stacked`
+    selects (Ensemble(stacked=))."""
     import torch
 
     from ..data.loader import to_device
@@ -106,7 +108,7 @@ def _measure_infer(exp, *, impl: str, device, steps: int, reps: int) -> float:
         dataclasses.replace(exp, train=dataclasses.replace(
             exp.train, rdrop_kl=False)), b)())), device)
     ens = Ensemble([build_model(exp, device=device)], impl=impl,
-                   dtype=exp.train.compute_dtype)
+                   dtype=exp.train.compute_dtype, stacked=stacked)
     float(ens.logits(batch).sum())   # captures
     best = 0.0
     for _ in range(reps):
@@ -144,8 +146,10 @@ def tune(config_name: str, *, arms: Optional[List[str]] = None,
                 attention implementation: k batches copied together, k
                 replays launched back to back; 1 over `steps` batches,
                 k over 2k;
-      stacked   the stacked RealFormer grid is not ported: recorded as
-                skipped for the RealFormer families, never a winner;
+      stacked   the Ensemble's captured inference forward at impl "xla"
+                (the only impl the stacked RealFormer grid takes) with the
+                stacked grid off and on, RealFormer families only;
+                `stacked` wins by MARGIN;
       transfer  the host-fed wire float32 against int8 and float16 through
                 the prefetcher, over 4 distinct batches (lossy: only with
                 allow_lossy);
@@ -205,8 +209,13 @@ def tune(config_name: str, *, arms: Optional[List[str]] = None,
             best_k != 1 and rows[best_k] >= MARGIN * rows[1]) else 1
 
     if "stacked" in arms:
-        measured["stacked_infer_sps"] = {"skipped": "stacked grid not ported"}
-        log("stacked: skipped (the stacked grid is not ported)")
+        off, on = (_measure_infer(exp, impl="xla", device=dev, steps=steps,
+                                  reps=reps, stacked=flag)
+                   for flag in (False, True))
+        measured["stacked_infer_sps"] = {"impl": "xla", "off": round(off, 1),
+                                         "on": round(on, 1)}
+        winners["stacked"] = bool(on >= MARGIN * off)
+        log(f"stacked off {off:.1f} / on {on:.1f} samples/s")
 
     if "transfer" in arms:
         n = 4
@@ -292,12 +301,12 @@ def tune(config_name: str, *, arms: Optional[List[str]] = None,
 # knob -> (CLI arg name, parser default): a tuned winner fills the arg only
 # while it still holds the parser default, so an explicit flag wins.  An
 # explicitly passed default value cannot be told from the default and is
-# overridden.  JAX's "stacked" knob has no port flag (the stacked grid is
-# not ported) and is skipped.
+# overridden.
 _ARG_OF = {
     "scan_steps": ("scan_steps", 1),
     "impl": ("impl", None),
     "transfer_dtype": ("transfer_dtype", None),
+    "stacked": ("stacked_grid", False),
 }
 
 

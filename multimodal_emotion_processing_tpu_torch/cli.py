@@ -22,8 +22,9 @@
   predict <config> -o OUT.npz|.csv|.jsonl  [--checkpoint-dir D |
         --init-random] [--split test|train|all] [--data-root R]
         [--thresholds T1,...] [--calibration] [--transfer-dtype W]
-        [--device-resident]: every sample's ensemble logits, calibrated
-        probabilities and decisions to a file (pipelines.run_predict).
+        [--device-resident] [--stacked-grid]: every sample's ensemble
+        logits, calibrated probabilities and decisions to a file
+        (pipelines.run_predict).
   check-data <config> --data-root R   what the corpus tree lacks for the
         config, as one JSON document (data/validate.py); exit 1 on any
         problem.
@@ -31,7 +32,7 @@
         epochs, resume points and bytes.
   configs   the registered configs.
   serve [<config>] [--checkpoint-dir D] [--concurrent N] [--device cpu]
-        [--impl ...] [--thresholds T1,T2,...]
+        [--impl ...] [--thresholds T1,T2,...] [--stacked-grid]
         Serve the store's best members, or without a store four seeded
         random members, on synthetic requests: N concurrent requests
         through the micro-batching server, or one batch-1 request without
@@ -43,7 +44,10 @@
         config's; `mosei_realformer` has none of its own.  With
         --http-port P [--http-host H] the micro-batching server answers
         HTTP (GET /healthz, GET /spec, POST /predict as JSON or raw
-        float32; serve/http_api.py) until Ctrl-C.
+        float32; serve/http_api.py) until Ctrl-C.  --stacked-grid (on
+        predict too) builds the served programs on the stacked RealFormer
+        grid (models/grid.py; impl xla, RealFormer blocks; ignored
+        elsewhere).
   export [<config>] [--checkpoint-dir D] [--set K=V] [--out F]
         [--batch B] [--device cpu]   the ensemble's serving computation at
         impl=xla, weights included, as one torch.export artifact
@@ -151,6 +155,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--tuned", default=None, metavar="TUNED_JSON",
                         help="apply the winners a `tune` run measured; "
                              "explicit flags win over the file")
+
+    def stacked_grid(sp):
+        sp.add_argument("--stacked-grid", action="store_true",
+                        help="the stacked RealFormer grid in the inference "
+                             "program: each target's three streams as "
+                             "batched products, unequal lengths padded to "
+                             "the longest (impl xla, RealFormer blocks; "
+                             "ignored elsewhere)")
 
     def common(sp):
         config(sp)
@@ -304,6 +316,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="shard batch inference over N devices on a mesh "
                          "'data' axis (members replicate; logits identical "
                          "to single-device)")
+    stacked_grid(pd)
     transfer(pd)
     tuned(pd)
     overrides(pd)
@@ -349,6 +362,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "concurrent requests micro-batch; blocks until "
                          "Ctrl-C")
     sv.add_argument("--http-host", default="127.0.0.1")
+    stacked_grid(sv)
     tuned(sv)
     overrides(sv)
     device(sv)
@@ -561,7 +575,8 @@ def cmd_predict(args):
                     if args.thresholds else None),
         split=args.split, output=args.output, quiet=args.quiet,
         device=args.device, transfer_dtype=args.transfer_dtype,
-        device_resident=args.device_resident, dp=args.dp)
+        device_resident=args.device_resident, dp=args.dp,
+        stacked=args.stacked_grid)
     if not writes():
         return table
     summary = {
@@ -736,7 +751,8 @@ def _serve(args):
                                     seed=7)
         with BatchingServer(members, offsets, impl=impl,
                             max_delay_ms=args.max_delay_ms,
-                            dtype=exp.train.compute_dtype) as srv:
+                            dtype=exp.train.compute_dtype,
+                            stacked_grid=args.stacked_grid) as srv:
             srv.warmup(samples[0])
             t0 = time.perf_counter()
             futs = [srv.submit(s) for s in samples]
@@ -755,7 +771,8 @@ def _serve(args):
         return results
 
     sp = StreamingPredictor(members, offsets, impl=impl,
-                            dtype=exp.train.compute_dtype)
+                            dtype=exp.train.compute_dtype,
+                            stacked_grid=args.stacked_grid)
     sample = synthetic_dataset(args.config, exp.model, 1, seed=7)[0]
     sp.warmup(sample)
     t0 = time.perf_counter()
@@ -779,7 +796,8 @@ def _serve_http(args, exp, members, offsets, impl, names):
     spec = {k: v.shape for k, v in sample.items() if k != "label"}
     with BatchingServer(members, offsets, impl=impl,
                         max_delay_ms=args.max_delay_ms,
-                        dtype=exp.train.compute_dtype) as srv:
+                        dtype=exp.train.compute_dtype,
+                        stacked_grid=args.stacked_grid) as srv:
         srv.warmup(sample)
         fe = HttpFrontend(srv, spec, names, host=args.http_host,
                           port=args.http_port)
@@ -917,7 +935,8 @@ def _serve_paragraph(args, exp, members, offsets, impl):
             "recurrence state; --http-port/--concurrent serve stateless "
             "per-sample heads")
     sp = ParagraphStreamingPredictor(members, offsets, impl=impl,
-                                     dtype=exp.train.compute_dtype)
+                                     dtype=exp.train.compute_dtype,
+                                     stacked_grid=args.stacked_grid)
     sample = synthetic_dataset(args.config, exp.model, 1, seed=7)[0]
     plen = sample["l"].shape[0]
     clips = [{k: sample[k][t] for k in sp._CLIP_KEYS} for t in range(plen)]

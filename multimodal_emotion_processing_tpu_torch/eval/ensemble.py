@@ -17,6 +17,10 @@ the final batch, so a pass replays one program.
 one captured program per batch, each reading its rows through a
 device-side batch index: no per-batch gather, pinning or copy.
 
+`Ensemble(stacked=True)` runs the members' grids on the stacked
+RealFormer path (models/grid.py; taken at impl "xla" by RealFormer blocks,
+ignored elsewhere), fixed when the ensemble is built.
+
 `Ensemble(mesh=)` shards batch inference over the mesh's 'data' axis:
 the members are replicated, each rank replays its captured program on
 its own rows of every batch, and the logits are all-gathered, the same
@@ -56,7 +60,7 @@ class Ensemble:
     def __init__(self, members: Sequence[torch.nn.Module],
                  weights: Optional[Sequence[float]] = None, *,
                  combine: str = "mean", impl: str = "xla",
-                 dtype: str = "float32", mesh=None):
+                 dtype: str = "float32", mesh=None, stacked=None):
         if not members:
             raise ValueError("an ensemble needs at least one member")
         if combine not in ("mean", "sum"):
@@ -67,6 +71,7 @@ class Ensemble:
         self.device = devices.pop()
         self.k = len(members)
         self.impl = impl
+        self.stacked = stacked
         self.mesh = mesh
         self.dtype = dtype
         self.members = [infer_cast(m, None, dtype)[0].eval() for m in members]
@@ -80,7 +85,8 @@ class Ensemble:
             w = [1.0] * self.k
         self.weights = torch.tensor(w, dtype=torch.float32, device=self.device)
         self.program = GraphedFunction(
-            _combination(self.members, self.weights, impl, dtype), self.device,
+            _combination(self.members, self.weights, impl, dtype, stacked),
+            self.device,
             name=f"Ensemble.logits[{impl}]")
 
     def logits(self, batch) -> torch.Tensor:
@@ -181,7 +187,7 @@ class Ensemble:
         j = torch.zeros((), dtype=torch.int64, device=self.device)
         rows = torch.arange(batch_size, device=self.device)
         combine = _combination(self.members, self.weights, self.impl,
-                               self.dtype)
+                               self.dtype, self.stacked)
 
         def batch_logits():
             idx = j * batch_size + rows
@@ -196,7 +202,7 @@ class Ensemble:
         return lg[data["sample_weight"].float().cpu().numpy() > 0]
 
 
-def _combination(members, weights, impl: str, dtype: str):
+def _combination(members, weights, impl: str, dtype: str, stacked=None):
     """The weighted combination of one batch, as a closure that holds no
     reference to its Ensemble, so that its graphs die with the Ensemble."""
 
@@ -205,7 +211,7 @@ def _combination(members, weights, impl: str, dtype: str):
         # a batch may arrive in a wire format (data/loader.cast_for_transfer):
         # f32 is restored before any math
         _, batch = infer_cast(None, upcast_wire(batch), dtype)
-        per = torch.stack([infer_upcast(m(batch, impl=impl))
+        per = torch.stack([infer_upcast(m(batch, impl=impl, stacked=stacked))
                            for m in members])              # (k, B, ...)
         w = weights.reshape((len(members),) + (1,) * (per.ndim - 1))
         return (per * w).sum(dim=0)

@@ -6,13 +6,13 @@ with torch's (out, in) layout, and (out, in, 1) for the kernel-1 convs.
 `from_jax_params` maps one onto the other (the same mapping, key order
 included, as the JAX package's `to_reference_state_dict`, kept here as the
 port's own copy), so `model.load_state_dict(from_jax_params(p, cfg))` loads
-JAX weights as they are.  Ported families: `concat_trans` (minus blocks,
-the linear unify, or Ren-MME's `linear_ln` unify with its names: the
-unify's shared `norm1`, the blocks' `norm2`, the top `norm3`),
-`concat_linear` (rencecps's grid-free head), `grid_only` (RealFormer
-blocks, multi-resolution conv unify, position embeddings) and
-`state_transfer` (RealFormer blocks, the bias-free conv unify, position
-embeddings, the feature head).
+JAX weights as they are.  Every combination JAX builds maps
+(`registry.check_combination`): the grid heads over minus or RealFormer
+blocks, each of their unifies, with or without position embeddings, and
+the grid-free `concat_linear`.  Under `concat_trans` with the `linear_ln`
+unify the names are Ren-MME's (the unify's shared `norm1`, the minus
+blocks' `norm2`, the top `norm3`); every other grid names a minus block's
+LayerNorm `norm1` (`layers.minus_norm_names`).
 
 The reference's own `.pt` files (`torch.save(model.state_dict())`,
 cmu-mosei/run.py:415, 446-453) carry the same key names, so they load
@@ -31,7 +31,7 @@ import torch
 
 from ..models.grid import STREAMS
 from ..models.layers import minus_norm_names
-from ..models.registry import build_model, is_ported
+from ..models.registry import build_model, check_combination
 
 # keys of a reference state dict that no port module holds: robot_demo.py's
 # Multi_class defines fully_connected and normalization but never calls
@@ -124,17 +124,13 @@ def _linear(p, key: str, out: Dict) -> None:
 
 
 def from_jax_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
-    """JAX-package params (a nested dict of arrays, numpy or jax) of a
-    ported family (`concat_trans` with minus blocks and the linear or
-    `linear_ln` unify, `concat_linear`, `grid_only` with RealFormer
-    blocks, the conv_multires unify and position embeddings, or
-    `state_transfer` with RealFormer blocks, the conv unify and position
-    embeddings) -> a reference-keyed state dict of CPU float32 tensors."""
+    """JAX-package params (a nested dict of arrays, numpy or jax) of any
+    combination JAX builds -> a reference-keyed state dict of CPU float32
+    tensors, key for key and in the order of JAX's
+    `to_reference_state_dict`.  A combination JAX fails on raises
+    ValueError."""
     cfg = getattr(cfg, "model", cfg)
-    if not is_ported(cfg):
-        raise NotImplementedError(
-            f"head {cfg.head!r} / block {cfg.block!r} / unify {cfg.unify!r} "
-            "is not ported yet")
+    check_combination(cfg)
     out: Dict[str, np.ndarray] = {}
     if cfg.head == "concat_linear":
         _linear(params["intensity"], "intensity", out)

@@ -23,9 +23,12 @@
 
       α = σ(feats_t + feats_{t−1});  out_t = (1−α)·out_t1 + α·tanh(out_{t−1}·T)
 
-Every head's `forward(batch, *, impl, generator)` passes the dropout
-`torch.Generator` down in JAX's order: the intensity grid (slot 0) before
-the stimulation grid, the feature grid before its head.
+Every head's `forward(batch, *, impl, generator, stacked)` passes the
+dropout `torch.Generator` down in JAX's order: the intensity grid (slot 0)
+before the stimulation grid, the feature grid before its head; and
+`stacked` (the stacked RealFormer grid for this call, None for
+`grid.REALFORMER_STACKED`) to each grid.  `concat_linear` has no grid and
+accepts it for a uniform signature, as JAX's head does.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ class ConcatTrans(nn.Module):
     current), the bilinear transition, LayerNorm and `out`.  The LayerNorm
     is `norm1` (Concat_Trans, cmu-mosei/run.py:321-339), or `norm3` under
     the names of Ren-MME's Base_model (Ren-MME/run.py:273-292), which the
-    `linear_ln` unify selects."""
+    `linear_ln` unify selects (`layers.minus_norm_names`)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -78,7 +81,8 @@ class ConcatTrans(nn.Module):
         self.norm.bias.zero_()
         init.linear_(self.out, generator)
 
-    def forward(self, batch, *, impl: str = "xla", generator=None):
+    def forward(self, batch, *, impl: str = "xla", generator=None,
+                stacked=None):
         """batch: l/v/a (B, 2, len, dm), *_mask (B, 2, len).  Returns logits
         (B, n_emotions)."""
 
@@ -86,7 +90,7 @@ class ConcatTrans(nn.Module):
             return grid(batch["l"][:, slot], batch["v"][:, slot],
                         batch["a"][:, slot], batch["l_mask"][:, slot],
                         batch["v_mask"][:, slot], batch["a_mask"][:, slot],
-                        impl=impl, generator=generator)
+                        impl=impl, generator=generator, stacked=stacked)
 
         last_feat = run(self.intensity, 0)
         this_feat = run(self.stimulation, 1)
@@ -120,10 +124,11 @@ class ConcatLinear(nn.Module):
         self.norm.bias.zero_()
         init.linear_(self.out, generator)
 
-    def forward(self, batch, *, impl: str = "xla", generator=None):
+    def forward(self, batch, *, impl: str = "xla", generator=None,
+                stacked=None):
         """batch: feat (B, 2, dim), the (previous, current) features.
-        Returns logits (B, n_emotions); `impl` and `generator` are unused
-        (no attention, no dropout site)."""
+        Returns logits (B, n_emotions); `impl`, `generator` and `stacked`
+        are unused (no attention, no dropout site, no grid)."""
         feat = batch["feat"]
         last_feat = self.intensity(feat[:, 0])
         this_feat = self.stimulation(feat[:, 1])
@@ -140,13 +145,14 @@ class GridOnly(Grid):
     def __init__(self, cfg):
         super().__init__(cfg, out="classifier_bias")
 
-    def forward(self, batch, *, impl: str = "xla", generator=None):
+    def forward(self, batch, *, impl: str = "xla", generator=None,
+                stacked=None):
         """batch: l (B, Ll, l_dim), v256/v512/v1024 (B, Lv, d), a (B, La,
         a_dim) and *_mask.  Returns logits (B, n_emotions)."""
         return super().forward(
             batch["l"], (batch["v256"], batch["v512"], batch["v1024"]),
             batch["a"], batch["l_mask"], batch["v_mask"], batch["a_mask"],
-            impl=impl, generator=generator)
+            impl=impl, generator=generator, stacked=stacked)
 
 
 def state_transfer_recurrence(trans, prev_out, prev_feats, out_t1, feats):
@@ -179,12 +185,12 @@ class StateTransfer(nn.Module):
         init.uniform01_(self.trans, generator)
 
     def clip(self, l, v, a, l_mask, v_mask, a_mask, *, impl: str = "xla",
-             generator=None):
+             generator=None, stacked=None):
         """The per-clip half (`state_transfer_clip`): grid → feature →
         classifier, split into (out_t1, feats), each (N, E), for
         clip-flattened inputs (N, len, dm) and masks (N, len)."""
         feat = self.feature(l, v, a, l_mask, v_mask, a_mask, impl=impl,
-                            generator=generator)
+                            generator=generator, stacked=stacked)
         if self.tp is not None:
             cls = row_parallel(comm.split_to(feat, self.tp.group, -1),
                                self.classifier.weight, self.classifier.bias,
@@ -193,7 +199,8 @@ class StateTransfer(nn.Module):
             cls = self.classifier(feat)
         return cls[..., :self.n_emotions], cls[..., self.n_emotions:]
 
-    def forward(self, batch, *, impl: str = "xla", generator=None):
+    def forward(self, batch, *, impl: str = "xla", generator=None,
+                stacked=None):
         """batch: l/v/a (B, P, len, dm), *_mask (B, P, len).  Returns the
         per-clip logits (B, P, E)."""
         b, plen = batch["l"].shape[:2]
@@ -204,7 +211,7 @@ class StateTransfer(nn.Module):
         out_t1, feats = self.clip(
             *(flat(batch[k]) for k in ("l", "v", "a", "l_mask", "v_mask",
                                        "a_mask")), impl=impl,
-            generator=generator)
+            generator=generator, stacked=stacked)
         out_t1 = out_t1.reshape(b, plen, -1)
         feats = feats.reshape(b, plen, -1)
         outs = [out_t1[:, 0]]

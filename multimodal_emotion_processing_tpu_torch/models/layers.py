@@ -59,19 +59,21 @@ def batch_rows(n_data: int, index: int):
 
 
 def keep_mask(shape, keep: float, generator: torch.Generator,
-              device) -> torch.Tensor:
+              device, batch_dim: int = 0) -> torch.Tensor:
     """A bool mask of `shape` on `device`, each entry True with probability
     `keep`: the one place the port draws dropout bits, from `generator`
     alone (never the global generator).  Under `batch_rows`, the mask of
-    the global batch's rows cut to this rank's (dim 0 is batch-major at
-    every site)."""
+    the global batch's rows cut to this rank's along `batch_dim` (0 at
+    every site but the grid's stacked and merged paths, whose sites are
+    (3, B, L, D))."""
     if not _ROWS:
         return torch.rand(shape, generator=generator, device=device) < keep
     n, i = _ROWS[-1]
-    rows = shape[0]
-    whole = (rows * n,) + tuple(shape[1:])
+    rows = shape[batch_dim]
+    whole = list(shape)
+    whole[batch_dim] = rows * n
     full = torch.rand(whole, generator=generator, device=device) < keep
-    return full[i * rows:(i + 1) * rows]
+    return full.narrow(batch_dim, i * rows, rows)
 
 
 def row_parallel(x, weight, bias, tp):
@@ -124,19 +126,23 @@ def _generator(rate: float, generator):
     return generator
 
 
-def dropout(x, rate: float, generator):
+def dropout(x, rate: float, generator, batch_dim: int = 0):
     """JAX's dropout (`layers.dropout`): where a Bernoulli(1 − rate) keep
     mask is set, x / keep, else 0; x itself at rate 0.  The division is by
     keep as a tensor of x's dtype, so it is a true division on the card too
     (a Python-scalar divisor becomes a product with 1 / keep there, one
     rounding away from JAX's x / keep).  Callers pass rate 0 outside
     training; an active site without a generator raises.  `generator` is
-    a `torch.Generator` or the `DrawnMasks` of a rematerialised block."""
+    a `torch.Generator` or the `DrawnMasks` of a rematerialised block;
+    `batch_dim` is x's batch axis (`keep_mask`)."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
     if isinstance(generator, DrawnMasks):
         mask = generator.take(x.shape)
+    elif batch_dim:
+        mask = keep_mask(x.shape, keep, _generator(rate, generator), x.device,
+                         batch_dim=batch_dim)
     else:
         mask = keep_mask(x.shape, keep, _generator(rate, generator), x.device)
     return torch.where(
@@ -164,9 +170,14 @@ def active_rate(module: nn.Module) -> float:
 def minus_norm_names(cfg):
     """The state-dict names of a minus grid's block LayerNorm and of the
     `concat_trans` head's LayerNorm: `norm2` and `norm3` in Ren-MME's
-    Base_model (Ren-MME/run.py:169-214, 273-292), which the `linear_ln`
-    unify selects, else `norm1` and `norm1` (cmu-mosei/run.py:217-339)."""
-    return ("norm2", "norm3") if cfg.unify == "linear_ln" else ("norm1", "norm1")
+    Base_model (Ren-MME/run.py:169-214, 273-292), which the `concat_trans`
+    head with the `linear_ln` unify selects, else `norm1` and `norm1`
+    (cmu-mosei/run.py:217-339).  The other grid heads name their minus
+    blocks' LayerNorm `norm1` whatever the unify, as JAX's
+    `to_reference_state_dict` does."""
+    if cfg.head == "concat_trans" and cfg.unify == "linear_ln":
+        return "norm2", "norm3"
+    return "norm1", "norm1"
 
 
 class UnifyLinear(nn.Module):

@@ -9,20 +9,32 @@ from .heads import ConcatLinear, ConcatTrans, GridOnly, StateTransfer
 
 _HEADS = {"concat_trans": ConcatTrans, "concat_linear": ConcatLinear,
           "grid_only": GridOnly, "state_transfer": StateTransfer}
-# the (block, unify, position embeddings) each head is ported with; the
-# grid-free `concat_linear` as rencecps's config names them
-PORTED = {"concat_trans": (("minus", "linear", False),
-                           ("minus", "linear_ln", False)),
-          "concat_linear": (("minus", "linear", False),),
-          "grid_only": (("realformer", "conv_multires", True),),
-          "state_transfer": (("realformer", "conv", True),)}
+BLOCKS = ("minus", "realformer")
+# the unifies each grid head runs in JAX (models/grid.py, heads.py): the
+# pair and paragraph heads take one (B, L, dm) visual input, the robot head
+# its three resolution slots; `concat_linear` has no grid and ignores its
+# block, unify and position fields
+UNIFIES = {"concat_trans": ("linear", "linear_ln", "conv"),
+           "state_transfer": ("linear", "linear_ln", "conv"),
+           "grid_only": ("conv_multires",)}
 
 
-def is_ported(cfg) -> bool:
-    """Whether the port has the head and (block, unify, position
-    embeddings) of ModelConfig `cfg`."""
-    return (cfg.block, cfg.unify, cfg.use_position_embedding) in PORTED.get(
-        cfg.head, ())
+def check_combination(cfg) -> None:
+    """Raise ValueError unless ModelConfig `cfg` is a combination the JAX
+    package builds and runs: `concat_linear` with any fields; the other
+    heads with block `minus` or `realformer` and the unifies in `UNIFIES`,
+    with or without position embeddings."""
+    if cfg.head not in _HEADS:
+        raise ValueError(f"unknown head {cfg.head!r}; the heads are "
+                         f"{sorted(_HEADS)}")
+    if cfg.head == "concat_linear":
+        return
+    if cfg.block not in BLOCKS or cfg.unify not in UNIFIES[cfg.head]:
+        raise ValueError(
+            f"head {cfg.head!r} with block {cfg.block!r} and unify "
+            f"{cfg.unify!r}: head {cfg.head!r} takes block in {BLOCKS} and "
+            f"unify in {UNIFIES[cfg.head]}, with or without position "
+            "embeddings")
 
 
 def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:
@@ -30,15 +42,7 @@ def build_model(cfg, *, device=None, seed: int = 0) -> torch.nn.Module:
     is used) on `device` ("cuda" unless "cpu" is asked for), initialized
     from a `torch.Generator` seeded with `seed` on that device."""
     mcfg = getattr(cfg, "model", cfg)
-    if mcfg.head not in _HEADS:
-        raise NotImplementedError(f"head {mcfg.head!r} is not ported yet")
-    if not is_ported(mcfg):
-        raise NotImplementedError(
-            f"head {mcfg.head!r} with block {mcfg.block!r}, unify "
-            f"{mcfg.unify!r} and position embeddings "
-            f"{mcfg.use_position_embedding} is not ported yet; it is ported "
-            f"with (block, unify, position embeddings) in "
-            f"{PORTED[mcfg.head]}")
+    check_combination(mcfg)
     dev = resolve_device(device)
     with torch.device("meta"):
         model = _HEADS[mcfg.head](mcfg)

@@ -34,8 +34,8 @@ and scores on the same mesh's data axis where the batch divides it;
 alone writes the store, the run's files, the predictions and the log.
 `impl="cp"` runs under `ensure_cp` (ops/context_parallel.py).  The lockstep
 drivers refuse a mesh (ROADMAP queue 1 item 11).
-
-Not ported yet: the stacked grid.
+`run_predict(stacked=True)` scores on the stacked RealFormer grid
+(models/grid.py), with or without `dp`.
 """
 
 from __future__ import annotations
@@ -276,7 +276,8 @@ def _member(exp, state_dict, device):
 
 
 def _make_ensemble(config_name, members, member_losses, *,
-                   impl: str = "xla", dtype: str = "float32", mesh=None):
+                   impl: str = "xla", dtype: str = "float32", mesh=None,
+                   stacked=None):
     """The config's combination: Ren-MME sums the members' logits
     (Ren-MME/run.py:560-575), the realformer keeps its two best folds at
     0.6/0.4 (others/realformer.py:420,482-485), every other config
@@ -289,7 +290,7 @@ def _make_ensemble(config_name, members, member_losses, *,
         members = [members[i] for i in order]
         weights = [0.6, 0.4]
     return Ensemble(members, weights=weights, combine=combine, impl=impl,
-                    dtype=dtype, mesh=mesh)
+                    dtype=dtype, mesh=mesh, stacked=stacked)
 
 
 def _flatten_units(units, with_groups: bool = False):
@@ -791,6 +792,7 @@ def _run_predict(
     transfer_dtype: Optional[str] = None,
     device_resident: bool = False,
     dp: Optional[int] = None,
+    stacked: bool = False,
 ) -> Dict:
     """Offline batch inference: the trained ensemble over a split once,
     every sample's outputs kept (eval/predictions.py): the artifact
@@ -813,6 +815,8 @@ def _run_predict(
     copy.  `dp`: shard the batches over a mesh of dp ranks' 'data' axis
     (`Ensemble(mesh=)`; the world must hold dp ranks, batch_size must
     divide dp; not with `device_resident`); the logits are one device's.
+    `stacked`: the members' grids on the stacked RealFormer path
+    (`Ensemble(stacked=True)`; impl "xla", RealFormer blocks).
     Rank 0 alone writes `output`.  Returns the prediction table with
     "rows" and "members" counts."""
     from .eval.predictions import prediction_table, write_predictions
@@ -885,7 +889,8 @@ def _run_predict(
         raise ValueError("checkpoint_dir required (or init_random=True for "
                          "an untrained smoke run)")
     ens = _make_ensemble(config_name, members, member_losses, impl=impl,
-                         dtype=exp.train.compute_dtype, mesh=mesh)
+                         dtype=exp.train.compute_dtype, mesh=mesh,
+                         stacked=True if stacked else None)
     if device_resident:
         raw = ens.predict_all_staged(samples, exp.train.batch_size,
                                      transfer_dtype=transfer_dtype)

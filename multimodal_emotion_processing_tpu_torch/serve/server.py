@@ -33,13 +33,14 @@ class BatchingServer:
 
     submit(sample) -> Future resolving to (logits (E,), calibrated probs
     (E',)) numpy arrays; predict(sample) is the blocking convenience.  Use
-    as a context manager or call close()."""
+    as a context manager or call close().  `stacked_grid`: every bucket's
+    program on the stacked RealFormer grid (stream.ensemble_serve_fn)."""
 
     def __init__(self, members: Sequence[torch.nn.Module],
                  offsets: Sequence[float], *, impl: str = "xla",
                  max_delay_ms: float = 2.0,
                  buckets: Sequence[int] = (1, 2, 4, 8),
-                 dtype: str = "float32"):
+                 dtype: str = "float32", stacked_grid: bool = False):
         if not buckets or sorted(buckets) != list(buckets):
             raise ValueError("buckets must be a sorted, non-empty sequence")
         self.buckets = tuple(int(b) for b in buckets)
@@ -48,8 +49,9 @@ class BatchingServer:
         self.device = _device_of(members)
         self.k = len(members)
         self.n_off = len(offsets)
-        self._serve = ensemble_serve_fn(members, offsets, impl=impl,
-                                        dtype=dtype)
+        self._serve = ensemble_serve_fn(
+            members, offsets, impl=impl, dtype=dtype,
+            stacked=True if stacked_grid else None)
         self._programs: Dict[int, PackedProgram] = {}
         self._layout = None   # (keys, shapes), fixed by the first sample
         self._q: "queue.Queue" = queue.Queue()

@@ -9,7 +9,10 @@ through.  On a CUDA device every serving computation is one captured CUDA
 graph per input shape (serve/graphs.py), the counterpart of JAX's one
 compiled program per shape: `ensemble_serve_fn`, the packed predict
 program of `StreamingPredictor` (and of each `BatchingServer` bucket), and
-the paragraph step.  `predict` packs the sample into one pinned host
+the paragraph step.  `stacked_grid=True` builds them on the stacked
+RealFormer grid (models/grid.py; impl "xla", RealFormer blocks), fixed
+when the predictor or server is built.  `predict` packs the sample into
+one pinned host
 buffer, replays one program that copies it to the device, unpacks it, runs
 the ensemble and writes (logits ++ probabilities) into one static output,
 and brings that back in one copy.
@@ -35,12 +38,14 @@ def _device_of(members) -> torch.device:
 
 def ensemble_serve_fn(members: Sequence[torch.nn.Module],
                       offsets: Sequence[float], *, impl: str = "xla",
-                      dtype: str = "float32") -> GraphedFunction:
+                      dtype: str = "float32",
+                      stacked=None) -> GraphedFunction:
     """THE serving computation: batch (B, ...) of tensors -> (logits (B, E),
     probs (B, E')) as the mean of the members' f32-upcast logits and
     sigmoid(logits[:, :E'] − offsets).  `dtype="bfloat16"` runs the
     forwards in bf16 on bf16 copies of the members (`infer_cast`), made
-    once here and held by the program.  Returned as a `GraphedFunction`: on
+    once here and held by the program; `stacked` is the members' grid
+    path (`Grid.forward`).  Returned as a `GraphedFunction`: on
     a CUDA device one captured graph per batch shape, whose outputs the
     caller copies out before the next call; `.fn` is the eager path."""
     if len(offsets) == 0:
@@ -56,7 +61,8 @@ def ensemble_serve_fn(members: Sequence[torch.nn.Module],
     @torch.inference_mode()
     def run(batch: Dict[str, torch.Tensor]):
         _, batch = infer_cast(None, batch, dtype)
-        logits = torch.stack([infer_upcast(m(batch, impl=impl))
+        logits = torch.stack([infer_upcast(m(batch, impl=impl,
+                                             stacked=stacked))
                               for m in members])           # (k, B, E)
         if logits.ndim != 3:
             raise ValueError(f"serving expects per-sample logits (k, B, E); "
@@ -146,10 +152,11 @@ class StreamingPredictor:
 
     def __init__(self, members: Sequence[torch.nn.Module],
                  offsets: Sequence[float], *, impl: str = "xla",
-                 dtype: str = "float32"):
+                 dtype: str = "float32", stacked_grid: bool = False):
         self.n_off = len(offsets)
         self.device = _device_of(members)
-        self._run = ensemble_serve_fn(members, offsets, impl=impl, dtype=dtype)
+        self._run = ensemble_serve_fn(members, offsets, impl=impl, dtype=dtype,
+                                      stacked=True if stacked_grid else None)
         self._packed = None
 
     def warmup(self, sample: Dict[str, np.ndarray]) -> None:
@@ -188,7 +195,7 @@ class StreamingPredictor:
 
 
 def _paragraph_step(members, trans, weights, off, state, *, impl: str,
-                    dtype: str):
+                    dtype: str, stacked=None):
     """The paragraph step: one clip batch (1, ...) -> blended logits ++
     probabilities (E + E',) on the device, the recurrence `state` (out,
     feats, started) advanced in place.  A closure that holds no reference
@@ -199,7 +206,8 @@ def _paragraph_step(members, trans, weights, off, state, *, impl: str,
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         _, batch = infer_cast(None, batch, dtype)
-        outs = [m.clip(*(batch[k] for k in keys), impl=impl) for m in members]
+        outs = [m.clip(*(batch[k] for k in keys), impl=impl, stacked=stacked)
+                for m in members]
         out_t1 = torch.stack([infer_upcast(o) for o, _ in outs])   # (k, 1, E)
         feats = torch.stack([infer_upcast(f) for _, f in outs])
         prev_out, prev_feats, started = state
@@ -238,7 +246,8 @@ class ParagraphStreamingPredictor:
 
     def __init__(self, members: Sequence[torch.nn.Module],
                  offsets: Sequence[float], *, weights=None,
-                 impl: str = "xla", dtype: str = "float32"):
+                 impl: str = "xla", dtype: str = "float32",
+                 stacked_grid: bool = False):
         if not members:
             raise ValueError("serving needs at least one ensemble member")
         for m in members:
@@ -273,7 +282,8 @@ class ParagraphStreamingPredictor:
                       torch.zeros((), dtype=torch.bool, device=self.device))
         self.step = GraphedFunction(
             _paragraph_step(self.members, self.trans, self.weights, self.off,
-                            self.state, impl=impl, dtype=dtype),
+                            self.state, impl=impl, dtype=dtype,
+                            stacked=True if stacked_grid else None),
             self.device, name=f"paragraph step[{impl}]")
 
     def reset(self) -> None:

@@ -139,14 +139,14 @@ def test_build_model_is_seeded_and_torch_default_distributed():
 
 
 def test_build_model_refuses_unported_families_and_missing_gpu():
-    """concat_trans over RealFormer blocks, a combination no reference
-    config has, is not in the port's PORTED table; nor is an unknown
+    """concat_trans over the multi-resolution conv unify, a combination
+    the JAX package fails on, raises ValueError; so does an unknown
     head."""
     exp = _exp()
-    for change in ({"block": "realformer"}, {"head": "no_such_head"}):
+    for change in ({"unify": "conv_multires"}, {"head": "no_such_head"}):
         unported = dataclasses.replace(exp, model=dataclasses.replace(
             exp.model, **change))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             build_model(unported, device="cpu")
     if torch.cuda.is_available():
         return

@@ -27,7 +27,7 @@ from multimodal_emotion_processing_tpu_torch.cli import main  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.data import loader, masking, synthetic  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.interop import from_jax_params  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.models import build_model  # noqa: E402
-from multimodal_emotion_processing_tpu_torch.models.registry import PORTED  # noqa: E402
+from multimodal_emotion_processing_tpu_torch.models.registry import check_combination  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.train import engine  # noqa: E402
 
 F32_TOL = 2e-4
@@ -87,7 +87,7 @@ def test_rencecps_config_and_registry():
     m = exp.model
     assert (m.dim, m.n_emotions, m.head, m.dropout) == (2304, 9,
                                                         "concat_linear", 0.1)
-    assert (m.block, m.unify, m.use_position_embedding) in PORTED[m.head]
+    check_combination(m)       # concat_linear: any block, unify, positions
 
 
 def test_rencecps_samples_equal_jax():

@@ -4,7 +4,7 @@ bench/flops.py, for every config of both registries), `.json` config files
 and a run's run_meta.json (configs.load_config_file, cli
 apply_config_file, against JAX's), `--tuned` (bench/autotune.apply_tuned,
 the cases of tests/test_autotune.py), the structure of a `tune` record at
-a tiny config (the lossy gate, the stacked arm skipped, the margin rule),
+a tiny config (the lossy gate, the stacked arm, the margin rule),
 `doctor --device cpu`'s keys, `--profile-dir` (a Chrome trace from the
 sequential, device-resident and one-dispatch drivers) and `--debug-nans`
 (the forward names the module, the backward the autograd function)."""
@@ -154,11 +154,15 @@ def test_apply_tuned_per_command(tmp_path):
                        winners={"stacked": True, "scan_steps": 16,
                                 "impl": "pallas", "transfer_dtype": "float16"})
     args = cli.build_parser().parse_args(["serve", "--tuned", path])
-    assert autotune.apply_tuned(args, path) == {"impl": "pallas"}
+    assert autotune.apply_tuned(args, path) == {"impl": "pallas",
+                                                "stacked": True}
+    assert args.stacked_grid is True
     args = cli.build_parser().parse_args(
         ["predict", "robot_demo", "-o", "x.npz", "--tuned", path])
     assert autotune.apply_tuned(args, path) == {"impl": "pallas",
+                                                "stacked": True,
                                                 "transfer_dtype": "float16"}
+    assert args.stacked_grid is True
 
 
 def test_apply_tuned_config_mismatch(tmp_path):
@@ -217,8 +221,9 @@ def test_tune_record_structure(tiny_robot):
     assert rec["torch"] == torch.__version__ and rec["margin"] == autotune.MARGIN
     m, w = rec["measured"], rec["winners"]
     assert "datafed_train_sps" not in m and "transfer_dtype" not in w  # lossy
-    assert m["stacked_infer_sps"] == {"skipped": "stacked grid not ported"}
-    assert "stacked" not in w
+    st = m["stacked_infer_sps"]
+    assert st["impl"] == "xla" and st["off"] > 0 and st["on"] > 0
+    assert w["stacked"] == (st["on"] >= autotune.MARGIN * st["off"])
     assert set(m["scan_train_sps"]) == {"1", "2"} and w["scan_steps"] in (1, 2)
     if w["scan_steps"] == 2:
         assert m["scan_train_sps"]["2"] >= autotune.MARGIN * m["scan_train_sps"]["1"]
