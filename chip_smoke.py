@@ -6412,6 +6412,46 @@ PAR_CASES = {
 }
 PAR_CP = {"b": 2, "lq": 64, "lkv": 1600, "h": 6, "d": 96}
 PAR_ENSEMBLE = {"members": 4, "n": 128, "batch": 64}
+# the lockstep k-fold drivers (train/vmap_kfold.py) on a mesh.  (a) at
+# NCCL world size 1, each driver against its mesh-free run from the same
+# seeds, bit for bit: (config, impl, folds, fold size, batch, epochs); the
+# fold size cut from the configs' 4096 / none so that the phase stays short
+PAR_LOCKSTEP = {
+    "mosei_trans": ("mosei_trans", "pallas_fused", 4, 64, 64, 2),
+    "mosei_trans_s1024": ("mosei_trans_s1024", "flash", 2, 32, 16, 2),
+}
+PAR_LOCKSTEP_DRIVERS = ("host", "resident", "one")
+# (b) on the spawned gloo ranks (eager), against one process: (config,
+# impl, (n_data, n_model), driver, folds, fold size, batch, epochs, loss
+# bound, world).  mosei_trans within the phase's dp bound.  The
+# paragraph model within RF_LOSS_TOL, phase train_realformer's bound for
+# two f32 roundings of its training run: its no_name clip (a fully masked
+# row inside the loss) makes each gate c's gradient dc = Σ dS·S_prev a
+# sum of terms near 1e8 that cancel, so dc is rounding noise in any two
+# runs (3-13x its size between the mesh and one process, measured on
+# one H100), and Adam's first step, lr·sign(g), turns that noise into moves
+# of ±lr; the same runs without that clip agree within 8.0e-8.  The
+# step-1 gradients are held at PAR_GRAD_TOL apart from the gates c, whose
+# error is logged (par_lockstep)
+PAR_LOCKSTEP_SPAWNED = {
+    "lockstep_dp2_resident_mosei_trans": (
+        "mosei_trans", "pallas_fused", (2, 1), "resident", 2, 128, 64, 2,
+        PAR_LOSS_RTOL, 2),
+    "lockstep_dp2xtp2_one_mosei_realformer": (
+        "mosei_realformer", "pallas", (2, 2), "one", 2, 32, 16, 2,
+        RF_LOSS_TOL, 4),
+}
+# the grid's fast paths at tp=2 (mesh (1, 2), impl xla, f64) against the
+# unrolled tp=2 path's step-1 gradients: (config, switch, Grid method,
+# batch)
+# in f64 (par_grids), bound PAR_GRID_TOL on the loss and each gradient
+# tensor's relative L2
+PAR_GRID_TOL = 1e-6
+PAR_GRIDS = {
+    "merged": ("mosei_trans", "MERGED_FAST_PATH", "_merged_minus", 64),
+    "stacked": ("mosei_realformer", "REALFORMER_STACKED",
+                "_stacked_realformer", 16),
+}
 
 
 def par_exp(name, **train):
@@ -6448,9 +6488,9 @@ def par_gradients(torch, engine, pm, exp, init, batch, impl, mesh,
     'model'.  With `routing` ({"pool": [], "relu": []}, as
     pinned_step_gradients keeps it), an empty one records every max-pool
     argmax and ReLU mask of this forward, a filled one pins them (a
-    tensor-parallel rank takes its chunk of each ReLU mask's features)
-    and counts the inputs this forward would route otherwise
-    (`routing["flips"]`)."""
+    data-parallel rank takes its rows of each, a tensor-parallel rank its
+    chunk of each ReLU mask's features) and counts the inputs this
+    forward would route otherwise (`routing["flips"]`)."""
     from multimodal_emotion_processing_tpu_torch.data.loader import to_device
     from multimodal_emotion_processing_tpu_torch.models import grid as grid_mod
 
@@ -6475,6 +6515,8 @@ def par_gradients(torch, engine, pm, exp, init, batch, impl, mesh,
                 routing["sizes"][kind] += chosen.numel()
                 return chosen
             want = routing[kind][i]
+            if mesh is not None and mesh.shape["data"] > 1:
+                want = want[pm.process_batch_slice(want.shape[0], mesh)]
             if features:
                 want = want.chunk(tp[0], -1)[tp[1]]
             routing["flips"][kind] += int((chosen != want).sum())
@@ -6665,6 +6707,197 @@ def par_ensemble(torch, world):
             "err": normalised_err(got, ref)}
 
 
+def lockstep_exp(name, folds, fold, batch, epochs):
+    return par_exp(name, batch_size=batch, n_folds=folds, fold_size=fold,
+                   epochs=epochs)
+
+
+def lockstep_run(torch, exp, samples, impl, driver, mesh, tp=False):
+    """One lockstep driver run ("host", "resident" or "one") of `exp` on
+    `mesh` (None: mesh-free): histories (step losses where the driver keeps
+    them), best losses and parameters, final parameters (this rank's
+    shards), the wall and the driver's info."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.train import vmap_kfold as vk
+
+    tcfg = exp.train
+    bs = tcfg.batch_size
+
+    def make(train, valid):
+        return (Batcher(train, bs, seed=1), Batcher(valid, bs, shuffle=False))
+
+    info = {}
+    kw = dict(impl=impl, device="cuda", mesh=mesh, tp=tp,
+              fold_size=tcfg.fold_size, info=info)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if driver == "one":
+        states, hists, best, losses = vk.run_kfold_fully_compiled(
+            samples, exp, tcfg, **kw)
+    else:
+        states, hists, best, losses = vk.run_kfold_vmapped(
+            samples, make, exp, tcfg, device_resident=driver == "resident",
+            **kw)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "info": info,
+            "hist": [[(e.train_loss, e.valid_loss, e.step_losses) for e in h]
+                     for h in hists],
+            "epoch_s": [e.seconds for e in hists[0]],
+            "losses": losses, "best": best,
+            "final": [{n: p.detach().clone() for n, p in
+                       st.model.named_parameters()} for st in states]}
+
+
+def lockstep_same(a, b) -> bool:
+    """Two lockstep runs' histories, best losses, best and final
+    parameters, bit for bit."""
+    return (a["hist"] == b["hist"] and a["losses"] == b["losses"]
+            and all(torch_equal(x, y) for x, y in zip(a["best"], b["best"]))
+            and all(torch_equal(x, y) for x, y in zip(a["final"], b["final"])))
+
+
+def torch_equal(x: dict, y: dict) -> bool:
+    import torch
+
+    return list(x) == list(y) and all(torch.equal(x[k], y[k]) for k in y)
+
+
+def lockstep_loss_err(got, ref) -> float:
+    """Max relative difference of every epoch loss and step loss."""
+    errs = []
+    for h, hr in zip(got["hist"], ref["hist"]):
+        if len(h) != len(hr):
+            return float("inf")
+        for (tr, va, steps), (tr0, va0, steps0) in zip(h, hr):
+            errs += [abs(a - b) / abs(b) for a, b in
+                     zip((tr, va) + tuple(steps), (tr0, va0) + tuple(steps0))]
+    return max(errs)
+
+
+def par_lockstep(torch, key, rank):
+    """One PAR_LOCKSTEP_SPAWNED case on this rank (gloo: the programs run
+    eagerly): the mesh run counted and timed, then on rank 0 one process's
+    run from the same seeds (LayerNorm biases spread, gates set), and
+    member 1's step-1 gradients against one process's."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    name, impl, shape, driver, folds, fold, bs, epochs, _, _ = \
+        PAR_LOCKSTEP_SPAWNED[key]
+    exp = lockstep_exp(name, folds, fold, bs, epochs)
+    samples = ensure_no_name(synthetic_dataset(name, exp.model, folds * fold,
+                                               seed=0))
+    mesh = pm.make_mesh(*shape, device="cuda")
+    kernels = all_kernels()
+    with experiment_hooks(torch, spread=True, gates=True):
+        reset_counts(kernels)
+        got = lockstep_run(torch, exp, samples, impl, driver, mesh,
+                           tp=shape[1] > 1)
+        launches = read_counts(kernels)
+        ref = (lockstep_run(torch, exp, samples, impl, driver, None)
+               if rank == 0 else None)
+        init = engine.init_state(exp.model, exp.train, exp.train.seed,
+                                 device="cuda").model.state_dict()
+    out = {"launches": launches, "wall_s": got["wall_s"],
+           "hist": got["hist"], "losses": got["losses"], "impl": impl,
+           "mesh": shape, "driver": driver, "members": folds,
+           "steps": (folds - 1) * fold // bs, "epochs": epochs}
+    if ref is not None:
+        out["ref_wall_s"] = ref["wall_s"]
+        out["loss_rel_err"] = lockstep_loss_err(got, ref)
+    # member 1's step-1 gradients on the batch holding the no_name sample,
+    # the routing pinned to one process's (as par_case pins it)
+    first = next(iter(Batcher(samples, bs, shuffle=False)()))
+    routing = {"pool": [], "relu": []}
+    if rank == 0:
+        _, g0 = par_gradients(torch, engine, pm, exp, init, first, impl, None,
+                              routing)
+    else:   # this rank records its own routing: only rank 0's is held
+        par_gradients(torch, engine, pm, exp, init, first, impl, None,
+                      routing)
+    _, grads = par_gradients(torch, engine, pm, exp, init, first, impl, mesh,
+                             routing)
+    if rank == 0:
+        err = gradient_errors(grads, g0)
+        gate_c = {n: e["rel_l2"] for n, e in err.items() if n.endswith(".c")}
+        rest = {n: e["rel_l2"] for n, e in err.items() if n not in gate_c}
+        out["grad_rel_l2"] = max(rest.values())
+        out["grad_worst"] = dict(sorted(rest.items(),
+                                        key=lambda kv: -kv[1])[:3])
+        out["gate_c_rel_l2"] = max(gate_c.values(), default=0.0)
+        out["routing_flips"] = routing["flips"]
+    return out
+
+
+def grid_gradients(torch, engine, pm, exp, init, batch, mesh):
+    """(loss, {name: whole gradient}) of one batch_loss at `init` in f64 on
+    the mesh (tensor-parallel), the rank's rows summed over 'data' and the
+    shards gathered over 'model'."""
+    state = engine.init_state(exp.model, exp.train, seed=0, device="cuda")
+    state.model.load_state_dict(init)
+    state.model.double()
+    pm.place_state(state, mesh, tp=True)
+    state.model.train()
+    rows = {k: (v.double() if v.is_floating_point() else v)
+            for k, v in pm.put_global_batch(batch, mesh).items()}
+    names = [n for n, _ in state.model.named_parameters()]
+    params = [p for _, p in state.model.named_parameters()]
+    loss = engine.batch_loss(state.model, exp.train, rows, impl="xla",
+                             parallel=state.parallel)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(loss, params, allow_unused=True), params)]
+    loss, grads = state.parallel.reduce(loss, grads)
+    grads = [pm.gather_tensor(g, state.spec[n], state.parallel.model_group)
+             for g, n in zip(grads, names)]
+    return float(loss), dict(zip(names, (g.detach() for g in grads)))
+
+
+def par_grids(torch, rank):
+    """PAR_GRIDS on a (1, 2) mesh: each fast path's step-1 loss and whole
+    gradients against the unrolled tp=2 path's from the same weights
+    (gates set, LayerNorm biases spread) and batch, in f64: in f32 the
+    gate c's gradient over a fully masked row (the no_name sample) is
+    rounding noise in both paths, a sum of terms near 1e8 that cancel
+    (ROADMAP, Watch), and the two paths round it differently."""
+    from multimodal_emotion_processing_tpu_torch.data.loader import Batcher
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+    from multimodal_emotion_processing_tpu_torch.train import engine
+
+    mesh = pm.make_mesh(1, 2, device="cuda")
+    out = {}
+    for key, (name, switch, method, rows) in PAR_GRIDS.items():
+        exp = par_exp(name, batch_size=rows)
+        init = par_models(torch, engine, exp)
+        samples = ensure_no_name(synthetic_dataset(name, exp.model, rows,
+                                                   seed=0))
+        first = next(iter(Batcher(samples, rows, seed=1)()))
+        calls = {}
+        with counted_path(calls, "unrolled", method):
+            ref_loss, ref = grid_gradients(torch, engine, pm, exp, init,
+                                           first, mesh)
+        with counted_path(calls, "fast", method), grid_switch(switch, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = grid_gradients(torch, engine, pm, exp, init, first,
+                                         mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        err = gradient_errors(grads, ref)
+        out[key] = {"config": name, "batch": rows, "wall_s": wall,
+                    "fast_calls": calls.get("fast", 0),
+                    "unrolled_calls": calls.get("unrolled", 0),
+                    "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                    "grad_rel_l2": max(e["rel_l2"] for e in err.values()),
+                    "grad_worst": {n: e["rel_l2"] for n, e in sorted(
+                        err.items(), key=lambda kv: -kv[1]["rel_l2"])[:3]},
+                    "grad_tensors": len(err)}
+        del grads, ref
+    return out
+
+
 def parallel_rank(rank, world, port, path):
     """One spawned rank of phase parallel (b): gloo over CUDA tensors."""
     import torch
@@ -6683,6 +6916,10 @@ def parallel_rank(rank, world, port, path):
         if world == 2:
             out["cp"] = par_cp(torch, rank, world)
             out["ensemble"] = par_ensemble(torch, world)
+            out["grids_tp2"] = par_grids(torch, rank)
+        for key, case in PAR_LOCKSTEP_SPAWNED.items():
+            if case[-1] == world:
+                out[key] = par_lockstep(torch, key, rank)
         torch.save(out, Path(path) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -6913,10 +7150,97 @@ def parallel_nccl_cp(torch, out):
         raise AssertionError(f"impl=cp against xla: {rec}")
 
 
-def parallel_spawned(torch, out, smi):
-    """(b): PAR_CASES, CP and Ensemble(mesh=) on ranks spawned on the card
-    over gloo; every result against its bound.  Returns the launches summed
-    over the ranks' mesh runs."""
+def parallel_nccl_lockstep(torch, out, smi, lockstep_launches):
+    """(a) PAR_LOCKSTEP: each lockstep driver (host-fed, device-resident,
+    one-dispatch) on make_mesh(n_data=1) over NCCL against its mesh-free
+    run from the same seeds: histories, best and final parameters bit for
+    bit; the all-reduces issued while the programs were captured (a
+    program's first call runs it once eagerly, then captures it; every
+    later step is a replay that issues none from the host); member-epoch
+    times beside the mesh-free ones.  The mesh runs' launches per driver
+    go into `lockstep_launches`; returns their sum."""
+    from multimodal_emotion_processing_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodal_emotion_processing_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(n_data=1, device="cuda")
+    kernels = all_kernels()
+    total, failures = {}, []
+    for cfg_key, (name, impl, folds, fold, bs, epochs) in PAR_LOCKSTEP.items():
+        exp = lockstep_exp(name, folds, fold, bs, epochs)
+        samples = ensure_no_name(synthetic_dataset(name, exp.model,
+                                                   folds * fold, seed=0))
+        steps = (folds - 1) * fold // bs
+        for driver in PAR_LOCKSTEP_DRIVERS:
+            runs = {}
+            for key, m in (("mesh", mesh), ("plain", None)):
+                reset_counts(kernels)
+                with recorded_all_reduces(torch) as reduces:
+                    runs[key] = lockstep_run(torch, exp, samples, impl,
+                                             driver, m)
+                runs[key]["launches"] = read_counts(kernels)
+                runs[key]["reduces"] = reduces
+                gc.collect()
+                torch.cuda.empty_cache()
+            same = lockstep_same(runs["mesh"], runs["plain"])
+            reduces = runs["mesh"]["reduces"]
+            inside = {"captured": sum(c for _, c in reduces),
+                      "eager": sum(not c for _, c in reduces),
+                      "mesh_free": len(runs["plain"]["reduces"])}
+            launched = runs["mesh"]["launches"]
+            key = f"lockstep_{driver}_{cfg_key}"
+            lockstep_launches[key] = launched
+            for k, n in launched.items():
+                total[k] = total.get(k, 0) + n
+            # the member-epoch: epoch 2's wall over the members (host-fed
+            # and device-resident, captures done in epoch 1); one-dispatch
+            # has no epoch boundary on the host: its whole run's wall over
+            # the epochs launched and the members, captures included
+            if driver == "one":
+                member_epoch = {k: r["wall_s"] / (
+                    r["info"]["epochs_launched"] * folds)
+                    for k, r in runs.items()}
+            else:
+                member_epoch = {k: r["epoch_s"][-1] / folds
+                                for k, r in runs.items()}
+            rec = out[key] = {
+                "config": name, "impl": impl, "dtype": exp.train.compute_dtype,
+                "folds": folds, "fold_size": fold, "batch": bs,
+                "epochs": epochs, "steps_per_epoch": steps,
+                "bit_equal": same, "all_reduces": inside,
+                "member_epoch_s": member_epoch,
+                "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+                "launches": launched, "smi": smi}
+            ok = (same and inside["captured"] >= folds
+                  and inside["captured"] == inside["eager"]
+                  and inside["mesh_free"] == 0)
+            log(f"[parallel] (a) NCCL world 1: {driver} lockstep of {name} "
+                f"at {impl} ({exp.train.compute_dtype}), {folds} folds of "
+                f"{fold}, B {bs}, {epochs} epochs of {steps} steps: "
+                f"histories, best and final parameters bit-equal to the "
+                f"mesh-free run {same}; all-reduces {inside['captured']} "
+                f"issued while the programs were captured and "
+                f"{inside['eager']} in their eager first calls (mesh-free: "
+                f"{inside['mesh_free']}); member-epoch "
+                f"{member_epoch['mesh']:.4f} s on the mesh against "
+                f"{member_epoch['plain']:.4f} s mesh-free"
+                + (" (whole run over epochs x members, captures included)"
+                   if driver == "one" else " (epoch 2)")
+                + f"; wall {rec['wall_s']['mesh']:.2f} / "
+                f"{rec['wall_s']['plain']:.2f} s; launches {launched} ({smi})")
+            if not ok:
+                failures.append(key)
+            del runs
+    if failures:
+        raise AssertionError(f"the lockstep drivers at NCCL world 1: "
+                             f"{failures}")
+    return total
+
+
+def parallel_spawned(torch, out, smi, lockstep_launches):
+    """(b): PAR_CASES, CP, Ensemble(mesh=), the grid's fast paths at tp=2
+    and PAR_LOCKSTEP_SPAWNED on ranks spawned on the card over gloo; every
+    result against its bound.  Returns the launches summed over the ranks'
+    mesh runs; the lockstep runs' go into `lockstep_launches` too."""
     import shutil
     import socket
 
@@ -6944,6 +7268,59 @@ def parallel_spawned(torch, out, smi):
             for r in ranks:
                 for k, n in r[key].get("launches", {}).items():
                     launches[k] = launches.get(k, 0) + n
+        for key, case in PAR_LOCKSTEP_SPAWNED.items():
+            if case[-1] != world:
+                continue
+            r0 = ranks[0][key]
+            agree = all(r[key]["hist"] == r0["hist"]
+                        and r[key]["losses"] == r0["losses"] for r in ranks)
+            counts = {}
+            for r in ranks:
+                for k, n in r[key]["launches"].items():
+                    counts[k] = counts.get(k, 0) + n
+            lockstep_launches[key] = counts
+            bound = case[8]
+            ok = (r0["loss_rel_err"] <= bound and agree
+                  and r0["grad_rel_l2"] <= PAR_GRAD_TOL
+                  and r0["routing_flips"]["pool"] == 0)
+            out[key] = {**{k: v for k, v in r0.items() if k != "hist"},
+                        "ranks_agree": agree, "launches_all_ranks": counts,
+                        "loss_bound": bound, "ok": ok, "world": world}
+            log(f"[parallel] (b) {key}: {case[0]} mesh {case[2]} at "
+                f"{case[1]}, driver {case[3]}, {case[4]} folds of {case[5]}"
+                f", B {case[6]}, {case[7]} epochs (the steps eager: gloo): "
+                f"every epoch and step loss against one process rel err "
+                f"{r0['loss_rel_err']:.2e} (bound {bound:g}), every "
+                f"rank the same losses and stops {agree}; member 1's step-1 "
+                f"gradients on the batch holding the no_name sample rel_l2 "
+                f"{r0['grad_rel_l2']:.2e} (bound {PAR_GRAD_TOL:g}; worst "
+                f"{r0['grad_worst']}), the gates c's {r0['gate_c_rel_l2']:.2e}"
+                f" (not bound: dc cancels terms near 1e8), routing flips "
+                f"{r0['routing_flips']}; wall "
+                f"{r0['wall_s']:.1f} s (one process, captured: "
+                f"{r0['ref_wall_s']:.1f} s); launches over the ranks "
+                f"{counts}")
+            if not ok:
+                failures.append(key)
+        if world == 2:
+            for key, rec in ranks[0]["grids_tp2"].items():
+                ok = (rec["grad_rel_l2"] <= PAR_GRID_TOL
+                      and rec["loss_rel_err"] <= PAR_GRID_TOL
+                      and all(r["grids_tp2"][key]["fast_calls"] > 0
+                              and r["grids_tp2"][key]["unrolled_calls"] == 0
+                              for r in ranks))
+                out[f"grid_{key}_tp2"] = {**rec, "ok": ok}
+                log(f"[parallel] (b) the {key} grid at tp=2 (mesh (1, 2), "
+                    f"xla, f64), {rec['config']} B {rec['batch']}: step-1 "
+                    f"loss rel err {rec['loss_rel_err']:.2e} and gradients "
+                    f"rel_l2 {rec['grad_rel_l2']:.2e} (bound "
+                    f"{PAR_GRID_TOL:g}) over "
+                    f"{rec['grad_tensors']} tensors (worst "
+                    f"{rec['grad_worst']}) against the unrolled "
+                    f"tp=2 path; the {key} path taken {rec['fast_calls']} "
+                    f"times; wall {rec['wall_s']:.2f} s")
+                if not ok:
+                    failures.append(f"grid_{key}_tp2")
         for key, case in PAR_CASES.items():
             if case[4] != world:
                 continue
@@ -7030,20 +7407,36 @@ def phase_parallel(torch, report):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
+    lockstep = {}
     with pm.world("cuda"):
         add(parallel_nccl_trainer(torch, out, smi))
         add(parallel_nccl_predict(torch, out))
         parallel_nccl_cp(torch, out)
+        t1 = time.perf_counter()
+        add(parallel_nccl_lockstep(torch, out, smi, lockstep))
+        out["nccl_lockstep_wall_s"] = time.perf_counter() - t1
+    gc.collect()
     torch.cuda.empty_cache()
-    add(parallel_spawned(torch, out, smi))
+    add(parallel_spawned(torch, out, smi, lockstep))
     out["wall_s"] = time.perf_counter() - t0
     out["launches"] = launches
-    log(f"[parallel] phase wall {out['wall_s']:.1f} s; launches under a mesh "
-        f"{launches}; no multi-card figure: NCCL at world size > 1 waits for "
-        f"a machine with several cards ({smi})")
+    under_lockstep = {k: sum(c.get(k, 0) for c in lockstep.values())
+                      for k in KERNEL_NAMES}
+    out["lockstep_launches"] = lockstep
+    log("[parallel] launches under the lockstep mesh, per driver: "
+        + "; ".join(f"{key} {counts}" for key, counts in lockstep.items())
+        + f"; summed {under_lockstep}")
+    log(f"[parallel] phase wall {out['wall_s']:.1f} s (the NCCL lockstep "
+        f"drivers {out['nccl_lockstep_wall_s']:.1f} s of it); launches "
+        f"under a mesh {launches}; no multi-card figure: NCCL at world size "
+        f"> 1 waits for a machine with several cards ({smi})")
     missing = [k for k in KERNEL_NAMES if not launches.get(k)]
     if missing:
         raise AssertionError(f"kernels never launched under a mesh: {missing}")
+    missing = [k for k, n in under_lockstep.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels never launched under the lockstep "
+                             f"mesh: {missing}")
     return launches
 
 
@@ -7528,6 +7921,7 @@ def main() -> int:
         return 1
     from multimodal_emotion_processing_tpu_torch.utils import native
 
+    t_start = time.perf_counter()
     report = {}
     failed = []
     smi = nvidia_smi_line()
@@ -7629,6 +8023,9 @@ def main() -> int:
 
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     report["failed_phases"] = failed
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"[device] the whole script: wall {report['wall_s']:.1f} s, the "
+        f"build included ({smi})")
     OUT_JSON.write_text(json.dumps(report, indent=1, default=str))
     if failed:
         print(f"FAIL: phases {failed}", file=sys.stderr)

@@ -81,8 +81,9 @@ explicit --set pairs win over the file.  `train` and `eval` take
 captures) and --debug-nans (fail on the first non-finite value, naming
 the module; the steps then run eagerly).
 
-Several devices: `train` and `eval` take --dp N and --tp M, `predict`
---dp N, one process per device under `torchrun --nproc-per-node N*M -m
+Several devices: `train` and `eval` take --dp N and --tp M (with any
+driver: --device-resident and --one-dispatch too), `predict` --dp N, one
+process per device under `torchrun --nproc-per-node N*M -m
 multimodal_emotion_processing_tpu_torch ...` (parallel/mesh.py; a
 --dp x --tp that is not the world's rank count fails with that line);
 rank 0 alone prints and writes.  `--impl cp` (train, eval, sweep, predict,
@@ -232,7 +233,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel width on the 'model' mesh axis "
                              "(head-sharded attention; demonstrative at "
-                             "these model sizes)")
+                             "these model sizes); composes with --dp, "
+                             "--device-resident and --one-dispatch")
         tuned(sp)
         overrides(sp)
         device(sp)

@@ -26,7 +26,16 @@ Three alternatives to the unrolled path, each off by default as in JAX
   pools the collected outputs without materialising their concats.
 At any other impl the switches are ignored and the unrolled path runs its
 kernels, as in JAX: no switch takes a kernel off its path.  The merged and
-stacked paths skip `remat`, as JAX's do, and refuse tensor parallelism.
+stacked paths skip `remat`, as JAX's do.  Under tensor parallelism (the
+blocks' `tp`, parallel/mesh.shard_params) each rank stacks its own shards
+of a target's three blocks and runs the products and collectives the
+unrolled tp block runs, once for the three streams: the stacked Q/K/V and
+first FFN products column-parallel (`comm.copy_to`; the RealFormer's
+attention on the rank's H / tp heads, its scores chained head-sharded),
+its `proj` and second FFN product row-parallel, closed by
+`comm.reduce_from`; the merged minus path's attention replicated, its
+`proj` column-parallel and gathered, its `minus` row-parallel over
+[q ; x], as `MinusBlock` runs them.
 
 Three ported variants, by the head on the pooled feature (`out`, as
 `apply_grid_head` names it):
@@ -295,16 +304,10 @@ class Grid(nn.Module):
                     collected[TARGET[name]].append(q)
         return collected
 
-    def _refuse_tp(self, path: str) -> None:
-        if self.multimodal_blocks[0].tp is not None:
-            raise ValueError(
-                f"the {path} grid path does not run under tensor "
-                "parallelism; run it without tp, or unrolled")
-
     def _merged_minus(self, src, masks, generator):
         """JAX `_apply_grid_minus_merged`: {target: [self stream, then the
         other two in STREAMS order]} of minus blocks at n_layers 1."""
-        self._refuse_tp("merged minus")
+        tp = self.multimodal_blocks[0].tp
         h = self.multimodal_blocks[0].n_heads
         rate = active_rate(self)
         kv_cat = torch.cat([src[m] for m in MODALITIES], dim=1)
@@ -329,14 +332,24 @@ class Grid(nn.Module):
             streams = TARGET_STREAMS[qm]
             blocks = [self.multimodal_blocks[s] for s, _ in streams]
             ctx = torch.stack([ctxs[kvm] for _, kvm in streams])  # (3,B,Lq,D)
-            x = _stacked_linear(ctx, torch.stack([b.proj.weight
-                                                  for b in blocks]))
-            x = dropout(x, rate, generator, batch_dim=1)
-            d = q.shape[-1]
+            w_proj = torch.stack([b.proj.weight for b in blocks])
             w = torch.stack([b.minus.weight for b in blocks])     # (3, D, 2D)
-            # Linear([q ; x]) as q·W[:d] + x·W[d:], as MinusBlock runs it
-            pre = (torch.einsum("bqd,sed->sbqe", q, w[..., :d])
-                   + _stacked_linear(x, w[..., d:]))
+            if tp is not None:
+                # MinusBlock's tp epilogue, stacked: proj column-parallel
+                # and gathered, minus row-parallel over [q ; x]
+                x = comm.gather_from(_stacked_linear(
+                    comm.copy_to(ctx, tp.group), w_proj), tp.group, -1)
+                x = dropout(x, rate, generator, batch_dim=1)
+                both = torch.cat([q.expand(3, *q.shape), x], dim=-1)
+                pre = comm.reduce_from(_stacked_linear(
+                    comm.split_to(both, tp.group, -1), w), tp.group)
+            else:
+                x = dropout(_stacked_linear(ctx, w_proj), rate, generator,
+                            batch_dim=1)
+                d = q.shape[-1]
+                # Linear([q ; x]) as q·W[:d] + x·W[d:], as MinusBlock runs it
+                pre = (torch.einsum("bqd,sed->sbqe", q, w[..., :d])
+                       + _stacked_linear(x, w[..., d:]))
             y = _stacked_ln(pre, torch.stack([b.norm.weight for b in blocks]),
                             torch.stack([b.norm.bias for b in blocks]))
             y = dropout(y, rate, generator, batch_dim=1)
@@ -347,19 +360,28 @@ class Grid(nn.Module):
         """JAX `_apply_grid_realformer_stacked` over `_pad_seq`'s padding:
         {target: outputs} in the unrolled path's order (per layer: all of
         one stream's layers, then the next stream's), the padded query rows
-        sliced off."""
-        self._refuse_tp("stacked RealFormer")
+        sliced off.  Under tp each rank runs its h / tp heads
+        (`RealformerBlock._forward_tp`'s products, stacked)."""
+        tp = self.multimodal_blocks[0].tp
         true_len = {m: src[m].shape[1] for m in MODALITIES}
         max_len = max(true_len.values())
         padded = {m: _pad_seq(src[m], masks[m], max_len) for m in MODALITIES}
         h = self.multimodal_blocks[0].n_heads
         b_, _, d = padded["l"][0].shape
         dh = d // h
+        if tp is not None:
+            h //= tp.size
+
+        def col(x):    # a column-parallel product's input
+            return x if tp is None else comm.copy_to(x, tp.group)
+
+        def row(y):    # a row-parallel product's partial sums
+            return y if tp is None else comm.reduce_from(y, tp.group)
         acc = torch.promote_types(padded["l"][0].dtype, torch.float32)
         inv_sqrt = 1.0 / math.sqrt(dh)
         rate = active_rate(self)
 
-        def heads(x):   # (3, B, L, D) -> (3, B, H, L, dh)
+        def heads(x):   # (3, B, L, H·dh) -> (3, B, H, L, dh)
             return x.reshape(3, b_, x.shape[2], h, dh).transpose(2, 3)
 
         collected = {}
@@ -378,28 +400,36 @@ class Grid(nn.Module):
                 def stk(get):
                     return torch.stack([get(blk) for blk in blocks])
 
-                qp = _stacked_linear(q, stk(lambda blk: blk.w_qkv[0].weight))
-                kp = _stacked_linear(kv, stk(lambda blk: blk.w_qkv[1].weight))
-                vp = _stacked_linear(kv, stk(lambda blk: blk.w_qkv[2].weight))
+                qp = _stacked_linear(col(q),
+                                     stk(lambda blk: blk.w_qkv[0].weight))
+                kp = _stacked_linear(col(kv),
+                                     stk(lambda blk: blk.w_qkv[1].weight))
+                vp = _stacked_linear(col(kv),
+                                     stk(lambda blk: blk.w_qkv[2].weight))
                 s = (heads(qp).to(acc) @ heads(kp).to(acc).transpose(-2, -1)
                      ) * inv_sqrt
                 if scores is not None:
-                    c = stk(lambda blk: blk.c).to(acc).reshape(3, 1, 1, 1, 1)
+                    c = col(stk(lambda blk: blk.c)).to(acc).reshape(
+                        3, 1, 1, 1, 1)
                     s = s + c * scores
                 s = s - penalty
                 scores = s
                 ctx = torch.softmax(s, dim=-1) @ heads(vp).to(acc)
-                ctx = ctx.transpose(2, 3).reshape(3, b_, -1, d).to(q.dtype)
-                x = _stacked_linear(ctx, stk(lambda blk: blk.proj.weight))
+                ctx = ctx.transpose(2, 3).reshape(3, b_, -1, h * dh).to(
+                    q.dtype)
+                x = row(_stacked_linear(ctx, stk(lambda blk: blk.proj.weight)))
                 x = dropout(x, rate, generator, batch_dim=1)
                 a = stk(lambda blk: blk.a).reshape(3, 1, 1, 1)
                 q = _stacked_ln(q + a * x, stk(lambda blk: blk.norm1.weight),
                                 stk(lambda blk: blk.norm1.bias))
+                b1 = stk(lambda blk: blk.ffn[0].bias)
+                if tp is not None:
+                    b1 = comm.split_to(b1, tp.group, -1)
                 hid = torch.relu(_stacked_linear(
-                    q, stk(lambda blk: blk.ffn[0].weight),
-                    stk(lambda blk: blk.ffn[0].bias)))
-                f = _stacked_linear(hid, stk(lambda blk: blk.ffn[2].weight),
-                                    stk(lambda blk: blk.ffn[2].bias))
+                    col(q), stk(lambda blk: blk.ffn[0].weight), b1))
+                f = row(_stacked_linear(hid,
+                                        stk(lambda blk: blk.ffn[2].weight)))
+                f = f + stk(lambda blk: blk.ffn[2].bias)[:, None, None, :]
                 f = dropout(f, rate, generator, batch_dim=1)
                 b = stk(lambda blk: blk.b).reshape(3, 1, 1, 1)
                 q = _stacked_ln(q + b * f, stk(lambda blk: blk.norm2.weight),

@@ -187,6 +187,22 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *,
     return world_mesh((n_data, n_model), (DATA, MODEL), device)
 
 
+def captured_on(mesh, name: str) -> bool:
+    """Whether a step with `mesh`'s collectives inside can be captured into
+    a CUDA graph: not on gloo with a CUDA device, whose collectives run on
+    the host (rank 0 logs that the steps of `name` then run eagerly)."""
+    import sys
+
+    if mesh is None or mesh.device.type != "cuda" or (
+            dist.get_backend() != "gloo"):
+        return True
+    if is_rank0():
+        print(f"[{name}] gloo mesh on a CUDA device: the steps run eagerly "
+              "(gloo drives its collectives from the host)", file=sys.stderr,
+              flush=True)
+    return False
+
+
 def process_batch_slice(global_batch_size: int, mesh: Optional[Mesh] = None
                         ) -> slice:
     """This rank's rows of a global batch: its slice of the mesh's data

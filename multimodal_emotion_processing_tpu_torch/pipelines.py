@@ -28,12 +28,12 @@ scores a split staged on the card (`Ensemble.predict_all_staged`).
 
 `run_experiment(dp=, tp=)` trains on a ('data', 'model') mesh over every
 rank of the world (parallel/mesh.py; one process per card under torchrun,
-or a world of one rank made for the call) with the sequential driver,
-and scores on the same mesh's data axis where the batch divides it;
+or a world of one rank made for the call) with whichever driver the rules
+pick, the lockstep, device-resident and one-dispatch ones included, and
+scores on the same mesh's data axis where the batch divides it;
 `run_predict(dp=)` shards batch inference (`Ensemble(mesh=)`).  Rank 0
 alone writes the store, the run's files, the predictions and the log.
-`impl="cp"` runs under `ensure_cp` (ops/context_parallel.py).  The lockstep
-drivers refuse a mesh (ROADMAP queue 1 item 11).
+`impl="cp"` runs under `ensure_cp` (ops/context_parallel.py).
 `run_predict(stacked=True)` scores on the stacked RealFormer grid
 (models/grid.py), with or without `dp`.
 """
@@ -427,8 +427,8 @@ def _run_experiment(
 
     `dp` / `tp`: train on a mesh of dp x tp ranks (`make_mesh`; the world
     must hold exactly that many): batches sharded over `dp` on 'data',
-    with `tp` > 1 tensor-parallel over 'model' (engine.Trainer(mesh=, tp=));
-    the same math as one device.  The batch rows per step (x2 under
+    with `tp` > 1 tensor-parallel over 'model' (engine.Trainer(mesh=, tp=),
+    or the lockstep drivers' `mesh=`, `tp=`); the same math as one device.  The batch rows per step (x2 under
     R-Drop) must divide dp.  The test batches shard over the same data
     axis where batch_size divides it.  dp=None, tp=1: one device."""
     exp = configs.with_overrides(configs.get(config_name), overrides)
@@ -464,6 +464,13 @@ def _run_experiment(
             raise ValueError(
                 f"batch rows per step ({rows}) must divide the data axis "
                 f"({n_data}) — adjust --dp or train.batch_size")
+        if duplicate and exp.train.batch_size % n_data:
+            # a rank's rows would end inside a pair: its R-Drop term would
+            # pair rows of two samples, or none
+            raise ValueError(
+                f"R-Drop's duplicate pairs must stay whole on a rank: "
+                f"batch_size ({exp.train.batch_size}) must divide the data "
+                f"axis ({n_data}) — adjust --dp or train.batch_size")
         if impl == "cp" and mesh.size > 1:
             raise ValueError(
                 "impl='cp' shards the sequence over every rank, each on the "

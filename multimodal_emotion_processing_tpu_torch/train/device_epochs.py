@@ -36,6 +36,17 @@ without waiting for the last: the host learns that the member has stopped
 from a non-blocking copy of its flag into pinned memory and stops
 launching; an epoch already in flight then changes nothing, as JAX's
 `lax.cond` skip does.
+
+On a mesh (train/vmap_kfold.py with `mesh=`) each member's state is placed
+by parallel/mesh.place_state, so its step and eval loss are summed over
+'data' inside the programs (`member_step`, `eval_loss(parallel=)`); the
+staged set is whole on every rank and each rank gathers its own rows of
+every global batch (`device_reads(part=)`).  The controllers then read the
+same reduced losses on every rank.  On NCCL the collectives sit inside the
+captured programs; gloo drives its collectives from the host, so with CUDA
+tensors the programs run eagerly (`Lockstep(captured=False)`).
+`EpochLauncher(deterministic=True)` decides from synchronised flags only,
+so that every rank launches the same epochs.
 """
 
 from __future__ import annotations
@@ -152,14 +163,19 @@ class Lockstep:
     `train_losses[:, t]` or `eval_losses[:, j]` and advances its index.
     `active` (m,) bool on the device masks each member's optimizer step:
     a member whose flag is False keeps its parameters, moments and
-    count."""
+    count.  A member placed on a mesh (`state.parallel`) steps and
+    evaluates on its rank's rows, its losses summed over 'data'.
+    `captured=False` calls the programs' functions eagerly (a gloo mesh
+    over CUDA tensors: its collectives run on the host)."""
 
     def __init__(self, cfg, tcfg, states, *, impl: str, device,
                  train_read: Callable, eval_read: Callable, n_steps: int,
-                 n_eval: int, name: str, accum_steps: int = 1):
+                 n_eval: int, name: str, accum_steps: int = 1,
+                 captured: bool = True):
         dev = torch.device(device)
         m = len(states)
         self.states = states
+        self.captured = captured
         self.active = torch.ones(m, dtype=torch.bool, device=dev)
         self.train_losses = torch.zeros(m, max(n_steps, 1), device=dev)
         self.eval_losses = torch.zeros(m, max(n_eval, 1), device=dev)
@@ -179,7 +195,8 @@ class Lockstep:
 
         def eval_body():
             batches = eval_read(self.j)
-            losses = torch.stack([eval_loss(st.model, tcfg, b, impl=impl)
+            losses = torch.stack([eval_loss(st.model, tcfg, b, impl=impl,
+                                            parallel=st.parallel)
                                   for st, b in zip(states, batches)])
             self.eval_losses.index_copy_(1, self.j.view(1), losses.view(m, 1))
             self.j.add_(1)
@@ -199,8 +216,9 @@ class Lockstep:
 
     def steps(self, n: int) -> None:
         """Launch `n` more train steps (host-fed chunks)."""
+        call = self.train_program if self.captured else self.train_program.fn
         for _ in range(n):
-            self.train_program()
+            call()
 
     def sync_steps(self) -> None:
         """Each state's host step counter from its optimizer's device
@@ -228,8 +246,9 @@ class Lockstep:
         self.eval_batches(n)
 
     def eval_batches(self, n: int) -> None:
+        call = self.eval_program if self.captured else self.eval_program.fn
         for _ in range(n):
-            self.eval_program()
+            call()
 
     def means(self):
         """(train, valid) per-member f32 means of this epoch's losses, on
@@ -243,20 +262,27 @@ class Lockstep:
 
 def device_reads(train_data, valid_data, train_idx: torch.Tensor,
                  ev_idx: torch.Tensor, ev_w: torch.Tensor, *, batch_size: int,
-                 duplicate: bool, eval_duplicate: bool):
+                 duplicate: bool, eval_duplicate: bool, part=(1, 0)):
     """(train_read, eval_read, rowids) for a Lockstep over staged data:
     member i's step t gathers rows rowids[i, t·rows : (t+1)·rows] of
     `train_data` (rowids is refilled each epoch: `shuffle_rows`); its eval
     batch j gathers ev_idx[i, j·bs : (j+1)·bs] of `valid_data` with the
-    weights ev_w (both repeated row by row under `eval_duplicate`)."""
+    weights ev_w (both repeated row by row under `eval_duplicate`).
+    `part` (n, p): each read keeps the p-th of n equal slices of those
+    rows, a data-parallel rank's rows of the global batch (the caller
+    keeps R-Drop's duplicate pairs whole: bs divisible by n)."""
     dev = train_idx.device
     bs = batch_size
     rows = bs * (2 if duplicate else 1)
     m = train_idx.shape[0]
+    n, p = part
     rowids = torch.empty((m, train_idx.shape[1] * (2 if duplicate else 1)),
                          dtype=torch.int64, device=dev)
-    ar_rows = torch.arange(rows, device=dev)
-    ar_bs = torch.arange(bs, device=dev)
+    ar_rows = torch.arange(rows // n, device=dev) + p * (rows // n)
+    # this rank's eval rows, as positions in the undoubled batch
+    ev_rows = bs * (2 if eval_duplicate else 1) // n
+    ar_ev = ((torch.arange(ev_rows, device=dev) + p * ev_rows)
+             // (2 if eval_duplicate else 1))
 
     def train_read(t):
         at = t * rows + ar_rows
@@ -264,14 +290,11 @@ def device_reads(train_data, valid_data, train_idx: torch.Tensor,
                 for i in range(m)]
 
     def eval_read(j):
-        at = j * bs + ar_bs
+        at = j * bs + ar_ev
         out = []
         for i in range(m):
             idx = ev_idx[i].index_select(0, at)
             w = ev_w[i].index_select(0, at)
-            if eval_duplicate:
-                idx = idx.repeat_interleave(2)
-                w = w.repeat_interleave(2)
             batch = gather_rows(valid_data, idx)
             batch["sample_weight"] = w
             out.append(batch)
@@ -330,27 +353,28 @@ class DeviceControl:
     and best stay as they were, so an epoch run after every member stopped
     changes nothing (JAX's `lax.cond` skip).  The learning rate is kept in
     f64, as the host's plateau keeps it, and handed to each optimizer's f32
-    `lr_t`."""
+    `lr_t`; the losses, bests and history keep the dtype of the Lockstep's
+    losses (f32, as JAX's; f64 where a test runs the members in f64)."""
 
     def __init__(self, lockstep: Lockstep, tcfg, lrs: Sequence[float],
                  n_epochs: int):
         dev = lockstep.active.device
         m = len(lockstep.states)
         self.ls, self.tcfg = lockstep, tcfg
-        f32 = dict(dtype=torch.float32, device=dev)
+        fl = dict(dtype=lockstep.eval_losses.dtype, device=dev)
         self.lr = torch.tensor([float(x) for x in lrs], dtype=torch.float64,
                                device=dev)
-        self.pb = torch.full((m,), math.inf, **f32)
+        self.pb = torch.full((m,), math.inf, **fl)
         self.pbad = torch.zeros(m, dtype=torch.int32, device=dev)
-        self.eb = torch.full((m,), math.inf, **f32)
+        self.eb = torch.full((m,), math.inf, **fl)
         self.ebad = torch.zeros(m, dtype=torch.int32, device=dev)
         self.stopped = torch.zeros(m, dtype=torch.bool, device=dev)
-        self.best_loss = torch.full((m,), math.inf, **f32)
+        self.best_loss = torch.full((m,), math.inf, **fl)
         self.best_epoch = torch.full((m,), -1, dtype=torch.int64, device=dev)
         self.saved_any = torch.zeros(m, dtype=torch.bool, device=dev)
-        self.last_va = torch.full((m,), math.nan, **f32)
-        self.hist_tr = torch.zeros(n_epochs, m, **f32)
-        self.hist_va = torch.zeros(n_epochs, m, **f32)
+        self.last_va = torch.full((m,), math.nan, **fl)
+        self.hist_tr = torch.zeros(n_epochs, m, **fl)
+        self.hist_va = torch.zeros(n_epochs, m, **fl)
         self.hist_active = torch.zeros(n_epochs, m, dtype=torch.bool,
                                        device=dev)
         self.best = [{k: v.detach().clone()
@@ -431,12 +455,21 @@ class EpochLauncher:
     epoch: it reads the flags of every finished epoch (polled by event),
     and before launching epoch e waits for epoch e - 2 (the card still has
     e - 1 queued), so at most one epoch runs after the last member
-    stopped, and that one changes nothing (DeviceControl)."""
+    stopped, and that one changes nothing (DeviceControl).
+
+    `deterministic` (the ranks of a mesh): on a CUDA device read only the
+    flags of epoch e - 2 and earlier, which `go` waits for, and never
+    poll, so that every rank launches the same epochs whatever its timing
+    (a rank that stopped on an early poll would leave the others waiting
+    in the next epoch's collectives).  The one epoch after the last stop
+    then always runs, masked."""
 
     LEAD = 2
 
-    def __init__(self, control: DeviceControl, n_epochs: int):
+    def __init__(self, control: DeviceControl, n_epochs: int, *,
+                 deterministic: bool = False):
         self.control = control
+        self.deterministic = deterministic
         dev = control.stopped.device
         m = control.stopped.shape[0]
         pin = dev.type == "cuda"
@@ -457,9 +490,10 @@ class EpochLauncher:
             for e, ev in enumerate(self.events):
                 if e <= epoch - self.LEAD:
                     ev.synchronize()
-                if ev.query():
                     self._read(e)
-        else:
+                elif not self.deterministic and ev.query():
+                    self._read(e)
+        else:   # the CPU has run every recorded epoch: the same on every rank
             for e in range(len(self.events)):
                 self._read(e)
         if self.stop_epoch is None:
@@ -583,6 +617,7 @@ class _ModelOnly:
         self.model = model
         self.generator = None
         self.step = 0
+        self.parallel = None
 
 
 def _stage_pair(train_samples, valid_samples, tcfg, transfer_dtype, device,

@@ -684,12 +684,8 @@ class Trainer:
                  accum_steps: int = 1, scan_steps: int = 1,
                  profile_dir: Optional[str] = None, mesh=None,
                  tp: bool = False):
-        import sys
-
-        import torch.distributed as dist
-
         from ..data.loader import resolve_transfer_dtype
-        from ..parallel.mesh import is_rank0
+        from ..parallel.mesh import captured_on, is_rank0
         from ..utils.device import resolve_device
 
         if accum_steps < 1 or scan_steps < 1:
@@ -717,13 +713,7 @@ class Trainer:
         self.accum_steps = accum_steps
         self.scan_steps = scan_steps
         self.profile_dir = profile_dir
-        # gloo's collectives run on the host: no capture around them
-        self.captured = not (mesh is not None and self.device.type == "cuda"
-                             and dist.get_backend() == "gloo")
-        if not self.captured and self.writer:
-            print("[Trainer] gloo mesh on a CUDA device: the steps run "
-                  "eagerly (gloo drives its collectives from the host)",
-                  file=sys.stderr, flush=True)
+        self.captured = captured_on(mesh, "Trainer")
 
     def _whole(self, cb):
         """`cb(state, ...)` as several ranks run it: under tensor

@@ -25,9 +25,21 @@ index rows).  `run_kfold_fully_compiled` adds the on-device controllers of
 device_epochs.fit_fully_compiled: every epoch launched without a host
 round trip.
 
-These drivers run on one device: a mesh (`mesh`, `tp`) is refused
-(`_check_mesh`); the sequential driver (train/kfold.py) takes one.  The
-lockstep drivers on a mesh are ROADMAP queue 1 item 11.
+On a ('data', 'model') mesh (`mesh`, `tp`; parallel/mesh.make_mesh) every
+rank runs every member, each member placed as the sequential driver places
+one (`place_state`: replicated, or with `tp` sharded by `tp_param_spec`,
+JAX's `_tp_place`).  A member's batch is its fold's global batch, of which
+each rank computes its own rows (host-fed: `local_rows` of the loaders'
+batches; device-resident: the staged set whole on every rank, each rank
+gathering its slice, R-Drop's duplicate pairs kept whole on a rank), and
+its loss and gradients, and its eval loss, are summed over 'data' inside
+the step (one all-reduce of the flat gradient buffer a member a step,
+`DataParallel.reduce`).  So every rank's plateau LR, early stop, `active`
+mask and best parameters are the same, bit for bit.  Rank 0 alone writes
+the store and logs; a tensor-parallel member is gathered whole first
+(`WholeState`), and the best parameters come back whole on every rank.
+On NCCL the steps stay captured, collectives inside; on gloo with CUDA
+tensors they run eagerly.
 """
 
 from __future__ import annotations
@@ -51,9 +63,25 @@ from .engine import EpochStats, StepBuffer, chunks, set_learning_rate
 from .kfold import contiguous_folds
 
 
+def _whole(state, sd) -> dict:
+    """A device copy of the state dict `sd` of `state`'s model, whole: a
+    tensor-parallel member's shards gathered over 'model' (a collective:
+    every rank of the axis calls it)."""
+    if not state.spec or state.parallel is None:
+        return {k: v.detach().clone() for k, v in sd.items()}
+    from torch.distributed.tensor import Replicate
+
+    from ..parallel.mesh import gather_tensor
+
+    group = state.parallel.model_group
+    return {k: gather_tensor(v.detach(), state.spec.get(k, Replicate()),
+                             group).clone()
+            for k, v in sd.items()}
+
+
 def _params(state) -> dict:
-    """A device copy of the member's state dict."""
-    return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    """A device copy of the member's state dict, whole."""
+    return _whole(state, state.model.state_dict())
 
 
 def _mark_done(store, name_prefix: str, m: int, n_epochs: int) -> None:
@@ -64,12 +92,46 @@ def _mark_done(store, name_prefix: str, m: int, n_epochs: int) -> None:
             store.mark_done(f"{name_prefix}_{i + 1}")
 
 
-def _check_mesh(mesh, tp) -> None:
-    if mesh is not None or tp:
-        raise ValueError("the lockstep k-fold runs on one device: mesh= and "
-                         "tp= (data and tensor parallelism) are not ported "
-                         "to it (ROADMAP queue 1 item 11); the sequential "
-                         "driver takes a mesh")
+class _OnMesh:
+    """What the lockstep does differently on a mesh: placing the members,
+    this rank's rows, who writes the store, and whether the programs are
+    captured.  Without a mesh every answer is the single device's."""
+
+    def __init__(self, mesh, tp: bool, tcfg, name: str):
+        from ..parallel.mesh import DATA, captured_on, is_rank0
+
+        if tp and mesh is None:
+            raise ValueError("tp=True requires a mesh with a 'model' axis")
+        self.mesh, self.tp = mesh, tp
+        self.part = (1, 0)
+        self.writer = True
+        self.captured = captured_on(mesh, name)
+        if mesh is None:
+            return
+        n = mesh.shape[DATA]
+        if tcfg.batch_size % n:
+            raise ValueError(
+                f"batch_size ({tcfg.batch_size}) must divide the data axis "
+                f"({n}): each rank computes an equal share of every global "
+                "batch, R-Drop's duplicate pairs whole")
+        self.part = (n, mesh.index(DATA))
+        self.writer = is_rank0()
+
+    def place(self, states) -> None:
+        if self.mesh is not None:
+            from ..parallel.mesh import place_state
+
+            for st in states:
+                place_state(st, self.mesh, tp=self.tp)
+
+    def saveable(self, state):
+        """`state` as the store takes it: gathered whole under tp (every
+        rank builds it: a collective)."""
+        if self.tp:
+            from ..parallel.mesh import WholeState
+
+            return WholeState(state)
+        return state
 
 
 def _carve(samples, tcfg, fold_size, shuffle_seed, seeds_per_fold):
@@ -98,11 +160,13 @@ def _index_rows(folds, m: int, k: int, device):
     return torch.from_numpy(train_np).to(device), valid_np
 
 
-def _host_feed(loader, device, wire, k: int):
+def _host_feed(loader, device, wire, k: int, mesh=None):
     """One epoch of `loader` (zipped fold iterators of numpy batches) as
     lists of k device batch dicts, with the real samples of each fold
-    counted from the host's sample weights."""
+    counted from the host's sample weights; on a mesh each batch cut to
+    this rank's rows (`local_rows`)."""
     from ..data.loader import cast_for_transfer, prefetch_to_device, to_device
+    from ..parallel.mesh import local_rows
 
     counts = [0] * k
 
@@ -118,9 +182,11 @@ def _host_feed(loader, device, wire, k: int):
 
     if device.type == "cuda":
         it = prefetch_to_device(merged(), device=device, size=2,
-                                transfer_dtype=wire)
+                                transfer_dtype=wire, mesh=mesh)
     else:
-        it = (to_device(cast_for_transfer(b, wire), device) for b in merged())
+        it = (to_device(local_rows(cast_for_transfer(b, wire), mesh)
+                        if mesh is not None else cast_for_transfer(b, wire),
+                        device) for b in merged())
 
     def split(d):
         groups = [{} for _ in range(k)]
@@ -201,11 +267,17 @@ def run_kfold_vmapped(
 
     `profile_dir`: a torch.profiler trace (utils/logging.profile_trace) of
     every member's train and eval steps in the first epoch after the
-    captures, counted from the run's start epoch (Trainer.fit's rule)."""
+    captures, counted from the run's start epoch (Trainer.fit's rule).
+
+    `mesh` (parallel/mesh.make_mesh) and `tp`: the members on a ('data',
+    'model') mesh (module docstring); the same math as one device.
+    batch_size must divide the data axis; `tp=True` needs a mesh.  Every
+    rank reads the store on resume; rank 0 alone writes it."""
     from ..data.loader import resolve_transfer_dtype
     from ..utils.device import resolve_device
 
-    _check_mesh(mesh, tp)
+    name = "run_kfold_vmapped"
+    on = _OnMesh(mesh, tp, tcfg, name)
     wire = resolve_transfer_dtype(transfer_dtype)
     if wire == "int8" and not device_resident:
         raise ValueError(
@@ -217,12 +289,11 @@ def run_kfold_vmapped(
     samples, folds, splits = _carve(samples, tcfg, fold_size, shuffle_seed,
                                     seeds_per_fold)
     m = k * seeds_per_fold
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     states = [engine.init_state(cfg, tcfg, tcfg.seed + i, device=dev)
               for i in range(m)]
     bs = tcfg.batch_size
     rows = bs * (2 if duplicate else 1)
-    name = "run_kfold_vmapped"
     if device_resident:
         data, _ = stage_dataset(samples, transfer_dtype=wire, device=dev,
                                 info=info)
@@ -237,7 +308,7 @@ def run_kfold_vmapped(
         train_read, eval_read, rowids = device_reads(
             data, data, train_idx, torch.from_numpy(ev_idx).to(dev),
             torch.from_numpy(ev_w).to(dev), batch_size=bs,
-            duplicate=duplicate, eval_duplicate=duplicate)
+            duplicate=duplicate, eval_duplicate=duplicate, part=on.part)
         loaders = None
     else:
         loaders = [make_loaders(t, v) for t, v in splits]
@@ -258,9 +329,6 @@ def run_kfold_vmapped(
             return read
 
         train_read, eval_read = host_read("train"), host_read("eval")
-    ls = Lockstep(cfg, tcfg, states, impl=impl, device=dev,
-                  train_read=train_read, eval_read=eval_read,
-                  n_steps=n_steps, n_eval=n_ev, name=name)
 
     plateaus = [schedule.PlateauState(lr=tcfg.lr, factor=tcfg.plateau_factor,
                                       patience=tcfg.plateau_patience)
@@ -315,10 +383,22 @@ def run_kfold_vmapped(
                 if "params" in store.manifest.get(nm, {}):
                     best_params[i] = {key: v.to(dev) for key, v in
                                       store.restore_params(nm).items()}
-                ls.set_active(i, not stopped[i])
                 if stopped[i]:
-                    frozen[i] = ls.generator_states()[i]
+                    frozen[i] = states[i].generator.get_state()
             start_epoch = epoch + 1
+    # restored whole, then placed (a resumed tp member is sharded anew)
+    on.place(states)
+    ls = Lockstep(cfg, tcfg, states, impl=impl, device=dev,
+                  train_read=train_read, eval_read=eval_read,
+                  n_steps=n_steps, n_eval=n_ev, name=name,
+                  captured=on.captured)
+    for i in range(m):
+        if stopped[i]:
+            ls.set_active(i, False)
+    # rank 0 alone writes and logs; every rank gathers a tp member whole
+    writes = store if on.writer else None
+    if not on.writer:
+        log_cb = None
 
     def save_resume_points(epoch):
         """Each member's resume point under its own name, in the sequential
@@ -330,14 +410,17 @@ def run_kfold_vmapped(
             current = gen.get_state()
             if frozen[i] is not None:   # a stopped member's own generator
                 gen.set_state(frozen[i])
-            store.save_last(nm, states[i], epoch, {
+            whole = on.saveable(states[i])
+            gen.set_state(current)
+            if writes is None:
+                continue
+            writes.save_last(nm, whole, epoch, {
                 "plateau": dataclasses.asdict(plateaus[i]),
                 "stopper": dataclasses.asdict(stoppers[i]),
                 "stopped": stopped[i], "best_loss": float(best_losses[i]),
                 "history": [{**dataclasses.asdict(e), "step_losses": ()}
                             for e in histories[i]],
                 "members": m})
-            gen.set_state(current)
 
     def run_epoch(epoch):
         """Launch one epoch of every member's train and eval steps; their
@@ -358,7 +441,8 @@ def run_kfold_vmapped(
             for kind, idx, run in (("train", 0, ls.steps),
                                    ("eval", 1, ls.eval_batches)):
                 feed, fold_counts = _host_feed(
-                    zip(*[pair[idx]() for pair in loaders]), dev, wire, k)
+                    zip(*[pair[idx]() for pair in loaders]), dev, wire, k,
+                    mesh)
                 if kind == "train":
                     counts = fold_counts
                 for group in chunks(feed, scan_steps):
@@ -398,8 +482,10 @@ def run_kfold_vmapped(
                 best_params[i] = _params(states[i])
                 best_losses[i] = va_m[i]
                 if store is not None:
-                    store.save_best(f"{name_prefix}_{i + 1}", states[i],
-                                    epoch, va_m[i])
+                    whole = on.saveable(states[i])
+                    if writes is not None:
+                        writes.save_best(f"{name_prefix}_{i + 1}", whole,
+                                         epoch, va_m[i])
             if stop:
                 stopped[i] = True
                 ls.set_active(i, False)
@@ -417,7 +503,7 @@ def run_kfold_vmapped(
             best_params[i] = _params(states[i])
             best_losses[i] = (histories[i][-1].valid_loss if histories[i]
                               else math.inf)
-    _mark_done(store, name_prefix, m, n_epochs)
+    _mark_done(writes, name_prefix, m, n_epochs)
     return states, histories, best_params, best_losses
 
 
@@ -459,15 +545,21 @@ def run_kfold_fully_compiled(
     changed nothing ("staging_s", "staged_bytes", "epochs_launched",
     "masked_epochs").  `profile_dir`: one torch.profiler trace of the
     whole run, from the first launch to the controllers' final read (the
-    run has no epoch boundary to pick one at)."""
+    run has no epoch boundary to pick one at).
+
+    `mesh` and `tp`: as run_kfold_vmapped's.  Every rank launches the same
+    epochs (`EpochLauncher(deterministic=True)`: the controllers read the
+    reduced losses, and the stop is read from synchronised flags only);
+    the best parameters come back whole, and rank 0 alone saves them."""
     from ..utils.device import resolve_device
 
-    _check_mesh(mesh, tp)
+    name = "run_kfold_fully_compiled"
+    on = _OnMesh(mesh, tp, tcfg, name)
     k = tcfg.n_folds
     samples, folds, _ = _carve(samples, tcfg, fold_size, shuffle_seed,
                                seeds_per_fold)
     m = k * seeds_per_fold
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     bs = tcfg.batch_size
     rows = bs * (2 if duplicate else 1)
     data, _ = stage_dataset(samples, transfer_dtype=transfer_dtype,
@@ -483,16 +575,18 @@ def run_kfold_fully_compiled(
     train_read, eval_read, rowids = device_reads(
         data, data, train_idx, torch.from_numpy(ev_idx).to(dev),
         torch.from_numpy(ev_w).to(dev), batch_size=bs, duplicate=duplicate,
-        eval_duplicate=duplicate)
+        eval_duplicate=duplicate, part=on.part)
     n_epochs = tcfg.epochs if epochs is None else epochs
     states = [engine.init_state(cfg, tcfg, tcfg.seed + i, device=dev)
               for i in range(m)]
+    on.place(states)
     ls = Lockstep(cfg, tcfg, states, impl=impl, device=dev,
                   train_read=train_read, eval_read=eval_read,
-                  n_steps=n_steps, n_eval=n_ev,
-                  name="run_kfold_fully_compiled")
+                  n_steps=n_steps, n_eval=n_ev, name=name,
+                  captured=on.captured)
     control = DeviceControl(ls, tcfg, [tcfg.lr] * m, n_epochs)
-    launcher = EpochLauncher(control, n_epochs)
+    launcher = EpochLauncher(control, n_epochs,
+                             deterministic=mesh is not None)
     t0 = time.perf_counter()
     with profile_trace(profile_dir, name="one_dispatch"):
         for epoch in range(n_epochs):
@@ -520,13 +614,14 @@ def run_kfold_fully_compiled(
                                float(res["hist_va"][e, i]), n_steps,
                                n_steps * rows, dt / max(n_live, 1))
             histories[i].append(stats)
-            if log_cb:
+            if log_cb and on.writer:
                 log_cb(f"{name_prefix}_{i + 1}", e, stats)
     has_best = res["saved_any"] | res["stopped"]
     best_params, best_losses = [], []
     for i in range(m):
         if has_best[i]:
-            best_params.append(control.best[i])
+            best_params.append(control.best[i] if mesh is None
+                               else _whole(states[i], control.best[i]))
             best_losses.append(float(res["best_loss"][i]))
         else:   # out of epochs without a save: the final parameters
             best_params.append(_params(states[i]))
@@ -534,11 +629,11 @@ def run_kfold_fully_compiled(
                                else math.inf)
         # only guard-passed saves become store members; the stop-time and
         # final fallbacks ride the return value only
-        if store is not None and res["saved_any"][i]:
+        if store is not None and on.writer and res["saved_any"][i]:
             store.save_params(f"{name_prefix}_{i + 1}", best_params[i],
                               valid_loss=best_losses[i],
                               epoch=int(res["best_epoch"][i]), imported=False)
-    _mark_done(store, name_prefix, m, n_epochs)
+    _mark_done(store if on.writer else None, name_prefix, m, n_epochs)
     return states, histories, best_params, best_losses
 
 

@@ -14,8 +14,9 @@ non-zero (at their init of 0 the attention would not reach the logits):
   `ensemble_serve_fn`) and `summary` (totals and FLOPs equal to JAX's);
 - on two gloo ranks, a new combination's step-1 gradients at tp=2 against
   one process, and `run_predict(dp=2, stacked=True)` against one
-  process's unstacked `run_predict`;
-- the merged and stacked paths refusing tensor parallelism."""
+  process's unstacked `run_predict`.
+The merged and stacked paths under tensor parallelism:
+tests/test_torch_lockstep_mesh.py."""
 
 import dataclasses
 import json
@@ -273,27 +274,6 @@ def test_summary_of_a_new_combination_equals_jax():
     assert out["total"] == jcount(shapes)["Total"]
     assert out["flops_per_sample"]["forward"] == \
         jflops.forward_flops_per_sample(jexp.model)
-
-
-def test_fast_paths_refuse_tensor_parallelism(monkeypatch):
-    class TP:       # stands in for the ParallelInfo shard_params sets
-        size = 2
-
-    exp = _exp("mosei_trans")
-    [model] = _members(exp, n=1)
-    _, batch = _batch(exp)
-    for blk in model.intensity.multimodal_blocks:
-        monkeypatch.setattr(blk, "tp", TP())
-    monkeypatch.setattr(grid, "MERGED_FAST_PATH", True)
-    with pytest.raises(ValueError, match="merged minus.*tensor"):
-        model(batch, impl="xla")
-    exp = _exp("robot_demo")
-    [model] = _members(exp, n=1)
-    _, batch = _batch(exp)
-    for blk in model.multimodal_blocks:
-        monkeypatch.setattr(blk, "tp", TP())
-    with pytest.raises(ValueError, match="stacked RealFormer.*tensor"):
-        model(batch, impl="xla", stacked=True)
 
 
 def test_two_ranks_tp2_new_combination_and_dp2_stacked_predict(tmp_path):

@@ -7,8 +7,9 @@ permutations (injected into `epoch_permutation`) from the same weights,
 with per-fold early stop and `seeds_per_fold` (epoch losses 1e-3, best
 parameters 2e-4; a stopped member's history ends at its stop, where JAX's
 fold rides on); `run_kfold_fully_compiled` bit-equal to the device-resident
-driver; a bit-equal resume; the guards; and `run_experiment`'s driver
-fallbacks logging JAX's lines."""
+driver; a bit-equal resume; the guards (tp without a mesh raises, as in
+JAX); and `run_experiment`'s driver fallbacks logging JAX's lines.  The
+drivers on a mesh: tests/test_torch_lockstep_mesh.py."""
 
 import json
 import re
@@ -196,9 +197,13 @@ def test_guards():
     with pytest.raises(ValueError, match="int8 wire composes"):
         vk.run_kfold_vmapped(samples, _loaders(64), exp, exp.train, epochs=1,
                              device="cpu", transfer_dtype="int8")
-    with pytest.raises(ValueError, match="not ported"):
+    # JAX's guard (train/vmap_kfold.py:238-239, 583-584): tp needs a mesh
+    with pytest.raises(ValueError, match="tp=True requires a mesh"):
         vk.run_kfold_vmapped(samples, _loaders(64), exp, exp.train, epochs=1,
-                             device="cpu", mesh=object())
+                             device="cpu", tp=True)
+    with pytest.raises(ValueError, match="tp=True requires a mesh"):
+        vk.run_kfold_fully_compiled(samples, exp, exp.train, epochs=1,
+                                    device="cpu", tp=True)
     with pytest.raises(ValueError, match="misaligned"):
         vk.run_kfold_vmapped(samples[:43], _loaders(64), exp, exp.train,
                              epochs=1, device="cpu")
