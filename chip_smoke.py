@@ -168,7 +168,8 @@ Phases, each reported on its own lines:
      scan_steps=4 against the sequential run_experiment, device-resident
      and one-dispatch against the device-resident run at xla); then
      run_experiment of mosei_trans at its reference width over 4 folds of
-     4096 synthetic pairs, 2 epochs: the lockstep host-fed against the
+     2048 synthetic pairs (the config's 4096 cut to keep the script
+     inside its time limit), 3 epochs: the lockstep host-fed against the
      sequential run at xla, device-resident against the device-resident
      run at xla (epoch losses within FOLD_LOSS_TOL, best epochs and
      decisions as phase 13's), beside a witness (the xla run against itself
@@ -248,6 +249,23 @@ Phases, each reported on its own lines:
      its gradients).  The kernels phase holds fused_block at robot_demo's
      minus-block shapes (B 8, dh 32) in its four variants, each timed with
      its bound, and the scored_bwd pair behind it.
+ 21. bench: the measurement entry points, each run in this process as a
+     user calls it, its JSON lines logged: `bench.scaling` (`ref` at f32
+     and `xla`; s256, s512 and s1024 in bf16 at `xla` and at flash),
+     `bench.breakdown` (`mosei_trans` at `xla` and `pallas_fused`,
+     `mosei_trans_s1024` at flash), `bench.latency` (`mosei_trans` and
+     `robot_demo`, 200 replays), `bench.serving` (`robot_demo`, 64
+     requests, 4 members), `bench.all_configs` at `xla` (every registered
+     config, 5 steps, 2 reps, scan k 8) and the CLI's `bench` with a
+     40 s budget and scan groups of 32 and 128; scaling and breakdown
+     take windows of 5 calls, best of 2, serving one window a leg.  It fails on a missing line or point, a number not
+     finite (or not positive, where it is a rate, a time or a count), an
+     MFU or achieved TFLOP/s above the peak its row names, a breakdown
+     whose four terms do not add up to its step within their rounding, a
+     flagship line without vs_baseline, with a pallas parity of 1e-2 or
+     more or a failed phase, and on launches: an entry point run at
+     flash, pallas or pallas_fused must launch its kernels, one at xla
+     none.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
@@ -5092,31 +5110,35 @@ def phase_serve_io(torch, report):
 
 # the drivers phase: the whole-run drivers of train/device_epochs.py,
 # vmap_kfold.py and sweep.py at cmu-mosei/run.py's width (mosei_trans, dim
-# 96, impl="pallas_fused", B 64, the config's 4 folds of 4096 pairs:
-# 16,384 synthetic pairs, 3 epochs: epoch 1 pays the captures, epoch 2
-# is timed, epoch 3 profiled whole; 512 test pairs); its captured steps
-# (the Trainer's) against a loop of eager engine.train_step over 8 steps
-# (2 epochs of 4, an eval pass after each) of mosei_trans, ren_mme (16
-# pairs, dropout 0.1, R-Drop) and robot_demo (dropout 0.1, gates set); the
-# sequential host-fed baseline at pallas_fused timed on member 1 (its
-# three epochs), and run whole at xla as the reference; the bounds
-# against xla (EXP_*) held at the experiment phase's cell, and at the
-# fold size, where the two impls' trajectories drift apart over 576
-# steps, the epoch losses held to FOLD_LOSS_TOL, best epochs equal and at
-# most FOLD_FLIP_SHARE of the decisions flipped, beside a witness: the
-# xla run against itself from every initial parameter moved by one ulp;
-# accumulation at mosei_trans_s1024 (flash, bf16, B 64) against the
-# unaccumulated step's step-1 gradients (bf16 bound); predict_all_staged
-# on 4 restored members; the sweep over 4 learning rates on a 1,024-pair
-# split, 2 epochs
-DRV_FOLDS, DRV_FOLD, DRV_EPOCHS, DRV_N_TEST = 4, 4096, 3, 512
+# 96, impl="pallas_fused", B 64, 4 folds of 2048 pairs: the config's
+# fold_size 4096 cut in half so that the whole script stays well inside
+# its time limit, 8,192 pairs giving the fractional carving's folds of
+# 2048; 3 epochs: epoch 1 pays the captures, epoch 2 is timed, epoch 3
+# profiled whole; 512 test pairs); its captured steps (the Trainer's)
+# against a loop of eager engine.train_step over 8 steps (2 epochs of 4,
+# an eval pass after each) of mosei_trans, ren_mme (16 pairs, dropout
+# 0.1, R-Drop) and robot_demo (dropout 0.1, gates set); the sequential
+# host-fed baseline at pallas_fused timed on member 1 (its three
+# epochs), and run whole at xla as the reference; the bounds against xla
+# (EXP_*) held at the experiment phase's cell, and at the fold size,
+# where the two impls' trajectories drift apart over 288 steps (576 at
+# the uncut 4096), the epoch losses held to FOLD_LOSS_TOL, best epochs
+# equal and at most FOLD_FLIP_SHARE of the decisions flipped, beside a
+# witness: the xla run against itself from every initial parameter moved
+# by one ulp; accumulation at mosei_trans_s1024 (flash, bf16, B 64)
+# against the unaccumulated step's step-1 gradients (bf16 bound);
+# predict_all_staged on 4 restored members; the sweep over 4 learning
+# rates on a 1,024-pair split, 2 epochs
+DRV_FOLDS, DRV_FOLD, DRV_EPOCHS, DRV_N_TEST = 4, 2048, 3, 512
+DRV_CONFIG_FOLD = 4096          # mosei_trans's own fold_size
 DRV_CAPTURED_STEPS = 4          # a fit's steps per epoch in the bit checks
 DRV_TIMED_EPOCH = 2             # the epoch whose wall is reported (1-based)
 DRV_PROFILED_EPOCH = 3          # the epoch profiled whole (1-based)
-# the fold size's bounds against xla, set from readings (PERF.md): over
-# 576 steps the lockstep's epoch losses came 4.22e-3 from xla's and
-# device-resident's 2.60e-3 (7 of 3072 decisions flipped), and xla from
-# parameters moved by one ulp 4.19e-3 from xla itself (6 flipped)
+# the fold size's bounds against xla, set from readings (PERF.md) at 4
+# folds of 4096: over 576 steps the lockstep's epoch losses came 4.22e-3
+# from xla's and device-resident's 2.60e-3 (7 of 3072 decisions flipped),
+# and xla from parameters moved by one ulp 4.19e-3 from xla itself (6
+# flipped)
 FOLD_LOSS_TOL = 1e-2            # epoch losses, relative
 FOLD_FLIP_SHARE = 1e-2          # decisions flipped
 ACC_STEPS, ACC_TOL = (1, 2, 4), 5e-2
@@ -5637,8 +5659,8 @@ def drivers_held_against_xla(torch, report, smi):
 
 
 def drivers_at_fold_size(torch, report, smi):
-    """The drivers at the reference's fold size (mosei_trans, 4 folds of
-    4096 pairs, 3 epochs, 512 test pairs) through run_experiment: the
+    """The drivers at the fold size (mosei_trans, 4 folds of DRV_FOLD
+    pairs, 3 epochs, 512 test pairs) through run_experiment: the
     host-fed lockstep, with scan_steps=4, device-resident and one-dispatch
     at pallas_fused, each timed over epoch 2, profiled over epoch 3 and
     traced;
@@ -5646,7 +5668,7 @@ def drivers_at_fold_size(torch, report, smi):
     device-resident; the lockstep held against the sequential host-fed
     run at xla and device-resident against the device-resident run at xla
     (held_at_fold_size), beside the witness of how far rounding alone
-    carries these 576 steps; the sequential host-fed driver at
+    carries these steps; the sequential host-fed driver at
     pallas_fused on member 1 (the cut: its three epochs, epoch 3
     profiled), bit-equal to the lockstep's member 1, its epoch 2 beside
     the lockstep's (what sets run_experiment's vmap_folds default).
@@ -5664,7 +5686,7 @@ def drivers_at_fold_size(torch, report, smi):
     exp = configs.get("mosei_trans")
     m, tcfg = exp.model, exp.train
     if (tcfg.n_folds, tcfg.fold_size, tcfg.batch_size, m.dim) != (
-            DRV_FOLDS, DRV_FOLD, MT_BATCH, 96):
+            DRV_FOLDS, DRV_CONFIG_FOLD, MT_BATCH, 96):
         raise AssertionError(f"unexpected config {exp}")
     n = DRV_FOLDS * DRV_FOLD
     t0 = time.perf_counter()
@@ -7853,6 +7875,181 @@ def phase_models(torch, report):
     return total
 
 
+# bench: the measurement entry points (multimodal_emotion_processing_tpu_torch
+# /bench/*.py and the CLI's bench), each run in this process at the cuts
+# below, its JSON lines logged and checked: every asked line present, every
+# number finite (and positive where it is a rate, a time or a count), no MFU
+# or achieved TFLOP/s above the peak its row names, the breakdown's terms
+# adding up to its step within their rounding, the flagship's vs_baseline
+# measured and its pallas parity under 1e-2; each entry point's launches
+# counted: a program at flash, pallas or pallas_fused must launch its
+# kernels, one at xla none
+BENCH_STEPS, BENCH_REPS = 5, 2
+BENCH_SCALING = (                       # (points, impl, dtypes)
+    ("ref", "xla", "float32"),
+    ("s256,s512,s1024", "xla", "bfloat16"),
+    ("s256,s512,s1024", "flash", "bfloat16"))
+BENCH_BREAKDOWN = (("mosei_trans", "xla"), ("mosei_trans", "pallas_fused"),
+                   ("mosei_trans_s1024", "flash"))
+BENCH_LATENCY = ("mosei_trans", "robot_demo")
+BENCH_LATENCY_REPS, BENCH_LATENCY_CPU_REPS = 200, 10
+BENCH_SERVING = ("robot_demo", 64, 4, 1)       # config, N, members, reps
+BENCH_ALL_CONFIGS = ("xla", 5, 2, 8)           # impl, steps, reps, scan_k
+# the flagship's budget and scan groups, cut from 420 s and 128 / 512 so that
+# the phase stays near two minutes
+BENCH_BUDGET_S, BENCH_SCAN_KS = 40, "32,128"
+BENCH_KERNELS = {"flash": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                 "pallas": ("scored_fwd", "scored_bwd_dq", "scored_bwd_dkv"),
+                 "pallas_fused": ("fused_block", "scored_bwd_dq",
+                                  "scored_bwd_dkv")}
+# differences of two timings, which may round to zero or below
+BENCH_SIGNED = {"loss_delta_ms", "backward_delta_ms", "optimizer_delta_ms",
+                "compute_net_of_floor_ms", "forward_parity_maxdiff",
+                "forward_parity_relative"}
+
+
+def bench_numbers(obj, where="", signed=False):
+    """(path, value) of every number in a JSON line (bools skipped)."""
+    import math
+
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from bench_numbers(v, f"{where}.{k}",
+                                     signed or k in BENCH_SIGNED)
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from bench_numbers(v, f"{where}[{i}]", signed)
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        if not math.isfinite(obj) or (not signed and obj <= 0):
+            raise AssertionError(f"bench line: {where} = {obj!r}")
+        yield where, obj
+
+
+def bench_call(torch, kernels, tag, impl, fn, out):
+    """Run one entry point (its stdout captured), log its JSON lines, check
+    its numbers and launches; returns the lines."""
+    import io
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        fn()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    lines = [json.loads(x) for x in text.getvalue().splitlines()
+             if x.startswith("{")]
+    for line in lines:
+        log(f"[bench] {tag}: {json.dumps(line)}")
+        list(bench_numbers(line))
+    launched = {k: n for k, n in launches.items() if n}
+    log(f"[bench] {tag}: {len(lines)} lines in {wall:.1f} s; launches "
+        f"{launched}")
+    if impl == "xla" and launched:
+        raise AssertionError(f"{tag}: kernels launched at xla: {launched}")
+    if impl in BENCH_KERNELS:
+        missing = [k for k in BENCH_KERNELS[impl] if not launches[k]]
+        if missing:
+            raise AssertionError(f"{tag}: {missing} never launched at {impl}")
+    out["runs"].append({"tag": tag, "wall_s": wall, "launches": launches,
+                        "lines": lines})
+    for k, n in launches.items():
+        out["launches"][k] += n
+    return lines
+
+
+def phase_bench(torch, report):
+    """The measurement entry points on the card (module docstring, phase
+    21).  Returns the kernels' launches over the phase."""
+    from multimodal_emotion_processing_tpu_torch.bench import (
+        all_configs, breakdown, latency, scaling, serving)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = all_kernels()
+    out = report["bench"] = {"runs": [], "smi": nvidia_smi_line(),
+                             "launches": {k.name: 0 for k in kernels}}
+    t_phase = time.perf_counter()
+    steps = ["--steps", BENCH_STEPS, "--reps", BENCH_REPS]
+
+    for points, impl, dtypes in BENCH_SCALING:
+        rows = bench_call(torch, kernels, f"scaling {points} {impl} {dtypes}",
+                          impl, lambda: scaling.main(
+                              [f"--points={points}", f"--impl={impl}",
+                               f"--dtypes={dtypes}", *map(str, steps)]), out)
+        want = [(p, impl, d) for p in points.split(",")
+                for d in dtypes.split(",")]
+        got = [(r["point"], r["impl"], r["dtype"]) for r in rows]
+        if got != want:
+            raise AssertionError(f"scaling printed {got}, asked {want}")
+        for r in rows:
+            if (r["mfu"] > 1 or r["infer_mfu"] > 1
+                    or r["achieved_tflops"] > r["peak_tflops"]
+                    or r["infer_achieved_tflops"] > r["peak_tflops"]):
+                raise AssertionError(f"scaling row above its peak: {r}")
+
+    for name, impl in BENCH_BREAKDOWN:
+        (d,) = bench_call(torch, kernels, f"breakdown {name} {impl}", impl,
+                          lambda: breakdown.main([name, impl,
+                                                  *map(str, steps)]), out)
+        terms = (d["forward_ms"] + d["loss_delta_ms"] + d["backward_delta_ms"]
+                 + d["optimizer_delta_ms"])
+        if abs(terms - d["train_step_ms"]) > 0.021:
+            raise AssertionError(f"breakdown terms {terms} against the step "
+                                 f"{d['train_step_ms']}")
+
+    for name in BENCH_LATENCY:
+        (d,) = bench_call(torch, kernels, f"latency {name}", "xla",
+                          lambda: latency.main(
+                              [name, "--reps", str(BENCH_LATENCY_REPS),
+                               "--cpu-reps", str(BENCH_LATENCY_CPU_REPS)]),
+                          out)
+        if d["reps"] != BENCH_LATENCY_REPS:
+            raise AssertionError(f"latency over {d['reps']} reps")
+
+    name, n, members, reps = BENCH_SERVING
+    bench_call(torch, kernels, f"serving {name} N={n}", "xla",
+               lambda: serving.main([name, str(n), "--members", str(members),
+                                     "--reps", str(reps)]), out)
+
+    impl, a_steps, a_reps, scan_k = BENCH_ALL_CONFIGS
+    from multimodal_emotion_processing_tpu_torch import configs
+
+    rows = bench_call(torch, kernels, f"all_configs {impl}", impl,
+                      lambda: all_configs.main(
+                          [impl, "--steps", str(a_steps), "--reps",
+                           str(a_reps), "--scan-k", str(scan_k)]), out)
+    if [r["config"] for r in rows] != sorted(configs.REGISTRY):
+        raise AssertionError(f"all_configs printed {[r['config'] for r in rows]}")
+
+    def flagship():
+        from multimodal_emotion_processing_tpu_torch import cli
+
+        cli.main(["bench", "--budget-s", str(BENCH_BUDGET_S), "--scan-ks",
+                  BENCH_SCAN_KS])
+
+    (d,) = bench_call(torch, kernels, "bench (flagship)", "pallas",
+                      flagship, out)
+    diag = d["diagnostics"]
+    if d["vs_baseline"] is None or d["value"] is None:
+        raise AssertionError(f"flagship: value {d['value']}, vs_baseline "
+                             f"{d['vs_baseline']}")
+    rel = diag["pallas"]["forward_parity_relative"]
+    if rel is None or rel >= 1e-2:
+        raise AssertionError(f"flagship: pallas parity {rel}")
+    if diag["phase_errors"]:
+        raise AssertionError(f"flagship phases failed: {diag['phase_errors']}")
+    for block, row in diag.items():
+        mfu = row.get("mfu") if isinstance(row, dict) else None
+        if mfu and max(mfu["train_mfu"], mfu["infer_mfu"] or 0) > 1:
+            raise AssertionError(f"flagship {block}: MFU above its peak {mfu}")
+
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[bench] phase wall {out['wall_s']:.1f} s ({out['smi']}); launches "
+        f"{out['launches']}")
+    return out["launches"]
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     for kernel in KERNEL_NAMES:
@@ -8003,7 +8200,8 @@ def main() -> int:
                       ("drivers", phase_drivers),
                       ("tools", phase_tools),
                       ("parallel", phase_parallel),
-                      ("models", phase_models)):
+                      ("models", phase_models),
+                      ("bench", phase_bench)):
         try:
             result = fn(torch, report)
         except Exception:
@@ -8033,7 +8231,7 @@ def main() -> int:
     def experiment_paths(name):
         return {p: launches[p][name]
                 for p in ("experiment", "experiment_families", "real_data",
-                          "drivers", "tools", "parallel", "models")}
+                          "drivers", "tools", "parallel", "models", "bench")}
 
     def tc_count(library, kernel):
         return sum(n for fn, n in report["tensor_core_instructions"].get(

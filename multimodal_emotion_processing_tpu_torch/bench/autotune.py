@@ -54,25 +54,25 @@ def _release(torch, device) -> None:
         torch.cuda.empty_cache()
 
 
-def _measure_train(exp, *, impl: str, device, n_batches: int, reps: int,
-                   scan_steps: int = 1, transfer_dtype=None,
-                   distinct: bool = False) -> Dict:
-    """Train samples/s of the Trainer's program: one fit of 1 + reps epochs
-    of `n_batches` host-fed batches (the same batch again, or with
-    `distinct` that many distinct ones) and no valid batches; epoch 1
-    captures, the best of the others counts.  On a card also the peak
-    memory the fit added."""
+class _Deadline(Exception):
+    """Raised by a fit's log callback to end it at its deadline."""
+
+
+def train_windows(exp, loader, *, impl: str, device, epochs: int,
+                  scan_steps: int = 1, transfer_dtype=None,
+                  deadline: Optional[float] = None,
+                  info: Optional[Dict] = None) -> List[float]:
+    """Samples/s of each epoch after the first of one Trainer fit over
+    `loader` (a zero-arg callable of numpy batches) with no valid batches:
+    the Trainer's program, each step a replay on a card; epoch 1 captures.
+    With `deadline` (a time.perf_counter value) the fit ends after the
+    first timed epoch that ends past it.  `info` receives "capture_s", the
+    train program's first call (its eager call and the capture; None on
+    the CPU, where nothing is captured), and on a card "peak_bytes", the
+    peak memory the fit added."""
     import torch
 
     from ..train import engine, schedule
-
-    base = _batcher(exp, exp.train.batch_size * (n_batches if distinct else 1))
-    batches = list(base())
-    if not distinct:
-        batches = batches * n_batches
-
-    def loader():
-        return iter(batches)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -81,45 +81,77 @@ def _measure_train(exp, *, impl: str, device, n_batches: int, reps: int,
     trainer = engine.Trainer(exp, exp.train, impl=impl, device=device,
                              scan_steps=scan_steps,
                              transfer_dtype=transfer_dtype)
-    _, hist = trainer.fit(loader, lambda: iter(()), epochs=1 + reps,
-                          stopper=schedule.EarlyStop(patience=2 + reps,
-                                                     save_guard=None))
-    out = {"train_sps": max(e.samples_per_sec for e in hist[1:])}
-    if device.type == "cuda":
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(device) - before
+    sps: List[float] = []
+
+    def log_cb(epoch, stats):
+        if epoch > 0:
+            sps.append(stats.samples_per_sec)
+            if deadline is not None and time.perf_counter() >= deadline:
+                raise _Deadline
+
+    trainer.log_cb = log_cb
+    try:
+        trainer.fit(loader, lambda: iter(()), epochs=epochs,
+                    stopper=schedule.EarlyStop(patience=epochs + 1,
+                                               save_guard=None))
+    except _Deadline:
+        pass
+    if info is not None:
+        ms = trainer.programs["train"].capture_ms
+        info["capture_s"] = sum(ms) / 1e3 if ms else None
+        if device.type == "cuda":
+            info["peak_bytes"] = torch.cuda.max_memory_allocated(device) - before
     del trainer
     _release(torch, device)
+    return sps
+
+
+def _measure_train(exp, *, impl: str, device, n_batches: int, reps: int,
+                   scan_steps: int = 1, transfer_dtype=None,
+                   distinct: bool = False,
+                   info: Optional[Dict] = None) -> Dict:
+    """Train samples/s of the Trainer's program: one fit of 1 + reps epochs
+    of `n_batches` host-fed batches (the same batch again, or with
+    `distinct` that many distinct ones) and no valid batches; epoch 1
+    captures, the best of the others counts (`train_windows`, and its
+    `info`).  On a card also the peak memory the fit added."""
+    base = _batcher(exp, exp.train.batch_size * (n_batches if distinct else 1))
+    batches = list(base())
+    if not distinct:
+        batches = batches * n_batches
+    info = {} if info is None else info
+    sps = train_windows(exp, lambda: iter(batches), impl=impl, device=device,
+                        epochs=1 + reps, scan_steps=scan_steps,
+                        transfer_dtype=transfer_dtype, info=info)
+    out = {"train_sps": max(sps)}
+    if "peak_bytes" in info:
+        out["peak_bytes"] = info["peak_bytes"]
     return out
 
 
 def _measure_infer(exp, *, impl: str, device, steps: int, reps: int,
-                   stacked=None) -> float:
+                   stacked=None, batch=None) -> float:
     """Inference samples/s of the Ensemble's captured forward on one
-    batch already on the device (one member), on the grid path `stacked`
-    selects (Ensemble(stacked=))."""
+    batch already on the device (one member; `batch`, by default one of
+    the config's synthetic samples), on the grid path `stacked` selects
+    (Ensemble(stacked=)): utils/timing.best_window_ms over its replays."""
     import torch
 
     from ..data.loader import to_device
     from ..eval.ensemble import Ensemble
     from ..models import build_model
+    from ..utils.timing import best_window_ms
 
-    b = exp.train.batch_size
-    batch = to_device(next(iter(_batcher(
-        dataclasses.replace(exp, train=dataclasses.replace(
-            exp.train, rdrop_kl=False)), b)())), device)
+    if batch is None:
+        batch = to_device(next(iter(_batcher(
+            dataclasses.replace(exp, train=dataclasses.replace(
+                exp.train, rdrop_kl=False)), exp.train.batch_size)())), device)
     ens = Ensemble([build_model(exp, device=device)], impl=impl,
                    dtype=exp.train.compute_dtype, stacked=stacked)
-    float(ens.logits(batch).sum())   # captures
-    best = 0.0
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            out = ens.logits(batch)
-        float(out.sum())
-        best = max(best, b * steps / (time.perf_counter() - t0))
+    ms = best_window_ms(ens.logits, batch, steps=steps, reps=reps)
     del ens
     _release(torch, device)
-    return best
+    return next(iter(batch.values())).shape[0] * 1e3 / ms
 
 
 def _measure_step(exp, *, impl: str, device, steps: int, reps: int) -> Dict:

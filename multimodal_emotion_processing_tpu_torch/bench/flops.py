@@ -99,3 +99,24 @@ def mfu(samples_per_sec: float, flops_per_sample: float,
         peak_tflops: float = PEAK_TFLOPS["bfloat16"]) -> float:
     """Fraction of peak: achieved FLOP/s over the card's peak."""
     return samples_per_sec * flops_per_sample / (peak_tflops * 1e12)
+
+
+#: attention implementations whose kernels run every product as split-TF32
+#: mma.sync (each f32 operand as hi + lo TF32 terms, three products):
+#: scored_fwd, scored_bwd and fused_block
+SPLIT_TF32_IMPLS = ("pallas", "pallas_fused")
+
+
+def peak_for(dtype: str, impl: str = "xla", *, tf32: bool = False) -> float:
+    """The peak TFLOP/s a step at compute `dtype` and attention `impl` can
+    reach on the card, the ceiling its MFU is a share of: bf16 on the
+    tensor cores; in f32 the TF32 rate where PyTorch's matmuls may use TF32
+    (`tf32`), a third of it where the attention kernels run split-TF32
+    products (`SPLIT_TF32_IMPLS`), else f32 outside the tensor cores."""
+    if dtype == "bfloat16":
+        return PEAK_TFLOPS["bfloat16"]
+    if tf32:
+        return PEAK_TFLOPS["tf32"]
+    if impl in SPLIT_TF32_IMPLS:
+        return PEAK_TFLOPS["tf32"] / 3
+    return PEAK_TFLOPS["float32"]

@@ -72,6 +72,12 @@
         [--allow-lossy] [--steps N] [--reps R]   this card's winners of
         the performance knobs (bench/autotune.py), which train, eval,
         predict and serve apply with --tuned F.
+  bench [--budget-s S] [--scan-ks K1,K2] [--set K=V]   the flagship's
+        train + infer samples/s on the card against the plain path on the
+        CPU, one JSON line (bench/flagship.py, JAX's bench.py); the
+        latency, serving, breakdown, scaling and all_configs entry points
+        run as `python -m multimodal_emotion_processing_tpu_torch.bench.
+        <module>`.
 
 Every command's positional config may also be a `.json` file: overrides
 ({"config": name, "model": {...}, "train": {...}}) or a run's
@@ -91,10 +97,9 @@ serve) shards the attention's sequence over every rank
 (ops/context_parallel.py; one rank without torchrun).
 
 Every command runs on the GPU unless `--device cpu` is given; import-torch
-and export-torch convert files on the host.  JAX's `bench` command (its
-bench.py) has no counterpart yet, and its --compile-cache has none: the
-port compiles no programs, and its kernels are cached in `_build/` by the
-hash of their sources.
+and export-torch convert files on the host.  JAX's --compile-cache has no
+counterpart: the port compiles no programs, and its kernels are cached in
+`_build/` by the hash of their sources.
 """
 
 from __future__ import annotations
@@ -447,6 +452,16 @@ def build_parser() -> argparse.ArgumentParser:
     tn.add_argument("--steps", type=int, default=20)
     tn.add_argument("--reps", type=int, default=4)
     device(tn)
+
+    from .bench.flagship import add_options
+
+    bn = sub.add_parser(
+        "bench", help="flagship train+infer samples/s on the card against "
+                      "the plain path on the CPU (one JSON line; "
+                      "bench/flagship.py)")
+    add_options(bn)
+    overrides(bn)
+    device(bn)
     return p
 
 
@@ -926,6 +941,15 @@ def cmd_tune(args):
     return rec
 
 
+def cmd_bench(args):
+    from .bench.flagship import run, scan_ks
+
+    out = run(device=args.device, sets=args.set, budget_s=args.budget_s,
+              scan_ks=scan_ks(args.scan_ks))
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _serve_paragraph(args, exp, members, offsets, impl):
     """Stream one synthetic paragraph clip by clip (JAX cli.py:544-577)."""
     from .data.synthetic import synthetic_dataset
@@ -1003,4 +1027,6 @@ def main(argv=None):
         return doctor_main(argv)
     if args.cmd == "tune":
         return cmd_tune(args)
+    if args.cmd == "bench":
+        return cmd_bench(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

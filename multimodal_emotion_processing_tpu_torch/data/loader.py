@@ -5,7 +5,9 @@ package).
     with one vectorised gather per key; the final partial batch is
     zero-padded to full size and carries a `sample_weight` vector, so every
     step sees one shape and the weighted loss equals the reference's mean
-    over the unpadded batch; with `duplicate=True` (Ren-MME's R-Drop,
+    over the unpadded batch (`pad_final=False`: no padding and no
+    `sample_weight`, the last batch short; `drop_remainder=True`: no last
+    partial batch); with `duplicate=True` (Ren-MME's R-Drop,
     Ren-MME/run.py:143-146) each sample appears twice, in adjacent rows;
   * `prefetch_to_device` assembles batches in a background thread, stages
     them in pinned host memory and copies them to the GPU with non-blocking
@@ -19,8 +21,6 @@ package).
   * `cast_for_transfer` shrinks a batch to a wire format (float16,
     bfloat16, or int8 with per-row scales) for the copy to the device;
     the steps restore f32 before any math (train/engine.upcast_wire).
-
-Not ported yet: `pad_final=False` and `drop_remainder`.
 """
 
 from __future__ import annotations
@@ -127,11 +127,14 @@ class Batcher:
     differ and runs repeat).  With `duplicate`, a batch holds
     2 × `batch_size` rows, each sample in two adjacent ones, and padding
     rows are zero with `sample_weight` 0.  A batch carries the keys of the
-    first sample the Batcher was built with."""
+    first sample the Batcher was built with.  `pad_final=False`: the last
+    batch keeps its real rows only and no batch carries `sample_weight`;
+    `drop_remainder=True`: an epoch ends before its last partial batch."""
 
     def __init__(self, samples: Sequence[Dict[str, np.ndarray]],
                  batch_size: int, *, shuffle: bool = True,
-                 duplicate: bool = False, seed: int = 0,
+                 duplicate: bool = False, pad_final: bool = True,
+                 seed: int = 0, drop_remainder: bool = False,
                  resample: Optional[Callable[[int], Sequence[Dict]]] = None):
         """`resample(epoch) -> samples` replaces the sample list at the
         start of each epoch, epoch 0 included: the robot demo's per-epoch
@@ -143,6 +146,8 @@ class Batcher:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.duplicate = duplicate
+        self.pad_final = pad_final
+        self.drop_remainder = drop_remainder
         self.resample = resample
         self._epoch = 0
         self._rng = np.random.default_rng(seed)
@@ -187,22 +192,28 @@ class Batcher:
         for start in range(0, len(order), bs):
             idx = order[start:start + bs]
             actual = len(idx)
+            if actual < bs and self.drop_remainder:
+                return
             batch = {}
             for k in self._keys:
                 g = self._gather(idx, k)
-                if actual < bs:
+                if actual < bs and self.pad_final:
                     buf = np.zeros((bs,) + g.shape[1:], dtype=g.dtype)
                     buf[:actual] = g
                     g = buf
                 batch[k] = g
-            w = np.zeros(bs, np.float32)
-            w[:actual] = 1.0
-            batch["sample_weight"] = w
+            if self.pad_final:
+                w = np.zeros(bs, np.float32)
+                w[:actual] = 1.0
+                batch["sample_weight"] = w
             yield batch
 
     def steps_per_epoch(self) -> int:
         """Batches per epoch: with `duplicate`, 2N rows in batches of
-        2 × batch_size, the same count."""
+        2 × batch_size, the same count; without the last partial batch
+        under `drop_remainder`."""
+        if self.drop_remainder:
+            return len(self.samples) // self.batch_size
         return -(-len(self.samples) // self.batch_size)
 
 

@@ -15,7 +15,10 @@ when the predictor or server is built.  `predict` packs the sample into
 one pinned host
 buffer, replays one program that copies it to the device, unpacks it, runs
 the ensemble and writes (logits ++ probabilities) into one static output,
-and brings that back in one copy.
+and brings that back in one copy.  `StreamingPredictor(wire_dtype=
+"float16")` packs the sample as float16 (half the bytes up, ~1e-3 relative
+rounding of the features; data/loader.WIRE_DTYPES), upcast to f32 on the
+device inside the program.
 """
 
 from __future__ import annotations
@@ -74,23 +77,40 @@ def ensemble_serve_fn(members: Sequence[torch.nn.Module],
     return GraphedFunction(run, device, name=f"ensemble_serve_fn[{impl}]")
 
 
+def packed_wire(wire_dtype) -> np.dtype:
+    """The packed buffer's dtype: float32 (None or "float32"), or a wire of
+    data/loader.WIRE_DTYPES that numpy holds (float16)."""
+    from ..data.loader import WIRE_DTYPES
+
+    if wire_dtype in (None, "float32"):
+        return np.dtype(np.float32)
+    wire = WIRE_DTYPES.get(wire_dtype)
+    if not (isinstance(wire, type) and issubclass(wire, np.floating)):
+        raise ValueError(f"packed wire_dtype {wire_dtype!r}: expected "
+                         "'float32' or 'float16'")
+    return np.dtype(wire)
+
+
 class PackedProgram:
     """The serving computation for `batch` samples of one layout, fed from
-    one pinned float32 host buffer: a call packs the samples'
-    keys (in `keys` order, each (batch, *shape) block in turn), replays
-    one graph (the copy to the device, the unpack, `serve`, and
-    pred ++ probs into one (batch, E + E') output) and brings the output
-    back in one device-to-host copy.  The host buffers are reused by the
-    next call: one caller at a time."""
+    one pinned host buffer of `wire` (float32, or float16 for half the
+    bytes, upcast to f32 on the device inside the program): a call packs
+    the samples' keys (in `keys` order, each (batch, *shape) block in
+    turn), replays one graph (the copy to the device, the unpack, `serve`,
+    and pred ++ probs into one (batch, E + E') output) and brings the
+    output back in one device-to-host copy.  The host buffers are reused by
+    the next call: one caller at a time."""
 
     def __init__(self, serve, keys, shapes, batch: int, device, *,
-                 name: str = ""):
+                 name: str = "", wire=np.float32):
         self.keys, self.shapes, self.batch = tuple(keys), tuple(shapes), batch
         self.sizes = tuple(batch * int(np.prod(s)) for s in self.shapes)
         self.device = device
+        self.wire = np.dtype(wire)
         pinned = device.type == "cuda"
-        self.host = torch.empty(sum(self.sizes), dtype=torch.float32,
-                                pin_memory=pinned)
+        self.host = torch.empty(
+            sum(self.sizes), dtype=torch.from_numpy(np.empty(0, self.wire)).dtype,
+            pin_memory=pinned)
         self._host_np = self.host.numpy()
         self._out = None
         layout = tuple(zip(self.keys, self.shapes, self.sizes))
@@ -98,7 +118,7 @@ class PackedProgram:
         def packed_run(buf):   # no reference to self: see _paragraph_step
             unpacked, ofs = {}, 0
             for k, shp, n in layout:
-                unpacked[k] = buf[ofs: ofs + n].reshape((batch,) + shp)
+                unpacked[k] = buf[ofs: ofs + n].float().reshape((batch,) + shp)
                 ofs += n
             pred, probs = serve(unpacked)
             return torch.cat([pred, probs], dim=1)
@@ -152,9 +172,14 @@ class StreamingPredictor:
 
     def __init__(self, members: Sequence[torch.nn.Module],
                  offsets: Sequence[float], *, impl: str = "xla",
-                 dtype: str = "float32", stacked_grid: bool = False):
+                 dtype: str = "float32", stacked_grid: bool = False,
+                 wire_dtype: str = "float32"):
+        """`wire_dtype`: the packed buffer's dtype, "float32" (lossless)
+        or "float16" (half the bytes of the copy up, ~1e-3 relative
+        rounding of the features; `packed_wire`)."""
         self.n_off = len(offsets)
         self.device = _device_of(members)
+        self.wire = packed_wire(wire_dtype)
         self._run = ensemble_serve_fn(members, offsets, impl=impl, dtype=dtype,
                                       stacked=True if stacked_grid else None)
         self._packed = None
@@ -173,7 +198,7 @@ class StreamingPredictor:
         if self._packed is None:
             keys, shapes = packed_layout(sample)
             self._packed = PackedProgram(self._run.fn, keys, shapes, 1,
-                                         self.device,
+                                         self.device, wire=self.wire,
                                          name="packed predict, batch 1")
         return self._packed
 

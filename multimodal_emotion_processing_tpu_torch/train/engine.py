@@ -476,8 +476,10 @@ def accum_value_and_grad(model, tcfg, batch, *, impl: str = "xla",
         mb = {k: v[i * micro_rows:(i + 1) * micro_rows]
               for k, v in batch.items()}
         w = mb.get("sample_weight")
+        # torch.full, not torch.tensor: a fill kernel, so that the step
+        # captures into a CUDA graph with no sample_weight too
         d = (w.sum() if w is not None
-             else torch.tensor(float(micro_rows), device=mb["label"].device))
+             else torch.full((), float(micro_rows), device=mb["label"].device))
         loss_i = batch_loss(model, tcfg, mb, impl=impl, generator=generator)
         g_i = [torch.zeros_like(p) if g is None else g for g, p in zip(
             torch.autograd.grad(loss_i, params, allow_unused=True), params)]
@@ -666,7 +668,9 @@ class Trainer:
     the state is placed onto the mesh (`place_state`: replicated, or with
     `tp` sharded by JAX's `tp_param_spec`; a resumed state too), and the
     step is the single device's (engine `batch_loss(parallel=)`,
-    `member_step`); the batch rows must divide the data axis.  On NCCL
+    `member_step`); the batch rows must divide the data axis, and under
+    R-Drop so must `batch_size`, so that no rank splits a duplicate pair
+    (checked here, before any collective).  On NCCL
     each step is still one captured graph, its collectives inside (the
     first, eager call warms them up); gloo drives its collectives from the
     host, so on gloo with a CUDA device the steps run eagerly, as the log
@@ -700,6 +704,15 @@ class Trainer:
                              "per-device batch)")
         if tp and mesh is None:
             raise ValueError("tp=True needs a mesh with a 'model' axis")
+        if (mesh is not None and tcfg.rdrop_kl
+                and tcfg.batch_size % mesh.shape["data"]):
+            # a rank's rows would end inside a pair: its R-Drop term would
+            # pair rows of two samples, or none (pipelines.run_experiment)
+            raise ValueError(
+                f"R-Drop's duplicate pairs must stay whole on a rank: "
+                f"batch_size ({tcfg.batch_size}) must divide the data "
+                f"axis ({mesh.shape['data']}) — adjust --dp or "
+                "train.batch_size")
         self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
         self.cfg = getattr(cfg, "model", cfg)
         self.tcfg = tcfg

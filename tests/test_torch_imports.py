@@ -160,6 +160,20 @@ def test_the_parallel_slice_is_covered():
         assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
 
 
+def test_the_measurement_slice_is_covered():
+    """The measurement entry points (the shared timer, the latency,
+    serving, breakdown, scaling, per-config and flagship benches, the CLI's
+    bench) and what they time are among the modules the tests below import
+    and scan."""
+    mods = set(_port_modules())
+    for m in ("utils.timing", "bench", "bench.latency", "bench.serving",
+              "bench.breakdown", "bench.scaling", "bench.all_configs",
+              "bench.flagship", "bench.autotune", "bench.flops",
+              "data.loader", "serve.stream", "serve.graphs", "train.engine",
+              "cli"):
+        assert f"multimodal_emotion_processing_tpu_torch.{m}" in mods
+
+
 def test_the_parallel_modules_import_without_jax():
     """parallel/ and ops/context_parallel.py import, and build their
     collectives' autograd functions, with JAX and the JAX package blocked."""

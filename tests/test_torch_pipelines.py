@@ -49,6 +49,11 @@ CASES = {
                 dict(n_folds=2, batch_size=4), 16, 8, "pallas_fused", True),
     "mosei_realformer": ({**TINY, "p_len": 3}, dict(n_folds=3, batch_size=4),
                          12, 6, "pallas", True),
+    "robot_demo": ({**TINY, "a_dim": 5, "v_dims_multires": (3, 4, 5),
+                    "dropout": 0.0}, dict(n_folds=2, batch_size=4), 16, 8,
+                   "pallas", True),
+    "rencecps": ({"dim": 12, "l_dim": 12, "dropout": 0.0},
+                 dict(n_folds=2, batch_size=4), 16, 8, "xla", True),
 }
 EPOCHS = 2
 
