@@ -32,6 +32,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import spans
+
 #: wire formats for `cast_for_transfer`: "float16" (exact for the 0/1
 #: mask, label and weight vectors, ~1e-3 relative rounding of features,
 #: saturates at ±65504), "bfloat16" (the f32 range, a coarser mantissa) and
@@ -157,12 +159,15 @@ class Batcher:
 
     def _stack(self) -> bool:
         """One contiguous (N, ...) array per key, so a batch is one gather
-        per key; False when the samples' shapes do not stack."""
-        try:
-            self._stacked = {k: np.stack([s[k] for s in self.samples])
-                             for k in self._keys}
-        except ValueError:
-            return False
+        per key; False when the samples' shapes do not stack.  Span
+        `feed.stack`."""
+        with spans.span("feed.stack") as sp:
+            sp.attr("rows", len(self.samples))
+            try:
+                self._stacked = {k: np.stack([s[k] for s in self.samples])
+                                 for k in self._keys}
+            except ValueError:
+                return False
         return True
 
     def _gather(self, idx, k):
@@ -194,18 +199,19 @@ class Batcher:
             actual = len(idx)
             if actual < bs and self.drop_remainder:
                 return
-            batch = {}
-            for k in self._keys:
-                g = self._gather(idx, k)
-                if actual < bs and self.pad_final:
-                    buf = np.zeros((bs,) + g.shape[1:], dtype=g.dtype)
-                    buf[:actual] = g
-                    g = buf
-                batch[k] = g
-            if self.pad_final:
-                w = np.zeros(bs, np.float32)
-                w[:actual] = 1.0
-                batch["sample_weight"] = w
+            with spans.span("feed.gather"):
+                batch = {}
+                for k in self._keys:
+                    g = self._gather(idx, k)
+                    if actual < bs and self.pad_final:
+                        buf = np.zeros((bs,) + g.shape[1:], dtype=g.dtype)
+                        buf[:actual] = g
+                        g = buf
+                    batch[k] = g
+                if self.pad_final:
+                    w = np.zeros(bs, np.float32)
+                    w[:actual] = 1.0
+                    batch["sample_weight"] = w
             yield batch
 
     def steps_per_epoch(self) -> int:
@@ -237,13 +243,22 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
     generator early releases the thread.  With `mesh`
     (parallel/mesh.Mesh), every rank's iterator gives the same global
     batches and the thread copies only this rank's rows of the data axis
-    (`parallel.mesh.local_rows`, as `put_global_batch` does)."""
-    from ..parallel.mesh import local_rows
+    (`parallel.mesh.local_rows`, as `put_global_batch` does).
 
+    The thread's spans (`feed.stack` and `feed.gather` from a Batcher,
+    `feed.copy` per batch here) hang below the span open at this call
+    (utils/spans.py)."""
     device = torch.device(device)
-    wire = resolve_transfer_dtype(transfer_dtype)
     if device.type != "cuda":
         raise ValueError(f"prefetch_to_device feeds a CUDA device, got {device}")
+    return _prefetch(iterator, device, size,
+                     resolve_transfer_dtype(transfer_dtype), mesh,
+                     spans.current())
+
+
+def _prefetch(iterator, device, size, wire, mesh, parent):
+    from ..parallel.mesh import local_rows
+
     copy_stream = torch.cuda.Stream(device)
     q: queue.Queue = queue.Queue(maxsize=size)
     end = object()
@@ -259,19 +274,24 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], *,
         return False
 
     def worker():
+        spans.adopt(parent)
         try:
             with torch.cuda.device(device), torch.cuda.stream(copy_stream):
                 for batch in iterator:
                     if stop.is_set():
                         return
-                    if mesh is not None:
-                        batch = local_rows(batch, mesh)
-                    host = {k: _host_tensor(v) for k, v in
-                            cast_for_transfer(batch, wire).items()}
-                    out = {k: t.pin_memory().to(device, non_blocking=True)
-                           for k, t in host.items()}
-                    ready = torch.cuda.Event()
-                    ready.record(copy_stream)
+                    with spans.span("feed.copy") as sp:
+                        if mesh is not None:
+                            batch = local_rows(batch, mesh)
+                        host = {k: _host_tensor(v) for k, v in
+                                cast_for_transfer(batch, wire).items()}
+                        out = {k: t.pin_memory().to(device, non_blocking=True)
+                               for k, t in host.items()}
+                        ready = torch.cuda.Event()
+                        ready.record(copy_stream)
+                        if spans.enabled():
+                            sp.attr("bytes", sum(t.nbytes
+                                                 for t in host.values()))
                     if not offer((out, ready)):
                         return
             offer(end)

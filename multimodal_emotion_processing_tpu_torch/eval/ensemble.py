@@ -38,6 +38,7 @@ from ..parallel import comm
 from ..serve.graphs import GraphedFunction
 from ..train import metrics
 from ..train.engine import infer_cast, infer_upcast, upcast_wire
+from ..utils import spans
 
 
 class Ensemble:
@@ -127,7 +128,14 @@ class Ensemble:
         stay on the card until one copy back at the end.
         `transfer_dtype` ("float16", "bfloat16" or "int8"): the batches
         travel in that wire format (data/loader.cast_for_transfer) and are
-        restored to f32 on the device before any math."""
+        restored to f32 on the device before any math.  Spans: `eval.pass`
+        around it, and per batch `feed.wait` and `eval.batch` (the
+        program's call: the input copy, the replay, the clone)
+        (utils/spans.py)."""
+        with spans.span("eval.pass"):
+            return self._predict_all(loader, transfer_dtype)
+
+    def _predict_all(self, loader, transfer_dtype) -> np.ndarray:
         from ..data.loader import (cast_for_transfer, prefetch_to_device,
                                    resolve_transfer_dtype, to_device)
 
@@ -153,7 +161,10 @@ class Ensemble:
                 it = (local_rows(b, self.mesh) for b in it)
             it = (to_device(cast_for_transfer(b, wire), self.device)
                   for b in it)
-        outs = [self._gathered(self.program(b).clone()) for b in it]
+        outs = []
+        for b in spans.waited("feed.wait", it):
+            with spans.span("eval.batch"):
+                outs.append(self._gathered(self.program(b).clone()))
         if not outs:
             raise ValueError("predict_all: the loader gave no batch")
         lg = torch.cat(outs).cpu().numpy()

@@ -47,7 +47,6 @@ mode cannot run inside a CUDA graph.
 from __future__ import annotations
 
 import gc
-import time
 from collections import Counter
 from typing import Callable, Dict, Sequence
 
@@ -55,6 +54,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..ops.cuda_binding import capture_ledger, credit
+from ..utils import spans
 from ..utils.logging import nan_debugging_enabled
 
 
@@ -78,7 +78,8 @@ class GraphedFunction:
     `fn` itself stays reachable as `.fn` (the eager path).  `captures`
     counts the graphs captured, `replays` the calls served by a replay,
     `capture_ms` the host time of each key's first call (the eager call
-    and the capture)."""
+    and the capture): the interval of its `graph.capture` span
+    (utils/spans.py)."""
 
     def __init__(self, fn: Callable, device, *, name: str = "",
                  generators: Sequence[torch.Generator] = ()):
@@ -128,7 +129,13 @@ class GraphedFunction:
         return prog.outputs
 
     def _capture(self, key, leaves, spec):
-        t0 = time.perf_counter()
+        with spans.timed("graph.capture") as sp:
+            sp.attr("name", self.name)
+            first = self._capture_key(key, leaves, spec)
+        self.capture_ms.append((sp.end - sp.start) / 1e6)
+        return first
+
+    def _capture_key(self, key, leaves, spec):
         inputs = [torch.empty(t.shape, dtype=t.dtype, device=self.device)
                   for t in leaves]
         for dst, src in zip(inputs, leaves):
@@ -172,5 +179,4 @@ class GraphedFunction:
             self._pool = graph.pool()
         self._programs[key] = _Program(graph, inputs, outputs, ledger)
         self.captures += 1
-        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         return first

@@ -11,6 +11,13 @@ Each bucket has one pinned, packed host buffer and one program
 (`stream.PackedProgram`): on a CUDA device a captured CUDA graph, so a
 batch costs one host-to-device copy, one graph launch and one copy back.
 `warmup` captures every bucket, as JAX compiles every bucket.
+
+Spans (utils/spans.py), on the collector thread: `serve.batch` per group,
+from the start of its collection to its delivery, holding
+`serve.collect` (the wait for the first request included), the packed
+call's `serve.call`, and `serve.deliver`; and one `serve.queue` per
+request, from its submit (the stamp `submit` takes) to the start of its
+batch's program call, with the request's id.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ..utils import spans
 from .stream import (PackedProgram, _device_of, ensemble_serve_fn,
                      packed_layout)
 
@@ -67,7 +75,7 @@ class BatchingServer:
         if self._closed.is_set():
             raise RuntimeError("server is closed")
         fut: Future = Future()
-        self._q.put((sample, fut))
+        self._q.put((sample, fut, spans.stamp()))
         if self._closed.is_set():
             # lost the race with close(): its drain may already have run
             self._fail_pending()
@@ -133,41 +141,60 @@ class BatchingServer:
     def _drain_group(self):
         """Block for the first request, then wait up to max_delay (total)
         for followers, capped at max_batch.  Returns [] on shutdown."""
-        first = self._q.get()
-        if first is None:
-            return []
-        group = [first]
-        deadline = time.perf_counter() + self.max_delay
-        while len(group) < self.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                item = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if item is None:
-                break
-            group.append(item)
-        return group
+        with spans.span("serve.collect"):
+            first = self._q.get()
+            if first is None:
+                return []
+            group = [first]
+            deadline = time.perf_counter() + self.max_delay
+            while len(group) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is None:
+                    break
+                group.append(item)
+            return group
 
     def _loop(self):
         while not self._closed.is_set():
-            group = self._drain_group()
-            if not group:
-                continue
-            samples, futs = zip(*group)
-            bucket = self._bucket_for(len(samples))
-            padded = list(samples) + [samples[-1]] * (bucket - len(samples))
-            try:
-                pred, probs = self._forward(padded)
-            except Exception as e:  # deliver, don't kill the collector
-                for f in futs:
-                    f.set_exception(e)
-                continue
-            self._stats["requests"] += len(futs)
-            self._stats["batches"] += 1
-            self._stats["padded_rows"] += bucket - len(futs)
-            self._stats["by_bucket"][bucket] += 1
+            with spans.span("serve.batch") as batch:
+                self._batch(batch)
+
+    def _batch(self, span) -> None:
+        group = self._drain_group()
+        if not group:
+            return
+        samples, futs, stamps = zip(*group)
+        bucket = self._bucket_for(len(samples))
+        span.attr("bucket", bucket)
+        span.attr("requests", len(futs))
+        padded = list(samples) + [samples[-1]] * (bucket - len(samples))
+        if spans.enabled():
+            self._queued(stamps, span.id)
+        try:
+            pred, probs = self._forward(padded)
+        except Exception as e:  # deliver, don't kill the collector
+            for f in futs:
+                f.set_exception(e)
+            return
+        self._stats["requests"] += len(futs)
+        self._stats["batches"] += 1
+        self._stats["padded_rows"] += bucket - len(futs)
+        self._stats["by_bucket"][bucket] += 1
+        with spans.span("serve.deliver"):
             for i, f in enumerate(futs):
                 f.set_result((pred[i], probs[i]))
+
+    @staticmethod
+    def _queued(stamps, parent) -> None:
+        """One `serve.queue` span per stamped request, ending now, as its
+        batch goes to its program."""
+        now = time.perf_counter_ns()
+        for st in stamps:
+            if st is not None:
+                spans.emit("serve.queue", st[1], now, parent, {"rid": st[0]})

@@ -30,6 +30,7 @@ import torch
 
 from ..models.heads import StateTransfer, state_transfer_recurrence
 from ..train.engine import infer_cast, infer_upcast
+from ..utils import spans
 from .graphs import GraphedFunction
 
 def _device_of(members) -> torch.device:
@@ -99,7 +100,11 @@ class PackedProgram:
     turn), replays one graph (the copy to the device, the unpack, `serve`,
     and pred ++ probs into one (batch, E + E') output) and brings the
     output back in one device-to-host copy.  The host buffers are reused by
-    the next call: one caller at a time."""
+    the next call: one caller at a time.  Spans (utils/spans.py):
+    `serve.call` per call (its rows, and the bytes of the packed buffer
+    copied up), holding `serve.pack`, `serve.launch` (the input copy and
+    the replay) and `serve.sync` (the copy back, the stream's
+    synchronisation, the numpy copy)."""
 
     def __init__(self, serve, keys, shapes, batch: int, device, *,
                  name: str = "", wire=np.float32):
@@ -112,6 +117,7 @@ class PackedProgram:
             sum(self.sizes), dtype=torch.from_numpy(np.empty(0, self.wire)).dtype,
             pin_memory=pinned)
         self._host_np = self.host.numpy()
+        self.nbytes = self.host.nbytes
         self._out = None
         layout = tuple(zip(self.keys, self.shapes, self.sizes))
 
@@ -147,16 +153,22 @@ class PackedProgram:
 
     def __call__(self, samples) -> np.ndarray:
         """(batch, E + E') float32: each sample's logits ++ probabilities."""
-        self.pack(samples)
-        out = self.fn(self.host)
-        if self.device.type != "cuda":
-            return out.numpy().copy()
-        if self._out is None:
-            self._out = torch.empty(out.shape, dtype=out.dtype,
-                                    pin_memory=True)
-        self._out.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return self._out.numpy().copy()
+        with spans.span("serve.call") as call:
+            call.attr("rows", self.batch)
+            call.attr("bytes", self.nbytes)
+            with spans.span("serve.pack"):
+                self.pack(samples)
+            with spans.span("serve.launch"):
+                out = self.fn(self.host)
+            with spans.span("serve.sync"):
+                if self.device.type != "cuda":
+                    return out.numpy().copy()
+                if self._out is None:
+                    self._out = torch.empty(out.shape, dtype=out.dtype,
+                                            pin_memory=True)
+                self._out.copy_(out, non_blocking=True)
+                torch.cuda.current_stream(self.device).synchronize()
+                return self._out.numpy().copy()
 
 
 def packed_layout(sample: Dict[str, np.ndarray]):
@@ -204,9 +216,12 @@ class StreamingPredictor:
 
     def predict(self, sample: Dict[str, np.ndarray]):
         """Returns (raw ensemble logits (E,), calibrated probabilities (E',))
-        through the packed path: one copy up, one program, one copy down."""
-        out = self.packed_program(sample)([sample])[0]
-        return out[: out.shape[0] - self.n_off], out[out.shape[0] - self.n_off:]
+        through the packed path: one copy up, one program, one copy down.
+        Span `stream.request` (utils/spans.py)."""
+        with spans.span("stream.request"):
+            out = self.packed_program(sample)([sample])[0]
+            return (out[: out.shape[0] - self.n_off],
+                    out[out.shape[0] - self.n_off:])
 
     def predict_unpacked(self, sample: Dict[str, np.ndarray]):
         """One transfer per array; kept for parity tests."""

@@ -22,6 +22,11 @@ them, or the new ones.  A save joins the save in flight of its own kind
 (a resume point before it picks its slot, a best member before it
 replaces params.pt and full.pt); every restore joins all; `wait()` joins
 all and raises a failed write.
+
+Spans (utils/spans.py): `ckpt.save_best` and `ckpt.save_last`, the
+caller's hold (the join, `state_dict`, an inline write); `ckpt.write`,
+each commit's writes and manifest entry, below the save's span on
+whichever thread runs it.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import torch
+
+from ..utils import spans
 
 
 def _params(model) -> Dict[str, torch.Tensor]:
@@ -117,12 +124,15 @@ class CheckpointStore:
         the manifest: inline, or with `use_async` on the worker, so the
         manifest names a file only once it has landed."""
 
+        parent = spans.current()
+
         def commit():
-            for path, obj in files:
-                self._save(path, obj)
-            with self._lock:
-                entry(self.manifest)
-                self._write_manifest()
+            with spans.span("ckpt.write", parent):
+                for path, obj in files:
+                    self._save(path, obj)
+                with self._lock:
+                    entry(self.manifest)
+                    self._write_manifest()
 
         if not self.use_async:
             commit()
@@ -140,17 +150,19 @@ class CheckpointStore:
 
     def save_best(self, name: str, state, epoch: int, valid_loss: float) -> None:
         """The member's parameters and full train state at a new best."""
-        self._join("best")
-        full = state.state_dict()
-        params, full_path = self._path(name, "params"), self._path(name, "full")
+        with spans.span("ckpt.save_best"):
+            self._join("best")
+            full = state.state_dict()
+            params = self._path(name, "params")
+            full_path = self._path(name, "full")
 
-        def entry(manifest):
-            manifest.setdefault(name, {}).update({
-                "params": params, "full": full_path,
-                "valid_loss": float(valid_loss), "epoch": int(epoch)})
+            def entry(manifest):
+                manifest.setdefault(name, {}).update({
+                    "params": params, "full": full_path,
+                    "valid_loss": float(valid_loss), "epoch": int(epoch)})
 
-        self._commit("best", [(params, full["model"]), (full_path, full)],
-                     self._on_cpu(state.model), entry)
+            self._commit("best", [(params, full["model"]), (full_path, full)],
+                         self._on_cpu(state.model), entry)
 
     def save_params(self, name: str, model, valid_loss: float = 0.0,
                     epoch: int = -1, *, imported: bool = True) -> None:
@@ -187,25 +199,26 @@ class CheckpointStore:
         against the newest entry whose file exists: after a fallback resume
         (the manifest's `last` lost mid-save) the next save must not
         overwrite the surviving slot."""
-        self._join("last")
-        with self._lock:
-            member = self.manifest.get(name, {})
-            good = next((e for e in (member.get("last"),
-                                     member.get("last_prev"))
-                         if e and os.path.isfile(e["path"])), None)
-        slot = ("last_a" if good is None
-                or not good["path"].endswith("last_a.pt") else "last_b")
-        path = self._path(name, slot)
+        with spans.span("ckpt.save_last"):
+            self._join("last")
+            with self._lock:
+                member = self.manifest.get(name, {})
+                good = next((e for e in (member.get("last"),
+                                         member.get("last_prev"))
+                             if e and os.path.isfile(e["path"])), None)
+            slot = ("last_a" if good is None
+                    or not good["path"].endswith("last_a.pt") else "last_b")
+            path = self._path(name, slot)
 
-        def entry(manifest):
-            member = manifest.setdefault(name, {})
-            if good is not None:
-                member["last_prev"] = good
-            member["last"] = {"path": path, "epoch": int(epoch),
-                              "schedule": schedule or {}}
+            def entry(manifest):
+                member = manifest.setdefault(name, {})
+                if good is not None:
+                    member["last_prev"] = good
+                member["last"] = {"path": path, "epoch": int(epoch),
+                                  "schedule": schedule or {}}
 
-        self._commit("last", [(path, state.state_dict())],
-                     self._on_cpu(state.model), entry)
+            self._commit("last", [(path, state.state_dict())],
+                         self._on_cpu(state.model), entry)
 
     def restore_last(self, name: str, state_like, epoch: Optional[int] = None):
         """(state_like with the newest complete resume point loaded into it,

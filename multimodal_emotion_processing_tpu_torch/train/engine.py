@@ -41,7 +41,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -49,6 +48,7 @@ import torch
 
 from ..ops.loss import symmetric_sigmoid_kl, zlpr_loss
 from ..parallel import comm
+from ..utils import spans
 from ..utils.logging import profile_trace
 from . import schedule
 
@@ -761,16 +761,18 @@ class Trainer:
 
         it = counting(iter(loader()))
         if self.device.type == "cuda":
-            return prefetch_to_device(it, device=self.device, size=self.PREFETCH,
-                                      transfer_dtype=self.transfer_dtype,
-                                      mesh=self.mesh)
-        if self.mesh is not None:
+            it = prefetch_to_device(it, device=self.device, size=self.PREFETCH,
+                                    transfer_dtype=self.transfer_dtype,
+                                    mesh=self.mesh)
+        elif self.mesh is not None:
             from ..parallel.mesh import put_global_batch
 
-            return (put_global_batch(cast_for_transfer(b, self.transfer_dtype),
-                                     self.mesh) for b in it)
-        return (to_device(cast_for_transfer(b, self.transfer_dtype), self.device)
-                for b in it)
+            it = (put_global_batch(cast_for_transfer(b, self.transfer_dtype),
+                                   self.mesh) for b in it)
+        else:
+            it = (to_device(cast_for_transfer(b, self.transfer_dtype),
+                            self.device) for b in it)
+        return spans.waited("feed.wait", it)
 
     def _programs(self, state: TrainState):
         """(train, eval): functions of one epoch's device batches returning
@@ -784,34 +786,39 @@ class Trainer:
         def run(kind, batches):
             out = []
             for group in chunks(batches, self.scan_steps):
-                if kind not in progs:
-                    buf = StepBuffer(group[0], self.scan_steps, 1, dev)
-                    if kind == "train":
-                        def body(buf=buf):
-                            return member_step(
-                                state, tcfg, {k: v[0] for k, v in
-                                              buf.read().items()},
-                                impl=impl, accum_steps=self.accum_steps)
-                        gens = (state.generator,)
-                    else:
-                        def body(buf=buf):
-                            return eval_loss(state.model, tcfg,
-                                             {k: v[0] for k, v in
-                                              buf.read().items()}, impl=impl,
-                                             parallel=state.parallel)
-                        gens = ()
-                    progs[kind] = (buf, GraphedFunction(
-                        body, dev, name=f"Trainer.{kind}_step[{impl}]",
-                        generators=gens))
-                    self.programs[kind] = progs[kind][1]
-                buf, prog = progs[kind]
-                buf.load([[b] for b in group])
-                call = prog if self.captured else prog.fn
-                for _ in group:
-                    out.append(call().clone())
-                    if kind == "train":
-                        state.step += 1
+                with spans.span("train.step") as sp:
+                    sp.attr("kind", kind)
+                    step(kind, group, out)
             return out
+
+        def step(kind, group, out):
+            if kind not in progs:
+                buf = StepBuffer(group[0], self.scan_steps, 1, dev)
+                if kind == "train":
+                    def body(buf=buf):
+                        return member_step(
+                            state, tcfg, {k: v[0] for k, v in
+                                          buf.read().items()},
+                            impl=impl, accum_steps=self.accum_steps)
+                    gens = (state.generator,)
+                else:
+                    def body(buf=buf):
+                        return eval_loss(state.model, tcfg,
+                                         {k: v[0] for k, v in
+                                          buf.read().items()}, impl=impl,
+                                         parallel=state.parallel)
+                    gens = ()
+                progs[kind] = (buf, GraphedFunction(
+                    body, dev, name=f"Trainer.{kind}_step[{impl}]",
+                    generators=gens))
+                self.programs[kind] = progs[kind][1]
+            buf, prog = progs[kind]
+            buf.load([[b] for b in group])
+            call = prog if self.captured else prog.fn
+            for _ in group:
+                out.append(call().clone())
+                if kind == "train":
+                    state.step += 1
 
         return (lambda it: run("train", it)), (lambda it: run("eval", it))
 
@@ -824,11 +831,23 @@ class Trainer:
         """Returns (state, history of EpochStats).  `start_epoch`, `plateau`
         and `stopper` inject a restored resume point
         (`CheckpointStore.restore_last`); `last_cb(state, epoch, plateau,
-        stopper)` fires after every epoch, so the caller can persist one."""
+        stopper)` fires after every epoch, so the caller can persist one.
+        Spans (utils/spans.py): `train.fit` around it all, `train.init_state`
+        where it builds the state, `train.epoch` over the interval that
+        `EpochStats.seconds` times (its clock readings), and within it
+        `train.step` per captured call and `feed.wait` per batch."""
+        with spans.span("train.fit"):
+            return self._fit(train_loader, valid_loader, state, epochs, seed,
+                             start_epoch, plateau, stopper, last_cb)
+
+    def _fit(self, train_loader, valid_loader, state, epochs, seed,
+             start_epoch, plateau, stopper, last_cb):
         tcfg = self.tcfg
         if state is None:
-            state = init_state(self.cfg, tcfg, tcfg.seed if seed is None else seed,
-                               device=self.device)
+            with spans.span("train.init_state"):
+                state = init_state(self.cfg, tcfg,
+                                   tcfg.seed if seed is None else seed,
+                                   device=self.device)
         if self.mesh is not None and state.parallel is None:
             from ..parallel.mesh import place_state
 
@@ -852,8 +871,9 @@ class Trainer:
                          else start_epoch)
         for epoch in range(start_epoch, n_epochs):
             with profile_trace(self.profile_dir if epoch == profile_epoch
-                               else None, name="trainer"):
-                t0 = time.perf_counter()
+                               else None, name="trainer"), \
+                    spans.timed("train.epoch") as timer:
+                timer.attr("epoch", epoch)
                 counter = {"n": 0}
                 # losses stay on the device until the epoch ends: fetching
                 # per step would make the host wait for the card every step
@@ -866,7 +886,7 @@ class Trainer:
                 train_loss=sum(step_losses) / max(len(step_losses), 1),
                 valid_loss=sum(va_losses) / max(len(va_losses), 1),
                 steps=len(step_losses), samples=counter["n"],
-                seconds=time.perf_counter() - t0, step_losses=step_losses)
+                seconds=timer.seconds, step_losses=step_losses)
             history.append(stats)
             if self.log_cb:
                 self.log_cb(epoch, stats)

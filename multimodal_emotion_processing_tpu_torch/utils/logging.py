@@ -1,18 +1,21 @@
 """Run logs: one CSV of epoch losses per member (the reference's txt
 channel, cmu-mosei/run.py:394-396,411-412), mirrored to TensorBoard
 scalars (its SummaryWriter channel) when `torch.utils.tensorboard`
-imports; a profiler trace around a stretch of a run (`profile_trace`);
-NaN debugging (`enable_nan_debugging`).  utils/logging.py of the JAX
-package."""
+imports; a profiler trace around a stretch of a run, with the host spans
+(`profile_trace`); NaN debugging (`enable_nan_debugging`).
+utils/logging.py of the JAX package."""
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import time
 import weakref
 from typing import Optional
+
+from . import spans
 
 
 class RunLogger:
@@ -56,7 +59,13 @@ def profile_trace(log_dir: Optional[str], name: str = "trace"):
     CUDA kernels and copies where a card is present), written on exit as
     a Chrome / Perfetto trace `<log_dir>/<name>_<pid>_<ns>.pt.trace.json`
     (JAX's `jax.profiler` trace directory); a no-op when `log_dir` is
-    None.  Yields the path the trace is written to."""
+    None.  Yields the path the trace is written to.
+
+    The span recorder (utils/spans.py) is on for the stretch, unless
+    something else turned it on before, and its spans join the trace as
+    "X" events of category "span" on their threads' tracks, their
+    attributes, id and parent under `args`: the host's layers and the
+    card's kernels on one timeline."""
     if log_dir is None:
         yield None
         return
@@ -70,11 +79,37 @@ def profile_trace(log_dir: Optional[str], name: str = "trace"):
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir,
                         f"{name}_{os.getpid()}_{time.time_ns()}.pt.trace.json")
-    with profile(activities=activities) as prof:
-        yield path
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    recording = not spans.enabled()
+    if recording:
+        spans.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield path
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        drained = spans.drain()["spans"] if recording else []
+        if recording:
+            spans.disable()
     prof.export_chrome_trace(path)
+    if drained:
+        _add_spans(path, drained)
+
+
+def _add_spans(path: str, drained) -> None:
+    """Append the drained spans to the Chrome trace at `path`, on its
+    clock: the events' `ts` are microseconds past `baseTimeNanoseconds`."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    for n, a, b, i, p, tid, attrs in drained:
+        doc["traceEvents"].append({
+            "ph": "X", "cat": "span", "name": n, "pid": pid, "tid": tid,
+            "ts": (a - base) / 1e3, "dur": (b - a) / 1e3,
+            "args": {**(attrs or {}), "id": i, "parent": p}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 class _NanDebugging:
