@@ -22,8 +22,9 @@ Phases, each reported on its own lines:
      edge cases, and their dq, dk and dv bit-equal whether they read the
      forward's S or rebuild s, and fused_block in the same four (its S
      and row stats m bit-equal to scored_fwd's, l within 1e-6, out, S and
-     the stats the same bits over two launches; each launch's cluster size
-     and blocks logged);
+     the stats the same bits over two launches; each launch's path (one
+     block a row tile at mosei_trans's widths, clusters elsewhere), cluster
+     size and blocks logged);
   3. train: `mosei_trans_s1024` at full width, bf16 over f32 masters,
      trained by the port's Trainer for 2 epochs of 4 steps at batch 64 with
      an eval pass after each, with the kernel launch counts of that run, the
@@ -400,14 +401,17 @@ DROPOUT_N, DROPOUT_RATE = 1 << 21, 0.1
 # ragged Lkv 275 and 1000, no mask, and fully masked rows under S_prev
 # from a previous block (c = 0.7); one head (a cluster of one block), 12
 # heads of 8 (more than a cluster's 8 blocks), one s1024 stream shape (D
-# 1024, dh 128), and ren_mme's longest streams at batch 1
+# 1024, dh 128), ren_mme's longest streams at batch 1, and mosei_trans's
+# longest streams at its batch 64 (the tile path)
 FUSED_EDGE_CASES = (
     (2, 20, 50, 2, 1, "zero_row"), (2, 70, 300, 2, 256, "zero_row"),
     (3, 1, 100, 6, 16, "zero_row"), (2, 37, 275, 8, 16, "ragged"),
     (2, 33, 1000, 4, 64, "ragged"), (2, 64, 64, 6, 32, "none"),
     (4, 100, 200, 6, 16, "zero_row"), (2, 37, 77, 1, 64, "zero_row"),
     (2, 40, 100, 12, 8, "zero_row"), (2, 128, 512, 8, 128, "zero_row"),
-    (1, 40, 275, 8, 16, "zero_row"), (1, 275, 76, 8, 16, "zero_row"))
+    (1, 40, 275, 8, 16, "zero_row"), (1, 275, 76, 8, 16, "zero_row"),
+    (64, 20, 200, 6, 16, "zero_row"), (64, 200, 20, 6, 16, "zero_row"),
+    (64, 200, 200, 6, 16, "zero_row"))
 # the fused_block library's HMMA count when only its score dots ran on the
 # tensor cores: with every product on them it must count more
 FUSED_SCORE_DOTS_HMMA = 744
@@ -1493,7 +1497,9 @@ def fused_cases(torch, g, report):
     0; c is 0.7.  S must also equal scored_fwd's S on the same inputs bit
     for bit, the row stats m scored_fwd's bit for bit and l within 1e-6
     relative, and out, S and the stats must be the same bits over two
-    launches.  Each case logs its launch's cluster size and blocks.  Timed
+    launches.  Each case logs its launch's path, cluster size and blocks
+    (the tile path at the mosei_trans shapes, timed as "train"; the cluster
+    path at ren_mme's, "serve", and robot_demo's, "robot").  Timed
     in f32 as the main paths call it (no S_prev, no S; the training forward
     with the ctx residual, serving without), with the backward through
     FusedMinusBlock against autograd through the plain version at the
@@ -1530,7 +1536,10 @@ def fused_cases(torch, g, report):
                                         n_heads=h)[1].contiguous()
         c = torch.tensor([0.7], device="cuda").to(dtype)
         ws = fused_weights(torch, g, h * dh, dtype)
+        # the launch's geometry, its path as `kernel_path` ("path" names the
+        # case's group here)
         geo = fb.fused_block_kernel.geometry(b, h, lq, lkv, dh, dtype)
+        geo["kernel_path"] = geo.pop("path")
         for has_sprev, emit in pa.VARIANTS:
             sp = sprev if has_sprev else None
             out, s, ctx, st = fb.fused_block_kernel(
@@ -1625,7 +1634,9 @@ def fused_cases(torch, g, report):
             rows.append(row)
             log(f"[kernels] fused_block {dname} B={b} Lq={lq} Lkv={lkv} H={h} "
                 f"dh={dh} mask={mask_kind} sprev={int(has_sprev)} "
-                f"emit={int(emit)} cluster={geo['cluster']} rows={geo['rows']} "
+                f"emit={int(emit)} path={geo['kernel_path']} "
+                f"cluster={geo['cluster']} "
+                f"rows={geo['rows']} warps={geo['warps']} "
                 f"blocks={geo['blocks']} norm_err={err:.3e} "
                 f"ctx_err={ctx_err:.2e} S_rel_err={s_err:.2e} "
                 f"S==scored_fwd={s_bits} m==scored_fwd={m_bits} "
@@ -1641,6 +1652,7 @@ def fused_cases(torch, g, report):
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                           "bound_split_tf32_ms")}
         summ["blocks"] = [r["blocks"] for r in timed]
+        summ["paths"] = [r["kernel_path"] for r in timed]
         summ["bound_by"] = majority_bound(timed)
         summ["calls_timed"] = len(timed)
         if path == "train":
@@ -1662,6 +1674,7 @@ def fused_cases(torch, g, report):
                           "bound_split_tf32_ms", "bwd_ms", "plain_bwd_ms")}
         summ.update(bound_by=majority_bound(timed), calls_timed=len(timed),
                     cluster=sorted({r["cluster"] for r in timed}),
+                    paths=sorted({r["kernel_path"] for r in timed}),
                     blocks=[r["blocks"] for r in timed],
                     max_abs_err=max(r["max_abs_err"] for r in timed),
                     max_bwd_norm_err=max(r["bwd_norm_err"] for r in timed))
@@ -1681,7 +1694,8 @@ def fused_cases(torch, g, report):
                else f"{summ['device_ms']:.4f} ms device time")
             + f"; bound {summ['bound_ms']:.5f} ({summ['bound_by']}), plain "
             f"{summ['plain_ms']:.4f}, library composite {summ['library_ms']:.4f}"
-            f" ms; cluster {summ['cluster']}; backward {summ['bwd_ms']:.4f} "
+            f" ms; paths {summ['paths']}, cluster {summ['cluster']}; backward "
+            f"{summ['bwd_ms']:.4f} "
             f"ms against {summ['plain_bwd_ms']:.4f} through the plain version")
     out["robot_dh32"] = robot
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -1706,8 +1720,8 @@ def fused_cases(torch, g, report):
             + ("device time not measured" if dev is None else
                f"{dev:.4f} ms device time (profiler)")
             + f"; bound {summ['bound_ms']:.4f} ({summ['bound_by']}; at the "
-            f"split-TF32 rate {summ['bound_split_tf32_ms']:.4f}), blocks "
-            f"{summ['blocks']}, plain "
+            f"split-TF32 rate {summ['bound_split_tf32_ms']:.4f}), paths "
+            f"{summ['paths']}, blocks {summ['blocks']}, plain "
             f"{summ['plain_ms']:.4f} ms, library composite (SDPA + F.linear + "
             f"F.layer_norm, no S) {summ['library_ms']:.4f} ms"
             + (f"; backward through FusedMinusBlock {summ['bwd_ms']:.4f} ms, "
@@ -8346,9 +8360,11 @@ def main() -> int:
         "name": "fused_block", "route": "cuda",
         "source": "multimodal_emotion_processing_tpu_torch/csrc/fused_block.cu",
         "replaces": "multimodal_emotion_processing_tpu/ops/fused_block.py:109",
-        "instruction": SCORED_INSTRUCTION + "; launched as thread-block "
-                       "clusters of min(H, 8) blocks, one per head, ctx and "
-                       "x exchanged through distributed shared memory",
+        "instruction": SCORED_INSTRUCTION + "; one block holding every head "
+                       "of a row tile where it fits (mosei_trans), else "
+                       "thread-block clusters of min(H, 8) blocks, one per "
+                       "head, ctx and x exchanged through distributed shared "
+                       "memory",
         "tensor_core_instructions": tc_count("fused_block", "fused_block_kernel"),
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": summ["max_abs_err"],

@@ -32,9 +32,17 @@
 // one value of the input dtype on the device (read only with S_prev); the
 // weights and the LayerNorm's gamma and beta at the input dtype.
 //
-// Grid: one thread-block cluster of C = min(H, 8) blocks of four warps per
-// (tile of R = 16 or 32 query rows, batch row): grid (C * tiles, B),
-// cluster (C, 1, 1); block rank r of a cluster takes heads r, r + C, ...
+// Two paths, chosen by the launch's plan from the sizes and the card (no
+// option): the tile path, `fused_block_kernel_tile` below, where one block
+// can hold a row tile with every head (head width up to 16, D up to 96:
+// mosei_trans); the cluster path otherwise (ren_mme's D 128, robot_demo's
+// 192, s1024's 1024).  Both run each head through scored_head.cuh
+// `attend_head`, and their epilogues share nothing.
+//
+// The cluster path.  Grid: one thread-block cluster of C = min(H, 8) blocks
+// of four warps per (tile of R = 16 or 32 query rows, batch row): grid (C *
+// tiles, B), cluster (C, 1, 1); block rank r of a cluster takes heads r, r +
+// C, ...
 // (the tiles run along x with the cluster, so Lq is bounded as before by
 // 2^31 blocks, not by grid.y's 65535).  R is 32 where that still gives 2.5
 // waves of blocks on the card's SMs and shared memory holds it, else 16
@@ -92,9 +100,14 @@
 // bound is latency: a block's epilogue is a chain of dependent steps
 // (cluster barriers, copies between the blocks' shared memories, three
 // short products, the LayerNorm's two exchanges) with few blocks an SM to
-// hide it; at dh 16 it takes about as many cycles as the attention.
+// hide it; at dh 16 it takes about as many cycles as the attention.  The
+// tile path takes that chain away where one block holds the tile: no
+// barrier across blocks, the three products and the LayerNorm on the
+// block's own shared memory, the weights resident for all the items a
+// block takes.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 
 #include "scored_head.cuh"
 
@@ -578,21 +591,419 @@ fused_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- The tile path: one block, no cluster, every head of its row tile ----
+
+constexpr int kTileWarps = 12;   // warps a tile block may run
+constexpr int kTileDH = 16;      // the head-width bucket the tile path takes
+constexpr int kSwizzle = 1024;   // bytes a 128-byte-swizzled tile aligns to
+
+// A tile block's shared memory, in floats, from its first 1024-byte
+// boundary: the three products' weights (W_minus[:, :D], W_proj,
+// W_minus[:, D:]), each as KP / 32 tiles of KP rows x 32 columns in TMA's
+// 128-byte swizzle (`w_at`; rows and columns past D zero); sC (R x LDC:
+// ctx) and sQ (R x LDC: q, whole rows); gamma and beta (2 x KP); the
+// weights' mbarrier (8 bytes, in 4 floats); then the heads' attention
+// regions (H x `head` floats), which the epilogue's sX (R x LDC: x) and sY
+// (R x LDC: y) alias once every head is done.  LDC = KP + 4 with KP a
+// multiple of 32, so a fragment load's 8 rows x 4 columns fall on 32
+// different banks, and every region starts on 16 bytes.
+struct TileLayout {
+  int R, KP, LDC, H;
+  size_t head;
+  __host__ __device__ TileLayout(int slabs, int kp, int h, size_t head_size)
+      : R(kRows * slabs), KP(kp), LDC(kp + 4), H(h), head(head_size) {}
+  __host__ __device__ size_t c() const { return 3 * (size_t)KP * KP; }
+  __host__ __device__ size_t q() const { return c() + (size_t)R * LDC; }
+  __host__ __device__ size_t gb() const { return q() + (size_t)R * LDC; }
+  __host__ __device__ size_t bar() const { return gb() + 2 * (size_t)KP; }
+  __host__ __device__ size_t attn() const { return bar() + 4; }
+  __host__ __device__ size_t y() const { return attn() + (size_t)R * LDC; }
+  __host__ __device__ size_t end() const {
+    const size_t a = (size_t)H * head, e = 2 * (size_t)R * LDC;
+    return attn() + (a > e ? a : e);
+  }
+  // the dynamic shared memory to ask for: room to align the base
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * end() + kSwizzle;
+  }
+};
+
+// Element (n, k) of a product's weights in the swizzled layout, in floats
+// from the product's first tile: tile k / 32, row n of 128 bytes, whose
+// 16-byte chunks sit XOR-ed with n % 8 (TMA's CU_TENSOR_MAP_SWIZZLE_128B),
+// so that a fragment load's rows n0 + g, g < 8, at one column fall on 8
+// different chunks.
+__device__ __forceinline__ int w_at(int KP, int n, int k) {
+  return ((k >> 5) * KP + n) * 32 + ((((k >> 2) & 7) ^ (n & 7)) << 2) +
+         (k & 3);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   mma::smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   mma::smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the barrier's phase of parity `phase` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(mma::smem_addr(bar)), "r"(phase) : "memory");
+}
+
+// the box of `map` at (column x, row y) into dst by the tensor memory
+// accelerator, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap& map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(mma::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(x), "r"(y),
+      "r"(mma::smem_addr(bar)) : "memory");
+}
+
+// Products of the tile path: product p of np (1 or 2) writes out_p[r][c]
+// (+)= sum_k A_p[r][k] W_p[c][k] for the rows of `slabs` 16-row slabs and
+// every column c < KP (A_p and out_p rows LDC floats apart, W_p in the
+// swizzled layout of `w_at`), as units of (product, slab, strip of NS
+// 8-column tiles) dealt to the block's warps.  Each tile takes k as
+// scored_mma.cuh `mma_rowsW` does: 16-deep slices from zero, the second
+// 8-deep chunk through mma3_neg, each slice added to the output in f32
+// (from zero unless `accumulate`); a strip splits its A fragment once for
+// its NS tiles, through `split_bits`.
+template <int NS>
+__device__ __forceinline__ void tile_products(
+    int np, const float* A0, const float* W0, float* out0, const float* A1,
+    const float* W1, float* out1, int LDC, int KP, int slabs,
+    bool accumulate) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int strips = KP / (8 * NS), per = slabs * strips;
+  for (int u = threadIdx.x / 32; u < np * per; u += blockDim.x / 32) {
+    const int pr = u / per, slab = (u - pr * per) / strips;
+    const int c0 = 8 * NS * (u - pr * per - slab * strips);
+    const int r = kRows * slab + g;
+    const float* sA = pr ? A1 : A0;
+    const float* sW = pr ? W1 : W0;
+    float* po = (pr ? out1 : out0) + r * LDC + c0 + 2 * t;
+    float acc[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      acc[j][0] = accumulate ? po[8 * j] : 0.f;
+      acc[j][1] = accumulate ? po[8 * j + 1] : 0.f;
+      acc[j][2] = accumulate ? po[8 * j + 8 * LDC] : 0.f;
+      acc[j][3] = accumulate ? po[8 * j + 8 * LDC + 1] : 0.f;
+    }
+    // a 32-column tile of the weights at a time, in its two 16-deep slices:
+    // the swizzled chunk of each load is chunk ^ g
+    const int gs = g << 2;
+#pragma unroll 1
+    for (int kt = 0; kt < KP / 32; ++kt) {
+      const float* wt = sW + (size_t)kt * KP * 32 + t;
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int k0 = 32 * kt + 16 * half;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float* pa = sA + r * LDC + k0 + 8 * c + t;
+          split_bits(pa[0], ah[c][0], al[c][0]);
+          split_bits(pa[8 * LDC], ah[c][1], al[c][1]);
+          split_bits(pa[4], ah[c][2], al[c][2]);
+          split_bits(pa[8 * LDC + 4], ah[c][3], al[c][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float* wr = wt + (c0 + 8 * j + g) * 32;
+          float main[4] = {0.f, 0.f, 0.f, 0.f};
+          float neg[4] = {0.f, 0.f, 0.f, 0.f};
+          float corr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            // columns k0 + 8c + t and k0 + 8c + t + 4: chunks cc and cc + 1
+            const int cc = 4 * half + 2 * c;
+            uint32_t bh[2], bl[2];
+            split_bits(wr[(cc << 2) ^ gs], bh[0], bl[0]);
+            split_bits(wr[((cc + 1) << 2) ^ gs], bh[1], bl[1]);
+            if (c)
+              mma3_neg(neg, corr, ah[c], al[c], bh, bl);
+            else
+              mma3(main, corr, ah[c], al[c], bh, bl);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][e] += (main[e] - neg[e]) + corr[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      po[8 * j] = acc[j][0];
+      po[8 * j + 1] = acc[j][1];
+      po[8 * j + 8 * LDC] = acc[j][2];
+      po[8 * j + 8 * LDC + 1] = acc[j][3];
+    }
+  }
+}
+
+// The tile path: one block of H x W warps (W = 1 or 2 a head), no cluster,
+// per (tile of R = 16 slabs query rows, batch row) "item"; the grid has at
+// most one block an SM, each taking items blockIdx.x, + gridDim.x, ... in
+// an order that runs the batch rows fastest (the blocks at work at once
+// read different keys).  The three weights come in once a block: by the
+// tensor memory accelerator as 3 KP / 32 tiles of KP rows x 32 columns,
+// on an mbarrier, while the first item's attention runs (`tma`: f32, D a
+// multiple of 32, the maps built by the host), else by cp.async (f32) or
+// converted (bf16), waited for with the first kv tile.  q comes by
+// cp.async under the attention.  Per item:
+//   1. Head h's W warps run attend_head on their own region with the kv
+//      tiles in two buffers, synced by named barrier 1 + h alone, and write
+//      their ctx columns into sC and their row stats.
+//   2. One block barrier; the ctx residual as whole rows; y = q.W_minus[:,
+//      :D]^T and x = ctx.W_proj^T together, then (a second barrier) y +=
+//      x.W_minus[:, D:]^T, on split-TF32 mma.sync in mma_rowsW's k order.
+//   3. LayerNorm a row to 8 lanes of a warp: lane l of the 8 sums columns
+//      l, l + 8, ... in order, the 8 sums added by the xor butterfly 4, 2,
+//      1 (the same bits in each of the 8 and in every launch), first y for
+//      the mean, then (y - mean)^2 for the biased variance; out written as
+//      whole rows.
+template <typename T, int DH>
+__global__ void __launch_bounds__(32 * kTileWarps, 1)
+fused_block_kernel_tile(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ mask, const float* __restrict__ s_prev,
+    const T* __restrict__ c, const T* __restrict__ w_proj,
+    const T* __restrict__ w_minus, const T* __restrict__ ln_w,
+    const T* __restrict__ ln_b, T* __restrict__ out, float* __restrict__ s_out,
+    T* __restrict__ ctx_out, float* __restrict__ stats, int B, int Lq, int Lkv,
+    int H, int dh, float scale, bool vec, bool dvec, int slabs, int W, int KP,
+    int tiles, bool tma, const __grid_constant__ CUtensorMap map_proj,
+    const __grid_constant__ CUtensorMap map_minus) {
+  extern __shared__ __align__(16) float smem_raw[];
+  float* smem = smem_raw + (kSwizzle - mma::smem_addr(smem_raw) % kSwizzle) %
+                               kSwizzle / sizeof(float);
+  const int D = H * dh;
+  const TileLayout L(slabs, KP, H, head_floats<DH, 2>(slabs));
+  const int R = L.R, LDC = L.LDC;
+  float* sW = smem;   // the three products' weights, KP * KP floats each
+  float* sC = smem + L.c();
+  float* sQ = smem + L.q();
+  float* sGB = smem + L.gb();
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar());
+  float* sX = smem + L.attn();
+  float* sY = smem + L.y();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;
+
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar);
+      mbar_expect_tx(bar, 3u * KP * KP * sizeof(float));
+      for (int p = 0; p < 3; ++p)
+        for (int k0 = 0; k0 < KP; k0 += 32)
+          tma_load_2d(sW + (size_t)p * KP * KP + k0 * KP,
+                      p == 1 ? map_proj : map_minus,
+                      k0 + (p == 2 ? D : 0), 0, bar);
+    }
+  } else {
+    // rows and columns past D zero; f32 by cp.async 16-byte chunks, which
+    // the swizzle moves whole
+    for (int i = warp; i < 3 * KP; i += nwarps) {
+      const int p = i / KP, n = i - p * KP;
+      const T* src = p == 1 ? w_proj + (size_t)n * D
+                            : w_minus + (size_t)n * 2 * D + (p == 2 ? D : 0);
+      float* dst = sW + (size_t)p * KP * KP;
+      if (dvec) {
+        for (int col = 4 * lane; col < KP; col += 128)
+          mma::cp_async16(dst + w_at(KP, n, col), n < D && col < D ? src + col
+                                                                   : w_proj,
+                          n < D && col < D);
+      } else {
+        for (int col = lane; col < KP; col += 32)
+          dst[w_at(KP, n, col)] = n < D && col < D ? to_f32(src[col]) : 0.f;
+      }
+    }
+    mma::cp_async_commit();
+  }
+  // ctx's columns past D meet zero weights: finite
+  for (int i = threadIdx.x; i < R * (KP - D); i += blockDim.x) {
+    const int r = i / (KP - D);
+    sC[r * LDC + D + (i - r * (KP - D))] = 0.f;
+  }
+  for (int i = threadIdx.x; i < KP; i += blockDim.x) {
+    sGB[i] = i < D ? to_f32(ln_w[i]) : 0.f;
+    sGB[KP + i] = i < D ? to_f32(ln_b[i]) : 0.f;
+  }
+
+  const int h = warp / W;   // this warp's head
+  const HeadGroup grp{h * W, W, 1 + h};
+  const float inv_d = 1.f / (float)D;
+  for (int item = blockIdx.x; item < tiles * B; item += gridDim.x) {
+    // batch rows run fastest, so that the blocks at work at once read the
+    // keys of different batch rows
+    const int tile = item / B, b = item - tile * B, q0 = tile * R;
+    const int nrows = min(R, Lq - q0);
+    const T* qb = q + (size_t)b * Lq * D;
+    // q's tile under the attention (its copies are waited for with the
+    // first kv tile's)
+    stage_q<T>(sQ, LDC, qb, D, q0, R, nrows, KP, dvec);
+
+    // 1. attention, every head at once
+    {
+      const size_t head_row0 = ((size_t)b * H + h) * Lq;
+      const size_t kvoff = (size_t)b * Lkv * D + (size_t)h * dh;
+      HeadRows<DH> hr;
+      if (attend_head<T, DH, 0, 2, HeadGroup>(
+              smem + L.attn() + h * L.head, qb + (size_t)h * dh, k + kvoff,
+              v + kvoff, mask ? mask + (size_t)b * Lkv : nullptr, s_prev,
+              s_out, head_row0, s_prev ? to_f32(c[0]) : 0.f, D, q0, Lq, Lkv,
+              dh, scale, vec, slabs, hr, grp)) {
+        const int t = lane & 3;
+        const size_t n_rows = (size_t)B * H * Lq;
+        const int r0 = kRows * ((warp - grp.warp0) % slabs);
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          if (!hr.live[e2]) continue;
+          const float inv = __fdividef(1.f, hr.l[e2]);   // l >= 1
+          float* crow = sC + (r0 + lane / 4 + 8 * e2) * LDC + h * dh;
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = 8 * n + 2 * t + e;
+              if (d < dh) crow[d] = hr.acc[n][2 * e2 + e] * inv;
+            }
+          if (stats && t == 0) {
+            stats[head_row0 + hr.row[e2]] = hr.m[e2];
+            stats[n_rows + head_row0 + hr.row[e2]] = hr.l[e2];
+          }
+        }
+      }
+    }
+    if (tma) mbar_wait(bar, 0);   // the weights (at once after the first)
+    __syncthreads();   // ctx, q and the weights in place; the attention's
+                       // regions free
+
+    // 2. the ctx residual, then the three products
+    if (ctx_out)
+      for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
+        const int r = i / D, col = i - r * D;
+        store(ctx_out + ((size_t)b * Lq + q0 + r) * D + col,
+              sC[r * LDC + col]);
+      }
+    tile_products<4>(2, sQ, sW, sY, sC, sW + (size_t)KP * KP, sX, LDC, KP,
+                     slabs, false);
+    __syncthreads();   // x and the first half of y are in place
+    tile_products<2>(1, sX, sW + 2 * (size_t)KP * KP, sY, nullptr, nullptr,
+                     nullptr, LDC, KP, slabs, true);
+    __syncthreads();   // y is in place
+
+    // 3. LayerNorm and out, a row to 8 lanes (four rows a warp at once)
+    {
+      const int sub = lane & 7;   // the lane's place among its row's 8
+      // every lane of a warp takes as many passes (the shuffles need all 32)
+      const int passes = (nrows + 4 * nwarps - 1) / (4 * nwarps);
+      for (int i = 0; i < passes; ++i) {
+        const int r = 4 * (warp + i * nwarps) + (lane >> 3);
+        const bool live = r < nrows;
+        const float* yr = sY + (live ? r : 0) * LDC;
+        float sum = 0.f;
+        for (int col = sub; col < D; col += 8) sum += yr[col];
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const float mean = sum * inv_d;
+        float var = 0.f;
+        for (int col = sub; col < D; col += 8) {
+          const float dv = yr[col] - mean;
+          var = fmaf(dv, dv, var);
+        }
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          var += __shfl_xor_sync(0xffffffffu, var, off);
+        const float rstd = rsqrtf(var * inv_d + kLnEps);
+        if (live) {
+          T* orow = out + ((size_t)b * Lq + q0 + r) * D;
+          for (int col = sub; col < D; col += 8)
+            store(orow + col,
+                  (yr[col] - mean) * rstd * sGB[col] + sGB[KP + col]);
+        }
+      }
+    }
+    __syncthreads();   // sY and sC are read: the next item may write them
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *mask, *s_prev, *c, *w_proj, *w_minus, *ln_w, *ln_b;
   void *out, *s_out, *ctx_out, *stats;
   int B, H, Lq, Lkv, dh;
 };
 
-// the geometry of one call
+// the geometry of one call: the tile path's (`tile`: C 1, `warps` a block,
+// `grid` blocks) or the cluster path's
 struct Plan {
-  int C, slabs, KP, NW, KC, NB, tiles;
+  int C, slabs, KP, NW, KC, NB, tiles, warps, grid;
+  bool tile;
   size_t smem;
 };
 
+int card_sms() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// The tile path where it can hold the call: head width up to 16, one or two
+// warps a head in at most 12 warps (a named barrier a head; 12 warps of 32
+// threads leave a thread up to 170 registers), and the whole tile with the
+// three weights resident within a block's shared memory, which holds D up
+// to 96 (mosei_trans's D 96; not ren_mme's 128, robot_demo's 192 or
+// s1024's 1024).  Two warps a head where 12 warps hold them, each a 16-row
+// slab of a 32-row tile (one 16-row slab with the keys split between them
+// where Lq is 16 or less); one a head otherwise, on 16-row tiles.  Not on
+// a grid of few items that leaves most of the card idle (below).
+bool tile_plan(const Args& a, Plan& p) {
+  if (a.dh > kTileDH || a.H > kTileWarps) return false;
+  const int D = a.H * a.dh;
+  const int W = 2 * a.H <= kTileWarps ? 2 : 1;
+  p.slabs = W == 2 && a.Lq > kRows ? 2 : 1;
+  p.KP = (D + 31) / 32 * 32;
+  const TileLayout L(p.slabs, p.KP, a.H, head_floats<kTileDH, 2>(p.slabs));
+  p.smem = L.bytes();
+  if (p.smem > kMaxSmem) return false;
+  p.tile = true;
+  p.C = 1;
+  p.warps = a.H * W;
+  p.tiles = (a.Lq + L.R - 1) / L.R;
+  const long long items = (long long)p.tiles * a.B;
+  const int sms = card_sms();
+  // A tile block walks every key of its head on one warp (two), so on a
+  // grid of few items with more keys than two kv tiles the cluster path,
+  // which splits a head's keys over four warps and a tile's heads over C
+  // blocks, finishes first: measured on an H100 at 1-32 items and Lkv 100
+  // or 200 (22.7-27.8 us against 33.1-33.6), while from 48 items up, or at
+  // Lkv 20, the tile path led (from 15.0 against 17.4 us)
+  if (4 * items <= sms && a.Lkv > 2 * head_bkv<kTileDH, 2>()) return false;
+  p.grid = items < sms ? (int)items : sms;
+  return true;
+}
+
 template <int DH>
 cudaError_t make_plan(const Args& a, Plan& p) {
+  if (DH == kTileDH && tile_plan(a, p)) return cudaSuccess;
   const int D = a.H * a.dh;
+  p.tile = false;
+  p.warps = kMaxWarps;
   p.C = a.H < kClusterMax ? a.H : kClusterMax;
   p.KP = (D + 31) / 32 * 32;
   p.NW = ((D + 7) / 8 + p.C - 1) / p.C * 8;
@@ -612,9 +1023,7 @@ cudaError_t make_plan(const Args& a, Plan& p) {
   // row slabs: two, one where half the tile would be past Lq, the grid
   // would be under 2.5 waves of the card's SMs or shared memory does not
   // hold two
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = card_sms();
   p.slabs = 2;
   while (p.slabs > 1 &&
          (a.Lq <= kRows * (p.slabs / 2) ||
@@ -630,7 +1039,77 @@ cudaError_t make_plan(const Args& a, Plan& p) {
   }
   const int R = kRows * p.slabs;
   p.tiles = (a.Lq + R - 1) / R;
+  p.grid = p.C * p.tiles * a.B;
   return cudaSuccess;
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link
+// against libcuda); null where the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// The map of a (rows, cols) f32 matrix `rows` rows of `ld` floats apart,
+// read in boxes of KP rows x 32 columns in the 128-byte swizzle
+bool weight_map(CUtensorMap* map, const void* w, int rows, int cols, int ld,
+                int KP) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t box[2] = {32, (cuuint32_t)KP};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+cudaError_t launch_tile(const Args& a, const Plan& p, cudaStream_t stream) {
+  static std::atomic<unsigned> smem_set{0};
+  cudaError_t err =
+      allow_smem(fused_block_kernel_tile<T, kTileDH>, kMaxSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  const bool is_bf16 = sizeof(T) != sizeof(float);
+  const int D = a.H * a.dh;
+  // the 16-byte copies of q's and the weights' rows: f32, D % 4 == 0 and
+  // aligned tensors; the weights by the tensor memory accelerator where D
+  // is also a multiple of 32 (its boxes hold no column of the other half
+  // of W_minus)
+  const bool dvec = vec_ok(is_bf16, D, {a.q, a.w_proj, a.w_minus});
+  CUtensorMap map_proj = {}, map_minus = {};
+  const bool tma = dvec && D % 32 == 0 &&
+                   weight_map(&map_proj, a.w_proj, D, D, D, p.KP) &&
+                   weight_map(&map_minus, a.w_minus, D, 2 * D, 2 * D, p.KP);
+  fused_block_kernel_tile<T, kTileDH><<<p.grid, 32 * p.warps, p.smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.mask),
+      static_cast<const float*>(a.s_prev), static_cast<const T*>(a.c),
+      static_cast<const T*>(a.w_proj), static_cast<const T*>(a.w_minus),
+      static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b),
+      static_cast<T*>(a.out), static_cast<float*>(a.s_out),
+      static_cast<T*>(a.ctx_out), static_cast<float*>(a.stats), a.B, a.Lq,
+      a.Lkv, a.H, a.dh, score_scale(a.dh),
+      vec_ok(is_bf16, a.dh, {a.q, a.k, a.v}), dvec, p.slabs,
+      p.warps / a.H, p.KP, p.tiles, tma, map_proj, map_minus);
+  return cudaGetLastError();
 }
 
 template <typename T, int DH>
@@ -638,6 +1117,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   Plan p;
   cudaError_t err = make_plan<DH>(a, p);
   if (err != cudaSuccess) return err;
+  if constexpr (DH == kTileDH)
+    if (p.tile) return launch_tile<T>(a, p, stream);
   const Layout L(p.slabs, p.KP, p.NW, p.KC, p.NB);
   static std::atomic<unsigned> smem_set{0};
   err = allow_smem(fused_block_kernel<T, DH>, kMaxSmem, smem_set);
@@ -715,10 +1196,12 @@ extern "C" int fused_block(const void* q, const void* k, const void* v,
   return (int)(is_bf16 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s));
 }
 
-// The launch geometry `fused_block` takes for these sizes, into geometry[4]:
-// the cluster size C, the query rows R of a block, the blocks of the grid
-// and the dynamic shared memory of a block in bytes.  Returns a cudaError_t
-// as int, as `fused_block` would for these sizes.
+// The launch geometry `fused_block` takes for these sizes, into geometry[6]:
+// the cluster size C (1 on the tile path), the query rows R of a block's
+// tile, the blocks of the grid, the dynamic shared memory of a block in
+// bytes, the path (1 the tile path, 0 the cluster path) and the warps of a
+// block.  Returns a cudaError_t as int, as `fused_block` would for these
+// sizes.
 extern "C" int fused_block_geometry(int B, int H, int Lq, int Lkv, int dh,
                                     int is_bf16, int* geometry) {
   (void)is_bf16;   // the geometry does not depend on the input dtype
@@ -731,7 +1214,9 @@ extern "C" int fused_block_geometry(int B, int H, int Lq, int Lkv, int dh,
   if (err != cudaSuccess) return (int)err;
   geometry[0] = p.C;
   geometry[1] = kRows * p.slabs;
-  geometry[2] = p.C * p.tiles * B;
+  geometry[2] = p.tile ? p.grid : p.C * p.tiles * B;
   geometry[3] = (int)p.smem;
+  geometry[4] = p.tile ? 1 : 0;
+  geometry[5] = p.warps;
   return 0;
 }

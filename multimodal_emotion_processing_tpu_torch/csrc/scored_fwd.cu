@@ -73,6 +73,21 @@ size_t smem_bytes(int slabs) {
   return sizeof(float) * head_floats<DH>(slabs);
 }
 
+// the block's head and batch row, read afresh where they are used: volatile,
+// so that the reads after the key loop are not merged with those before it
+// and kept live across it (at dh 128 the loop needs every register)
+__device__ __forceinline__ int sreg_head() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int sreg_batch_row() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.z;\n" : "=r"(r));
+  return (int)r;
+}
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
 scored_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -82,21 +97,25 @@ scored_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   float* __restrict__ stats, int B, int Lq, int Lkv, int H,
                   int dh, float scale, bool vec, int slabs) {
   extern __shared__ float smem[];
-  const int t = threadIdx.x & 3;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t D = (size_t)H * dh;
-  // row (b, h, i) of S_prev and S starts at (head_row0 + i) * Lkv
-  const size_t head_row0 = ((size_t)b * H + h) * Lq;
   HeadRows<DH> r;
-  if (!attend_head<T, DH>(
-          smem, q + (size_t)b * Lq * D + (size_t)h * dh,
-          k + (size_t)b * Lkv * D + (size_t)h * dh,
-          v + (size_t)b * Lkv * D + (size_t)h * dh,
-          mask ? mask + (size_t)b * Lkv : nullptr, s_prev, s_out, head_row0,
-          s_prev ? to_f32(c[0]) : 0.f, D, blockIdx.x * kRows * slabs, Lq, Lkv,
-          dh, scale, vec, slabs, r))
-    return;
+  {
+    const int h = sreg_head(), b = sreg_batch_row();
+    const size_t D = (size_t)H * dh;
+    // row (b, h, i) of S_prev and S starts at (head_row0 + i) * Lkv
+    if (!attend_head<T, DH>(
+            smem, q + (size_t)b * Lq * D + (size_t)h * dh,
+            k + (size_t)b * Lkv * D + (size_t)h * dh,
+            v + (size_t)b * Lkv * D + (size_t)h * dh,
+            mask ? mask + (size_t)b * Lkv : nullptr, s_prev, s_out,
+            ((size_t)b * H + h) * Lq, s_prev ? to_f32(c[0]) : 0.f, D,
+            blockIdx.x * kRows * slabs, Lq, Lkv, dh, scale, vec, slabs, r))
+      return;
+  }
 
+  const int t = threadIdx.x & 3;
+  const int h = sreg_head(), b = sreg_batch_row();
+  const size_t D = (size_t)H * dh;
+  const size_t head_row0 = ((size_t)b * H + h) * Lq;
   const size_t n_rows = (size_t)B * H * Lq;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {

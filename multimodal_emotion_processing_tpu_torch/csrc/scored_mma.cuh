@@ -77,6 +77,36 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// The same split on the integer bits, for a finite x: hi is x with half a
+// TF32 ulp added to the magnitude's bits and the 13 bits below TF32's
+// mantissa cleared (cvt.rna's round to nearest, ties away from zero, a carry
+// into the exponent rounding up), and lo is rounded so, its low 13 bits left
+// as they are, since the tensor cores read a .tf32 operand's top 19 bits
+// only.  sm_90 has no instruction for the cvt: the compiler emulates it with
+// a guard for inf and NaN, twice the instructions.  fused_block's tile
+// kernel takes it (its key loop and products issue-bound on the splits);
+// the kernels that fill the register file at dh 128 keep `split`, whose
+// compiled form their register budget was fit to.
+__device__ __forceinline__ void split_bits(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("{\n"
+      "add.u32 %0, %1, 0x1000;\n"
+      "and.b32 %0, %0, 0xffffe000;\n"
+      "}\n"
+      : "=r"(hi) : "r"(__float_as_uint(x)));
+  asm("add.u32 %0, %1, 0x1000;\n"
+      : "=r"(lo) : "r"(__float_as_uint(x - __uint_as_float(hi))));
+}
+
+// `split`, or `split_bits` where BITS
+template <bool BITS>
+__device__ __forceinline__ void split_as(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (BITS)
+    split_bits(x, hi, lo);
+  else
+    split(x, hi, lo);
+}
+
 __device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -160,6 +190,55 @@ __device__ __forceinline__ void score_dots(const float* sA, int a_row0,
     for (int e = 0; e < 4; ++e) s[j][e] += corr[j][e];
 }
 
+// score_dots with the A operand's fragments split once ahead (`split_rows`),
+// for a warp whose rows stay the same over many key steps, every operand
+// through `split_bits`: the same products in the same order, so the same
+// bits
+template <int DH>
+struct SplitRows {
+  uint32_t hi[DH / 8][4], lo[DH / 8][4];
+};
+
+template <int DH, int LD>
+__device__ __forceinline__ void split_rows(const float* sA, int a_row0,
+                                           SplitRows<DH>& a) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    const float* pa = sA + (a_row0 + g) * LD + 8 * c + t;
+    split_bits(pa[0], a.hi[c][0], a.lo[c][0]);
+    split_bits(pa[8 * LD], a.hi[c][1], a.lo[c][1]);
+    split_bits(pa[4], a.hi[c][2], a.lo[c][2]);
+    split_bits(pa[8 * LD + 4], a.hi[c][3], a.lo[c][3]);
+  }
+}
+
+template <int DH, int NT, int LD>
+__device__ __forceinline__ void score_dots(const SplitRows<DH>& a,
+                                           const float* sB, int b_row0,
+                                           float (&s)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float corr[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = corr[j][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* pb = sB + (b_row0 + 8 * j + g) * LD + 8 * c + t;
+      uint32_t bh[2], bl[2];
+      split_bits(pb[0], bh[0], bl[0]);
+      split_bits(pb[4], bh[1], bl[1]);
+      mma3(s[j], corr[j], a.hi[c], a.lo[c], bh, bl);
+    }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += corr[j][e];
+}
+
 // acc (16 x DH in n-tiles of 8 columns) += X . B, where X (16 x 8 NT) is
 // held in registers in the accumulator layout above and B is rows kr0 ..
 // kr0 + 8 NT - 1 of the DH-wide tile sB: O += P.V and dQ += dS.K.  The k
@@ -167,8 +246,8 @@ __device__ __forceinline__ void score_dots(const float* sA, int a_row0,
 // t is key 8j + 2t, column t + 4 key 8j + 2t + 1) and B's rows alike, so no
 // register moves between lanes.  Each n-tile's product starts from zero and
 // is added to acc in f32, so no truncating chain runs across calls; its
-// odd chunks go through mma3_neg.
-template <int DH, int NT, int LD>
+// odd chunks go through mma3_neg.  BITS splits through `split_bits`.
+template <int DH, int NT, int LD, bool BITS = false>
 __device__ __forceinline__ void mma_regA(float (&acc)[DH / 8][4],
                                          const float (&x)[NT][4],
                                          const float* sB, int kr0) {
@@ -176,10 +255,10 @@ __device__ __forceinline__ void mma_regA(float (&acc)[DH / 8][4],
   uint32_t ah[NT][4], al[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    split(x[j][0], ah[j][0], al[j][0]);
-    split(x[j][2], ah[j][1], al[j][1]);
-    split(x[j][1], ah[j][2], al[j][2]);
-    split(x[j][3], ah[j][3], al[j][3]);
+    split_as<BITS>(x[j][0], ah[j][0], al[j][0]);
+    split_as<BITS>(x[j][2], ah[j][1], al[j][1]);
+    split_as<BITS>(x[j][1], ah[j][2], al[j][2]);
+    split_as<BITS>(x[j][3], ah[j][3], al[j][3]);
   }
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
@@ -189,8 +268,8 @@ __device__ __forceinline__ void mma_regA(float (&acc)[DH / 8][4],
     for (int j = 0; j < NT; ++j) {
       const float* pb = sB + (kr0 + 8 * j + 2 * t) * LD + 8 * n + g;
       uint32_t bh[2], bl[2];
-      split(pb[0], bh[0], bl[0]);
-      split(pb[LD], bh[1], bl[1]);
+      split_as<BITS>(pb[0], bh[0], bl[0]);
+      split_as<BITS>(pb[LD], bh[1], bl[1]);
       if (j & 1)
         mma3_neg(neg, corr, ah[j], al[j], bh, bl);
       else
@@ -322,6 +401,33 @@ __device__ __forceinline__ void stage(float* dst, const T* src, size_t D,
   }
 #pragma unroll 4
   for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
+    const int r = i / DH, c = i % DH;
+    dst[r * LD + c] = (r < n_real && c < dh)
+                          ? to_f32(src[(size_t)(row0 + r) * D + c]) : 0.f;
+  }
+}
+
+// `stage` by threads tid < nthreads of the block (a group of its warps).
+// `stage` itself keeps reading threadIdx and blockDim: the whole-block
+// kernels at dh 128 have no register to spare for the two values.
+template <typename T, int DH, int LD>
+__device__ __forceinline__ void stage_part(float* dst, const T* src, size_t D,
+                                           int row0, int rows, int n_real,
+                                           int dh, bool vec, int tid,
+                                           int nthreads) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (vec) {
+      constexpr int CPR = DH / 4;   // 16-byte chunks per row
+      for (int i = tid; i < rows * CPR; i += nthreads) {
+        const int r = i / CPR, c = 4 * (i % CPR);
+        const bool real = r < n_real && c < dh;
+        mma::cp_async16(dst + r * LD + c,
+                   real ? src + (size_t)(row0 + r) * D + c : src, real);
+      }
+      return;
+    }
+  }
+  for (int i = tid; i < rows * DH; i += nthreads) {
     const int r = i / DH, c = i % DH;
     dst[r * LD + c] = (r < n_real && c < dh)
                           ? to_f32(src[(size_t)(row0 + r) * D + c]) : 0.f;

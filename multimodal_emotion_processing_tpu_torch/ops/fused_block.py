@@ -10,12 +10,16 @@ products on the split weight, and LayerNorm, in one launch:
     ctx = softmax(S)·v
     out = LN(q·W_minus[:, :D]ᵀ + (ctx·W_projᵀ)·W_minus[:, D:]ᵀ)   at q's dtype
 
-It launches as thread-block clusters, one block per head of a query-row
-tile, and runs each head's attention through scored_fwd's own per-head body
-(csrc/scored_head.cuh), so its S is bit-identical to csrc/scored_fwd.cu's;
-ctx and x pass between the heads' blocks through distributed shared memory,
-and P·V and the epilogue's three products run on the tensor cores in
-split-TF32 form.  Like scored_fwd it has four variants, S_prev given or not
+Where one block can hold a query-row tile with every head (head width up to
+16, D up to 96: mosei_trans) and the grid is not a few items with long keys,
+it launches one such block per tile, its heads' warps in parallel and the
+epilogue in the block's own shared memory (the "tile" path); otherwise as
+thread-block clusters, one block per head of a tile, ctx and x passing
+between them through distributed shared memory (the "cluster" path).  Both
+run each head's attention through scored_fwd's own per-head body
+(csrc/scored_head.cuh), so S is bit-identical to csrc/scored_fwd.cu's, and
+P·V and the epilogue's three products on the tensor cores in split-TF32
+form.  Like scored_fwd it has four variants, S_prev given or not
 times S emitted or not; the JAX kernel always reads S_prev (zeros when there
 is none) and always writes S.  It can also write each head's row stats m, l
 as scored_fwd does.  The weights keep torch's (out, in) layout, as
@@ -79,24 +83,41 @@ def fused_block_plain(q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w,
     return out, scores
 
 
+PATHS = ("tile", "cluster")
+
+
 class FusedBlockKernel(_VariantKernel):
     """`fused_block` in csrc/fused_block.cu; `variant_launches` counts per
-    (has S_prev, emits S)."""
+    (has S_prev, emits S), `path_launches` per path the kernel's plan took:
+    "tile" (one block holds every head of its row tile) or "cluster" (a
+    cluster of one block per head)."""
 
     name = library = "fused_block"
     n_pointers = 14
 
+    def __init__(self):
+        super().__init__()
+        self.path_launches = dict.fromkeys(PATHS, 0)
+        self._paths = {}
+
+    def reset(self) -> None:
+        super().reset()
+        with self._lock:
+            self.path_launches = dict.fromkeys(PATHS, 0)
+
     def geometry(self, b: int, n_heads: int, lq: int, lkv: int, dh: int,
                  dtype=torch.float32) -> dict:
         """The launch a call of these sizes makes, from the kernel's own
-        plan: the cluster size, the query rows of a block, the blocks of
-        the grid and each block's dynamic shared memory in bytes."""
+        plan: its path, the cluster size (1 on the tile path), the query
+        rows of a block's tile, the blocks of the grid, the warps of a block
+        and each block's dynamic shared memory in bytes."""
         fn = self._bind_geometry()
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 6)()
         rc = fn(b, n_heads, lq, lkv, dh, int(dtype == torch.bfloat16), out)
         if rc != 0:
             raise RuntimeError(f"fused_block_geometry failed with CUDA error {rc}")
-        return dict(cluster=out[0], rows=out[1], blocks=out[2],
+        return dict(path=PATHS[0] if out[4] else PATHS[1], cluster=out[0],
+                    rows=out[1], blocks=out[2], warps=out[5],
                     smem_bytes=out[3])
 
     def _bind_geometry(self):
@@ -106,6 +127,17 @@ class FusedBlockKernel(_VariantKernel):
         fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         return fn
+
+    def _path(self, device, dims) -> str:
+        """The path a launch of these sizes takes on `device` (the plan
+        reads the card's SM count), asked of the kernel once per sizes."""
+        key = (device.index, dims)
+        path = self._paths.get(key)
+        if path is None:
+            with torch.cuda.device(device):
+                path = self.geometry(*dims)["path"]
+            self._paths[key] = path
+        return path
 
     def __call__(self, q, k, v, mask, scores_prev, c, proj_w, minus_w, ln_w,
                  ln_b, *, n_heads: int, emit_scores: bool = True,
@@ -140,10 +172,10 @@ class FusedBlockKernel(_VariantKernel):
         ctx = torch.empty_like(q) if save_ctx else None
         row_stats = (torch.empty(2, b, n_heads, lq, dtype=torch.float32,
                                  device=q.device) if stats else None)
+        dims = (b, n_heads, lq, lkv, dh)
         self._run([q, k, v, mask, scores_prev, c, *weights, out, scores, ctx,
-                   row_stats],
-                  (b, n_heads, lq, lkv, dh),
-                  (scores_prev is not None, emit_scores))
+                   row_stats], dims, (scores_prev is not None, emit_scores))
+        self._count("path_launches", self._path(q.device, dims))
         return ((out, scores, ctx, row_stats) if stats
                 else (out, scores, ctx))
 

@@ -20,6 +20,7 @@ tests/test_torch_fused_block_kernel.py.
 
 import dataclasses
 import json
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -40,6 +41,7 @@ from multimodal_emotion_processing_tpu_torch.interop import from_jax_params  # n
 from multimodal_emotion_processing_tpu_torch.models import build_model  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.models.layers import (  # noqa: E402
     MinusBlock, RealformerBlock)
+from multimodal_emotion_processing_tpu_torch.ops import cuda_binding  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.ops import fused_block as tfb  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.ops import pallas_attention as tpa  # noqa: E402
 from multimodal_emotion_processing_tpu_torch.train import engine  # noqa: E402
@@ -274,6 +276,26 @@ def test_fused_minus_block_refuses_3d_masks_and_the_bare_kernel_cpu():
                                ws[0].clone().requires_grad_(True), *ws[1:],
                                n_heads=2)
     assert [(k.launches, k.variant_launches) for k in tfb.KERNELS] == before
+
+
+def test_path_launches_count_per_path_and_reset():
+    """`path_launches` counts per path the kernel's plan took ("tile" or
+    "cluster"), under the same rule as the other counters (a launch
+    recorded into a captured graph counts at each replay), and `reset()`
+    clears it with them."""
+    k = tfb.FusedBlockKernel()
+    assert k.path_launches == {"tile": 0, "cluster": 0}
+    k._count("path_launches", "tile")
+    k._count("path_launches", "tile")
+    k._count("path_launches", "cluster")
+    k._count("variant_launches", (False, False))
+    assert k.path_launches == {"tile": 2, "cluster": 1}
+    ledger = Counter({(k, "path_launches", "tile"): 3})
+    cuda_binding.credit(ledger, times=2)
+    assert k.path_launches == {"tile": 8, "cluster": 1}
+    k.reset()
+    assert k.path_launches == {"tile": 0, "cluster": 0}
+    assert set(k.variant_launches.values()) == {0} and k.launches == 0
 
 
 def _minus_block(d=8, h=2, seed=0, **kw):

@@ -6,8 +6,10 @@ max(1, |ref|), S at rtol 1e-5 elementwise and bit-equal to
 csrc/scored_fwd.cu's S on the same inputs, and the ctx residual against
 the plain attention.  At the shapes that stress the cluster launch (one
 head, more heads than a cluster holds, D 1024, Lq 1, ren_mme at B 1 and
-B 8) the row stats m are bit-equal to scored_fwd's and l within 1e-6
-relative, out and S are the same bits over two launches, and
+B 8) and at mosei_trans's stream shapes at B 64 (the tile path: one block
+holds every head of a row tile) the row stats m are bit-equal to
+scored_fwd's and l within 1e-6 relative, out and S are the same bits over
+two launches, each shape's launch takes the path `geometry()` reports, and
 `FusedMinusBlock`'s f32 gradients with the stats lie within 1e-6 of those
 without them.  Then `FusedMinusBlock`'s gradients against the same
 Function on the CPU.  Every test here needs a GPU and skips without one;
@@ -39,6 +41,10 @@ CLUSTER_SHAPES = [
     (1, 40, 275, 8, 16, "zero_row"), (1, 76, 40, 8, 16, "zero_row"),
     (1, 275, 76, 8, 16, "zero_row"), (8, 40, 275, 8, 16, "zero_row"),
     (8, 76, 40, 8, 16, "zero_row"), (8, 275, 76, 8, 16, "zero_row")]
+# mosei_trans's stream shapes at its batch 64, 6 heads of 16: the tile path
+MOSEI_SHAPES = [(64, 20, 200, 6, 16, "zero_row"),
+                (64, 200, 20, 6, 16, "zero_row"),
+                (64, 200, 200, 6, 16, "zero_row")]
 
 
 @pytest.fixture
@@ -93,7 +99,7 @@ def _close(got, ref, tol):
     (8, 20, 200, 6, 16, "zero_row"), (4, 100, 20, 6, 16, "zero_row"),
     (4, 40, 275, 8, 16, "zero_row"), (2, 70, 300, 2, 256, "none"),
     (3, 1, 100, 4, 1, "zero_row"), (2, 33, 1000, 4, 64, "zero_row"),
-    (2, 128, 512, 8, 128, "zero_row")] + CLUSTER_SHAPES)
+    (2, 128, 512, 8, 128, "zero_row")] + CLUSTER_SHAPES + MOSEI_SHAPES)
 def test_kernel_matches_plain_on_card(cuda, dtype, tol, has_sprev, emit, b,
                                       lq, lkv, h, dh, mask):
     q, k, v, m, sprev, c, ws = _inputs(b, lq, lkv, h, dh, mask, dtype, cuda)
@@ -122,7 +128,7 @@ def _dtypes(dh, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("has_sprev,emit", tpa.VARIANTS)
-@pytest.mark.parametrize("b,lq,lkv,h,dh,mask", CLUSTER_SHAPES)
+@pytest.mark.parametrize("b,lq,lkv,h,dh,mask", CLUSTER_SHAPES + MOSEI_SHAPES)
 def test_stats_and_repeat_bits_on_card(cuda, has_sprev, emit, b, lq, lkv, h,
                                        dh, mask):
     """m bit-equal to scored_fwd's row stats, l within 1e-6 relative (the
@@ -143,6 +149,31 @@ def test_stats_and_repeat_bits_on_card(cuda, has_sprev, emit, b, lq, lkv, h,
         assert (s is None and s2 is None) or torch.equal(s, s2)
         assert torch.equal(stats[0], st[0])
         assert float(((stats[1] - st[1]).abs() / st[1]).max()) <= L_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,h,dh,path", [
+    (b, lq, lkv, h, dh, "tile") for b, lq, lkv, h, dh, _ in MOSEI_SHAPES] + [
+    (2, 33, 128, 8, 128, "cluster"), (1, 40, 275, 8, 16, "cluster"),
+    (1, 76, 40, 8, 16, "cluster"), (1, 275, 76, 8, 16, "cluster")])
+def test_geometry_reports_the_path_taken(cuda, b, lq, lkv, h, dh, path):
+    """The tile path (cluster 1, one block a row tile) at mosei_trans's
+    widths, the cluster path at D 1024 and at ren_mme's D 128; a launch
+    counts under the path its geometry names."""
+    geo = tfb.fused_block_kernel.geometry(b, h, lq, lkv, dh)
+    assert geo["path"] == path
+    assert (geo["cluster"] == 1) == (path == "tile")
+    if path == "cluster":
+        assert geo["cluster"] == min(h, 8) and geo["warps"] == 4
+    q, k, v, m, _, c, ws = _inputs(b, lq, lkv, h, dh, "zero_row",
+                                   torch.float32, cuda)
+    before = dict(tfb.fused_block_kernel.path_launches)
+    tfb.fused_block_kernel(q, k, v, m, None, c, *ws, n_heads=h,
+                           emit_scores=False)
+    torch.cuda.synchronize()
+    after = tfb.fused_block_kernel.path_launches
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in tfb.PATHS}
 
 
 @pytest.mark.cuda

@@ -12,16 +12,21 @@ it does, in its order:
   products, k zero-padded to a multiple of 32 and taken 16 deep at a time
   from zero, each slice added to the output in f32 (scored_mma.cuh
   `mma_rowsW`);
-- the LayerNorm split over the C = min(H, 8) blocks of a cluster: block r
-  owns the 8-column tiles n ≡ r (mod C), sums its columns in order, and the
-  C partial sums are added in rank order 0 … C−1, first of y for the mean,
-  then of (y − mean)² for the biased variance.
+- the LayerNorm as each of the kernel's two paths sums it.  The cluster
+  path splits it over the C = min(H, 8) blocks of a cluster: block r owns
+  the 8-column tiles n ≡ r (mod C), sums its columns in order, and the C
+  partial sums are added in rank order 0 … C−1.  The tile path (one block
+  holds every head of a row tile) gives a row to 8 lanes of a warp: lane l
+  sums columns l, l + 8, … in order, and the 8 sums are added by the xor
+  butterfly 4, 2, 1.  Both sum y for the mean, then (y − mean)² for the
+  biased variance.
 
-That model is held against the JAX package's `fused_minus_block` (its
-Pallas kernel in interpret mode, as tests/test_torch_fused_block.py runs
-it) at the 2e-4 of tests/test_interop.py in all four variants, and against
-the port's `fused_block_plain` at the kernel's 1e-5.  At D 1024 one TF32
-term per operand misses that 1e-5 where three meet it.
+That model, with either order, is held against the JAX package's
+`fused_minus_block` (its Pallas kernel in interpret mode, as
+tests/test_torch_fused_block.py runs it) at the 2e-4 of
+tests/test_interop.py in all four variants, and against the port's
+`fused_block_plain` at the kernel's 1e-5.  At D 1024 one TF32 term per
+operand misses that 1e-5 where three meet it.
 """
 
 import math
@@ -72,8 +77,46 @@ def cluster_layer_norm(y, ln_w, ln_b, n_blocks):
     return dv * rstd[..., None] * ln_w + ln_b
 
 
-def tiled_fused(q, k, v, mask, sprev, c, ws, h, n_terms=3):
-    """(out, S, m, l) of the whole block, in the kernel's order."""
+def _fma(a, b, c):
+    """fmaf(a, b, c): the f32 product is exact in f64, one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def tile_layer_norm(y, ln_w, ln_b, lanes=8):
+    """LayerNorm over the last dim as the tile path takes it: a row to 8
+    lanes, lane l summing columns l, l + 8, … in order from zero (the
+    variance's terms by fmaf), the lanes' sums added by the xor butterfly
+    4, 2, 1 (each lane adds its partner's sum to its own), for the mean and
+    then for the biased variance."""
+    d = y.shape[-1]
+    inv_d = torch.tensor(1.0, dtype=torch.float32) / d
+
+    def butterfly(parts):
+        off = lanes // 2
+        while off:
+            parts = [parts[i] + parts[i ^ off] for i in range(lanes)]
+            off //= 2
+        return parts[0]
+
+    parts = [torch.zeros(y.shape[:-1]) for _ in range(lanes)]
+    for col in range(d):
+        parts[col % lanes] = parts[col % lanes] + y[..., col]
+    mean = butterfly(parts) * inv_d
+    dv = y - mean[..., None]
+    parts = [torch.zeros(y.shape[:-1]) for _ in range(lanes)]
+    for col in range(d):
+        parts[col % lanes] = _fma(dv[..., col], dv[..., col], parts[col % lanes])
+    rstd = torch.rsqrt(butterfly(parts) * inv_d + LN_EPS)
+    return dv * rstd[..., None] * ln_w + ln_b
+
+
+LAYER_NORMS = {"cluster": lambda y, w, b, h: cluster_layer_norm(
+                   y, w, b, min(h, CLUSTER_MAX)),
+               "tile": lambda y, w, b, h: tile_layer_norm(y, w, b)}
+
+
+def tiled_fused(q, k, v, mask, sprev, c, ws, h, n_terms=3, path="cluster"):
+    """(out, S, m, l) of the whole block, in the kernel's order on `path`."""
     proj_w, minus_w, ln_w, ln_b = ws
     d = q.shape[-1]
     kp = -(-d // K_PAD) * K_PAD
@@ -84,7 +127,7 @@ def tiled_fused(q, k, v, mask, sprev, c, ws, h, n_terms=3):
     w = torch.cat([_pad_k(minus_w[:, :d], kp), _pad_k(minus_w[:, d:], kp)],
                   dim=-1)
     y = sr.sliced_dots(a, w, n_terms)
-    out = cluster_layer_norm(y, ln_w, ln_b, min(h, CLUSTER_MAX))
+    out = LAYER_NORMS[path](y, ln_w, ln_b, h)
     return out, s, m, l
 
 
@@ -133,13 +176,14 @@ def _jax(x, has_sprev):
     return np.asarray(out), np.asarray(s)
 
 
+@pytest.mark.parametrize("path", sorted(LAYER_NORMS))
 @pytest.mark.parametrize("has_sprev,emit", tpa.VARIANTS)
-def test_tiled_model_matches_jax_and_plain(has_sprev, emit):
+def test_tiled_model_matches_jax_and_plain(has_sprev, emit, path):
     x = _inputs(seed=21)
     t, ws = _torch(x)
     sp = t["sprev"] if has_sprev else None
     out, s, m, l = tiled_fused(t["q"], t["k"], t["v"], t["m"], sp, t["c"], ws,
-                               x["h"])
+                               x["h"], path=path)
     jout, js = _jax(x, has_sprev)
     assert sr._err(out, jout) <= JAX_TOL
     # masked entries sit near −1e8 or −(1 + c)·1e8: each at its own scale
@@ -160,17 +204,19 @@ def test_tiled_model_matches_jax_and_plain(has_sprev, emit):
     assert float(((l.double() - ref_l).abs() / ref_l).max()) <= 1e-6
 
 
-def test_cluster_layer_norm_is_layer_norm():
-    """The C-way split with rank-order partials is the plain LayerNorm at
-    f32's accuracy, for every cluster size a model of the repo takes."""
+@pytest.mark.parametrize("path", sorted(LAYER_NORMS))
+def test_cluster_layer_norm_is_layer_norm(path):
+    """Each path's order is the plain LayerNorm at f32's accuracy: the
+    cluster's C-way split with rank-order partials for every cluster size
+    a model of the repo takes, the tile path's 8-lane butterfly."""
     rng = np.random.default_rng(3)
     y = torch.from_numpy(rng.standard_normal((3, 5, 96)).astype(np.float32))
     w = torch.from_numpy((1 + 0.1 * rng.standard_normal(96)).astype(np.float32))
     bias = torch.from_numpy((0.1 * rng.standard_normal(96)).astype(np.float32))
     ref = torch.nn.functional.layer_norm(y.double(), (96,), w.double(),
                                          bias.double(), LN_EPS)
-    for n_blocks in (1, 6, 8):
-        got = cluster_layer_norm(y, w, bias, n_blocks)
+    for h in ((1, 6, 8) if path == "cluster" else (6,)):
+        got = LAYER_NORMS[path](y, w, bias, h)
         assert sr._err(got, ref) <= 1e-6
 
 
