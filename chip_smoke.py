@@ -266,10 +266,25 @@ Phases, each reported on its own lines:
      flagship line without vs_baseline, with a pallas parity of 1e-2 or
      more or a failed phase, and on launches: an entry point run at
      flash, pallas or pallas_fused must launch its kernels, one at xla
-     none.
+     none;
+ 22. tower: the text tower's kernels (models/tower.py) at one batch of
+     `moonlight_trans.eval`'s shape, 64 transcripts at its lengths'
+     quantiles (~36,350 tokens, ~218,000 routed rows): the latent
+     attention, the grouped expert products and their combination against
+     their plain versions, each tolerance also shown to reject a known-wrong
+     answer, with ms, device ms, plain ms and bound ms; then the whole
+     tower (27 layers, random weights) on that batch with each kernel's
+     launches counted (27 attention, 26 of each expert kernel); the
+     device phase also requires both kernels' tensor-core instructions.
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Details go to chip_smoke_out/chip_smoke.json.
+
+    python3 chip_smoke.py --phases tower      # some phases only
+
+runs the device phase and the named ones; where each of them names the
+libraries it needs (PHASE_SOURCES), only those are built, and the kernels
+line then holds the named phases' kernels.
 """
 
 from __future__ import annotations
@@ -8123,7 +8138,226 @@ def profile_breakdown(torch, fn, reps: int = 3):
     return out
 
 
-def main() -> int:
+# the text tower's batch (models/tower.py, moonlight_trans.eval): 64
+# transcripts at the traffic's lognormal quantiles (median 384, sigma 0.9,
+# 64-4,096 tokens), at Moonlight-16B-A3B's widths
+TOWER_BATCH = 64
+TOWER_LENGTHS = (384, 0.9, 64, 4096)
+# the grouped expert products' h and y are bf16 roundings of f32 sums
+# taken in another order than the plain loop's: a row may be a bf16 step
+# of h, then of y, apart (tests/test_torch_tower_kernels.py)
+MOE_TOL = 1e-2
+# P enters P.V rounded once to bf16 and o is stored in bf16: each output
+# is a weighted mean of N(0, 1) values, off by a few bf16 steps
+MLA_TOL = 2e-2
+
+
+def tower_lengths(n: int):
+    from statistics import NormalDist
+
+    median, sigma, lo, hi = TOWER_LENGTHS
+    return [int(min(hi, max(lo, round(median * 2.718281828459045 ** (
+        sigma * NormalDist().inv_cdf((i + 0.5) / n)))))) for i in range(n)]
+
+
+def phase_tower(torch, report):
+    """The tower's kernels at the cell's batch: `flash_fwd_mla_varlen`
+    against `mla_varlen_plain`, `moe_gate_up` + `moe_down` against
+    `routed_plain` (the rows 64 transcripts route, six a token over 64
+    experts), `moe_combine` against `combine_plain` (bit-equal); each
+    tolerance also held against a known-wrong answer (two sequences
+    merged; one row moved to its neighbouring expert), which it must
+    reject.  Then the whole tower (27 layers, random weights) runs that
+    batch once, with each kernel's launches counted."""
+    import dataclasses
+
+    from multimodal_emotion_processing_tpu_torch.models.tower import (
+        TOWERS, Tower)
+    from multimodal_emotion_processing_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_processing_tpu_torch.ops import moe
+
+    cfg = TOWERS["moonlight_16b_a3b"]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    lens = tower_lengths(TOWER_BATCH)
+    t = sum(lens)
+    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).int()
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    out = {"tokens": t, "longest": max(lens)}
+
+    # latent attention
+    h, nope, rope, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+    q, kv, k_pe = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((t, h, nope + rope), (t, h, nope + dv),
+                                 (t, rope)))
+    got = fa.flash_mla_varlen_kernel(q, kv, k_pe, cu, max(lens))
+    want = fa.mla_varlen_plain(q, kv, k_pe, cu, n_heads=h)
+    merged = torch.cat([cu[:1], cu[2:]])
+    wrong = fa.mla_varlen_plain(q, kv, k_pe, merged, n_heads=h)
+    err = (got.float() - want.float()).abs().max().item()
+    wrong_err = (wrong.float() - want.float()).abs().max().item()
+    row = dict(max_abs_err=err, tol=MLA_TOL, wrong_err=wrong_err)
+    row["ok"] = bool(torch.isfinite(got).all().item()) and err <= row["tol"] < wrong_err
+    row["ms"] = time_ms(torch, lambda: fa.flash_mla_varlen_kernel(
+        q, kv, k_pe, cu, max(lens)))
+    row["device_ms"] = kernel_device_ms(torch, [lambda: fa.flash_mla_varlen_kernel(
+        q, kv, k_pe, cu, max(lens))], "flash_fwd_mla_kernel", reps=10)
+    row["plain_ms"] = time_ms(torch, lambda: fa.mla_varlen_plain(
+        q, kv, k_pe, cu, n_heads=h), reps=3)
+    row.update(_bound(2 * t * (h * (nope + rope) + h * (nope + dv) + rope + h * dv),
+                      2.0 * (nope + rope + dv) * h * pairs, "bfloat16"))
+    out["flash_fwd_mla_varlen"] = row
+    del q, kv, k_pe, got, want, wrong
+
+    # routed experts
+    e, k, d, f = (cfg.n_routed_experts, cfg.num_experts_per_tok,
+                  cfg.hidden_size, cfg.moe_intermediate_size)
+    x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    w13 = (0.02 * torch.randn(e, 2 * f, d, generator=g, device="cuda")).bfloat16()
+    w2 = (0.02 * torch.randn(e, d, f, generator=g, device="cuda")).bfloat16()
+    keys = torch.rand(t, e, generator=g, device="cuda")
+    choice = keys.topk(k, dim=1).indices
+    w = torch.rand(t, k, generator=g, device="cuda") + 0.1
+    rows, offsets, row_w, pos, counts = moe.sort_by_expert(choice, w, e)
+    m = rows.shape[0]
+    hid = moe.gate_up_kernel(x, rows, offsets, w13)
+    y = moe.down_kernel(hid, offsets, w2, row_w)
+    want = moe.routed_plain(x, rows, offsets, w13, w2, row_w)
+    shifted = offsets.clone()
+    shifted[1] += 1
+    wrong = moe.routed_plain(x, rows, shifted, w13, w2, row_w)
+    scale = want.float().abs().max().item()
+    err = (y.float() - want.float()).abs().max().item() / scale
+    wrong_err = (wrong.float() - want.float()).abs().max().item() / scale
+    del wrong
+    used = int((counts > 0).sum().item())
+    gate_up = dict(max_rel_err=err, tol=MOE_TOL, wrong_rel_err=wrong_err,
+                   ok=bool(torch.isfinite(y).all().item())
+                   and err <= MOE_TOL < wrong_err, rows=m)
+    down = dict(gate_up)
+    gate_up["ms"] = time_ms(torch, lambda: moe.gate_up_kernel(x, rows, offsets, w13))
+    down["ms"] = time_ms(torch, lambda: moe.down_kernel(hid, offsets, w2, row_w))
+    gate_up["device_ms"] = kernel_device_ms(
+        torch, [lambda: moe.gate_up_kernel(x, rows, offsets, w13)],
+        "moe_gemm_kernel", reps=10)
+    down["device_ms"] = kernel_device_ms(
+        torch, [lambda: moe.down_kernel(hid, offsets, w2, row_w)],
+        "moe_gemm_kernel", reps=10)
+    plain_ms = time_ms(torch, lambda: moe.routed_plain(
+        x, rows, offsets, w13, w2, row_w), reps=3)
+    gate_up["plain_ms"] = down["plain_ms"] = plain_ms   # both products
+    gate_up.update(_bound(2 * (used * 2 * f * d + m * (d + f)),
+                          2.0 * m * 2 * f * d, "bfloat16"))
+    down.update(_bound(2 * (used * d * f + m * (f + d)), 2.0 * m * d * f,
+                       "bfloat16"))
+    shared = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    base = torch.randn(t, d, generator=g, device="cuda")
+    got = moe.combine_kernel(base.clone(), y, pos, shared)
+    expect = moe.combine_plain(base.clone(), y, pos, shared)
+    combine = dict(bits_equal=bool(torch.equal(got, expect)))
+    combine["ok"] = combine["bits_equal"]
+    resid = base.clone()
+    combine["ms"] = time_ms(torch, lambda: moe.combine_kernel(resid, y, pos, shared))
+    combine["device_ms"] = kernel_device_ms(
+        torch, [lambda: moe.combine_kernel(resid, y, pos, shared)],
+        "moe_combine_kernel", reps=10)
+    combine["plain_ms"] = time_ms(torch, lambda: moe.combine_plain(
+        resid, y, pos, shared), reps=3)
+    combine.update(_bound(m * (2 * d + 4) + t * (2 * d + 8 * d), 0.0, "bfloat16"))
+    out.update(moe_gate_up=gate_up, moe_down=down, moe_combine=combine)
+    del x, w13, w2, hid, y, want, shared, base, got, expect, resid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the whole tower, launches counted
+    with torch.device("meta"):
+        tower = Tower(cfg, dtype=torch.bfloat16)
+    tower.to_empty(device="cuda")
+
+    def weight(name, shape):
+        if name.endswith("norm.weight"):
+            return torch.ones(shape, device="cuda")
+        z = torch.randn(shape, generator=g, device="cuda")
+        if name.endswith("e_score_correction_bias"):
+            return 0.01 * z
+        return (z if name == "model.embed_tokens.weight" else 0.02 * z).bfloat16()
+
+    tower.fill(weight)
+    ids = torch.randint(0, cfg.vocab_size, (t,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    positions = torch.cat([torch.arange(n, device="cuda", dtype=torch.int32)
+                           for n in lens])
+    kernels = {"flash_fwd_mla_varlen": fa.flash_mla_varlen_kernel,
+               "moe_gate_up": moe.gate_up_kernel, "moe_down": moe.down_kernel,
+               "moe_combine": moe.combine_kernel}
+    before = {n: kern.launches for n, kern in kernels.items()}
+    hidden = tower(ids, cu, positions, max(lens))
+    torch.cuda.synchronize()
+    launches = {n: kern.launches - before[n] for n, kern in kernels.items()}
+    expect = {"flash_fwd_mla_varlen": cfg.num_hidden_layers,
+              **{n: cfg.n_moe_layers for n in ("moe_gate_up", "moe_down",
+                                               "moe_combine")}}
+    out["tower_forward_ms"] = time_ms(torch, lambda: tower(
+        ids, cu, positions, max(lens)), reps=3)
+    out["tower_finite"] = bool(torch.isfinite(hidden).all().item())
+    out["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+    for n in kernels:
+        out[n]["launches_per_forward"] = launches[n]
+        out[n]["ok"] &= launches[n] == expect[n] and out["tower_finite"]
+    del tower, hidden
+    report["tower"] = out
+    for n in kernels:
+        r = out[n]
+        log(f"[tower] {n} at {t} tokens ({TOWER_BATCH} transcripts, longest "
+            f"{max(lens)}): "
+            + ", ".join(f"{key}={r[key]:.5g}" if isinstance(r[key], float)
+                        else f"{key}={r[key]}" for key in sorted(r) if r[key] is not None)
+            + (" ok" if r["ok"] else " FAIL"))
+    log(f"[tower] a whole forward of {dataclasses.asdict(cfg)['num_hidden_layers']} "
+        f"layers at {t} tokens: {out['tower_forward_ms']:.2f} ms, launches "
+        f"{launches}, peak memory {out['memory_peak_bytes']}")
+    if not all(out[n]["ok"] for n in kernels):
+        raise AssertionError("a tower kernel disagrees with its plain version, "
+                             "or the tower launched it another number of times")
+    return out
+
+
+#: every phase after the device's, in order
+PHASES = (("kernels", phase_kernels), ("train", phase_train),
+          ("serve", phase_serve), ("serve_robot", phase_serve_robot),
+          ("train_realformer", phase_train_realformer),
+          ("serve_paragraph", phase_serve_paragraph),
+          ("train_fused", phase_train_fused),
+          ("serve_ren_mme", phase_serve_ren_mme),
+          ("train_ren_mme", phase_train_ren_mme),
+          ("train_robot", phase_train_robot),
+          ("train_rencecps", phase_train_rencecps),
+          ("experiment", phase_experiment),
+          ("experiment_families", phase_experiment_families),
+          ("real_data", phase_real_data),
+          ("serve_io", phase_serve_io),
+          ("drivers", phase_drivers),
+          ("tools", phase_tools),
+          ("parallel", phase_parallel),
+          ("models", phase_models),
+          ("bench", phase_bench),
+          ("tower", phase_tower))
+#: the libraries a phase needs, where it needs fewer than all
+PHASE_SOURCES = {"tower": ("flash_fwd", "moe")}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run after the device's "
+                         f"(default all: {','.join(n for n, _ in PHASES)})")
+    args = ap.parse_args(argv)
+    selected = [n for n in args.phases.split(",") if n] or [n for n, _ in PHASES]
+    unknown = set(selected) - {n for n, _ in PHASES}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -8139,6 +8373,8 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     sources = sorted(p.stem for p in native.CSRC.glob("*.cu"))
+    if all(n in PHASE_SOURCES for n in selected):
+        sources = sorted({lib for n in selected for lib in PHASE_SOURCES[n]})
     t0 = time.perf_counter()
     built = native.build(sources)
     report["build_s"] = time.perf_counter() - t0
@@ -8151,6 +8387,8 @@ def main() -> int:
             + ", ".join(f"{k} {r}/{sp}" for k, r, sp in kernels))
     tensor_cores = {}
     for name in ("flash_fwd", "flash_bwd"):
+        if name not in built:
+            continue
         counts = tensor_core_counts(built[name]["path"])
         tensor_cores[name] = counts
         if not counts:
@@ -8167,9 +8405,26 @@ def main() -> int:
             failed.append("device")
             log(f"[device] FAIL: a bf16 flash kernel of {name} has no "
                 "tensor-core instruction")
+    # the tower's kernels: the latent attention and the grouped expert
+    # products on the tensor cores
+    for name, kernel in (("flash_fwd", "flash_fwd_mla_kernel"),
+                         ("moe", "moe_gemm_kernel")):
+        if name not in built:
+            continue
+        counts = tensor_cores.get(name) or tensor_core_counts(built[name]["path"])
+        tensor_cores[name] = counts
+        mine = {fn: n for fn, n in counts.items() if kernel in fn}
+        if counts:
+            log(f"[device] {kernel}: {sum(mine.values())} HMMA/HGMMA "
+                f"instructions over its {len(mine)} instances")
+            if not mine or min(mine.values()) == 0:
+                failed.append("device")
+                log(f"[device] FAIL: {kernel} has no tensor-core instruction")
     # the score-chained libraries: every kernel runs every product as
     # split-TF32 mma.sync, without spilling
     for name in ("scored_fwd", "scored_bwd", "fused_block"):
+        if name not in built:
+            continue
         counts = tensor_core_counts(built[name]["path"])
         tensor_cores[name] = counts
         # the dh-256 bucket (no model's head width) may spill a few bytes
@@ -8197,25 +8452,10 @@ def main() -> int:
             log(f"[device] FAIL: {name} spills: {spilled}")
     report["tensor_core_instructions"] = tensor_cores
 
-    summaries, launches = None, {}
-    for phase, fn in (("kernels", phase_kernels), ("train", phase_train),
-                      ("serve", phase_serve), ("serve_robot", phase_serve_robot),
-                      ("train_realformer", phase_train_realformer),
-                      ("serve_paragraph", phase_serve_paragraph),
-                      ("train_fused", phase_train_fused),
-                      ("serve_ren_mme", phase_serve_ren_mme),
-                      ("train_ren_mme", phase_train_ren_mme),
-                      ("train_robot", phase_train_robot),
-                      ("train_rencecps", phase_train_rencecps),
-                      ("experiment", phase_experiment),
-                      ("experiment_families", phase_experiment_families),
-                      ("real_data", phase_real_data),
-                      ("serve_io", phase_serve_io),
-                      ("drivers", phase_drivers),
-                      ("tools", phase_tools),
-                      ("parallel", phase_parallel),
-                      ("models", phase_models),
-                      ("bench", phase_bench)):
+    summaries, launches, tower = None, {}, None
+    for phase, fn in PHASES:
+        if phase not in selected:
+            continue
         try:
             result = fn(torch, report)
         except Exception:
@@ -8230,6 +8470,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         if phase == "kernels":
             summaries = result
+        elif phase == "tower":
+            tower = result
         else:
             launches[phase] = result
 
@@ -8242,6 +8484,48 @@ def main() -> int:
     if failed:
         print(f"FAIL: phases {failed}", file=sys.stderr)
         return 1
+    every = {n for n, _ in PHASES} - {"tower"}
+    kernels = (kernel_rows(report, summaries, launches)
+               if every <= set(selected) else [])
+    if tower is not None:
+        kernels += tower_kernel_rows(report, tower)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tower_kernel_rows(report, tower):
+    """The kernels line's entries of the tower's kernels (phase_tower)."""
+    csrc = "multimodal_emotion_processing_tpu_torch/csrc/"
+    rows = []
+    for name, source, kernel in (
+            ("flash_fwd_mla_varlen", "flash_fwd", "flash_fwd_mla_kernel"),
+            ("moe_gate_up", "moe", "moe_gemm_kernelILi0E"),
+            ("moe_down", "moe", "moe_gemm_kernelILi1E"),
+            ("moe_combine", "moe", "moe_combine_kernel")):
+        r = tower[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"{csrc}{source}.cu",
+            "replaces": None,
+            "tensor_core_instructions": sum(
+                n for fn, n in report["tensor_core_instructions"].get(
+                    source, {}).items() if kernel in fn),
+            "launches": r["launches_per_forward"],
+            **{k: v for k, v in r.items() if k != "launches_per_forward"},
+            "timed_at": (f"one batch of moonlight_trans.eval's shape: "
+                         f"{TOWER_BATCH} transcripts, {tower['tokens']} tokens "
+                         f"packed, bf16; ms by CUDA events, device_ms from "
+                         f"torch.profiler, plain_ms the plain version (for "
+                         f"the expert products both of them together); "
+                         f"launches in one forward of the whole tower")})
+    return rows
+
+
+def kernel_rows(report, summaries, launches):
+    """The kernels line's entries of the kernels every phase counts."""
     def experiment_paths(name):
         return {p: launches[p][name]
                 for p in ("experiment", "experiment_families", "real_data",
@@ -8402,12 +8686,7 @@ def main() -> int:
                      f"shapes at B={SERVE_BUCKET}, D 192, dh 32, with the "
                      "backward through FusedMinusBlock (the scored_bwd "
                      "pair) against autograd through the plain version")})
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

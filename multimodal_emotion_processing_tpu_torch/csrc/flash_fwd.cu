@@ -427,3 +427,258 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
           : dispatch(q, k, v, mask, o, m, l, B, H, Lq, Lkv, dh, s);
   return (int)err;
 }
+
+
+// ---- latent attention prefill: causal, variable length, qk 192 / v 128 ---
+//
+// The prefill of DeepSeek-V2/V3's multi-head latent attention (MLA) with the
+// latent expanded per head (as Moonlight-16B-A3B runs it in
+// models/tower.py): for sequence s of a packed batch (tokens cu[s] ..
+// cu[s + 1] - 1), head h and query row i of s,
+//   score_j = (q_nope_i . k_nope_j + q_rope_i . k_pe_j) / sqrt(192),  j <= i
+//   o_i     = softmax(score) . v
+// in f32 (running max and sum, f32 accumulator), stored in bf16.  Layouts,
+// row-major and contiguous, so the projections' outputs are read in place:
+// q (T, H, 192) bf16, per head the 128 nope then the 64 rope dims (RoPE
+// applied); kv (T, H, 256) bf16, per head k_nope then v (kv_b_proj's
+// output); k_pe (T, 64) bf16, one rope key per token shared by every head
+// (RoPE applied); o (T, H, 128) bf16.  No key past a query's own position
+// and no key of another sequence enters its softmax.
+//
+// Four warps of 16 query rows (64 a block, one head, one sequence), kv tiles
+// of 64 keys in a two-stage cp.async ring: q's 128 + 64 columns, then k's
+// 128 + 64 and v's 128 in swizzled tiles of power-of-two widths (flash_mma.cuh
+// `chunk`): 104 KB, two blocks an SM.  S = Q_nope.K_nope^T + Q_rope.K_pe^T
+// is one accumulator chain of mma.sync m16n8k16 (bf16 in, f32 out); P is
+// rounded once to bf16 as the A operand of O += P.V, straight from the S
+// accumulators, as FlashAttention-2 does in bf16 inference.  Only the
+// diagonal tile is masked.  The grid is (sequences x the longest
+// sequence's q tiles) x heads, the last q tiles (the most keys) first; a
+// block past its sequence's end returns at once.
+//
+// What bounds it: per (sequence, head) 2 L^2 (192 + 128) / 2 causal flops
+// against (192 + 256) L bf16 read and 128 L written, so at the median 384
+// tokens ~100 flops a byte, the bytes; at 4,096 tokens the flops.
+
+namespace {
+
+using namespace flash;
+
+constexpr int kMlaNope = 128, kMlaRope = 64, kMlaQK = 192, kMlaV = 128;
+constexpr int kMlaBQ = mma::kWarps * mma::kRows;   // 64 query rows a block
+constexpr int kMlaBKV = 64;                         // keys a tile
+constexpr int kMlaStage = kMlaBKV * (kMlaNope + kMlaRope + kMlaV);
+constexpr size_t kMlaSmem =
+    sizeof(bf16) * (size_t)(kMlaBQ * kMlaQK + 2 * kMlaStage);
+
+// ROWS rows of COLS bf16 from `src` (row r at src + r * stride) into a
+// swizzled tile, 16 bytes a cp.async, rows past n_real zero
+template <int COLS, int ROWS>
+__device__ __forceinline__ void mla_load(bf16* dst, const bf16* src,
+                                         size_t stride, int n_real) {
+  constexpr int CPR = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += mma::kThreads) {
+    const int r = i / CPR, c = i % CPR;
+    const bool real = r < n_real;
+    mma::cp_async16(dst + mma::chunk<COLS>(r, c) * 8,
+                    real ? src + (size_t)r * stride + c * 8 : src, real);
+  }
+}
+
+// s += the dots of this warp's 16 rows of sA against the 8 NT rows of sB,
+// both DH wide (mma::score_dots without its zeroing)
+template <int DH, int NT>
+__device__ __forceinline__ void mla_dots(const bf16* sA, int a_row0,
+                                         const bf16* sB, float (&s)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc) {
+    uint32_t a[4];
+    mma::ldsm_x4(a, sA + mma::at<DH>(a_row0 + (lane & 15), kc * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      mma::ldsm_x4(b, sB + mma::at<DH>(j * 8 + (lane & 7) + (lane >> 4) * 8,
+                                       kc * 16 + ((lane >> 3) & 1) * 8));
+      mma::mma_16816(s[j], a, b[0], b[1]);
+      mma::mma_16816(s[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(mma::kThreads)
+flash_fwd_mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                     const bf16* __restrict__ kpe, const int* __restrict__ cu,
+                     bf16* __restrict__ o, int n_seqs, int H, int n_qtiles,
+                     float scale) {
+  constexpr int NT = kMlaBKV / 8, VT = kMlaV / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQn = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sQr = sQn + kMlaBQ * kMlaNope;
+  bf16* sKV = sQr + kMlaBQ * kMlaRope;   // two stages of K_nope, K_pe, V
+
+  const int seq = blockIdx.x % n_seqs;
+  const int qt = n_qtiles - 1 - blockIdx.x / n_seqs;
+  const int h = blockIdx.y;
+  const int start = cu[seq], len = cu[seq + 1] - start;
+  const int q0 = qt * kMlaBQ;
+  if (q0 >= len) return;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t qstride = (size_t)H * kMlaQK, kvstride = (size_t)H * 2 * kMlaV;
+  const bf16* qb = q + (size_t)(start + q0) * qstride + (size_t)h * kMlaQK;
+  const bf16* kvb = kv + (size_t)start * kvstride + (size_t)h * 2 * kMlaV;
+  const bf16* kpb = kpe + (size_t)start * kMlaRope;
+  const int kv_end = min(q0 + kMlaBQ, len);   // keys the block's rows see
+  const int n_tiles = (kv_end + kMlaBKV - 1) / kMlaBKV;
+
+  auto load_kv = [=](int tile, int stage) {
+    const int kv0 = tile * kMlaBKV, nkv = min(kMlaBKV, len - kv0);
+    bf16* sK = sKV + stage * kMlaStage;
+    mla_load<kMlaNope, kMlaBKV>(sK, kvb + (size_t)kv0 * kvstride, kvstride, nkv);
+    mla_load<kMlaRope, kMlaBKV>(sK + kMlaBKV * kMlaNope,
+                                kpb + (size_t)kv0 * kMlaRope, kMlaRope, nkv);
+    mla_load<kMlaV, kMlaBKV>(sK + kMlaBKV * (kMlaNope + kMlaRope),
+                             kvb + (size_t)kv0 * kvstride + kMlaNope, kvstride,
+                             nkv);
+  };
+
+  mla_load<kMlaNope, kMlaBQ>(sQn, qb, qstride, len - q0);
+  mla_load<kMlaRope, kMlaBQ>(sQr, qb + kMlaNope, qstride, len - q0);
+  load_kv(0, 0);
+  mma::cp_async_commit();
+
+  float acc[VT][4];
+#pragma unroll
+  for (int n = 0; n < VT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-FLT_MAX, -FLT_MAX}, l_run[2] = {0.f, 0.f};
+  const int row_a = q0 + warp * mma::kRows + g;   // rows row_a, row_a + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, stage ^ 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sK = sKV + stage * kMlaStage;
+    const int kv0 = t * kMlaBKV;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mla_dots<kMlaNope, NT>(sQn, warp * mma::kRows, sK, s);
+    mla_dots<kMlaRope, NT>(sQr, warp * mma::kRows, sK + kMlaBKV * kMlaNope, s);
+
+    // every row sees key kv0 of its tile (kv0 <= q0 <= row), so each
+    // row's tile max is finite
+    const bool diagonal = kv0 + kMlaBKV > q0;
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + j * 8 + 2 * t4 + (e & 1);
+        const int row = row_a + 8 * (e >> 1);
+        if (diagonal && (key > row || key >= len)) {
+          s[j][e] = -INFINITY;
+        } else {
+          s[j][e] *= scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], mma::quad_max(mx[r]));
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_run[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + mma::quad_sum(sum[r]);
+#pragma unroll
+    for (int n = 0; n < VT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // P as the A fragments of key chunk c: rows g / g + 8, keys 16c + 2t4
+    // (+ 8 for registers 2, 3), one bf16 rounding
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int c = 0; c < NT / 2; ++c)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float(&src)[4] = s[2 * c + (f >> 1)];
+        pa[c][f] = mma::pack_bf16(src[2 * (f & 1)], src[2 * (f & 1) + 1]);
+      }
+    const bf16* sV = sK + kMlaBKV * (kMlaNope + kMlaRope);
+#pragma unroll
+    for (int c = 0; c < NT / 2; ++c)
+#pragma unroll
+      for (int n = 0; n < VT; n += 2) {
+        uint32_t b[4];
+        mma::ldsm_x4_t(b, sV + mma::at<kMlaV>(c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                              n * 8 + (lane >> 4) * 8));
+        mma::mma_16816(acc[n], pa[c], b[0], b[1]);
+        mma::mma_16816(acc[n + 1], pa[c], b[2], b[3]);
+      }
+    __syncthreads();   // this stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= len) continue;
+    const float inv = 1.f / l_run[r];
+    bf16* orow = o + ((size_t)(start + row) * H + h) * kMlaV;
+#pragma unroll
+    for (int n = 0; n < VT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+  }
+}
+
+}  // namespace
+
+// Returns a cudaError_t as int: 0 when the kernel was launched.  q, kv,
+// k_pe, o as above, all 16-byte aligned; cu (n_seqs + 1,) int32 on the
+// device, cu[0] = 0; n_tokens = cu[n_seqs]; max_len the longest sequence;
+// dh the qk width (192 only) and is_bf16 1 (bf16 only).
+extern "C" int flash_fwd_mla_varlen(const void* q, const void* kv,
+                                    const void* k_pe, const void* cu, void* o,
+                                    int n_seqs, int H, int n_tokens,
+                                    int max_len, int dh, int is_bf16,
+                                    void* stream) {
+  if (n_seqs < 1 || H < 1 || H > 65535 || n_tokens < 1 || max_len < 1 ||
+      dh != kMlaQK || !is_bf16 ||
+      !mma::vec_ok(8, {q, kv, k_pe, o}))
+    return (int)cudaErrorInvalidValue;
+  const int n_qtiles = (max_len + kMlaBQ - 1) / kMlaBQ;
+  if ((long long)n_seqs * n_qtiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMlaSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_seqs * n_qtiles, H);
+  flash_fwd_mla_kernel<<<grid, mma::kThreads, kMlaSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
+      static_cast<const bf16*>(k_pe), static_cast<const int*>(cu),
+      static_cast<bf16*>(o), n_seqs, H, n_qtiles, 1.0f / sqrtf((float)kMlaQK));
+  return (int)cudaGetLastError();
+}

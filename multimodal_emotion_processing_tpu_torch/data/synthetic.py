@@ -15,6 +15,7 @@ same seed gives the same samples as the JAX package's generator.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
@@ -147,6 +148,45 @@ SAMPLERS = {"mosei_trans": mosei_pair_sample,
             "rencecps": rencecps_sample,
             "ren_mme": ren_mme_sample,
             "robot_demo": robot_sample}
+
+def lognormal_lengths(rng, n: int, median: float, sigma: float, lo: int,
+                      hi: int) -> np.ndarray:
+    """n lengths, lognormal with `median` and `sigma`, rounded and cut to
+    [lo, hi]."""
+    x = np.exp(np.log(median) + sigma * rng.standard_normal(n))
+    return np.clip(np.rint(x), lo, hi).astype(np.int64)
+
+
+#: a transcript pair's lengths in tokens: the transcript up to and including
+#: the pair's two sentences, and each sentence (median, sigma, lo, hi)
+TRANSCRIPT_LENGTHS = (384.0, 0.9, 64, 4096)
+SENTENCE_LENGTHS = (24.0, 0.5, 8, 64)
+
+
+def transcript_pair_sample(rng, m, *, vocab_size: int,
+                           max_tokens: int = TRANSCRIPT_LENGTHS[3],
+                           no_name_prob: float = 0.15) -> Dict[str, np.ndarray]:
+    """A `mosei_pair_sample` whose text is token ids for a language-model
+    tower (models/tower.TowerFeed) in place of word features: `tokens`
+    (max_tokens,) int32, uniform over the vocabulary, the first `n_tokens`
+    real (the clip's transcript up to and including the pair's sentences,
+    `TRANSCRIPT_LENGTHS`), and `sentences` (2, 2) int32, the previous and
+    the current sentence's [start, end) at its end (`SENTENCE_LENGTHS`).
+    Video and audio are the pair sampler's; `l` / `l_mask` are left out."""
+    pair = mosei_pair_sample(rng, dataclasses.replace(m, l_dim=1),
+                             no_name_prob=no_name_prob)
+    del pair["l"], pair["l_mask"]
+    med, sig, lo, hi = TRANSCRIPT_LENGTHS
+    n = int(lognormal_lengths(rng, 1, med, sig, lo, min(hi, max_tokens))[0])
+    prev, cur = (int(x) for x in lognormal_lengths(rng, 2, *SENTENCE_LENGTHS))
+    n = min(max(n, prev + cur), max_tokens)
+    tokens = np.zeros(max_tokens, np.int32)
+    tokens[:n] = rng.integers(0, vocab_size, size=n)
+    pair["tokens"] = tokens
+    pair["n_tokens"] = np.int32(n)
+    pair["sentences"] = np.array([[n - cur - prev, n - cur], [n - cur, n]],
+                                 np.int32)
+    return pair
 
 
 def synthetic_dataset(config_name: str, m, n: int, seed: int = 0) -> List[Dict]:

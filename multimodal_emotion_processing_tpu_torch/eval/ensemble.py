@@ -21,6 +21,13 @@ device-side batch index: no per-batch gather, pinning or copy.
 RealFormer path (models/grid.py; taken at impl "xla" by RealFormer blocks,
 ignored elsewhere), fixed when the ensemble is built.
 
+`Ensemble(tower=)` (models/tower.TowerFeed) reads the text modality from
+a frozen language model: each batch's transcripts are packed on the host
+(in the feed thread), the tower runs once on the card, each sentence's
+hidden states become the batch's `l` / `l_mask`, and every member reads
+that one output; the members' combination is then the same captured
+program.
+
 `Ensemble(mesh=)` shards batch inference over the mesh's 'data' axis:
 the members are replicated, each rank replays its captured program on
 its own rows of every batch, and the logits are all-gathered, the same
@@ -61,7 +68,8 @@ class Ensemble:
     def __init__(self, members: Sequence[torch.nn.Module],
                  weights: Optional[Sequence[float]] = None, *,
                  combine: str = "mean", impl: str = "xla",
-                 dtype: str = "float32", mesh=None, stacked=None):
+                 dtype: str = "float32", mesh=None, stacked=None,
+                 tower=None):
         if not members:
             raise ValueError("an ensemble needs at least one member")
         if combine not in ("mean", "sum"):
@@ -70,6 +78,9 @@ class Ensemble:
         if len(devices) != 1:
             raise ValueError(f"ensemble members live on several devices: {devices}")
         self.device = devices.pop()
+        if tower is not None and mesh is not None:
+            raise ValueError("a tower does not compose with mesh= sharding")
+        self.tower = tower
         self.k = len(members)
         self.impl = impl
         self.stacked = stacked
@@ -100,6 +111,9 @@ class Ensemble:
 
             self._check_rows(batch)
             batch = local_rows(batch, self.mesh)
+        if self.tower is not None:
+            raise ValueError("logits() takes no tower: its batches are "
+                             "packed by predict_all")
         return self._gathered(self.program({
             k: (v if torch.is_tensor(v)
                 else torch.from_numpy(np.ascontiguousarray(v)))
@@ -151,6 +165,9 @@ class Ensemble:
                 yield b
 
         it = keeping(iter(loader() if callable(loader) else loader))
+        max_lens = []
+        if self.tower is not None:
+            it = self._packing(it, max_lens)
         if self.device.type == "cuda":
             it = prefetch_to_device(it, device=self.device, size=2,
                                     transfer_dtype=wire, mesh=self.mesh)
@@ -162,8 +179,10 @@ class Ensemble:
             it = (to_device(cast_for_transfer(b, wire), self.device)
                   for b in it)
         outs = []
-        for b in spans.waited("feed.wait", it):
+        for i, b in enumerate(spans.waited("feed.wait", it)):
             with spans.span("eval.batch"):
+                if self.tower is not None:
+                    b = self.tower.features(b, max_lens[i])
                 outs.append(self._gathered(self.program(b).clone()))
         if not outs:
             raise ValueError("predict_all: the loader gave no batch")
@@ -174,6 +193,14 @@ class Ensemble:
                                for k, o in zip(keeps, outs)])
         return lg[keep]
 
+    def _packing(self, it, max_lens):
+        """The tower's host packing of each batch, where the batches are
+        made (the feed thread on a card); each batch's longest sequence is
+        appended to `max_lens` before the batch is passed on."""
+        for b in it:
+            packed, max_len = self.tower.pack(b)
+            max_lens.append(max_len)
+            yield packed
 
     def predict_all_staged(self, samples: Sequence, batch_size: int, *,
                            transfer_dtype=None) -> np.ndarray:
@@ -185,6 +212,9 @@ class Ensemble:
         The same batches and math as `predict_all` over a
         Batcher(samples, batch_size, shuffle=False): the same logits.  A
         mesh raises, as in JAX."""
+        if self.tower is not None:
+            raise ValueError("staged prediction takes no tower: its batches "
+                             "are packed one by one (predict_all)")
         if self.mesh is not None:
             raise ValueError(
                 "staged prediction does not compose with mesh= sharding — "

@@ -21,6 +21,12 @@ f32 and wider heads on scalar f32 FMAs.
   tensor cores, csrc/flash_common.cuh on scalar FMAs), so s is
   bit-identical forward and backward.
 
+- csrc/flash_fwd.cu `flash_fwd_mla_varlen` is the causal, variable-length
+  prefill of latent attention (models/tower.py): qk width 192 (128 nope +
+  64 rope, the rope key shared by the heads), v width 128, sequences
+  packed back to back by `cu_seqlens`, bf16 on the tensor cores;
+  `mla_varlen_plain` is its function in plain PyTorch.
+
 Terminal blocks only: scores_prev is None and the scores are not emitted, so
 S is never materialized.  The mask is the reference's finite 1e8 penalty, and
 columns past Lkv are skipped inside the kernels instead of zero-padded: a
@@ -189,10 +195,77 @@ class FlashBwdDkvKernel(_FlashBackwardKernel):
         return dk, dv, None if dmh is None else dmh.sum(dim=1)
 
 
+#: the latent attention variant's widths: qk = nope + rope, and v
+MLA_NOPE, MLA_ROPE, MLA_V = 128, 64, 128
+
+
+def mla_varlen_plain(q, kv, k_pe, cu_seqlens, *, n_heads: int):
+    """`flash_fwd_mla_varlen`'s function in plain PyTorch, one sequence at a
+    time: q (T, H, nope + rope), kv (T, H, nope + v) (k_nope then v per
+    head), k_pe (T, rope) shared by the heads, `cu_seqlens` (S + 1,) the
+    sequences' bounds.  Causal softmax(q·kᵀ/√(nope + rope))·v in f32 within
+    each sequence; returns o (T, H, v) at q's dtype."""
+    t, h, dqk = q.shape
+    nope = dqk - k_pe.shape[-1]
+    dv = kv.shape[-1] - nope
+    o = q.new_empty(t, h, dv)
+    bounds = [int(x) for x in torch.as_tensor(cu_seqlens).tolist()]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if b == a:
+            continue
+        qs = q[a:b].float().transpose(0, 1)                    # (H, L, qk)
+        k = torch.cat([kv[a:b, :, :nope].float(),
+                       k_pe[a:b, None, :].float().expand(b - a, h, -1)],
+                      dim=-1).transpose(0, 1)
+        v = kv[a:b, :, nope:].float().transpose(0, 1)
+        s = qs @ k.transpose(-2, -1) / math.sqrt(dqk)
+        causal = torch.ones(b - a, b - a, dtype=torch.bool,
+                            device=q.device).triu(1)
+        p = torch.softmax(s.masked_fill(causal, float("-inf")), dim=-1)
+        o[a:b] = (p @ v).transpose(0, 1).to(q.dtype)
+    return o
+
+
+class FlashMlaVarlenKernel(Kernel):
+    """`flash_fwd_mla_varlen` in csrc/flash_fwd.cu: the causal,
+    variable-length prefill of latent attention at qk 192 and v 128, bf16
+    on the tensor cores (models/tower.py)."""
+
+    name = "flash_fwd_mla_varlen"
+    library = "flash_fwd"
+    n_pointers = 5
+
+    def __call__(self, q, kv, k_pe, cu_seqlens, max_len: int):
+        """q (T, H, 192), kv (T, H, 256), k_pe (T, 64) bf16 on one CUDA
+        device; `cu_seqlens` (S + 1,) int32 there; `max_len` the longest
+        sequence.  Returns o (T, H, 128) bf16."""
+        t, h, dqk = q.shape
+        if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+            raise ValueError(f"{self.name} takes bf16 CUDA tensors, got "
+                             f"{q.dtype} on {q.device}")
+        if (dqk != MLA_NOPE + MLA_ROPE or tuple(kv.shape) != (t, h, MLA_NOPE + MLA_V)
+                or tuple(k_pe.shape) != (t, MLA_ROPE)):
+            raise ValueError(f"shapes q {tuple(q.shape)}, kv {tuple(kv.shape)},"
+                             f" k_pe {tuple(k_pe.shape)}: expected (T, H, 192),"
+                             f" (T, H, 256), (T, 64)")
+        for name_, x in (("kv", kv), ("k_pe", k_pe)):
+            if x.dtype != q.dtype or x.device != q.device:
+                raise ValueError(f"{name_} is {x.dtype} on {x.device}")
+        if cu_seqlens.dtype != torch.int32 or cu_seqlens.device != q.device:
+            raise ValueError("cu_seqlens must be int32 on q's device")
+        q, kv, k_pe = q.contiguous(), kv.contiguous(), k_pe.contiguous()
+        o = q.new_empty(t, h, MLA_V)
+        self._launch(q.device, [ptr(x) for x in (q, kv, k_pe, cu_seqlens, o)],
+                     (cu_seqlens.numel() - 1, h, t, int(max_len), dqk), True)
+        return o
+
+
 flash_forward_kernel = FlashForwardKernel()
 flash_bwd_dq_kernel = FlashBwdDqKernel()
 flash_bwd_dkv_kernel = FlashBwdDkvKernel()
-KERNELS = (flash_forward_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+flash_mla_varlen_kernel = FlashMlaVarlenKernel()
+KERNELS = (flash_forward_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
+           flash_mla_varlen_kernel)
 
 
 class FlashAttention(torch.autograd.Function):
