@@ -573,10 +573,11 @@ def ptxas_kernels(report: str) -> list:
     return rows
 
 
-def tensor_core_counts(path) -> dict:
+def tensor_core_counts(path, kinds=("HMMA", "HGMMA")) -> dict:
     """Per kernel function of a built library, the count of tensor-core
-    instructions (HMMA, HGMMA) in its machine code, from `cuobjdump -sass`;
-    empty when the toolkit has no cuobjdump."""
+    instructions of `kinds` (HMMA: mma.sync; HGMMA: wgmma) in its machine
+    code, from `cuobjdump -sass`; empty when the toolkit has no cuobjdump."""
+    import re
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -587,12 +588,13 @@ def tensor_core_counts(path) -> dict:
         return {}
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
+    opcode = re.compile(r"\b(%s)\b" % "|".join(kinds))
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+        elif fn is not None and opcode.search(line):
             counts[fn] += 1
     return counts
 
@@ -8250,6 +8252,9 @@ def phase_tower(torch, report):
                           2.0 * m * 2 * f * d, "bfloat16"))
     down.update(_bound(2 * (used * d * f + m * (f + d)), 2.0 * m * d * f,
                        "bfloat16"))
+    for r in (gate_up, down):   # the share of 989 TFLOP/s the kernel reaches
+        r["peak_share"] = (r["ops_ms"] / r["device_ms"] if r["device_ms"]
+                           else None)
     shared = torch.randn(t, d, generator=g, device="cuda").bfloat16()
     base = torch.randn(t, d, generator=g, device="cuda")
     got = moe.combine_kernel(base.clone(), y, pos, shared)
@@ -8420,6 +8425,20 @@ def main(argv=None) -> int:
             if not mine or min(mine.values()) == 0:
                 failed.append("device")
                 log(f"[device] FAIL: {kernel} has no tensor-core instruction")
+    # the expert products on wgmma alone: HGMMA in both instances, no HMMA
+    if "moe" in built and tensor_cores.get("moe"):
+        kinds = {kind: tensor_core_counts(built["moe"]["path"], (kind,))
+                 for kind in ("HGMMA", "HMMA")}
+        report["moe_gemm_instructions"] = by_mode = {
+            mode: {kind: sum(n for fn, n in kinds[kind].items() if mode in fn)
+                   for kind in kinds}
+            for mode in ("moe_gemm_kernelILi0E", "moe_gemm_kernelILi1E")}
+        for mode, n in by_mode.items():
+            log(f"[device] {mode}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA "
+                "instructions in cuobjdump -sass")
+            if n["HGMMA"] == 0 or n["HMMA"] > 0:
+                failed.append("device")
+                log(f"[device] FAIL: {mode} is not on wgmma alone")
     # the score-chained libraries: every kernel runs every product as
     # split-TF32 mma.sync, without spilling
     for name in ("scored_fwd", "scored_bwd", "fused_block"):
@@ -8513,6 +8532,7 @@ def tower_kernel_rows(report, tower):
             "tensor_core_instructions": sum(
                 n for fn, n in report["tensor_core_instructions"].get(
                     source, {}).items() if kernel in fn),
+            **report.get("moe_gemm_instructions", {}).get(kernel, {}),
             "launches": r["launches_per_forward"],
             **{k: v for k, v in r.items() if k != "launches_per_forward"},
             "timed_at": (f"one batch of moonlight_trans.eval's shape: "

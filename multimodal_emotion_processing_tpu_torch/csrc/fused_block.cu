@@ -109,6 +109,7 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 
+#include "hopper.cuh"
 #include "scored_head.cuh"
 
 namespace cg = cooperative_groups;
@@ -117,6 +118,7 @@ namespace {
 
 using namespace flash;
 using namespace flash::tf32;
+using namespace hopper;
 
 constexpr float kLnEps = 1e-5f;
 constexpr int kClusterMax = 8;          // the portable cluster size
@@ -595,7 +597,6 @@ fused_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int kTileWarps = 12;   // warps a tile block may run
 constexpr int kTileDH = 16;      // the head-width bucket the tile path takes
-constexpr int kSwizzle = 1024;   // bytes a 128-byte-swizzled tile aligns to
 
 // A tile block's shared memory, in floats, from its first 1024-byte
 // boundary: the three products' weights (W_minus[:, :D], W_proj,
@@ -636,39 +637,6 @@ struct TileLayout {
 __device__ __forceinline__ int w_at(int KP, int n, int k) {
   return ((k >> 5) * KP + n) * 32 + ((((k >> 2) & 7) ^ (n & 7)) << 2) +
          (k & 3);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   mma::smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   mma::smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// wait until the barrier's phase of parity `phase` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(mma::smem_addr(bar)), "r"(phase) : "memory");
-}
-
-// the box of `map` at (column x, row y) into dst by the tensor memory
-// accelerator, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap& map,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(mma::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(x), "r"(y),
-      "r"(mma::smem_addr(bar)) : "memory");
 }
 
 // Products of the tile path: product p of np (1 or 2) writes out_p[r][c]
@@ -805,7 +773,7 @@ fused_block_kernel_tile(
 
   if (tma) {
     if (threadIdx.x == 0) {
-      mbar_init(bar);
+      mbar_init(bar, 1);
       mbar_expect_tx(bar, 3u * KP * KP * sizeof(float));
       for (int p = 0; p < 3; ++p)
         for (int k0 = 0; k0 < KP; k0 += 32)
@@ -1041,28 +1009,6 @@ cudaError_t make_plan(const Args& a, Plan& p) {
   p.tiles = (a.Lq + R - 1) / R;
   p.grid = p.C * p.tiles * a.B;
   return cudaSuccess;
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link
-// against libcuda); null where the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                &res) != cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
 }
 
 // The map of a (rows, cols) f32 matrix `rows` rows of `ld` floats apart,

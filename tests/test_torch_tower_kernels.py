@@ -50,9 +50,27 @@ def _routing(t, k, n_experts, g, device):
     return choice, w
 
 
+def _skewed(t, k, n_experts, g, device):
+    """A skewed choice: expert 0 for every token, expert 1 for exactly the
+    first 128, the rest among experts 2 .. 40 (41 .. 63 get no row)."""
+    pool = torch.arange(2, 41, device=device)
+    keys = torch.rand(t, len(pool), generator=g, device=device)
+    rest = pool[keys.topk(k - 1, dim=1).indices]
+    choice = torch.cat([torch.zeros_like(rest[:, :1]), rest], dim=1)
+    choice[:128, 1] = 1
+    w = torch.rand(t, k, generator=g, device=device) + 0.1
+    return choice, w
+
+
+# (tokens, routing): 4,096 tokens give each used expert ~520 rows, several
+# m tiles of 128 and a ragged last one; the skewed case one expert of over
+# 2,000 rows, one of exactly one tile and many of none
 @pytest.mark.cuda
-@pytest.mark.parametrize("tokens", [1, 300])
-def test_grouped_experts_match_the_loop(cuda, tokens):
+@pytest.mark.parametrize("tokens, routing", [(1, _routing), (300, _routing),
+                                             (4096, _routing),
+                                             (2400, _skewed)],
+                         ids=["1", "300", "4096", "skewed"])
+def test_grouped_experts_match_the_loop(cuda, tokens, routing):
     e, k, d, f = 64, 6, 2048, 1408
     g = torch.Generator(device=cuda).manual_seed(tokens)
     x = torch.randn(tokens, d, generator=g, device=cuda).bfloat16()
@@ -60,9 +78,14 @@ def test_grouped_experts_match_the_loop(cuda, tokens):
         *(0.02 * torch.randn(2, f, d, generator=g, device=cuda)).bfloat16())
         for _ in range(e)])
     w2 = (0.02 * torch.randn(e, d, f, generator=g, device=cuda)).bfloat16()
-    choice, w = _routing(tokens, k, e, g, cuda)
+    choice, w = routing(tokens, k, e, g, cuda)
     rows, offsets, row_w, pos, counts = moe.sort_by_expert(choice, w, e)
-    assert counts[5].item() == 0 and counts[48:].sum().item() == 0
+    if routing is _skewed:
+        assert counts[0].item() > 2000 and counts[1].item() == 128
+        assert counts[41:].sum().item() == 0
+    else:
+        assert counts[5].item() == 0 and counts[48:].sum().item() == 0
+    before = [kern.launches for kern in moe.KERNELS]
     h = moe.gate_up_kernel(x, rows, offsets, w13)
     y = moe.down_kernel(h, offsets, w2, row_w)
     want = moe.routed_plain(x, rows, offsets, w13, w2, row_w)
@@ -76,6 +99,8 @@ def test_grouped_experts_match_the_loop(cuda, tokens):
     got = moe.combine_kernel(base.clone(), y, pos, shared)
     expect = moe.combine_plain(base.clone(), y, pos, shared)
     assert torch.equal(got, expect)
+    # one launch a call of each: gate-up, down, combine
+    assert [kern.launches for kern in moe.KERNELS] == [n + 1 for n in before]
 
 
 @pytest.mark.cuda
